@@ -1,0 +1,204 @@
+"""The exact `simple`-strategy device program: CUDA kernels + their wrappers.
+
+Replaces `krr_tpu/ops/pallas_select.py`. Two hand-written kernels
+(`krr_tpu_torch/csrc/select.cu`, where each kernel's note says what it
+replaces, what bounds it on the card and what its design does about it):
+
+* ``bisect_select`` — per-row exact percentile by 31-step bit-space
+  bisection (the JAX package's ``_bisect_kernel``);
+* ``row_max`` — per-row NaN-propagating max (``_rowmax_kernel``).
+
+Each wrapper checks device, dtype, shape and contiguity and raises on
+anything else. On a CPU tensor it runs the plain PyTorch version
+(`krr_tpu_torch.ops.selection`, `krr_tpu_torch.ops.quantile`, and
+:func:`fleet_exact_plain` here); on a CUDA tensor it launches the kernel or
+raises — there is no fallback. :data:`LAUNCHES` counts kernel launches per
+kernel, so a run can show that it went through the kernels.
+
+The TPU tiling (8-row tiles, 128 lanes, padded copies, a VMEM budget with a
+fallback past it) does not carry over: the kernels take any ``N ≥ 0`` and
+``T ≥ 0`` as they are.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from krr_tpu_torch.ops import cuda_build
+from krr_tpu_torch.ops.quantile import masked_max
+from krr_tpu_torch.ops.selection import masked_percentile_bisect
+
+#: Kernel launches per kernel since the last :func:`reset_launches`.
+LAUNCHES: dict[str, int] = {"bisect_select": 0, "row_max": 0}
+
+_SOURCE = "select"
+_SIGNATURES = {
+    "krr_bisect_select": [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_longlong, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+    ],
+    "krr_row_max": [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_longlong, ctypes.c_void_p,
+    ],
+}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _library() -> ctypes.CDLL:
+    lib = cuda_build.load(_SOURCE)
+    if lib.krr_bisect_select.argtypes is None:
+        for fn, argtypes in _SIGNATURES.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        lib.krr_error_string.argtypes = [ctypes.c_int]
+        lib.krr_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(values: torch.Tensor, counts: torch.Tensor, what: str) -> None:
+    if values.dim() != 2 or values.dtype != torch.float32:
+        raise TypeError(f"{what}: values must be a 2-D float32 tensor, got {values.dtype} {tuple(values.shape)}")
+    if counts.dim() != 1 or counts.dtype != torch.int32:
+        raise TypeError(f"{what}: counts must be a 1-D int32 tensor, got {counts.dtype} {tuple(counts.shape)}")
+    if counts.shape[0] != values.shape[0]:
+        raise ValueError(f"{what}: {counts.shape[0]} counts for {values.shape[0]} rows")
+    if values.device != counts.device:
+        raise ValueError(f"{what}: values on {values.device} but counts on {counts.device}")
+    if values.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: unsupported device {values.device}")
+    if not (values.is_contiguous() and counts.is_contiguous()):
+        raise ValueError(f"{what}: values and counts must be contiguous")
+    if values.shape[0] > 2**31 - 1:
+        raise ValueError(f"{what}: {values.shape[0]} rows exceed the kernel grid")
+
+
+def _check_iters(num_iters: int) -> None:
+    if not 0 <= num_iters <= 31:
+        raise ValueError(f"num_iters must be in [0, 31] (31 pins every bit), got {num_iters}")
+
+
+def _raise_on_error(lib: ctypes.CDLL, code: int, kernel: str) -> None:
+    if code != 0:
+        raise RuntimeError(f"{kernel} launch failed: CUDA error {code} ({lib.krr_error_string(code).decode()})")
+
+
+def _launch_bisect_select(values, counts, q: float, num_iters: int, out: torch.Tensor) -> None:
+    lib = _library()
+    n, t = values.shape
+    with torch.cuda.device(values.device):
+        stream = torch.cuda.current_stream(values.device).cuda_stream
+        code = lib.krr_bisect_select(
+            values.data_ptr(), counts.data_ptr(), out.data_ptr(), n, t, q, num_iters, stream
+        )
+    _raise_on_error(lib, code, "bisect_select")
+    LAUNCHES["bisect_select"] += 1
+
+
+def _launch_row_max(values, counts, out: torch.Tensor) -> None:
+    lib = _library()
+    n, t = values.shape
+    with torch.cuda.device(values.device):
+        stream = torch.cuda.current_stream(values.device).cuda_stream
+        code = lib.krr_row_max(values.data_ptr(), counts.data_ptr(), out.data_ptr(), n, t, stream)
+    _raise_on_error(lib, code, "row_max")
+    LAUNCHES["row_max"] += 1
+
+
+def _nan(n: int, device: torch.device) -> torch.Tensor:
+    return torch.full((n,), float("nan"), dtype=torch.float32, device=device)
+
+
+def masked_percentile_bisect_cuda(
+    values: torch.Tensor, counts: torch.Tensor, q: float, num_iters: int = 31
+) -> torch.Tensor:
+    """Per-row exact q-th percentile of the valid prefix (NaN for empty
+    rows): the ``bisect_select`` kernel on a CUDA tensor, the plain
+    ``masked_percentile_bisect`` on a CPU tensor — bit-identical."""
+    _check(values, counts, "masked_percentile_bisect_cuda")
+    _check_iters(num_iters)
+    n, t = values.shape
+    if n == 0 or t == 0:
+        return _nan(n, values.device)
+    if values.device.type == "cpu":
+        return masked_percentile_bisect(values, counts, q, num_iters=num_iters)
+    out = torch.empty((n,), dtype=torch.float32, device=values.device)
+    _launch_bisect_select(values, counts, q, num_iters, out)
+    return out
+
+
+def masked_max_cuda(values: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
+    """Per-row max of the valid prefix (NaN for empty rows and rows holding
+    NaN): the ``row_max`` kernel on a CUDA tensor, the plain ``masked_max``
+    on a CPU tensor — bit-identical."""
+    _check(values, counts, "masked_max_cuda")
+    n, t = values.shape
+    if n == 0 or t == 0:
+        return _nan(n, values.device)
+    if values.device.type == "cpu":
+        return masked_max(values, counts)
+    out = torch.empty((n,), dtype=torch.float32, device=values.device)
+    _launch_row_max(values, counts, out)
+    return out
+
+
+def fleet_exact_plain(
+    cpu_values: torch.Tensor,
+    cpu_counts: torch.Tensor,
+    mem_values: torch.Tensor,
+    mem_counts: torch.Tensor,
+    q: float,
+    num_iters: int = 31,
+) -> torch.Tensor:
+    """The plain PyTorch version of :func:`fleet_exact`, on any device."""
+    n = cpu_values.shape[0]
+    if n == 0:
+        return torch.zeros((2, 0), dtype=torch.float32, device=cpu_values.device)
+    device = cpu_values.device
+    p99 = masked_percentile_bisect(cpu_values, cpu_counts, q, num_iters) if cpu_values.shape[1] else _nan(n, device)
+    peak = masked_max(mem_values, mem_counts) if mem_values.shape[1] else _nan(n, device)
+    return torch.stack([p99, peak])
+
+
+def fleet_exact(
+    cpu_values: torch.Tensor,
+    cpu_counts: torch.Tensor,
+    mem_values: torch.Tensor,
+    mem_counts: torch.Tensor,
+    q: float,
+    num_iters: int = 31,
+) -> torch.Tensor:
+    """The exact `simple`-strategy device program.
+
+    Returns a stacked ``[2, N]`` float32 tensor on the inputs' device — row 0
+    the per-container CPU percentile (reference rank semantics, NaN for empty
+    rows), row 1 the memory peak — so the host needs exactly one readback.
+    On a CUDA device both kernels launch on the current stream straight into
+    the two rows of one preallocated tensor. CPU and memory histories may
+    have different time extents."""
+    _check(cpu_values, cpu_counts, "fleet_exact")
+    _check(mem_values, mem_counts, "fleet_exact")
+    _check_iters(num_iters)
+    if cpu_values.shape[0] != mem_values.shape[0] or cpu_values.device != mem_values.device:
+        raise ValueError("fleet_exact: CPU and memory histories must share rows and device")
+    if cpu_values.device.type == "cpu":
+        return fleet_exact_plain(cpu_values, cpu_counts, mem_values, mem_counts, q, num_iters)
+    n = cpu_values.shape[0]
+    out = torch.empty((2, n), dtype=torch.float32, device=cpu_values.device)
+    if n == 0:
+        return out
+    if cpu_values.shape[1]:
+        _launch_bisect_select(cpu_values, cpu_counts, q, num_iters, out[0])
+    else:
+        out[0].fill_(float("nan"))
+    if mem_values.shape[1]:
+        _launch_row_max(mem_values, mem_counts, out[1])
+    else:
+        out[1].fill_(float("nan"))
+    return out

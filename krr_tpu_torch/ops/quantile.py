@@ -1,0 +1,65 @@
+"""Exact batched reductions over packed usage history, plain PyTorch.
+
+Percentile semantics follow the reference's *documented* intent — the value at
+sorted index ``floor((n - 1) * q / 100)`` — not its literal unsorted-indexing
+quirk (`simple.py:32-36`; divergence noted in SURVEY.md §7). Empty rows
+(count == 0) return NaN, which the host edge converts to ``"?"``.
+
+:func:`masked_max` is the plain version of the row-max kernel
+(`krr_tpu_torch.ops.cuda_select`). It reproduces what ``jnp.max`` gives on
+XLA's CPU backend, where the JAX package's tests run it: subnormals are read
+as zero of the same sign, +0.0 ranks above −0.0, and NaN propagates. The max
+is taken over an integer key that orders float32 totally, so the result does
+not depend on the order of the reduction; a row holding NaN returns the
+canonical NaN (the JAX package may return the NaN's own payload — NaN either
+way, and ``"?"`` downstream).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from krr_tpu_torch.ops.selection import (
+    EXPONENT_BITS,
+    INT32_MIN,
+    MAGNITUDE_MASK,
+    MIN_NORMAL_BITS,
+    selection_rank,
+    valid_mask,
+)
+
+
+def masked_percentile(values: torch.Tensor, counts: torch.Tensor, q: "torch.Tensor | float") -> torch.Tensor:
+    """Per-row percentile of the first ``counts[i]`` entries of ``values[i]``
+    by sorting — the oracle the bisection is tested against.
+
+    Returns the element at sorted index ``floor((count - 1) * q / 100)`` —
+    an actual sample, like the reference — or NaN for empty rows.
+    """
+    n, t = values.shape
+    if t == 0:
+        return torch.full((n,), float("nan"), dtype=torch.float32, device=values.device)
+    # Padding sorts to the top and is never selected (index < count <= first pad).
+    padded = torch.where(valid_mask(counts, t), values, torch.full_like(values, float("inf")))
+    ordered = torch.sort(padded, dim=1).values
+    idx = selection_rank(counts, q).to(torch.int64)
+    picked = torch.gather(ordered, 1, idx[:, None])[:, 0]
+    return torch.where(counts > 0, picked, torch.full_like(picked, float("nan")))
+
+
+def masked_max(values: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
+    """Per-row max of the valid prefix; NaN for empty rows."""
+    n, t = values.shape
+    if t == 0:
+        return torch.full((n,), float("nan"), dtype=torch.float32, device=values.device)
+    bits = values.contiguous().view(torch.int32)
+    magnitude = bits & MAGNITUDE_MASK
+    is_nan = magnitude > EXPONENT_BITS
+    flushed = torch.where(magnitude < MIN_NORMAL_BITS, bits & INT32_MIN, bits)
+    key = torch.where(flushed >= 0, flushed, flushed ^ MAGNITUDE_MASK)
+    mask = valid_mask(counts, t)
+    key = torch.where(mask & ~is_nan, key, torch.full_like(key, INT32_MIN))
+    best = key.amax(dim=1)
+    peak = torch.where(best >= 0, best, best ^ MAGNITUDE_MASK).view(torch.float32)
+    empty_or_nan = (counts <= 0) | (mask & is_nan).any(dim=1)
+    return torch.where(empty_or_nan, torch.full_like(peak, float("nan")), peak)

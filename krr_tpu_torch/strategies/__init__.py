@@ -1,0 +1,22 @@
+from krr_tpu_torch.strategies.base import (
+    AnyStrategy,
+    BaseStrategy,
+    BatchedStrategy,
+    HistoryData,
+    ResourceRecommendation,
+    RunResult,
+    StrategySettings,
+)
+from krr_tpu_torch.strategies.simple import SimpleStrategy, SimpleStrategySettings
+
+__all__ = [
+    "AnyStrategy",
+    "BaseStrategy",
+    "BatchedStrategy",
+    "HistoryData",
+    "ResourceRecommendation",
+    "RunResult",
+    "StrategySettings",
+    "SimpleStrategy",
+    "SimpleStrategySettings",
+]

@@ -1,0 +1,173 @@
+"""The ``simple`` strategy: p99-CPU request, max+buffer memory request/limit.
+
+Port of `krr_tpu/strategies/simple.py` (behavior-compatible with the
+reference's `strategies/simple.py`, computing the true sorted percentile the
+reference documents). The whole fleet's packed ``[N, T]`` history goes to the
+device once and :func:`krr_tpu_torch.ops.cuda_select.fleet_exact` reduces it
+in one program — bit-space bisection for the CPU percentile, masked max for
+memory — with one readback. The memory buffer multiplication and all rounding
+stay on the host in exact Decimal arithmetic.
+
+This slice runs the resident single-device path. The multi-device mesh and
+host streaming (a window larger than device memory) wait for later slices;
+a window past the streaming threshold raises instead of taking another path.
+"""
+
+from __future__ import annotations
+
+import time
+from decimal import Decimal
+from typing import Optional
+
+import numpy as np
+import pydantic as pd
+import torch
+
+from krr_tpu_torch.core.rounding import as_decimal
+from krr_tpu_torch.models.allocations import ResourceType
+from krr_tpu_torch.models.series import FleetBatch
+from krr_tpu_torch.ops.cuda_select import fleet_exact
+from krr_tpu_torch.strategies.base import BatchedStrategy, ResourceRecommendation, RunResult, StrategySettings
+from krr_tpu_torch.utils.device import resolve_device
+
+#: Memory samples are byte counts that overflow float32's 24-bit mantissa;
+#: scaling to (decimal) megabytes before device transfer keeps every value the
+#: rounding layer can distinguish exactly representable (SURVEY.md §7 "Hard parts").
+MEMORY_SCALE = 1_000_000.0
+
+
+def finalize_fleet(
+    cpu_values: np.ndarray,
+    memory_mb_values: np.ndarray,
+    memory_buffer_percentage: Decimal,
+    cpu_limit: Optional[np.ndarray] = None,
+) -> list[RunResult]:
+    """Host Decimal edge: convert device reductions into per-object raw
+    recommendations.
+
+    * CPU: request = the selected percentile sample; **no limit** (reference
+      `simple.py:47`).
+    * Memory: request = limit = max × (1 + buffer/100), multiplied in Decimal
+      (reference `simple.py:24-29`).
+    """
+    buffer_factor = 1 + memory_buffer_percentage / 100
+    results: list[RunResult] = []
+    for i in range(len(cpu_values)):
+        cpu_request = as_decimal(cpu_values[i])
+        mem_mb = as_decimal(memory_mb_values[i])
+        mem_value = mem_mb * 1_000_000 * buffer_factor if not mem_mb.is_nan() else Decimal("nan")
+        results.append(
+            {
+                ResourceType.CPU: ResourceRecommendation(
+                    request=cpu_request,
+                    limit=as_decimal(cpu_limit[i]) if cpu_limit is not None else None,
+                ),
+                ResourceType.Memory: ResourceRecommendation(request=mem_value, limit=mem_value),
+            }
+        )
+    return results
+
+
+def fleet_device_arrays(
+    batch: FleetBatch, resource: ResourceType, scale: float = 1.0, device: "torch.device | str" = "cpu"
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Packed host arrays → (float32 device values, int32 device counts).
+
+    The scale divides the host pack (float64 for memory) BEFORE the float32
+    cast, as the JAX package does; the cast is numpy's, so both packages
+    round identically."""
+    packed = batch.packed(resource)
+    host = packed.values / scale if scale != 1.0 else packed.values
+    values = torch.from_numpy(np.ascontiguousarray(host, dtype=np.float32)).to(device)
+    counts = torch.from_numpy(np.ascontiguousarray(packed.counts, dtype=np.int32)).to(device)
+    return values, counts
+
+
+def _stream_threshold_bytes(setting_mb: int, device: torch.device) -> Optional[int]:
+    """Per-device bytes past which the window must stream from host; None = never."""
+    if setting_mb == -1:
+        return None
+    if setting_mb > 0:
+        return setting_mb * 1_000_000
+    if device.type == "cuda":  # auto: leave room for temporaries
+        return int(torch.cuda.mem_get_info(device)[1] * 0.4)
+    return 6_000_000_000
+
+
+def use_host_stream(batch: FleetBatch, device: torch.device, setting_mb: int) -> bool:
+    """Whether the packed window is too large to live on the device."""
+    threshold = _stream_threshold_bytes(setting_mb, device)
+    if threshold is None:
+        return False
+    cpu = batch.packed(ResourceType.CPU)
+    mem = batch.packed(ResourceType.Memory)
+    return 4 * (cpu.values.size + mem.values.size) > threshold
+
+
+class SimpleStrategySettings(StrategySettings):
+    cpu_percentile: Decimal = pd.Field(
+        Decimal(99), gt=0, le=100, description="The percentile to use for the CPU recommendation."
+    )
+    memory_buffer_percentage: Decimal = pd.Field(
+        Decimal(5), gt=0, description="The percentage of added buffer to the peak memory usage for memory recommendation."
+    )
+    device: str = pd.Field(
+        "cuda",
+        description=(
+            "Device to compute on: 'cuda' (the hand-written kernels; raises without a card) "
+            "or 'cpu' (the plain PyTorch versions)."
+        ),
+    )
+    host_stream_mb: int = pd.Field(
+        0,
+        ge=-1,
+        description=(
+            "Float32 window size (MB per device) past which the window would have to stream "
+            "from host memory; 0 = auto (~40% of device memory), -1 = never. Host streaming is "
+            "not ported yet: a larger window raises."
+        ),
+    )
+
+
+class SimpleStrategy(BatchedStrategy[SimpleStrategySettings]):
+    """Exact batched reductions: bit-space bisection for the CPU percentile
+    (bit-identical to a sort-and-index) and the masked max for memory."""
+
+    __display_name__ = "simple"
+    #: Memory is max × 1.05: only each pod's exact max matters, so sources
+    #: may ingest memory through the stats route — identical output, and the
+    #: fleet batch ships [rows × pods] to the device instead of [rows × T].
+    stats_only_resources = frozenset({ResourceType.Memory})
+
+    def __init__(self, settings: SimpleStrategySettings):
+        super().__init__(settings)
+        self.device = resolve_device(settings.device)
+        #: Wall seconds of the last ``run_batch``'s legs (pack, h2d,
+        #: fleet_exact incl. its one readback, finalize).
+        self.leg_seconds: dict[str, float] = {}
+
+    def run_batch(self, batch: FleetBatch) -> list[RunResult]:
+        if not batch.objects:
+            return []
+        q = float(self.settings.cpu_percentile)
+        t0 = time.perf_counter()
+        batch.packed(ResourceType.CPU)
+        batch.packed(ResourceType.Memory)
+        if use_host_stream(batch, self.device, self.settings.host_stream_mb):
+            raise NotImplementedError(
+                "the packed window exceeds the device-resident threshold (host_stream_mb); "
+                "host streaming is ROADMAP Queue 1 item M6 and is not ported yet"
+            )
+        t1 = time.perf_counter()
+        cpu_values, cpu_counts = fleet_device_arrays(batch, ResourceType.CPU, device=self.device)
+        mem_values, mem_counts = fleet_device_arrays(
+            batch, ResourceType.Memory, scale=MEMORY_SCALE, device=self.device
+        )
+        t2 = time.perf_counter()
+        # One program, one readback (the JAX package's fleet_exact contract).
+        stacked = fleet_exact(cpu_values, cpu_counts, mem_values, mem_counts, q).cpu().numpy()
+        t3 = time.perf_counter()
+        results = finalize_fleet(stacked[0], stacked[1], self.settings.memory_buffer_percentage)
+        t4 = time.perf_counter()
+        self.leg_seconds = {"pack": t1 - t0, "h2d": t2 - t1, "fleet_exact": t3 - t2, "finalize": t4 - t3}
+        return results
