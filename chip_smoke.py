@@ -13,19 +13,35 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    on the CPU: fuzzed ragged rows salted with edge values (±0.0, negatives,
    NaN payloads, subnormals, ±inf, huge values), odd widths, rows longer
    than a block's shared-memory cache, N = 0 and T = 0, and the memory shape
-   of the ``e2e`` scan. Bit-exact.
+   of the ``simple`` scan. ``bisect_select``, ``row_max`` and the top-K rows
+   of ``topk_select`` (sorted; K ∈ {128, 1280}, with and without a state)
+   are bit-exact; ``digest_hist`` counts and peaks are bit-exact for
+   B ∈ {16, 200, 2560} and for a B past shared memory (the global-memory
+   bins). Between the card and the CPU the digest's bucket indices may move
+   one bucket where ``log`` differs by an ulp at a bucket edge: the phase
+   counts those moves and checks each is one bucket, at an edge.
 4. ``headline`` — the benchmark shape (10,000 × 120,960 float32 for CPU and
    for memory, generated on the card from a seeded generator): CUDA-event
-   medians of ``fleet_exact`` and each kernel, the plain version once, the
-   library yardsticks (``torch.kthvalue`` at the same rank, ``torch.amax``),
-   each kernel's bound, and parity of the kernels with the plain versions;
-   also ``row_max`` at the memory shape of the ``e2e`` scan.
-5. ``e2e``     — the port's one-shot ``simple`` scan through ``Runner.run``
-   with in-memory inventory and history sources: 10,000 objects × 3 pods,
-   40,320 CPU samples per pod (7 days at 5 s) made with numpy from a seed,
-   memory through the stats route (one max per pod), json output. Checks
-   10,000 scans with no ``?``, that both kernels launched during the scan,
-   and that a 256-object re-run on the CPU renders the same JSON bytes.
+   medians of 5 of ``fleet_exact`` and of each kernel (``digest_hist`` at
+   B = 2,560, ``topk_select`` at K = 1,280), the plain version once, the
+   library yardsticks (``torch.kthvalue`` at the same rank, ``torch.amax``,
+   ``torch.bincount`` of precomputed bucket indices — histogram only — and
+   ``torch.topk``), each kernel's bound, and parity of the kernels with the
+   plain versions; also ``row_max`` at the memory shape of the ``simple``
+   scan.
+5. ``e2e``     — scans through ``Runner.run`` with in-memory inventory and
+   history sources: 10,000 objects × 3 pods, 40,320 CPU samples and 40,320
+   raw memory samples per pod (7 days at 5 s) made with numpy from a seed,
+   json output. Three paths, each with every launch count set to 0 just
+   before it and read just after: ``simple`` (memory through the stats
+   route, one max per pod; ``bisect_select`` and ``row_max`` launched),
+   ``tdigest`` (the full raw memory window; ``digest_hist`` and ``row_max``
+   launched, ``topk_select`` not, no generic fold) and ``tdigest`` with
+   ``exact_upgrade`` (``topk_select`` and ``row_max``; its JSON equals the
+   ``simple`` scan's byte for byte). Every scan has 10,000 rows and no
+   ``?``. A 256-object re-run on the CPU renders the same JSON for
+   ``simple`` and ``exact_upgrade``, and for ``tdigest`` the same memory and
+   every CPU value within one bucket of the card's.
 
 The last three lines are the card's ``nvidia-smi`` name and power limit, one
 ``{"kernels": [...]}`` JSON object, and ``{"ok": true, "device": {...}}``.
@@ -42,6 +58,7 @@ import statistics
 import subprocess
 import sys
 import time
+from decimal import Decimal
 
 #: Published H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and the
 #: float32 rate outside the tensor cores.
@@ -54,12 +71,24 @@ E2E_OBJECTS = 10_000
 E2E_PODS = 3
 E2E_SAMPLES_PER_POD = 40_320
 E2E_CPU_CHECK_ROWS = 256
+#: The tdigest defaults: B = 2,560 buckets of γ = 1.01 above 1e-7, and the
+#: top-K width p99 needs over a 120,960-sample row.
+DIGEST_BUCKETS = 2560
+DIGEST_MIN_VALUE = 1e-7
+DIGEST_LOG_GAMMA = 0.009950330853168083  # math.log(1.01)
+TOPK_K = 1280
+#: The device every phase runs on; only a rehearsal of the script's control
+#: flow on a machine without a card sets it to "cpu".
+DEVICE = "cuda"
 
+#: Each kernel: the TPU kernel it replaces, its source, and the e2e path
+#: whose launch count the kernels line reports.
 KERNELS = {
-    "bisect_select": "krr_tpu/ops/pallas_select.py:61",
-    "row_max": "krr_tpu/ops/pallas_select.py:93",
+    "bisect_select": ("krr_tpu/ops/pallas_select.py:61", "krr_tpu_torch/csrc/select.cu", "simple"),
+    "row_max": ("krr_tpu/ops/pallas_select.py:93", "krr_tpu_torch/csrc/select.cu", "tdigest"),
+    "digest_hist": ("krr_tpu/ops/pallas_sketch.py:99", "krr_tpu_torch/csrc/sketch.cu", "tdigest"),
+    "topk_select": ("krr_tpu/ops/pallas_sketch.py:284", "krr_tpu_torch/csrc/sketch.cu", "tdigest_exact"),
 }
-KERNEL_SOURCE = "krr_tpu_torch/csrc/select.cu"
 
 
 class SmokeFailure(AssertionError):
@@ -83,12 +112,13 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def bound(n: int, t: int) -> tuple[float, str]:
+def bound(n: int, t: int, out_per_row: int = 1) -> tuple[float, str]:
     """(ms, "bytes" | "operations"): the least time for one per-row
     reduction over an [n, t] float32 matrix — every sample read once (plus
-    the counts and one output per row) at the HBM rate, or at least one
-    operation per sample at the float32 rate, whichever is longer."""
-    bytes_ms = 1e3 * (4 * n * t + 4 * n + 4 * n) / PEAK_BYTES_PER_S
+    the counts and ``out_per_row`` float32 outputs per row) at the HBM rate,
+    or at least one operation per sample at the float32 rate, whichever is
+    longer."""
+    bytes_ms = 1e3 * (4 * n * t + 4 * n + 4 * n * out_per_row) / PEAK_BYTES_PER_S
     ops_ms = 1e3 * n * t / PEAK_F32_OPS_PER_S
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
@@ -114,6 +144,11 @@ def same_bits(torch, a, b) -> bool:
     return a.shape == b.shape and bool(torch.equal(a.cpu().view(torch.int32), b.cpu().view(torch.int32)))
 
 
+def sorted_rows(torch, a):
+    """Rows sorted by their float32 bits: top-K slot order is unspecified."""
+    return torch.sort(a.contiguous().view(torch.int32), dim=1).values.view(torch.float32)
+
+
 def max_abs_err(torch, a, b) -> float:
     a, b = a.double().cpu(), b.double().cpu()
     check(bool(torch.equal(torch.isnan(a), torch.isnan(b))), "NaN positions differ")
@@ -130,7 +165,8 @@ def phase_build() -> None:
     started = time.perf_counter()
     report = cuda_build.build_all()
     ptxas = {
-        name: [line.strip() for line in entry["log"].splitlines() if "registers" in line or "smem" in line]
+        name: [line.strip() for line in entry["log"].splitlines()
+               if "registers" in line or "smem" in line or "stack frame" in line]
         for name, entry in report.items()
     }
     emit("build", seconds=time.perf_counter() - started, sources=sorted(report), ptxas=ptxas)
@@ -162,7 +198,7 @@ def main_path_memory(torch, np):
     ``E2E_PODS`` valid samples per row."""
     values, counts = fuzz(np, 99, E2E_OBJECTS, 128)
     counts = np.minimum(counts, E2E_PODS).astype(np.int32)
-    return torch.from_numpy(values).cuda(), torch.from_numpy(counts).cuda()
+    return torch.from_numpy(values).to(DEVICE), torch.from_numpy(counts).to(DEVICE)
 
 
 def phase_parity(torch, np) -> dict:
@@ -170,7 +206,7 @@ def phase_parity(torch, np) -> dict:
     from krr_tpu_torch.ops.quantile import masked_max
     from krr_tpu_torch.ops.selection import masked_percentile_bisect
 
-    dev = torch.device("cuda")
+    dev = torch.device(DEVICE)
     shapes = [(300, 1), (257, 31), (301, 1000), (129, 4097), (97, 8191), (64, 8192), (24, 70_001),
               (8, HEADLINE_T), (0, 16), (5, 0)]
     errs = {"bisect_select": 0.0, "row_max": 0.0}
@@ -218,9 +254,76 @@ def phase_parity(torch, np) -> dict:
             plain = cuda_select.fleet_exact_plain(*args, q)
             check(same_bits(torch, kernel, plain), f"fleet_exact != plain at n={n} tc={tc} tm={tm} q={q}")
             cases += 1
+    sketch_cases, bucket_moves = sketch_parity(torch, np, errs)
     torch.cuda.synchronize()
-    emit("parity", cases=cases, bit_exact=True, max_abs_err=errs)
+    emit("parity", cases=cases + sketch_cases, bit_exact=True, max_abs_err=errs,
+         digest_bucket_moves_card_vs_cpu=bucket_moves)
     return errs
+
+
+def sketch_parity(torch, np, errs: dict) -> tuple[int, dict]:
+    """``digest_hist`` and ``topk_select`` against their plain versions on
+    the card (bit-exact), and the plain versions on the card against the
+    CPU. Returns the case count and the digest's bucket moves between the
+    card and the CPU (``log`` differs by an ulp there)."""
+    from krr_tpu_torch.ops import cuda_sketch
+
+    dev = torch.device(DEVICE)
+    errs.update({"digest_hist": 0.0, "topk_select": 0.0})
+    shapes = [(300, 1), (257, 31), (301, 1000), (129, 4097), (24, 70_001), (8, HEADLINE_T), (0, 16), (5, 0)]
+    moves = {"values": 0, "moved": 0}
+    cases = 0
+    for i, (n, t) in enumerate(shapes):
+        for special_frac in (0.0, 0.2):
+            values, counts = fuzz(np, 200 + i + (50 if special_frac else 0), n, t, special_frac)
+            v_cpu, c_cpu = torch.from_numpy(values), torch.from_numpy(counts)
+            v, c = v_cpu.to(dev), c_cpu.to(dev)
+            bucket_sets = (16, 200, DIGEST_BUCKETS) + ((60_000,) if n * t <= 1_000_000 else ())
+            for buckets in bucket_sets:
+                hist, peak = cuda_sketch.digest_hist(v, c, buckets, DIGEST_MIN_VALUE, DIGEST_LOG_GAMMA)
+                plain_hist, plain_peak = cuda_sketch.digest_hist_plain(
+                    v, c, buckets, DIGEST_MIN_VALUE, DIGEST_LOG_GAMMA
+                )
+                where = f"n={n} t={t} B={buckets} frac={special_frac}"
+                check(same_bits(torch, hist, plain_hist), f"digest_hist counts != plain at {where}")
+                check(same_bits(torch, peak, plain_peak), f"digest_hist peak != plain at {where}")
+                cpu_hist, cpu_peak = cuda_sketch.digest_hist_plain(
+                    v_cpu, c_cpu, buckets, DIGEST_MIN_VALUE, DIGEST_LOG_GAMMA
+                )
+                check(same_bits(torch, plain_peak, cpu_peak), f"plain digest peak on the card != on the CPU at {where}")
+                check(bool(torch.equal(plain_hist.sum(dim=1).cpu(), cpu_hist.sum(dim=1))),
+                      f"plain digest totals on the card != on the CPU at {where}")
+                cases += 1
+            if n and t:
+                card_idx = cuda_sketch.bucket_indices(v, DIGEST_BUCKETS, DIGEST_MIN_VALUE, DIGEST_LOG_GAMMA).cpu()
+                cpu_idx = cuda_sketch.bucket_indices(v_cpu, DIGEST_BUCKETS, DIGEST_MIN_VALUE, DIGEST_LOG_GAMMA)
+                moved = (card_idx != cpu_idx).numpy()
+                moves["values"] += int(moved.size)
+                moves["moved"] += int(moved.sum())
+                if moved.any():
+                    check(bool(((card_idx - cpu_idx).abs() <= 1).all()), f"a bucket moved by more than one at n={n} t={t}")
+                    q = np.log(values[moved].astype(np.float64) / np.float64(np.float32(DIGEST_MIN_VALUE)))
+                    q /= np.float64(np.float32(DIGEST_LOG_GAMMA))
+                    ulp = np.spacing(np.abs(q).astype(np.float32)).astype(np.float64)
+                    check(bool(np.all(np.abs(q - np.round(q)) <= 4 * ulp)), f"a bucket moved away from an edge at n={n} t={t}")
+            for k in (128, TOPK_K):
+                for with_state in (False, True):
+                    state = state_counts = state_cpu = state_counts_cpu = None
+                    if with_state:
+                        state_np, state_counts_np = fuzz(np, 300 + i + k, n, k, special_frac)
+                        state_cpu, state_counts_cpu = torch.from_numpy(state_np), torch.from_numpy(state_counts_np)
+                        state, state_counts = state_cpu.to(dev), state_counts_cpu.to(dev)
+                    kernel = cuda_sketch.topk_select(v, c, k, state, state_counts)
+                    plain = cuda_sketch.topk_select_plain(v, c, k, state, state_counts)
+                    cpu = cuda_sketch.topk_select_plain(v_cpu, c_cpu, k, state_cpu, state_counts_cpu)
+                    where = f"n={n} t={t} k={k} state={with_state} frac={special_frac}"
+                    check(kernel.shape == (n, k), f"topk_select shape {tuple(kernel.shape)} at {where}")
+                    check(same_bits(torch, sorted_rows(torch, kernel), sorted_rows(torch, plain)),
+                          f"topk_select != plain (sorted rows) at {where}")
+                    check(same_bits(torch, sorted_rows(torch, plain), sorted_rows(torch, cpu)),
+                          f"plain top-K on the card != on the CPU at {where}")
+                    cases += 1
+    return cases, moves
 
 
 def phase_headline(torch, np) -> dict:
@@ -228,7 +331,7 @@ def phase_headline(torch, np) -> dict:
     from krr_tpu_torch.ops.quantile import masked_max
     from krr_tpu_torch.ops.selection import masked_percentile_bisect, selection_rank
 
-    dev = torch.device("cuda")
+    dev = torch.device(DEVICE)
     n, t, q = HEADLINE_ROWS, HEADLINE_T, 99.0
 
     def generate(seed: int):
@@ -311,6 +414,75 @@ def phase_headline(torch, np) -> dict:
     return headline
 
 
+def phase_sketch_headline(torch, np) -> dict:
+    """``digest_hist`` and ``topk_select`` at the headline shape, on the
+    same CPU-like matrix as ``bisect_select``."""
+    from krr_tpu_torch.ops import cuda_sketch
+
+    dev = torch.device(DEVICE)
+    n, t, b, k = HEADLINE_ROWS, HEADLINE_T, DIGEST_BUCKETS, TOPK_K
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    cpu = torch.rand((n, t), generator=gen, device=dev, dtype=torch.float32)
+    cpu.mul_(cpu).mul_(0.8).add_(1e-4)
+    counts = torch.full((n,), t, dtype=torch.int32, device=dev)
+
+    def digest():
+        return cuda_sketch.digest_hist(cpu, counts, b, DIGEST_MIN_VALUE, DIGEST_LOG_GAMMA)
+
+    digest_times = cuda_ms(torch, digest)
+    hist, peak = digest()
+    plain_digest_ms = cuda_ms(torch, lambda: cuda_sketch.digest_hist_plain(
+        cpu, counts, b, DIGEST_MIN_VALUE, DIGEST_LOG_GAMMA), warmup=0, runs=1)[0]
+    plain_hist, plain_peak = cuda_sketch.digest_hist_plain(cpu, counts, b, DIGEST_MIN_VALUE, DIGEST_LOG_GAMMA)
+    check(same_bits(torch, hist, plain_hist) and same_bits(torch, peak, plain_peak), "headline digest_hist != plain")
+    del plain_hist, plain_peak
+    # The library yardstick: one bincount over precomputed flat bucket indices
+    # (the histogram alone, no bucketize and no peak).
+    flat = cuda_sketch.bucket_indices(cpu, b, DIGEST_MIN_VALUE, DIGEST_LOG_GAMMA).to(torch.int64)
+    flat += (torch.arange(n, device=dev, dtype=torch.int64) * b)[:, None]
+    flat = flat.view(-1)
+    bincount_times = cuda_ms(torch, lambda: torch.bincount(flat, minlength=n * b), warmup=1, runs=3)
+    check(bool(torch.equal(torch.bincount(flat, minlength=n * b).view(n, b).to(torch.float32), hist)),
+          "torch.bincount of the bucket indices != digest_hist counts")
+    del flat
+    torch.cuda.empty_cache()
+
+    def topk():
+        return cuda_sketch.topk_select(cpu, counts, k)
+
+    topk_times = cuda_ms(torch, topk)
+    top = topk()
+    plain_topk_ms = cuda_ms(torch, lambda: cuda_sketch.topk_select_plain(cpu, counts, k), warmup=0, runs=1)[0]
+    plain_top = cuda_sketch.topk_select_plain(cpu, counts, k)
+    check(same_bits(torch, sorted_rows(torch, top), sorted_rows(torch, plain_top)), "headline topk_select != plain")
+    del plain_top
+    library_times = cuda_ms(torch, lambda: torch.topk(cpu, k, dim=1), warmup=1, runs=3)
+    library_top = torch.topk(cpu, k, dim=1).values
+    check(same_bits(torch, sorted_rows(torch, top), sorted_rows(torch, library_top)),
+          "torch.topk != topk_select on the headline rows (positive normal values)")
+    del cpu, counts, hist, peak, top, library_top
+    torch.cuda.empty_cache()
+
+    digest_bound = bound(n, t, out_per_row=b + 1)
+    topk_bound = bound(n, t, out_per_row=k)
+    headline = {
+        "shape": [n, t],
+        "digest_hist": {
+            "buckets": b, "ms": statistics.median(digest_times), "runs_ms": digest_times, "plain_ms": plain_digest_ms,
+            "library_ms": statistics.median(bincount_times), "library": "torch.bincount (histogram only)",
+            "bound_ms": digest_bound[0], "bound_by": digest_bound[1], "max_abs_err": 0.0,
+        },
+        "topk_select": {
+            "k": k, "ms": statistics.median(topk_times), "runs_ms": topk_times, "plain_ms": plain_topk_ms,
+            "library_ms": statistics.median(library_times), "library": "torch.topk",
+            "bound_ms": topk_bound[0], "bound_by": topk_bound[1], "max_abs_err": 0.0,
+        },
+    }
+    emit("headline_sketch", **headline)
+    return headline
+
+
 class _Inventory:
     def __init__(self, objects):
         self.objects = objects
@@ -323,43 +495,62 @@ class _Inventory:
 
 
 class _History:
-    """Serves per-pod CPU views of one flat sample array and, through the
-    stats route, one memory max per pod."""
+    """Serves per-pod views of two flat sample arrays (CPU and raw memory);
+    through the stats route, one memory max per pod instead."""
 
-    def __init__(self, np, cpu_flat, mem_max, resource_type):
+    def __init__(self, np, cpu_flat, mem_flat, mem_max, resource_type):
         self.np = np
         self.cpu_flat = cpu_flat
+        self.mem_flat = mem_flat
         self.mem_max = mem_max
         self.resource_type = resource_type
 
     async def gather_fleet(self, objects, history_seconds, step_seconds, stats_resources=frozenset()):
         cpu_type, mem_type = self.resource_type.CPU, self.resource_type.Memory
-        check(mem_type in stats_resources, "the simple strategy must ask for memory through the stats route")
         cpu, memory = [], []
         for obj in objects:
             row = int(obj.name.rsplit("-", 1)[1])
             first = row * E2E_PODS * E2E_SAMPLES_PER_POD
-            cpu.append({
-                pod: self.cpu_flat[first + p * E2E_SAMPLES_PER_POD:first + (p + 1) * E2E_SAMPLES_PER_POD]
-                for p, pod in enumerate(obj.pods)
-            })
-            memory.append({pod: self.np.asarray([self.mem_max[row, p]]) for p, pod in enumerate(obj.pods)})
+            views = [slice(first + p * E2E_SAMPLES_PER_POD, first + (p + 1) * E2E_SAMPLES_PER_POD)
+                     for p in range(E2E_PODS)]
+            cpu.append({pod: self.cpu_flat[views[p]] for p, pod in enumerate(obj.pods)})
+            if mem_type in stats_resources:
+                memory.append({pod: self.np.asarray([self.mem_max[row, p]]) for p, pod in enumerate(obj.pods)})
+            else:
+                memory.append({pod: self.mem_flat[views[p]] for p, pod in enumerate(obj.pods)})
         return {cpu_type: cpu, mem_type: memory}
+
+
+def _reset_counts() -> None:
+    from krr_tpu_torch.ops import chunked, cuda_select, cuda_sketch
+
+    cuda_select.reset_launches()
+    cuda_sketch.reset_launches()
+    chunked.reset_generic_folds()
+
+
+def _read_counts() -> tuple[dict, dict]:
+    from krr_tpu_torch.ops import chunked, cuda_select, cuda_sketch
+
+    return {**cuda_select.LAUNCHES, **cuda_sketch.LAUNCHES}, dict(chunked.GENERIC_FOLDS)
 
 
 def phase_e2e(np, seed: int = 0) -> dict:
     from krr_tpu_torch.core.config import Config
     from krr_tpu_torch.core.runner import Runner
     from krr_tpu_torch.models import K8sObjectData, ResourceAllocations, ResourceType, Result
-    from krr_tpu_torch.ops import cuda_select
 
     t0 = time.perf_counter()
     rng = np.random.default_rng(seed)
-    cpu_flat = rng.random(E2E_OBJECTS * E2E_PODS * E2E_SAMPLES_PER_POD, dtype=np.float32)
+    size = E2E_OBJECTS * E2E_PODS * E2E_SAMPLES_PER_POD
+    cpu_flat = rng.random(size, dtype=np.float32)
     np.multiply(cpu_flat, cpu_flat, out=cpu_flat)
     cpu_flat *= np.float32(0.8)
     cpu_flat += np.float32(1e-4)
-    mem_max = np.round(rng.uniform(50e6, 4e9, size=(E2E_OBJECTS, E2E_PODS)))
+    mem_flat = rng.random(size, dtype=np.float32)  # bytes: 50 MB to 4 GB
+    mem_flat *= np.float32(3.95e9)
+    mem_flat += np.float32(5e7)
+    mem_max = mem_flat.reshape(E2E_OBJECTS, E2E_PODS, E2E_SAMPLES_PER_POD).max(axis=2).astype(np.float64)
     allocations = ResourceAllocations(
         requests={ResourceType.CPU: "500m", ResourceType.Memory: "1Gi"},
         limits={ResourceType.CPU: None, ResourceType.Memory: "2Gi"},
@@ -373,11 +564,11 @@ def phase_e2e(np, seed: int = 0) -> dict:
     ]
     setup_seconds = time.perf_counter() - t0
 
-    def scan(subset, device: str):
+    def scan(subset, device: str, strategy: str, **other_args):
         runner = Runner(
-            Config(quiet=True, format="json", device=device),
+            Config(quiet=True, format="json", device=device, strategy=strategy, other_args=other_args),
             inventory=_Inventory(subset),
-            history_factory=lambda cluster: _History(np, cpu_flat, mem_max, ResourceType),
+            history_factory=lambda cluster: _History(np, cpu_flat, mem_flat, mem_max, ResourceType),
         )
         with open(os.devnull, "w") as sink, contextlib.redirect_stdout(sink):
             started = time.perf_counter()
@@ -385,35 +576,60 @@ def phase_e2e(np, seed: int = 0) -> dict:
             wall = time.perf_counter() - started
         return result, runner, wall
 
-    cuda_select.reset_launches()
-    result, runner, wall = scan(objects, "cuda")
-    launches = dict(cuda_select.LAUNCHES)
-    render_started = time.perf_counter()
-    rendered = result.format("json")
-    render_seconds = time.perf_counter() - render_started
-
-    check(len(result.scans) == E2E_OBJECTS, f"{len(result.scans)} scans, expected {E2E_OBJECTS}")
-    check('"?"' not in rendered, "an unknown ('?') value in the scan")
-    check(all(count >= 1 for count in launches.values()), f"a kernel did not launch on the main path: {launches}")
+    paths = {
+        "simple": ("simple", {}, {"bisect_select", "row_max"}),
+        "tdigest": ("tdigest", {}, {"digest_hist", "row_max"}),
+        "tdigest_exact": ("tdigest", {"exact_upgrade": True}, {"topk_select", "row_max"}),
+    }
+    e2e = {
+        "objects": E2E_OBJECTS, "samples_per_object": E2E_PODS * E2E_SAMPLES_PER_POD,
+        "setup_seconds": setup_seconds, "paths": {}, "cpu_recheck_rows": E2E_CPU_CHECK_ROWS,
+    }
+    rendered = {}
+    results = {}
+    for path, (strategy, args, launched) in paths.items():
+        _reset_counts()
+        result, runner, wall = scan(objects, DEVICE, strategy, **args)
+        launches, generic_folds = _read_counts()
+        render_started = time.perf_counter()
+        rendered[path] = result.format("json")
+        render_seconds = time.perf_counter() - render_started
+        results[path] = result
+        check(len(result.scans) == E2E_OBJECTS, f"{path}: {len(result.scans)} scans, expected {E2E_OBJECTS}")
+        check('"?"' not in rendered[path], f"{path}: an unknown ('?') value in the scan")
+        check(all(launches[name] >= 1 for name in launched), f"{path}: a kernel of the path did not launch: {launches}")
+        check(all(launches[name] == 0 for name in launches if name not in launched),
+              f"{path}: a kernel of another path launched: {launches}")
+        check(not any(generic_folds.values()), f"{path}: a fold took the generic path: {generic_folds}")
+        e2e["paths"][path] = {
+            "run_wall_seconds": wall, "runner_stats": runner.stats,
+            "legs_seconds": {**runner.session.strategy.leg_seconds, "render_json": render_seconds},
+            "launches": launches, "generic_folds": generic_folds, "json_bytes": len(rendered[path]),
+        }
+    check(rendered["tdigest_exact"] == rendered["simple"], "tdigest exact_upgrade JSON != simple JSON")
 
     subset = objects[:E2E_CPU_CHECK_ROWS]
-    cpu_result, _cpu_runner, cpu_wall = scan(subset, "cpu")
-    check(
-        Result(scans=result.scans[:E2E_CPU_CHECK_ROWS]).format("json") == cpu_result.format("json"),
-        "the CPU re-run's JSON differs from the GPU scan's",
-    )
-    e2e = {
-        "objects": E2E_OBJECTS,
-        "samples_per_object": E2E_PODS * E2E_SAMPLES_PER_POD,
-        "setup_seconds": setup_seconds,
-        "run_wall_seconds": wall,
-        "runner_stats": runner.stats,
-        "legs_seconds": {**runner.session.strategy.leg_seconds, "render_json": render_seconds},
-        "launches": launches,
-        "json_bytes": len(rendered),
-        "cpu_recheck_rows": E2E_CPU_CHECK_ROWS,
-        "cpu_recheck_wall_seconds": cpu_wall,
-    }
+    head = slice(0, E2E_CPU_CHECK_ROWS)
+    for path in ("simple", "tdigest_exact"):
+        strategy, args, _ = paths[path]
+        cpu_result, _cpu_runner, cpu_wall = scan(subset, "cpu", strategy, **args)
+        check(Result(scans=results[path].scans[head]).format("json") == cpu_result.format("json"),
+              f"{path}: the CPU re-run's JSON differs from the GPU scan's")
+        e2e["paths"][path]["cpu_recheck_wall_seconds"] = cpu_wall
+    cpu_result, _cpu_runner, cpu_wall = scan(subset, "cpu", "tdigest")
+    same_cpu = 0
+    one_bucket = Decimal("0.01")  # γ − 1 at the default spec
+    for card, host in zip(results["tdigest"].scans[head], cpu_result.scans):
+        a = card.recommended.requests[ResourceType.CPU].value
+        b = host.recommended.requests[ResourceType.CPU].value
+        # One bucket is a factor gamma; the millicore ceiling adds up to 0.001.
+        check(abs(a - b) <= one_bucket * max(a, b) + Decimal("0.001"), f"tdigest CPU {a} on the card vs {b} on the CPU")
+        same_cpu += a == b
+        for kind in ("requests", "limits"):
+            check(getattr(card.recommended, kind)[ResourceType.Memory] == getattr(host.recommended, kind)[ResourceType.Memory],
+                  "tdigest memory differs between the card and the CPU")
+    e2e["paths"]["tdigest"]["cpu_recheck_wall_seconds"] = cpu_wall
+    e2e["paths"]["tdigest"]["cpu_recheck_identical_cpu_values"] = same_cpu
     emit("e2e", **e2e)
     return e2e
 
@@ -440,23 +656,34 @@ def main(argv=None) -> int:
     smi = nvidia_smi()
     emit("device", kind=torch.cuda.get_device_name(0), count=torch.cuda.device_count(), nvidia_smi=smi,
          torch=torch.__version__, cuda=torch.version.cuda)
-    phase_build()
-    parity = phase_parity(torch, np) if "parity" in phases else None
-    headline = phase_headline(torch, np) if "headline" in phases else None
-    e2e = phase_e2e(np) if "e2e" in phases else None
+    walls = {}
+
+    def timed(name, fn, *args):
+        started = time.perf_counter()
+        out = fn(*args)
+        walls[name] = time.perf_counter() - started
+        return out
+
+    timed("build", phase_build)
+    parity = timed("parity", phase_parity, torch, np) if "parity" in phases else None
+    headline = timed("headline", phase_headline, torch, np) if "headline" in phases else None
+    if headline is not None:
+        headline.update(timed("headline_sketch", phase_sketch_headline, torch, np))
+    e2e = timed("e2e", phase_e2e, np) if "e2e" in phases else None
+    emit("walls", seconds=walls)
     if headline is None or e2e is None or parity is None:
         print(smi)
         return 0
-    kernels = [
-        {
-            "name": name, "route": "cuda", "source": KERNEL_SOURCE, "replaces": KERNELS[name],
-            "launches": e2e["launches"][name], "max_abs_err": max(parity[name], headline[name]["max_abs_err"]),
+    kernels = []
+    for name, (replaces, source, path) in KERNELS.items():
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": e2e["paths"][path]["launches"][name],
+            "max_abs_err": max(parity[name], headline[name]["max_abs_err"]),
             "ms": headline[name]["ms"], "plain_ms": headline[name]["plain_ms"],
             "bound_ms": headline[name]["bound_ms"], "bound_by": headline[name]["bound_by"],
             "library_ms": headline[name]["library_ms"],
-        }
-        for name in KERNELS
-    ]
+        })
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

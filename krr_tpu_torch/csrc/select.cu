@@ -2,7 +2,9 @@
 // program: per-row CPU percentile by bit-space bisection, and per-row memory
 // peak. Built by nvcc into a shared library with a plain C interface and
 // loaded with ctypes (krr_tpu_torch/ops/cuda_build.py); the wrappers, the
-// input checks and the launch counters live in krr_tpu_torch/ops/cuda_select.py.
+// input checks and the launch counters live in krr_tpu_torch/ops/cuda_select.py;
+// the device helpers (ordered bits, rank, block reduction, max key, the
+// bisection loop) are shared with sketch.cu through common.cuh.
 //
 // Both kernels take a row-major [n, t] float32 matrix whose row i holds
 // counts[i] valid samples, left-justified; positions at or past counts[i]
@@ -37,16 +39,16 @@
 //   Bound: bytes, one read of the row. One 256-thread block per row,
 //   coalesced strided loads, warp-shuffle + shared-memory block reduction.
 
-#include <cuda_runtime.h>
+#include "common.cuh"
 
 namespace {
 
-constexpr int kInt32Max = 0x7fffffff;
-constexpr int kInt32Min = -2147483647 - 1;
-constexpr int kMagnitudeMask = 0x7fffffff;
-constexpr int kExponentBits = 0x7f800000;
-constexpr int kMinNormalBits = 0x00800000;
-constexpr unsigned kCanonicalNan = 0x7fc00000u;
+using krr::block_reduce;
+using krr::kCanonicalNan;
+using krr::kInt32Min;
+using krr::kMagnitudeMask;
+using krr::kExponentBits;
+using krr::ordered_bits;
 
 constexpr int kSelectThreads = 1024;
 constexpr int kMaxThreads = 256;
@@ -55,45 +57,6 @@ constexpr int kHeaderInts = 64;
 // Ordered bits of a row's head kept in shared memory: 57,344 ints + the
 // header = 229,632 bytes, inside the 232,448 bytes a block may use.
 constexpr int kSelectCacheInts = 56 * 1024;
-
-__device__ __forceinline__ int ordered_bits(float v) {
-  const int bits = __float_as_int(v);
-  if ((bits & kMagnitudeMask) > kExponentBits) return bits;  // NaN keeps its bits
-  return bits >= kMinNormalBits ? bits : 0;  // negatives, -0.0, subnormals -> 0
-}
-
-__device__ __forceinline__ int selection_rank(int count, float q) {
-  // float32 op order of the reference: cast, -1, *q, /100, floor, clip.
-  // The _rn intrinsics keep nvcc from contracting or reassociating.
-  const float r = __fdiv_rn(__fmul_rn(__fsub_rn(__int2float_rn(count), 1.0f), q), 100.0f);
-  const int rank = __float2int_rd(r);
-  return min(max(rank, 0), max(count - 1, 0));
-}
-
-// Block-wide sum (kSum) or max of one int per thread; every thread gets the
-// result. blockDim.x must be a multiple of 32. `scratch` holds 33 ints.
-template <bool kSum>
-__device__ __forceinline__ int block_reduce(int v, int* scratch) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  for (int offset = 16; offset > 0; offset >>= 1) {
-    const int other = __shfl_down_sync(0xffffffffu, v, offset);
-    v = kSum ? v + other : max(v, other);
-  }
-  if (lane == 0) scratch[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    const int identity = kSum ? 0 : kInt32Min;
-    v = lane < static_cast<int>(blockDim.x >> 5) ? scratch[lane] : identity;
-    for (int offset = 16; offset > 0; offset >>= 1) {
-      const int other = __shfl_down_sync(0xffffffffu, v, offset);
-      v = kSum ? v + other : max(v, other);
-    }
-    if (lane == 0) scratch[32] = v;
-  }
-  __syncthreads();
-  return scratch[32];
-}
 
 __global__ void __launch_bounds__(kSelectThreads)
 bisect_select_kernel(const float* __restrict__ values, const int* __restrict__ counts,
@@ -111,24 +74,16 @@ bisect_select_kernel(const float* __restrict__ values, const int* __restrict__ c
   }
   const float* __restrict__ v = values + row * t;
   const int cached = static_cast<int>(min(valid, static_cast<long long>(cache_cap)));
-  for (int i = threadIdx.x; i < cached; i += blockDim.x) cache[i] = ordered_bits(v[i]);
+  const int stride = static_cast<int>(blockDim.x);
+  for (int i = static_cast<int>(threadIdx.x); i < cached; i += stride) cache[i] = ordered_bits(v[i]);
   __syncthreads();
 
-  const int rank = selection_rank(count, q);
-  int lo = 0;
-  int hi = kInt32Max;
-  for (int it = 0; it < num_iters; ++it) {
-    const int mid = lo + ((hi - lo) >> 1);  // floor division, as in the reference
+  const auto tail_le = [=](int mid) {
     int le = 0;
-    for (int i = threadIdx.x; i < cached; i += blockDim.x) le += cache[i] <= mid;
     for (long long i = cached + threadIdx.x; i < valid; i += blockDim.x) le += ordered_bits(v[i]) <= mid;
-    le = block_reduce<true>(le, scratch);
-    if (le >= rank + 1) {
-      hi = mid;
-    } else {
-      lo = mid + 1;
-    }
-  }
+    return le;
+  };
+  const int lo = krr::bisect_ordered(cache, cached, tail_le, krr::selection_rank(count, q), num_iters, scratch);
   if (threadIdx.x == 0) out[row] = __int_as_float(lo);
 }
 
@@ -147,22 +102,16 @@ row_max_kernel(const float* __restrict__ values, const int* __restrict__ counts,
   int best = kInt32Min;  // below every key of a non-NaN value
   int saw_nan = 0;
   for (long long i = threadIdx.x; i < valid; i += blockDim.x) {
-    int bits = __float_as_int(v[i]);
-    const int magnitude = bits & kMagnitudeMask;
-    if (magnitude > kExponentBits) {
+    const int bits = __float_as_int(v[i]);
+    if ((bits & kMagnitudeMask) > kExponentBits) {
       saw_nan = 1;
       continue;
     }
-    if (magnitude < kMinNormalBits) bits &= kInt32Min;  // subnormal -> zero of its sign
-    const int key = bits >= 0 ? bits : bits ^ kMagnitudeMask;
-    best = max(best, key);
+    best = max(best, krr::max_key(bits));
   }
   best = block_reduce<false>(best, scratch);
   saw_nan = block_reduce<false>(saw_nan, scratch);
-  if (threadIdx.x == 0) {
-    const int bits = best >= 0 ? best : best ^ kMagnitudeMask;
-    out[row] = saw_nan ? __uint_as_float(kCanonicalNan) : __int_as_float(bits);
-  }
+  if (threadIdx.x == 0) out[row] = saw_nan ? __uint_as_float(kCanonicalNan) : krr::from_max_key(best);
 }
 
 }  // namespace

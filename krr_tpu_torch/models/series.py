@@ -4,7 +4,8 @@ reference-compatible ragged form and the packed device form.
 This is the structure the Runner hands to strategies. Plugin strategies written
 against the reference contract (`BaseStrategy.run(history_data, object_data)`)
 consume the ragged view; batched strategies consume the packed arrays.
-(The JAX package's ``DigestedFleet`` arrives with the tdigest slice.)
+(The JAX package's ``DigestedFleet`` — history digested at ingest — arrives
+with the ``digest_ingest`` slice, after the CLI and the loaders.)
 """
 
 from __future__ import annotations
@@ -37,6 +38,10 @@ class PackedSeries:
 
     values: np.ndarray  # [N, T] — PACK_DTYPES[resource] on the host
     counts: np.ndarray  # [N] int32
+
+    @property
+    def capacity(self) -> int:
+        return self.values.shape[1]
 
 
 @dataclass

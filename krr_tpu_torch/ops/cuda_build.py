@@ -4,9 +4,10 @@ Each ``krr_tpu_torch/csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a``
 into a shared library with a plain C interface, loaded with ``ctypes``. The
 build happens at first use (or up front through :func:`build_all`, which
 starts one ``nvcc`` per source, all at once) into ``csrc/build/``, a
-directory git ignores. The library's file name carries a hash of its source
-and flags, so an edited source never loads a stale build; a finished build
-is moved into place atomically, so concurrent builds cannot tear it.
+directory git ignores. The library's file name carries a hash of its source,
+of every shared header (``csrc/*.cuh``) and of the flags, so an edited source
+or header never loads a stale build; a finished build is moved into place
+atomically, so concurrent builds cannot tear it.
 
 Nothing here runs at import time: the CPU-only test environment has no
 ``nvcc`` and imports every module.
@@ -62,8 +63,11 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the build of ``csrc/<name>.cu`` lives: keyed by source + flags."""
+    """Where the build of ``csrc/<name>.cu`` lives: keyed by the source, the
+    shared headers it may include and the flags."""
     digest = hashlib.sha256((SOURCE_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(SOURCE_DIR.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
     digest.update("\0".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
@@ -106,9 +110,23 @@ def build_all(names: Optional[list[str]] = None) -> dict[str, dict]:
     return report
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built first if needed."""
+def load(name: str, signatures: dict[str, list]) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built first if needed, with
+    ``argtypes`` set from ``signatures`` (every entry point returns a CUDA
+    error code as int) and ``krr_error_string`` declared."""
     if name not in _LOADED:
         build_all([name])
-        _LOADED[name] = ctypes.CDLL(str(library_path(name)))
+        lib = ctypes.CDLL(str(library_path(name)))
+        for fn, argtypes in signatures.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        lib.krr_error_string.argtypes = [ctypes.c_int]
+        lib.krr_error_string.restype = ctypes.c_char_p
+        _LOADED[name] = lib
     return _LOADED[name]
+
+
+def raise_on_error(lib: ctypes.CDLL, code: int, kernel: str) -> None:
+    """Raise when a launch returned a CUDA error code."""
+    if code != 0:
+        raise RuntimeError(f"{kernel} launch failed: CUDA error {code} ({lib.krr_error_string(code).decode()})")

@@ -52,17 +52,13 @@ def reset_launches() -> None:
 
 
 def _library() -> ctypes.CDLL:
-    lib = cuda_build.load(_SOURCE)
-    if lib.krr_bisect_select.argtypes is None:
-        for fn, argtypes in _SIGNATURES.items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
-        lib.krr_error_string.argtypes = [ctypes.c_int]
-        lib.krr_error_string.restype = ctypes.c_char_p
-    return lib
+    return cuda_build.load(_SOURCE, _SIGNATURES)
 
 
-def _check(values: torch.Tensor, counts: torch.Tensor, what: str) -> None:
+def check_rows(values: torch.Tensor, counts: torch.Tensor, what: str) -> None:
+    """Raise unless ``values`` is a contiguous 2-D float32 tensor and
+    ``counts`` a contiguous 1-D int32 tensor with one count per row, both on
+    one CPU or CUDA device — what every kernel of the port takes."""
     if values.dim() != 2 or values.dtype != torch.float32:
         raise TypeError(f"{what}: values must be a 2-D float32 tensor, got {values.dtype} {tuple(values.shape)}")
     if counts.dim() != 1 or counts.dtype != torch.int32:
@@ -84,11 +80,6 @@ def _check_iters(num_iters: int) -> None:
         raise ValueError(f"num_iters must be in [0, 31] (31 pins every bit), got {num_iters}")
 
 
-def _raise_on_error(lib: ctypes.CDLL, code: int, kernel: str) -> None:
-    if code != 0:
-        raise RuntimeError(f"{kernel} launch failed: CUDA error {code} ({lib.krr_error_string(code).decode()})")
-
-
 def _launch_bisect_select(values, counts, q: float, num_iters: int, out: torch.Tensor) -> None:
     lib = _library()
     n, t = values.shape
@@ -97,7 +88,7 @@ def _launch_bisect_select(values, counts, q: float, num_iters: int, out: torch.T
         code = lib.krr_bisect_select(
             values.data_ptr(), counts.data_ptr(), out.data_ptr(), n, t, q, num_iters, stream
         )
-    _raise_on_error(lib, code, "bisect_select")
+    cuda_build.raise_on_error(lib, code, "bisect_select")
     LAUNCHES["bisect_select"] += 1
 
 
@@ -107,7 +98,7 @@ def _launch_row_max(values, counts, out: torch.Tensor) -> None:
     with torch.cuda.device(values.device):
         stream = torch.cuda.current_stream(values.device).cuda_stream
         code = lib.krr_row_max(values.data_ptr(), counts.data_ptr(), out.data_ptr(), n, t, stream)
-    _raise_on_error(lib, code, "row_max")
+    cuda_build.raise_on_error(lib, code, "row_max")
     LAUNCHES["row_max"] += 1
 
 
@@ -121,7 +112,7 @@ def masked_percentile_bisect_cuda(
     """Per-row exact q-th percentile of the valid prefix (NaN for empty
     rows): the ``bisect_select`` kernel on a CUDA tensor, the plain
     ``masked_percentile_bisect`` on a CPU tensor — bit-identical."""
-    _check(values, counts, "masked_percentile_bisect_cuda")
+    check_rows(values, counts, "masked_percentile_bisect_cuda")
     _check_iters(num_iters)
     n, t = values.shape
     if n == 0 or t == 0:
@@ -137,7 +128,7 @@ def masked_max_cuda(values: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
     """Per-row max of the valid prefix (NaN for empty rows and rows holding
     NaN): the ``row_max`` kernel on a CUDA tensor, the plain ``masked_max``
     on a CPU tensor — bit-identical."""
-    _check(values, counts, "masked_max_cuda")
+    check_rows(values, counts, "masked_max_cuda")
     n, t = values.shape
     if n == 0 or t == 0:
         return _nan(n, values.device)
@@ -182,8 +173,8 @@ def fleet_exact(
     On a CUDA device both kernels launch on the current stream straight into
     the two rows of one preallocated tensor. CPU and memory histories may
     have different time extents."""
-    _check(cpu_values, cpu_counts, "fleet_exact")
-    _check(mem_values, mem_counts, "fleet_exact")
+    check_rows(cpu_values, cpu_counts, "fleet_exact")
+    check_rows(mem_values, mem_counts, "fleet_exact")
     _check_iters(num_iters)
     if cpu_values.shape[0] != mem_values.shape[0] or cpu_values.device != mem_values.device:
         raise ValueError("fleet_exact: CPU and memory histories must share rows and device")

@@ -12,7 +12,8 @@ as zero of the same sign, +0.0 ranks above −0.0, and NaN propagates. The max
 is taken over an integer key that orders float32 totally, so the result does
 not depend on the order of the reduction; a row holding NaN returns the
 canonical NaN (the JAX package may return the NaN's own payload — NaN either
-way, and ``"?"`` downstream).
+way, and ``"?"`` downstream). :func:`max_where` is the same max over any
+mask; the digest's peak uses it with ``-inf`` for an empty row.
 """
 
 from __future__ import annotations
@@ -47,19 +48,24 @@ def masked_percentile(values: torch.Tensor, counts: torch.Tensor, q: "torch.Tens
     return torch.where(counts > 0, picked, torch.full_like(picked, float("nan")))
 
 
-def masked_max(values: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
-    """Per-row max of the valid prefix; NaN for empty rows."""
-    n, t = values.shape
-    if t == 0:
-        return torch.full((n,), float("nan"), dtype=torch.float32, device=values.device)
+def max_where(values: torch.Tensor, mask: torch.Tensor, empty: float) -> torch.Tensor:
+    """Per-row max over the positions ``mask`` selects (any boolean mask):
+    the canonical NaN for a row that selects a NaN, ``empty`` for a row
+    that selects nothing."""
+    if values.shape[1] == 0:
+        return torch.full((values.shape[0],), empty, dtype=torch.float32, device=values.device)
     bits = values.contiguous().view(torch.int32)
     magnitude = bits & MAGNITUDE_MASK
     is_nan = magnitude > EXPONENT_BITS
     flushed = torch.where(magnitude < MIN_NORMAL_BITS, bits & INT32_MIN, bits)
     key = torch.where(flushed >= 0, flushed, flushed ^ MAGNITUDE_MASK)
-    mask = valid_mask(counts, t)
     key = torch.where(mask & ~is_nan, key, torch.full_like(key, INT32_MIN))
     best = key.amax(dim=1)
     peak = torch.where(best >= 0, best, best ^ MAGNITUDE_MASK).view(torch.float32)
-    empty_or_nan = (counts <= 0) | (mask & is_nan).any(dim=1)
-    return torch.where(empty_or_nan, torch.full_like(peak, float("nan")), peak)
+    peak = torch.where(mask.any(dim=1), peak, torch.full_like(peak, empty))
+    return torch.where((mask & is_nan).any(dim=1), torch.full_like(peak, float("nan")), peak)
+
+
+def masked_max(values: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
+    """Per-row max of the valid prefix; NaN for empty rows."""
+    return max_where(values, valid_mask(counts, values.shape[1]), float("nan"))

@@ -8,6 +8,7 @@ from krr_tpu_torch.strategies.base import (
     StrategySettings,
 )
 from krr_tpu_torch.strategies.simple import SimpleStrategy, SimpleStrategySettings
+from krr_tpu_torch.strategies.tdigest import TDigestStrategy, TDigestStrategySettings
 
 __all__ = [
     "AnyStrategy",
@@ -19,4 +20,6 @@ __all__ = [
     "StrategySettings",
     "SimpleStrategy",
     "SimpleStrategySettings",
+    "TDigestStrategy",
+    "TDigestStrategySettings",
 ]

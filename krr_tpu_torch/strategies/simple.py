@@ -27,6 +27,7 @@ from krr_tpu_torch.core.rounding import as_decimal
 from krr_tpu_torch.models.allocations import ResourceType
 from krr_tpu_torch.models.series import FleetBatch
 from krr_tpu_torch.ops.cuda_select import fleet_exact
+from krr_tpu_torch.ops.topk_sketch import required_k
 from krr_tpu_torch.strategies.base import BatchedStrategy, ResourceRecommendation, RunResult, StrategySettings
 from krr_tpu_torch.utils.device import resolve_device
 
@@ -69,7 +70,7 @@ def finalize_fleet(
 
 
 def fleet_device_arrays(
-    batch: FleetBatch, resource: ResourceType, scale: float = 1.0, device: "torch.device | str" = "cpu"
+    batch: FleetBatch, resource: ResourceType, scale: float = 1.0, *, device: "torch.device | str"
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Packed host arrays → (float32 device values, int32 device counts).
 
@@ -81,6 +82,16 @@ def fleet_device_arrays(
     values = torch.from_numpy(np.ascontiguousarray(host, dtype=np.float32)).to(device)
     counts = torch.from_numpy(np.ascontiguousarray(packed.counts, dtype=np.int32)).to(device)
     return values, counts
+
+
+def exact_topk_k(capacity: int, q: float, budget: int) -> Optional[int]:
+    """K for the exact top-K sketch, or None when it exceeds ``budget`` and
+    the caller must take another path (the histogram digest for tdigest).
+    The single cut-over decision site, shared by every strategy and build
+    flavor, so the paths can never disagree about which sketch serves a
+    percentile."""
+    k = required_k(capacity, q)
+    return k if 0 < k <= budget else None
 
 
 def _stream_threshold_bytes(setting_mb: int, device: torch.device) -> Optional[int]:
@@ -125,6 +136,16 @@ class SimpleStrategySettings(StrategySettings):
             "Float32 window size (MB per device) past which the window would have to stream "
             "from host memory; 0 = auto (~40% of device memory), -1 = never. Host streaming is "
             "not ported yet: a larger window raises."
+        ),
+    )
+    exact_sketch_budget: int = pd.Field(
+        8192,
+        ge=0,
+        description=(
+            "Max top-K sketch width for the exact high-percentile sketch "
+            "(krr_tpu_torch.ops.topk_sketch): tdigest's --exact_upgrade takes it when the "
+            "configured cpu_percentile's rank-from-the-top fits, and the histogram digest past "
+            "it. 0 disables the top-K path."
         ),
     )
 

@@ -355,15 +355,18 @@ class TestHostEdgeParity:
 
 class TestHygiene:
     def test_port_imports_neither_jax_nor_the_jax_package(self):
+        """Every module of the port, found by walking the package, imports
+        no ``jax*`` and no ``krr_tpu.*`` module."""
         code = (
-            "import sys\n"
+            "import importlib, pkgutil, sys\n"
             "before = set(sys.modules)\n"
-            "import krr_tpu_torch, krr_tpu_torch.core.runner, krr_tpu_torch.core.config\n"
-            "import krr_tpu_torch.strategies, krr_tpu_torch.formatters, krr_tpu_torch.models.interop\n"
-            "import krr_tpu_torch.ops.cuda_select, krr_tpu_torch.ops.cuda_build\n"
+            "import krr_tpu_torch\n"
+            "names = [m.name for m in pkgutil.walk_packages(krr_tpu_torch.__path__, 'krr_tpu_torch.')]\n"
+            "for name in names:\n"
+            "    importlib.import_module(name)\n"
             "bad = sorted(m for m in set(sys.modules) - before if m.split('.')[0] in ('jax', 'jaxlib', 'krr_tpu'))\n"
-            "print(bad)\n"
-            "sys.exit(1 if bad else 0)\n"
+            "print(len(names), bad)\n"
+            "sys.exit(1 if bad or len(names) < 30 else 0)\n"
         )
         env = {**os.environ, "PYTHONPATH": str(REPO)}
         proc = subprocess.run(
@@ -379,7 +382,11 @@ class TestHygiene:
 
         assert port_strategies.BaseStrategy.get_all()["simple"] is port_simple.SimpleStrategy
         assert jax_strategies.BaseStrategy.get_all()["simple"] is jax_simple.SimpleStrategy
-        assert "tdigest" not in port_strategies.BaseStrategy.get_all()
+        import krr_tpu.strategies.tdigest as jax_tdigest
+        import krr_tpu_torch.strategies.tdigest as port_tdigest
+
+        assert port_strategies.BaseStrategy.get_all()["tdigest"] is port_tdigest.TDigestStrategy
+        assert jax_strategies.BaseStrategy.get_all()["tdigest"] is jax_tdigest.TDigestStrategy
         assert jax_formatters.BaseFormatter.find("json").__module__.startswith("krr_tpu.")
         assert port_formatters.BaseFormatter.find("json").__module__.startswith("krr_tpu_torch.")
 
