@@ -7,13 +7,23 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
 
 1. ``device``  — the card's name, its ``nvidia-smi`` name and power limit.
 2. ``build``   — compile every ``krr_tpu_torch/csrc/*.cu`` with nvcc for
-   ``sm_90a`` (one nvcc per source, started together).
+   ``sm_90a`` (one nvcc per source, started together); count each kernel's
+   global-load opcodes in its SASS (``cuobjdump -sass``, which must sit
+   beside ``nvcc``) and require 16-byte loads (``LDG.E.128``) in ``row_max``
+   and ``topk_select``.
 3. ``parity``  — each kernel against its plain PyTorch version on the same
    CUDA tensors, and the plain version on the card against the plain version
    on the CPU: fuzzed ragged rows salted with edge values (±0.0, negatives,
    NaN payloads, subnormals, ±inf, huge values), odd widths, rows longer
    than a block's shared-memory cache, N = 0 and T = 0, and the memory shape
-   of the ``simple`` scan. ``bisect_select``, ``row_max`` and the top-K rows
+   of the ``simple`` scan; rows aimed at ``row_max``'s scalar head, 16-byte
+   body and scalar tail (widths 1–3 past a multiple of 4, counts ending
+   inside a ``float4``, a NaN or the peak only in the head or only in the
+   tail) and at ``topk_select``'s radix select (τ on negative NaN payloads,
+   on zeros and subnormals, digit-edge patterns, all-equal rows, counts of
+   K, K − 1 and 1, state-only rows, the cache edge inside the state, read
+   from the built library).
+   ``bisect_select``, ``row_max`` and the top-K rows
    of ``topk_select`` (sorted; K ∈ {128, 1280}, with and without a state)
    are bit-exact; ``digest_hist`` counts and peaks are bit-exact for
    B ∈ {16, 200, 2560} and for a B past shared memory (the global-memory
@@ -27,8 +37,7 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    library yardsticks (``torch.kthvalue`` at the same rank, ``torch.amax``,
    ``torch.bincount`` of precomputed bucket indices — histogram only — and
    ``torch.topk``), each kernel's bound, and parity of the kernels with the
-   plain versions; also ``row_max`` at the memory shape of the ``simple``
-   scan.
+   plain versions; also ``row_max_main`` below.
 5. ``e2e``     — scans through ``Runner.run`` with in-memory inventory and
    history sources: 10,000 objects × 3 pods, 40,320 CPU samples and 40,320
    raw memory samples per pod (7 days at 5 s) made with numpy from a seed,
@@ -42,6 +51,13 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    ``?``. A 256-object re-run on the CPU renders the same JSON for
    ``simple`` and ``exact_upgrade``, and for ``tdigest`` the same memory and
    every CPU value within one bucket of the card's.
+
+``row_max_main`` — ``row_max`` at the memory shape of the ``simple`` scan,
+per wrapper call (host-bound at that size) and per launch replayed from a
+CUDA graph (the kernel's device time). Part of ``headline``; run alone
+(``--phases row_max_main``, no build phase) it times the ``krr_tpu_torch``
+beside the script, so a copy of the script placed in an unpacked older
+commit times that commit's kernel the same way.
 
 The last three lines are the card's ``nvidia-smi`` name and power limit, one
 ``{"kernels": [...]}`` JSON object, and ``{"ok": true, "device": {...}}``.
@@ -89,6 +105,8 @@ KERNELS = {
     "digest_hist": ("krr_tpu/ops/pallas_sketch.py:99", "krr_tpu_torch/csrc/sketch.cu", "tdigest"),
     "topk_select": ("krr_tpu/ops/pallas_sketch.py:284", "krr_tpu_torch/csrc/sketch.cu", "tdigest_exact"),
 }
+#: The kernels' function names in the built libraries' SASS.
+SASS_KERNELS = ("bisect_select_kernel", "row_max_kernel", "digest_hist_kernel", "topk_select_kernel")
 
 
 class SmokeFailure(AssertionError):
@@ -159,17 +177,45 @@ def max_abs_err(torch, a, b) -> float:
 
 
 # ------------------------------------------------------------------ phases
+def global_loads(cuda_build, report: dict) -> dict:
+    """Per kernel, the count of each global-load opcode in its SASS
+    (``cuobjdump -sass``): ``LDG.E.128*`` are the 16-byte loads."""
+    import re
+    from pathlib import Path
+
+    tool = Path(cuda_build.nvcc_path()).parent / "cuobjdump"
+    check(tool.exists(), f"no cuobjdump beside nvcc ({tool}): the SASS load check cannot run")
+    loads: dict = {}
+    for entry in report.values():
+        sass = subprocess.run([str(tool), "-sass", entry["path"]], capture_output=True, text=True, timeout=120,
+                              check=True).stdout
+        kernel = None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                kernel = next((name for name in SASS_KERNELS if name in line), None)
+                if kernel:
+                    loads[kernel] = {}
+            elif kernel and (match := re.search(r"\b(LDG\.[A-Z0-9.]+)", line)):
+                loads[kernel][match.group(1)] = loads[kernel].get(match.group(1), 0) + 1
+    return loads
+
+
 def phase_build() -> None:
     from krr_tpu_torch.ops import cuda_build
 
     started = time.perf_counter()
     report = cuda_build.build_all()
+    seconds = time.perf_counter() - started
     ptxas = {
         name: [line.strip() for line in entry["log"].splitlines()
                if "registers" in line or "smem" in line or "stack frame" in line]
         for name, entry in report.items()
     }
-    emit("build", seconds=time.perf_counter() - started, sources=sorted(report), ptxas=ptxas)
+    loads = global_loads(cuda_build, report)
+    for kernel in ("row_max_kernel", "topk_select_kernel"):
+        check(any(op.startswith("LDG.E.128") for op in loads.get(kernel, {})),
+              f"{kernel}: no 16-byte global load in its SASS: {loads.get(kernel)}")
+    emit("build", seconds=seconds, sources=sorted(report), ptxas=ptxas, sass_global_loads=loads)
 
 
 def fuzz(np, seed: int, n: int, t: int, special_frac: float = 0.2):
@@ -189,6 +235,77 @@ def fuzz(np, seed: int, n: int, t: int, special_frac: float = 0.2):
     counts = rng.integers(0, t + 1, size=n).astype(np.int32)
     if n > 1:
         counts[0], counts[1] = 0, t
+    return values, counts
+
+
+def row_max_edge_rows(np, seed: int, n: int, t: int):
+    """Rows aimed at ``row_max``'s three parts (scalar head to the first
+    16-byte boundary, ``float4`` body, scalar tail at the count): widths off
+    every multiple of 4 start rows unaligned, counts end at every offset
+    inside a ``float4``, and the row's NaN or its largest value sits only in
+    the head (position 0) or only in the tail (the last valid position). A
+    NaN just past the count must not be read."""
+    rng = np.random.default_rng(seed)
+    values = rng.gamma(2.0, 0.05, size=(n, t)).astype(np.float32)
+    counts = np.maximum(t - np.arange(n) % 9, 0).astype(np.int32)
+    counts[n // 2:] = np.minimum(counts[n // 2:], 1 + np.arange(n - n // 2) % 7)
+    for r, c in enumerate(counts):
+        if c == 0:
+            continue
+        where = 0 if r % 4 in (0, 1) else c - 1
+        values[r, where] = np.float32("nan") if r % 2 else np.float32(1e30)
+        if r % 8 == 5:
+            values[r, :c] = np.float32(-0.0)
+            values[r, where] = np.float32(0.0) if r % 16 == 5 else np.float32(-1e-40)
+        if c < t:
+            values[r, c] = np.float32("nan")
+    return values, counts
+
+
+#: Edge bit patterns for K4's radix select: negative NaN payloads (negative
+#: keys, which count toward the rank and give τ = +0.0), values whose
+#: ordered bits are 0 (negatives, ±0.0, subnormals, -inf), and values whose
+#: digits are 0x00 or 0xff (+inf, the largest finite, the all-ones NaN,
+#: 1.0, the float just below 1.0, the smallest normal).
+TOPK_NEGATIVE_KEYS = (0xFFC00000, 0xFFFFFFFF, 0xFF800001)
+TOPK_ZERO_KEYS = (0xBF800000, 0x80000000, 0x00000000, 0x00000001, 0x807FFFFF, 0x800F0000, 0xFF800000)
+TOPK_DIGIT_EDGES = (0x7F7FFFFF, 0x7FFFFFFF, 0x7F800000, 0x7F800001, 0x3F800000, 0x3F7FFFFF, 0x3F800001,
+                    0x3F7FFF00, 0x00800000, 0x00FFFFFF)
+
+
+def topk_edge_rows(np, seed: int, t: int, k: int):
+    """Rows aimed at ``topk_select``'s radix select at width ``t`` and K:
+    all-equal rows, rows whose rank lands on negative NaN payloads or on
+    keys that read as 0 (τ = +0.0 either way; fractions around and at 1),
+    rows of digit-edge patterns only, counts of K, K − 1 and 1 (kv equal to
+    the total: rank 0 when there is no state) and an empty chunk (a
+    state-only row when a state is given)."""
+    rng = np.random.default_rng(seed)
+    rows = []
+
+    def mixed(pool, frac):
+        row = rng.gamma(2.0, 0.05, size=t).astype(np.float32)
+        salted = rng.random(t) < frac
+        row[salted] = np.array(pool, dtype=np.uint32).view(np.float32)[rng.integers(0, len(pool), int(salted.sum()))]
+        return row
+
+    rows.append((np.full(t, 0.25, dtype=np.float32), t))
+    for frac in (0.5, 0.9, 0.99, 1.0):
+        rows.append((mixed(TOPK_NEGATIVE_KEYS, frac), t))
+        rows.append((mixed(TOPK_ZERO_KEYS, frac), t))
+    rows.append((mixed(TOPK_NEGATIVE_KEYS + TOPK_ZERO_KEYS, 1.0), t))
+    rows.append((mixed(TOPK_DIGIT_EDGES, 1.0), t))
+    rows.append((mixed(TOPK_DIGIT_EDGES, 0.5), t))
+    # Exactly total - K negative keys (the rank lands on the smallest
+    # non-negative key), and one more (it lands on a negative key).
+    for extra in (0, 1):
+        row = rng.gamma(2.0, 0.05, size=t).astype(np.float32)
+        row[: max(t - k + extra, 0)] = np.array(0xFFC00000, dtype=np.uint32).view(np.float32)
+        rows.append((rng.permutation(row), t))
+    for count in (k, k - 1, 1, 0):
+        rows.append((mixed(TOPK_DIGIT_EDGES + TOPK_NEGATIVE_KEYS, 0.3), min(count, t)))
+    values = np.stack([row for row, _ in rows])
+    counts = np.array([count for _, count in rows], dtype=np.int32)
     return values, counts
 
 
@@ -239,6 +356,16 @@ def phase_parity(torch, np) -> dict:
             else:
                 check(bool(torch.isnan(kernel).all()) and kernel.shape == (n,), f"degenerate max at n={n} t={t}")
             cases += 1
+    # row_max's head / float4 body / tail split: widths 1, 2 and 3 past a
+    # multiple of 4, narrow and past a block's 256 threads × 4.
+    for i, t in enumerate((5, 6, 7, 130, 2047, 2049, 2050, 4097, 4098, 4099)):
+        values, counts = row_max_edge_rows(np, 400 + i, 72, t)
+        v_cpu, c_cpu = torch.from_numpy(values), torch.from_numpy(counts)
+        kernel = cuda_select.masked_max_cuda(v_cpu.to(dev), c_cpu.to(dev))
+        plain = masked_max(v_cpu.to(dev), c_cpu.to(dev))
+        check(same_bits(torch, kernel, plain), f"row_max != plain on the head/tail rows at t={t}")
+        check(same_bits(torch, plain, masked_max(v_cpu, c_cpu)), f"plain max on the card != on the CPU at t={t}")
+        cases += 1
     v, c = main_path_memory(torch, np)
     kernel = cuda_select.masked_max_cuda(v, c)
     plain = masked_max(v, c)
@@ -323,7 +450,64 @@ def sketch_parity(torch, np, errs: dict) -> tuple[int, dict]:
                     check(same_bits(torch, sorted_rows(torch, plain), sorted_rows(torch, cpu)),
                           f"plain top-K on the card != on the CPU at {where}")
                     cases += 1
+    # The radix select's hard rows, with the cache edge inside the chunk, past
+    # the row, and inside the state.
+    for t in (3000, cuda_sketch.topk_cache_ints() - 52, 60_000):
+        for k in (128, TOPK_K):
+            values, counts = topk_edge_rows(np, 500 + k + t, t, k)
+            n = values.shape[0]
+            v_cpu, c_cpu = torch.from_numpy(values), torch.from_numpy(counts)
+            for with_state in (False, True):
+                state_args_cpu = ()
+                if with_state:
+                    state_np, state_counts_np = fuzz(np, 600 + k + t, n, k)
+                    state_counts_np[-1] = k  # the empty-chunk row becomes state-only
+                    state_args_cpu = (torch.from_numpy(state_np), torch.from_numpy(state_counts_np))
+                args = [a.to(dev) for a in (v_cpu, c_cpu, *state_args_cpu)]
+                kernel = cuda_sketch.topk_select(args[0], args[1], k, *args[2:])
+                plain = cuda_sketch.topk_select_plain(args[0], args[1], k, *args[2:])
+                cpu = cuda_sketch.topk_select_plain(v_cpu, c_cpu, k, *state_args_cpu)
+                where = f"edge rows t={t} k={k} state={with_state}"
+                check(same_bits(torch, sorted_rows(torch, kernel), sorted_rows(torch, plain)),
+                      f"topk_select != plain (sorted rows) at {where}")
+                check(same_bits(torch, sorted_rows(torch, plain), sorted_rows(torch, cpu)),
+                      f"plain top-K on the card != on the CPU at {where}")
+                cases += 1
     return cases, moves
+
+
+def phase_row_max_main(torch, np) -> dict:
+    """``row_max`` at the memory shape the e2e scan gives it: a few
+    microseconds, so each timed run holds 100 launches — through the
+    wrapper (host-bound at this size) and replayed from a CUDA graph (the
+    kernel's device time)."""
+    from krr_tpu_torch.ops import cuda_select
+
+    main_v, main_c = main_path_memory(torch, np)
+    main_valid = int(main_c.sum())
+
+    def hundred_row_max():
+        for _ in range(100):
+            cuda_select.masked_max_cuda(main_v, main_c)
+
+    main_times = [ms / 100 for ms in cuda_ms(torch, hundred_row_max)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        hundred_row_max()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        hundred_row_max()
+    main_device_times = [ms / 100 for ms in cuda_ms(torch, graph.replay)]
+    main_bound = 1e3 * (4 * main_valid + 8 * main_v.shape[0]) / PEAK_BYTES_PER_S
+    result = {
+        "shape": [E2E_OBJECTS, 128], "valid_samples": main_valid, "ms": statistics.median(main_times),
+        "runs_ms": main_times, "graph_replay_ms": statistics.median(main_device_times),
+        "graph_replay_runs_ms": main_device_times, "bound_ms": main_bound, "bound_by": "bytes",
+    }
+    emit("row_max_main", **result)
+    return result
 
 
 def phase_headline(torch, np) -> dict:
@@ -365,19 +549,6 @@ def phase_headline(torch, np) -> dict:
     kth = torch.kthvalue(cpu, k, dim=1).values
     amax_times = cuda_ms(torch, lambda: torch.amax(mem, dim=1))
 
-    # row_max at the memory shape the e2e scan gives it: a few microseconds,
-    # so each timed run holds 100 launches.
-    main_v, main_c = main_path_memory(torch, np)
-    main_valid = int(main_c.sum())
-
-    def hundred_row_max():
-        for _ in range(100):
-            cuda_select.masked_max_cuda(main_v, main_c)
-
-    main_times = [ms / 100 for ms in cuda_ms(torch, hundred_row_max)]
-    main_bound = 1e3 * (4 * main_valid + 8 * main_v.shape[0]) / PEAK_BYTES_PER_S
-    del main_v, main_c
-
     fleet = cuda_select.fleet_exact(cpu, counts, mem, counts, q)
     check(same_bits(torch, fleet[0], kernel_p) and same_bits(torch, fleet[1], kernel_m),
           "fleet_exact rows != the kernels run alone")
@@ -403,10 +574,7 @@ def phase_headline(torch, np) -> dict:
             "library_ms": statistics.median(amax_times), "library": "torch.amax",
             "bound_ms": bound(n, t)[0], "bound_by": bound(n, t)[1], "max_abs_err": errs["row_max"],
         },
-        "row_max_main_path": {
-            "shape": [E2E_OBJECTS, 128], "valid_samples": main_valid, "ms": statistics.median(main_times),
-            "runs_ms": main_times, "bound_ms": main_bound, "bound_by": "bytes",
-        },
+        "row_max_main_path": phase_row_max_main(torch, np),
         "kthvalue_equals_kernel": kth_equal,
         "peak_device_bytes": peak,
     }
@@ -638,8 +806,8 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
         "--phases", default="build,parity,headline,e2e",
-        help="comma-separated subset of build,parity,headline,e2e (default: all; the kernels line and "
-        "the ok line need headline and e2e)",
+        help="comma-separated subset of build,parity,headline,e2e,row_max_main (default: the first "
+        "four; the kernels line and the ok line need all four)",
     )
     args = parser.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -664,14 +832,17 @@ def main(argv=None) -> int:
         walls[name] = time.perf_counter() - started
         return out
 
-    timed("build", phase_build)
+    if "build" in phases:
+        timed("build", phase_build)
+    if "row_max_main" in phases:
+        timed("row_max_main", phase_row_max_main, torch, np)
     parity = timed("parity", phase_parity, torch, np) if "parity" in phases else None
     headline = timed("headline", phase_headline, torch, np) if "headline" in phases else None
     if headline is not None:
         headline.update(timed("headline_sketch", phase_sketch_headline, torch, np))
     e2e = timed("e2e", phase_e2e, np) if "e2e" in phases else None
     emit("walls", seconds=walls)
-    if headline is None or e2e is None or parity is None:
+    if headline is None or e2e is None or parity is None or "build" not in phases:
         print(smi)
         return 0
     kernels = []

@@ -1,12 +1,16 @@
 // Device helpers shared by the port's kernels (select.cu, sketch.cu): the
 // ordered-bits map of the exact selection, the reference's float32 rank, a
-// block-wide reduction, the total-order key of the NaN-propagating max, and
-// the bit-space bisection loop. ops/cuda_build.py hashes this header into the
-// name of every library it builds, so an edit here rebuilds every kernel.
+// block-wide reduction, the total-order keys of the NaN-propagating max, a
+// row visitor with 16-byte loads, the bit-space bisection loop and the radix
+// select that returns the same answer. ops/cuda_build.py hashes this header
+// into the name of every library it builds, so an edit here rebuilds every
+// kernel.
 
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include <cstddef>
 
 namespace krr {
 
@@ -45,6 +49,67 @@ __device__ __forceinline__ int max_key(int bits) {
 
 __device__ __forceinline__ float from_max_key(int key) {
   return __int_as_float(key >= 0 ? key : key ^ kMagnitudeMask);
+}
+
+// max_key with NaN folded in: every NaN -> INT32_MAX, above max_key(+inf) =
+// 0x7f800000, which no other value reaches. One max over these keys gives
+// the peak and whether the row held a NaN, without a branch per sample.
+__device__ __forceinline__ int nan_high_max_key(float v) {
+  const int bits = __float_as_int(v);
+  return (bits & kMagnitudeMask) > kExponentBits ? kInt32Max : max_key(bits);
+}
+
+// Calls f(i, p[i]) for the positions i of [begin, end) that fall to this
+// thread, one of `lanes` threads (lanes >= 3) sharing the range: a scalar
+// head up to the first 16-byte boundary (a row of a matrix whose width is
+// not a multiple of 4 starts unaligned), a float4 body with kUnroll loads in
+// flight per thread, and a scalar tail. A thread visits its positions in the
+// same order on every call, so two passes see the same sequence.
+template <int kUnroll = 4, typename F>
+__device__ __forceinline__ void visit_row(const float* __restrict__ p, int begin, int end, int lane, int lanes,
+                                          F&& f) {
+  if (begin >= end) return;
+  const int misaligned = static_cast<int>((reinterpret_cast<size_t>(p + begin) >> 2) & 3);
+  const int head = min(end - begin, (4 - misaligned) & 3);
+  if (lane < head) f(begin + lane, p[begin + lane]);
+  const int body_begin = begin + head;
+  const int quads = (end - body_begin) >> 2;
+  const float4* __restrict__ body = reinterpret_cast<const float4*>(p + body_begin);
+  const auto visit4 = [&](int j, const float4& x) {
+    const int i = body_begin + 4 * j;
+    f(i, x.x);
+    f(i + 1, x.y);
+    f(i + 2, x.z);
+    f(i + 3, x.w);
+  };
+  int j = lane;
+  for (; j + (kUnroll - 1) * lanes < quads; j += kUnroll * lanes) {
+    float4 x[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) x[u] = __ldg(body + j + u * lanes);
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) visit4(j + u * lanes, x[u]);
+  }
+  for (; j < quads; j += lanes) visit4(j, __ldg(body + j));
+  const int tail_begin = body_begin + 4 * quads;
+  if (lane < end - tail_begin) f(tail_begin + lane, p[tail_begin + lane]);
+}
+
+// Calls f(key) for this thread's share of the first `cached` ints of a
+// 16-byte-aligned shared-memory array, four at a time, in a fixed order.
+template <typename F>
+__device__ __forceinline__ void visit_cache(const int* cache, int cached, F&& f) {
+  const int stride = static_cast<int>(blockDim.x);
+  const int quads = cached >> 2;
+  const int4* cache4 = reinterpret_cast<const int4*>(cache);
+  for (int i = static_cast<int>(threadIdx.x); i < quads; i += stride) {
+    const int4 q = cache4[i];
+    f(q.x);
+    f(q.y);
+    f(q.z);
+    f(q.w);
+  }
+  for (int i = 4 * quads + static_cast<int>(threadIdx.x); i < cached; i += stride) f(cache[i]);
 }
 
 // Block-wide sum (kSum) or max of one int per thread; every thread gets the
@@ -100,6 +165,89 @@ __device__ __forceinline__ int bisect_ordered(const int* cache, int cached, Tail
     }
   }
   return lo;
+}
+
+// Shared memory of radix_select_ordered: the digit histogram, one column per
+// lane ([bin][lane], so the 32 lanes of a warp never hit one bank or one
+// address, however hot a bin), and the bin totals plus the picked digit and
+// residual rank.
+constexpr int kRadixBins = 256;
+constexpr int kRadixHistInts = kRadixBins * 32;
+constexpr int kRadixPickInts = kRadixBins + 2;
+
+// The answer of bisect_ordered at 31 steps, by an MSB-first radix select:
+// max(b, 0) where b is the rank-th smallest (0-based) of the row's ordered
+// bits in signed int32 order. The 31 bisection steps pin exactly that: a
+// negative key (a NaN with its sign bit set) counts toward the rank but can
+// never be the answer. The row is the same as bisect_ordered's: `cached`
+// ordered bits in shared memory (16-byte aligned) plus what
+// `visit_tail(f)` hands to f(key) for this thread.
+//
+// u = bits ^ 0x80000000 turns signed order into unsigned order. Four passes
+// of 8-bit digits, each a histogram of the current digit over the keys whose
+// higher digits equal the prefix found so far, then a scan of the bins for
+// the digit where the running count passes the residual rank. 8 bits because
+// a lane-column histogram of 11 bits (2048 x 32 ints) would not fit beside
+// the cache. A negative first digit ends the search at 0.
+//
+// Every thread of the block calls it and gets the answer; `hist` holds
+// kRadixHistInts ints (16-byte aligned) and `pick` kRadixPickInts;
+// blockDim.x is a multiple of 32.
+template <typename TailVisit>
+__device__ __forceinline__ int radix_select_ordered(const int* cache, int cached, TailVisit visit_tail, int rank,
+                                                    int* hist, int* pick) {
+  const int tid = static_cast<int>(threadIdx.x);
+  const int stride = static_cast<int>(blockDim.x);
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int warps = stride >> 5;
+  unsigned prefix = 0u;  // the digits found so far, in place
+  unsigned mask = 0u;    // their bit positions
+  int residual = rank;   // the rank among the keys that match the prefix
+  for (int shift = 24; shift >= 0; shift -= 8) {
+    int4* hist4 = reinterpret_cast<int4*>(hist);
+    for (int i = tid; i < kRadixHistInts / 4; i += stride) hist4[i] = make_int4(0, 0, 0, 0);
+    __syncthreads();
+    const auto count = [&](int key) {
+      const unsigned u = static_cast<unsigned>(key) ^ 0x80000000u;
+      if ((u & mask) == prefix) atomicAdd(&hist[((u >> shift) & 0xffu) * 32 + lane], 1);
+    };
+    visit_cache(cache, cached, count);
+    visit_tail(count);
+    __syncthreads();
+    for (int b = warp; b < kRadixBins; b += warps) {
+      int total = hist[b * 32 + lane];
+      for (int offset = 16; offset > 0; offset >>= 1) total += __shfl_xor_sync(0xffffffffu, total, offset);
+      if (lane == 0) pick[b] = total;
+    }
+    __syncthreads();
+    if (warp == 0) {
+      // Lane l holds bins [8l, 8l + 8); the first lane whose inclusive count
+      // passes the residual holds the digit.
+      int own = 0;
+      for (int j = 0; j < 8; ++j) own += pick[lane * 8 + j];
+      int inclusive = own;
+      for (int offset = 1; offset < 32; offset <<= 1) {
+        const int other = __shfl_up_sync(0xffffffffu, inclusive, offset);
+        if (lane >= offset) inclusive += other;
+      }
+      const unsigned passed = __ballot_sync(0xffffffffu, inclusive > residual);
+      if (lane == __ffs(passed) - 1) {
+        int below = inclusive - own;
+        int digit = lane * 8;
+        while (below + pick[digit] <= residual) below += pick[digit++];
+        pick[kRadixBins] = digit;
+        pick[kRadixBins + 1] = residual - below;
+      }
+    }
+    __syncthreads();
+    const unsigned digit = static_cast<unsigned>(pick[kRadixBins]);
+    residual = pick[kRadixBins + 1];
+    prefix |= digit << shift;
+    mask |= 0xffu << shift;
+    if (shift == 24 && digit < 0x80u) return 0;  // the key is negative: the answer is 0
+  }
+  return max(static_cast<int>(prefix ^ 0x80000000u), 0);
 }
 
 }  // namespace krr

@@ -3,8 +3,8 @@
 // peak. Built by nvcc into a shared library with a plain C interface and
 // loaded with ctypes (krr_tpu_torch/ops/cuda_build.py); the wrappers, the
 // input checks and the launch counters live in krr_tpu_torch/ops/cuda_select.py;
-// the device helpers (ordered bits, rank, block reduction, max key, the
-// bisection loop) are shared with sketch.cu through common.cuh.
+// the device helpers (ordered bits, rank, block reduction, max keys, the row
+// visitor, the bisection loop) are shared with sketch.cu through common.cuh.
 //
 // Both kernels take a row-major [n, t] float32 matrix whose row i holds
 // counts[i] valid samples, left-justified; positions at or past counts[i]
@@ -27,8 +27,9 @@
 //   memory (~47% of a 7-day @ 5 s row), and each of the 31 steps counts the
 //   cached head from shared memory and streams the tail from global memory.
 //   With one such block per SM the 132 tails in flight (~254 KB each) fit
-//   the 50 MB L2, so the re-reads mostly hit L2 rather than HBM. A radix
-//   select (4 passes instead of 31) is the known next step.
+//   the 50 MB L2, so the re-reads mostly hit L2 rather than HBM. The radix
+//   select of common.cuh (4 passes instead of 31, as K4 uses it) returns the
+//   same answer and is the known next step.
 //
 // K2 row_max_kernel replaces krr_tpu/ops/pallas_select.py:_rowmax_kernel.
 //   Same function as jnp.max over the valid prefix on XLA's CPU backend:
@@ -36,8 +37,12 @@
 //   propagates (written out by hand: fmaxf would drop it); canonical NaN for
 //   a NaN row or an empty row. The max is taken over an integer key that
 //   orders float32 totally, so it does not depend on the reduction order.
-//   Bound: bytes, one read of the row. One 256-thread block per row,
-//   coalesced strided loads, warp-shuffle + shared-memory block reduction.
+//   Bound: bytes, one read of the row. This design: one 256-thread block per
+//   row; each thread reads 16 bytes at a time, four loads in flight, after a
+//   scalar head up to the row's first 16-byte boundary (a row starts aligned
+//   only when t % 4 == 0) and before a scalar tail at the count. The work per
+//   sample is branch-free: NaN takes the key INT32_MAX, above every other
+//   value's, so one max reduction gives the peak and the NaN flag together.
 
 #include "common.cuh"
 
@@ -45,9 +50,8 @@ namespace {
 
 using krr::block_reduce;
 using krr::kCanonicalNan;
+using krr::kInt32Max;
 using krr::kInt32Min;
-using krr::kMagnitudeMask;
-using krr::kExponentBits;
 using krr::ordered_bits;
 
 constexpr int kSelectThreads = 1024;
@@ -92,26 +96,16 @@ row_max_kernel(const float* __restrict__ values, const int* __restrict__ counts,
                float* __restrict__ out, long long t) {
   __shared__ int scratch[33];
   const long long row = blockIdx.x;
-  const int count = counts[row];
-  const long long valid = min(static_cast<long long>(max(count, 0)), t);
-  if (valid <= 0) {
+  const int valid = static_cast<int>(min(static_cast<long long>(max(counts[row], 0)), t));
+  if (valid == 0) {
     if (threadIdx.x == 0) out[row] = __uint_as_float(kCanonicalNan);
     return;
   }
-  const float* __restrict__ v = values + row * t;
-  int best = kInt32Min;  // below every key of a non-NaN value
-  int saw_nan = 0;
-  for (long long i = threadIdx.x; i < valid; i += blockDim.x) {
-    const int bits = __float_as_int(v[i]);
-    if ((bits & kMagnitudeMask) > kExponentBits) {
-      saw_nan = 1;
-      continue;
-    }
-    best = max(best, krr::max_key(bits));
-  }
+  int best = kInt32Min;  // below every key of a valid sample
+  krr::visit_row(values + row * t, 0, valid, static_cast<int>(threadIdx.x), static_cast<int>(blockDim.x),
+                 [&](int, float x) { best = max(best, krr::nan_high_max_key(x)); });
   best = block_reduce<false>(best, scratch);
-  saw_nan = block_reduce<false>(saw_nan, scratch);
-  if (threadIdx.x == 0) out[row] = saw_nan ? __uint_as_float(kCanonicalNan) : krr::from_max_key(best);
+  if (threadIdx.x == 0) out[row] = best == kInt32Max ? __uint_as_float(kCanonicalNan) : krr::from_max_key(best);
 }
 
 }  // namespace

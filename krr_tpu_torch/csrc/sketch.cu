@@ -32,21 +32,31 @@
 // (and its _stage_bits).
 //   Same function: the top-min(K, n) multiset of the valid prefixes of the
 //   chunk and the state, as ordered bits (max(v, 0) with NaN kept, as K1).
-//   tau is the kv-th largest (kv = min(total, K)) by K1's bisection; slots
-//   [0, c_gt) hold the survivors (bits > tau), [c_gt, kv) copies of tau,
-//   [kv, K) -inf, each placed value the float of its ordered bits. The TPU
-//   kernel premasked padding to INT32_MAX and so dropped a valid sample whose
-//   bits are 0x7fffffff; this one skips positions past the counts and keeps it.
-//   Bound: bytes (one read of both prefixes, one write of the slots), but the
-//   bisection reads the row once per step, like K1. This design: one
-//   1024-thread block per row; the row's head (chunk prefix, then state
-//   prefix) is converted once into shared memory, the tail streams from
-//   global memory on each of the 31 steps; then two more passes compact the
-//   survivors: each thread counts its own, one block-wide scan (warp
-//   shuffles, then the 32 warp totals) gives each thread its first slot, and
-//   the second pass places them, so the slot order is deterministic. The TPU
-//   kernel's rank matmul and three-piece bf16 split worked around the MXU and
-//   are not needed here.
+//   tau is max(b, 0) for b the (total - kv)-th smallest ordered bits in
+//   signed order (kv = min(total, K)), which is what K1's 31-step bisection
+//   gives; slots [0, c_gt) hold the survivors (bits > tau), [c_gt, kv)
+//   copies of tau, [kv, K) -inf, each placed value the float of its ordered
+//   bits. The TPU kernel premasked padding to INT32_MAX and so dropped a
+//   valid sample whose bits are 0x7fffffff; this one skips positions past
+//   the counts and keeps it.
+//   Bound: bytes (one read of both prefixes, one write of the slots). This
+//   design: one 1024-thread block per row. The row's head (chunk prefix,
+//   then state prefix) is converted once into shared memory with 16-byte
+//   loads. tau comes from common.cuh's radix select: four passes of 8-bit
+//   digits over the cached head and the tail (streamed with 16-byte loads),
+//   against the 31 passes of the bisection it replaces. Then two more
+//   passes compact the survivors: each thread counts
+//   its own, one block-wide scan (warp shuffles, then the 32 warp totals)
+//   gives each thread its first slot, and the second pass places them in the
+//   same visit order, so the slot order is deterministic. Shared memory: a
+//   1,344-byte header (bin totals, pick, warp totals), the 32 KB lane-column
+//   histogram and a 192 KB cache of 49,152 ordered bits = 230,720 of the
+//   232,448 bytes a block may use; the histogram took 8K ints from the
+//   bisection's cache, so a 120,960-sample row re-reads a 71,808-sample tail
+//   (59%, against 63,616) on each of the five passes after the first. What
+//   bounds the passes now is an open question (PERF.md). The TPU kernel's
+//   rank matmul and three-piece bf16 split worked around the MXU and are not
+//   needed here.
 
 #include "common.cuh"
 
@@ -66,12 +76,17 @@ constexpr int kHistSmemBuckets = 48 * 1024;
 
 constexpr int kTopkThreads = 1024;
 constexpr int kTopkWarps = kTopkThreads / 32;
-// Shared-memory header: block_reduce scratch [0, 33), warp totals [64, 96),
-// warp offsets [96, 128), the survivor count at [128]; padded.
-constexpr int kTopkHeaderInts = 160;
-// Ordered bits of a row's head kept in shared memory: 57,344 ints + the
-// header = 230,016 bytes, inside the 232,448 bytes a block may use.
-constexpr int kTopkCacheInts = 56 * 1024;
+// Shared-memory header: the radix select's bin totals and pick
+// [0, kRadixPickInts), warp totals [264, 296), warp offsets [296, 328), the
+// survivor count at [328]; padded to 16 bytes. The radix histogram follows,
+// then the cache.
+constexpr int kTopkWarpTotals = 264;
+constexpr int kTopkHeaderInts = 336;
+// Ordered bits of a row's head kept in shared memory: 336 + 8,192 + 49,152
+// ints = 230,720 bytes, inside the 232,448 bytes a block may use.
+constexpr int kTopkCacheInts = 48 * 1024;
+static_assert(krr::kRadixPickInts <= kTopkWarpTotals, "header overlap");
+static_assert((kTopkHeaderInts + krr::kRadixHistInts + kTopkCacheInts) * 4 <= 232448, "shared memory");
 
 __device__ __forceinline__ int bucket_index(float v, float min_value, float log_gamma, float top) {
   if (v <= min_value) return 0;  // also negatives, zeros and -inf; NaN goes on
@@ -124,12 +139,13 @@ __global__ void __launch_bounds__(kTopkThreads)
 topk_select_kernel(const float* __restrict__ values, const int* __restrict__ counts,
                    const float* __restrict__ state, const int* __restrict__ state_counts,
                    float* __restrict__ out, long long t, long long s, int k, int cache_cap) {
-  extern __shared__ int smem[];
-  int* scratch = smem;
-  int* warp_totals = smem + 64;
-  int* warp_offsets = smem + 96;
-  int* survivors = smem + 128;
-  int* cache = smem + kTopkHeaderInts;
+  extern __shared__ __align__(16) int smem[];
+  int* pick = smem;
+  int* warp_totals = smem + kTopkWarpTotals;
+  int* warp_offsets = warp_totals + 32;
+  int* survivors = warp_offsets + 32;
+  int* hist = smem + kTopkHeaderInts;
+  int* cache = hist + krr::kRadixHistInts;
 
   const long long row = blockIdx.x;
   const int c = static_cast<int>(min(static_cast<long long>(max(counts[row], 0)), t));
@@ -148,32 +164,33 @@ topk_select_kernel(const float* __restrict__ values, const int* __restrict__ cou
     for (int slot = tid; slot < k; slot += stride) o[slot] = __uint_as_float(kNegInfBits);
     return;
   }
-  // Position p of the row is chunk[p] for p < c, else state[p - c].
-  const auto bits_at = [=](int p) { return ordered_bits(p < c ? v[p] : st[p - c]); };
+  // Position p of the row is chunk[p] for p < c, else state[p - c]; the
+  // cache holds positions [0, cached), the tail the rest of both prefixes.
   const int cached = min(total, cache_cap);
-  for (int p = tid; p < cached; p += stride) cache[p] = bits_at(p);
+  const int chunk_tail = min(cached, c);
+  const int state_tail = cached - chunk_tail;
+  krr::visit_row(v, 0, chunk_tail, tid, stride, [&](int p, float x) { cache[p] = ordered_bits(x); });
+  krr::visit_row(st, 0, state_tail, tid, stride, [&](int p, float x) { cache[c + p] = ordered_bits(x); });
   __syncthreads();
 
-  const int chunk_tail = min(cached, c);
-  const int state_tail = max(cached - c, 0);
-  const auto tail_le = [=](int mid) {
-    int le = 0;
-    for (int p = chunk_tail + tid; p < c; p += stride) le += ordered_bits(v[p]) <= mid;
-    for (int p = state_tail + tid; p < sc; p += stride) le += ordered_bits(st[p]) <= mid;
-    return le;
+  const auto visit_tail = [=](auto&& f) {
+    const auto key = [&](int, float x) { f(ordered_bits(x)); };
+    krr::visit_row(v, chunk_tail, c, tid, stride, key);
+    krr::visit_row(st, state_tail, sc, tid, stride, key);
   };
-  const int tau = krr::bisect_ordered(cache, cached, tail_le, total - kv, 31, scratch);
+  const int tau = krr::radix_select_ordered(cache, cached, visit_tail, total - kv, hist, pick);
 
   // Compact the survivors (bits > tau) into slots [0, c_gt): count each
-  // thread's survivors over its strided positions, scan the counts across
-  // the block (warp shuffles, then the 32 warp totals), and place them in a
-  // second pass — thread by thread, position by position, so the slot order
-  // is deterministic, with two barriers per row.
+  // thread's survivors over the keys it visits (the cache, then the tail),
+  // scan the counts across the block (warp shuffles, then the 32 warp
+  // totals), and place them in a second pass over the same keys in the same
+  // order, so the slot order is deterministic, with two barriers per row.
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const auto survivor_bits = [=](int p) { return p < cached ? cache[p] : bits_at(p); };
   int mine = 0;
-  for (int p = tid; p < total; p += stride) mine += survivor_bits(p) > tau;
+  const auto count = [&](int bits) { mine += bits > tau; };
+  krr::visit_cache(cache, cached, count);
+  visit_tail(count);
   int inclusive = mine;
   for (int offset = 1; offset < 32; offset <<= 1) {
     const int other = __shfl_up_sync(0xffffffffu, inclusive, offset);
@@ -193,13 +210,14 @@ topk_select_kernel(const float* __restrict__ values, const int* __restrict__ cou
   }
   __syncthreads();
   int slot = warp_offsets[warp] + inclusive - mine;
-  for (int p = tid; p < total; p += stride) {
-    const int bits = survivor_bits(p);
+  const auto place = [&](int bits) {
     if (bits > tau) {
       if (slot < k) o[slot] = __int_as_float(bits);
       ++slot;
     }
-  }
+  };
+  krr::visit_cache(cache, cached, place);
+  visit_tail(place);
   const int c_gt = *survivors;
   for (int slot = c_gt + tid; slot < k; slot += stride) {
     o[slot] = slot < kv ? __int_as_float(tau) : __uint_as_float(kNegInfBits);
@@ -228,7 +246,7 @@ int krr_topk_select(const float* values, const int* counts, const float* state, 
   if (n <= 0) return 0;
   const long long width = t + s;
   const int cache_cap = static_cast<int>(width < kTopkCacheInts ? width : kTopkCacheInts);
-  const int smem_bytes = (kTopkHeaderInts + cache_cap) * static_cast<int>(sizeof(int));
+  const int smem_bytes = (kTopkHeaderInts + krr::kRadixHistInts + cache_cap) * static_cast<int>(sizeof(int));
   cudaError_t err =
       cudaFuncSetAttribute(topk_select_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -236,6 +254,9 @@ int krr_topk_select(const float* values, const int* counts, const float* state, 
       values, counts, state, state_counts, out, t, s, k, cache_cap);
   return static_cast<int>(cudaGetLastError());
 }
+
+// The cache size, so a test can put the cache edge where it wants it.
+int krr_topk_cache_ints(void) { return kTopkCacheInts; }
 
 const char* krr_error_string(int code) { return cudaGetErrorString(static_cast<cudaError_t>(code)); }
 

@@ -112,8 +112,8 @@ def build_all(names: Optional[list[str]] = None) -> dict[str, dict]:
 
 def load(name: str, signatures: dict[str, list]) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built first if needed, with
-    ``argtypes`` set from ``signatures`` (every entry point returns a CUDA
-    error code as int) and ``krr_error_string`` declared."""
+    ``argtypes`` set from ``signatures`` (every entry point returns an int,
+    a launch's CUDA error code) and ``krr_error_string`` declared."""
     if name not in _LOADED:
         build_all([name])
         lib = ctypes.CDLL(str(library_path(name)))

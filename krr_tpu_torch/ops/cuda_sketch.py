@@ -65,6 +65,7 @@ _SIGNATURES = {
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
     ],
+    "krr_topk_cache_ints": [],
 }
 
 
@@ -173,6 +174,12 @@ def topk_select_plain(
     c_gt = (top > tau).sum(dim=1, keepdim=True, dtype=torch.int32)
     out = torch.where(slot < c_gt, top, torch.where(slot < kv[:, None], tau, neg_inf))
     return out.view(torch.float32)
+
+
+def topk_cache_ints() -> int:
+    """How many ordered bits of a row's head the ``topk_select`` kernel
+    keeps in shared memory; builds the kernel's library on first use."""
+    return _library().krr_topk_cache_ints()
 
 
 def topk_select(

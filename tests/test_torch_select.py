@@ -170,6 +170,39 @@ class TestMaxParity:
         assert_same(port, jax_quantile.masked_max(rows, counts))
 
 
+def nan_high_row_max(values: np.ndarray, counts: np.ndarray) -> np.ndarray:
+    """numpy model of the row-max kernel's one reduction: every NaN takes
+    the key INT32_MAX, every other value its total-order key (subnormal →
+    zero of its sign, negatives mirrored below +0.0); the row's answer is
+    the canonical NaN when the max key is INT32_MAX or the row is empty."""
+    bits = values.view(np.int32)
+    magnitude = bits & port_selection.MAGNITUDE_MASK
+    flushed = np.where(magnitude < port_selection.MIN_NORMAL_BITS, bits & np.int32(port_selection.INT32_MIN), bits)
+    key = np.where(flushed >= 0, flushed, flushed ^ port_selection.MAGNITUDE_MASK)
+    key = np.where(magnitude > port_selection.EXPONENT_BITS, port_selection.INT32_MAX, key)
+    valid = np.arange(values.shape[1])[None, :] < counts[:, None]
+    best = np.where(valid, key, port_selection.INT32_MIN).max(axis=1)
+    peak = np.where(best >= 0, best, best ^ port_selection.MAGNITUDE_MASK).astype(np.int32)
+    peak = np.where((best == port_selection.INT32_MAX) | (counts <= 0), 0x7FC00000, peak).astype(np.int32)
+    return peak.view(np.float32)
+
+
+class TestNanHighMaxKey:
+    @pytest.mark.parametrize("width", [1, 2, 3])
+    def test_orders_every_special_pattern_as_masked_max(self, width):
+        """Every row of ``width`` values drawn with repetition from the
+        edge patterns (those of ``chip_smoke.fuzz`` among them) and a few
+        normal values, one more position of padding holding NaN: the model
+        equals ``masked_max`` bit for bit, canonical NaN included."""
+        pool = np.concatenate([SPECIAL, np.array([0.25, 1e30, -1e30, -0.5], dtype=np.float32)])
+        grid = np.stack(np.meshgrid(*[np.arange(len(pool))] * width, indexing="ij"), axis=-1).reshape(-1, width)
+        values = np.concatenate([pool[grid], np.full((len(grid), 1), np.nan, dtype=np.float32)], axis=1)
+        counts = np.full(len(grid), width, dtype=np.int32)
+        counts[::7] = 0
+        port = port_quantile.masked_max(*port_tensors(values, counts)).numpy()
+        np.testing.assert_array_equal(port.view(np.int32), nan_high_row_max(values, counts).view(np.int32))
+
+
 class TestFleetExactParity:
     @pytest.mark.parametrize(
         "n, tc, tm", [(21, 700, 130), (13, 1, 450), (7, 0, 64), (7, 64, 0), (0, 32, 32)]

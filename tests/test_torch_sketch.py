@@ -432,6 +432,100 @@ class TestTopK:
         assert np.all(np.isnan(out[counts > 256]))
 
 
+# ----------------------------------------------------- the kernel's τ search
+
+
+def radix_tau(keys: np.ndarray, rank: int) -> int:
+    """numpy model of `csrc/common.cuh` ``radix_select_ordered``: flip the
+    sign bit (signed order → unsigned), then four 8-bit digits from the top,
+    each the smallest digit whose running count over the keys matching the
+    prefix passes the residual rank; the counts below it leave the residual.
+    A negative top digit ends the search at 0. Returns ``max(b, 0)`` for
+    ``b`` the rank-th smallest key."""
+    u = keys.astype(np.int32).view(np.uint32) ^ np.uint32(0x80000000)
+    prefix, mask, residual = 0, 0, rank
+    for shift in (24, 16, 8, 0):
+        candidates = u[(u & np.uint32(mask)) == np.uint32(prefix)]
+        hist = np.bincount((candidates >> np.uint32(shift)) & np.uint32(0xFF), minlength=256)
+        inclusive = np.cumsum(hist)
+        digit = int(np.argmax(inclusive > residual))
+        residual -= int(inclusive[digit] - hist[digit])
+        prefix |= digit << shift
+        mask |= 0xFF << shift
+        if shift == 24 and digit < 0x80:
+            return 0
+    return max(int(np.array(prefix ^ 0x80000000, dtype=np.uint32).view(np.int32)), 0)
+
+
+def edge_row_bits(seed: int, n: int, t: int) -> np.ndarray:
+    """Rows for the τ search: negative NaN payloads (negative keys), the
+    all-ones NaN 0x7fffffff, ±0.0, subnormals, negatives, digit edges and
+    all-equal rows, mixed into gamma samples at fractions up to 1."""
+    pool = np.array(
+        [0xFFC00000, 0xFFFFFFFF, 0xFF800001, 0x7FFFFFFF, 0x00000000, 0x80000000, 0x00000001, 0x807FFFFF,
+         0xBF800000, 0x7F800000, 0x7F7FFFFF, 0x3F800000, 0x3F7FFFFF, 0x00800000],
+        dtype=np.uint32,
+    ).view(np.float32)
+    rng = np.random.default_rng(seed)
+    values = rng.gamma(2.0, 0.05, size=(n, t)).astype(np.float32)
+    for r in range(n):
+        frac = (0.0, 0.3, 0.9, 1.0)[r % 4]
+        salted = rng.random(t) < frac
+        subset = pool[rng.permutation(len(pool))[: 1 + r % len(pool)]]
+        values[r, salted] = rng.choice(subset, int(salted.sum()))
+    values[n - 2] = 0.25  # all equal
+    values[n - 3] = pool[1]  # all negative keys
+    return values
+
+
+class TestRadixSelectModel:
+    """The kernel's radix select, modelled in numpy, returns the τ that
+    :func:`topk_select_plain` implies — what the bisection pins."""
+
+    @pytest.mark.parametrize("seed", [0, 1, 2])
+    def test_equals_the_sorted_rank(self, seed):
+        rng = np.random.default_rng(seed)
+        for size in (1, 2, 7, 300):
+            keys = rng.integers(-(2**31), 2**31, size=size, dtype=np.int64).astype(np.int32)
+            if seed == 1:
+                keys = keys[rng.integers(0, size, size)]  # ties
+            for rank in {0, size // 2, size - 1}:
+                assert radix_tau(keys, rank) == max(int(np.sort(keys)[rank]), 0)
+
+    @pytest.mark.parametrize("k", [1, 128, 1280])
+    @pytest.mark.parametrize("with_state", [False, True])
+    def test_matches_topk_select_plain(self, k, with_state):
+        """Rows with kv < total, kv == total (rank 0: counts at and below
+        K), an empty chunk (state-only when a state is given) and an empty
+        row; τ is the kv-th largest of the plain version's sorted slots."""
+        n, t, s = 24, 1500, 384
+        values = edge_row_bits(140 + k, n, t)
+        counts = np.full(n, t, dtype=np.int32)
+        counts[:4] = [min(k, t), max(min(k, t) - 1, 0), 1, 0]
+        args = port_tensors(values, counts)
+        state_keys = [np.zeros(0, dtype=np.int32)] * n
+        if with_state:
+            state = edge_row_bits(141 + k, n, s)
+            state_counts = np.random.default_rng(142).integers(0, s + 1, size=n).astype(np.int32)
+            state_counts[3] = s  # the empty-chunk row is state-only
+            args += port_tensors(state, state_counts)
+            state_bits = port_selection.as_ordered_bits(args[2]).numpy()
+            state_keys = [state_bits[r, : state_counts[r]] for r in range(n)]
+        plain = cuda_sketch.topk_select_plain(args[0], args[1], k, *args[2:]).numpy().view(np.int32)
+        chunk_bits = port_selection.as_ordered_bits(args[0]).numpy()
+        checked = 0
+        for r in range(n):
+            keys = np.concatenate([chunk_bits[r, : counts[r]], state_keys[r]])
+            if keys.size == 0:
+                continue
+            kv = min(keys.size, k)
+            tau = radix_tau(keys, keys.size - kv)
+            assert tau == np.sort(plain[r])[::-1][kv - 1], f"row {r}"
+            assert tau == max(int(np.sort(keys)[keys.size - kv]), 0)
+            checked += 1
+        assert checked >= n - 2  # at most rows 1 and 3 are empty
+
+
 # ---------------------------------------------------------------- wrappers
 
 
