@@ -9,8 +9,8 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
 2. ``build``   — compile every ``krr_tpu_torch/csrc/*.cu`` with nvcc for
    ``sm_90a`` (one nvcc per source, started together); count each kernel's
    global-load opcodes in its SASS (``cuobjdump -sass``, which must sit
-   beside ``nvcc``) and require 16-byte loads (``LDG.E.128``) in ``row_max``
-   and ``topk_select``.
+   beside ``nvcc``) and require 16-byte loads (``LDG.E.128``) in every
+   kernel.
 3. ``parity``  — each kernel against its plain PyTorch version on the same
    CUDA tensors, and the plain version on the card against the plain version
    on the CPU: fuzzed ragged rows salted with edge values (±0.0, negatives,
@@ -19,26 +19,38 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    of the ``simple`` scan; rows aimed at ``row_max``'s scalar head, 16-byte
    body and scalar tail (widths 1–3 past a multiple of 4, counts ending
    inside a ``float4``, a NaN or the peak only in the head or only in the
-   tail) and at ``topk_select``'s radix select (τ on negative NaN payloads,
-   on zeros and subnormals, digit-edge patterns, all-equal rows, counts of
-   K, K − 1 and 1, state-only rows, the cache edge inside the state, read
-   from the built library).
-   ``bisect_select``, ``row_max`` and the top-K rows
+   tail), at ``bisect_select``'s radix route (the rank on negative NaN
+   payloads, digits 0x00/0xff, all-equal rows, count 1, counts past the
+   width, whose answer is the NaN 0x7fffffff, q ∈ {0, 50, 99, 100, 120},
+   the cache edge inside, at and past the row, read from the built library)
+   and its bisection route (``num_iters`` ∈ {0, 1, 17, 30}), and at
+   ``topk_select``'s radix select (τ on negative NaN payloads, on zeros and
+   subnormals, digit-edge patterns, all-equal rows, counts of K, K − 1 and
+   1, state-only rows, the cache edge inside the state, read from the built
+   library). ``bisect_select``, ``row_max`` and the top-K rows
    of ``topk_select`` (sorted; K ∈ {128, 1280}, with and without a state)
    are bit-exact; ``digest_hist`` counts and peaks are bit-exact for
    B ∈ {16, 200, 2560} and for a B past shared memory (the global-memory
-   bins). Between the card and the CPU the digest's bucket indices may move
-   one bucket where ``log`` differs by an ulp at a bucket edge: the phase
-   counts those moves and checks each is one bucket, at an edge.
-4. ``headline`` — the benchmark shape (10,000 × 120,960 float32 for CPU and
+   bins and tables). Between the card and the CPU the digest's bucket
+   indices may move one bucket where ``log`` differs by an ulp at a bucket
+   edge: the phase counts those moves and checks each is one bucket, at an
+   edge.
+4. ``digest_proof`` — ``digest_hist`` takes a sample's bucket from tables
+   (an edge table and a coarse index), exact where the bucket formula is
+   monotone in the bit pattern: for each spec of the parity phase, the
+   kernel's formula and its table route on all 2^32 float32 bit patterns
+   must agree (mismatches, edges and the most edges in one 2^16-pattern
+   range are printed).
+5. ``headline`` — the benchmark shape (10,000 × 120,960 float32 for CPU and
    for memory, generated on the card from a seeded generator): CUDA-event
    medians of 5 of ``fleet_exact`` and of each kernel (``digest_hist`` at
-   B = 2,560, ``topk_select`` at K = 1,280), the plain version once, the
+   B = 2,560, on these rows and on idle rows of zeros, all in bucket 0;
+   ``topk_select`` at K = 1,280), the plain version once, the
    library yardsticks (``torch.kthvalue`` at the same rank, ``torch.amax``,
    ``torch.bincount`` of precomputed bucket indices — histogram only — and
    ``torch.topk``), each kernel's bound, and parity of the kernels with the
    plain versions; also ``row_max_main`` below.
-5. ``e2e``     — scans through ``Runner.run`` with in-memory inventory and
+6. ``e2e``     — scans through ``Runner.run`` with in-memory inventory and
    history sources: 10,000 objects × 3 pods, 40,320 CPU samples and 40,320
    raw memory samples per pod (7 days at 5 s) made with numpy from a seed,
    json output. Three paths, each with every launch count set to 0 just
@@ -193,8 +205,8 @@ def global_loads(cuda_build, report: dict) -> dict:
         for line in sass.splitlines():
             if "Function :" in line:
                 kernel = next((name for name in SASS_KERNELS if name in line), None)
-                if kernel:
-                    loads[kernel] = {}
+                if kernel:  # a template kernel has one function per instance
+                    loads.setdefault(kernel, {})
             elif kernel and (match := re.search(r"\b(LDG\.[A-Z0-9.]+)", line)):
                 loads[kernel][match.group(1)] = loads[kernel].get(match.group(1), 0) + 1
     return loads
@@ -212,7 +224,7 @@ def phase_build() -> None:
         for name, entry in report.items()
     }
     loads = global_loads(cuda_build, report)
-    for kernel in ("row_max_kernel", "topk_select_kernel"):
+    for kernel in SASS_KERNELS:
         check(any(op.startswith("LDG.E.128") for op in loads.get(kernel, {})),
               f"{kernel}: no 16-byte global load in its SASS: {loads.get(kernel)}")
     emit("build", seconds=seconds, sources=sorted(report), ptxas=ptxas, sass_global_loads=loads)
@@ -262,14 +274,15 @@ def row_max_edge_rows(np, seed: int, n: int, t: int):
     return values, counts
 
 
-#: Edge bit patterns for K4's radix select: negative NaN payloads (negative
-#: keys, which count toward the rank and give τ = +0.0), values whose
+#: Edge bit patterns for the radix select of K1 and K4: negative NaN
+#: payloads (negative keys, which count toward the rank and give +0.0 when
+#: it lands on one), values whose
 #: ordered bits are 0 (negatives, ±0.0, subnormals, -inf), and values whose
 #: digits are 0x00 or 0xff (+inf, the largest finite, the all-ones NaN,
 #: 1.0, the float just below 1.0, the smallest normal).
-TOPK_NEGATIVE_KEYS = (0xFFC00000, 0xFFFFFFFF, 0xFF800001)
-TOPK_ZERO_KEYS = (0xBF800000, 0x80000000, 0x00000000, 0x00000001, 0x807FFFFF, 0x800F0000, 0xFF800000)
-TOPK_DIGIT_EDGES = (0x7F7FFFFF, 0x7FFFFFFF, 0x7F800000, 0x7F800001, 0x3F800000, 0x3F7FFFFF, 0x3F800001,
+RADIX_NEGATIVE_KEYS = (0xFFC00000, 0xFFFFFFFF, 0xFF800001)
+RADIX_ZERO_KEYS = (0xBF800000, 0x80000000, 0x00000000, 0x00000001, 0x807FFFFF, 0x800F0000, 0xFF800000)
+RADIX_DIGIT_EDGES = (0x7F7FFFFF, 0x7FFFFFFF, 0x7F800000, 0x7F800001, 0x3F800000, 0x3F7FFFFF, 0x3F800001,
                     0x3F7FFF00, 0x00800000, 0x00FFFFFF)
 
 
@@ -291,11 +304,11 @@ def topk_edge_rows(np, seed: int, t: int, k: int):
 
     rows.append((np.full(t, 0.25, dtype=np.float32), t))
     for frac in (0.5, 0.9, 0.99, 1.0):
-        rows.append((mixed(TOPK_NEGATIVE_KEYS, frac), t))
-        rows.append((mixed(TOPK_ZERO_KEYS, frac), t))
-    rows.append((mixed(TOPK_NEGATIVE_KEYS + TOPK_ZERO_KEYS, 1.0), t))
-    rows.append((mixed(TOPK_DIGIT_EDGES, 1.0), t))
-    rows.append((mixed(TOPK_DIGIT_EDGES, 0.5), t))
+        rows.append((mixed(RADIX_NEGATIVE_KEYS, frac), t))
+        rows.append((mixed(RADIX_ZERO_KEYS, frac), t))
+    rows.append((mixed(RADIX_NEGATIVE_KEYS + RADIX_ZERO_KEYS, 1.0), t))
+    rows.append((mixed(RADIX_DIGIT_EDGES, 1.0), t))
+    rows.append((mixed(RADIX_DIGIT_EDGES, 0.5), t))
     # Exactly total - K negative keys (the rank lands on the smallest
     # non-negative key), and one more (it lands on a negative key).
     for extra in (0, 1):
@@ -303,7 +316,33 @@ def topk_edge_rows(np, seed: int, t: int, k: int):
         row[: max(t - k + extra, 0)] = np.array(0xFFC00000, dtype=np.uint32).view(np.float32)
         rows.append((rng.permutation(row), t))
     for count in (k, k - 1, 1, 0):
-        rows.append((mixed(TOPK_DIGIT_EDGES + TOPK_NEGATIVE_KEYS, 0.3), min(count, t)))
+        rows.append((mixed(RADIX_DIGIT_EDGES + RADIX_NEGATIVE_KEYS, 0.3), min(count, t)))
+    values = np.stack([row for row, _ in rows])
+    counts = np.array([count for _, count in rows], dtype=np.int32)
+    return values, counts
+
+
+def select_edge_rows(np, seed: int, t: int):
+    """Rows aimed at ``bisect_select``'s radix route at width ``t``: all-equal
+    rows, rows whose rank lands on negative NaN payloads (answer +0.0) or on
+    keys that read as 0, digit-edge rows, counts of 1, and counts past the
+    width (the rank, taken from the count, may pass the row's keys: answer
+    the NaN 0x7fffffff)."""
+    rng = np.random.default_rng(seed)
+
+    def mixed(pool, frac):
+        row = rng.gamma(2.0, 0.05, size=t).astype(np.float32)
+        salted = rng.random(t) < frac
+        row[salted] = np.array(pool, dtype=np.uint32).view(np.float32)[rng.integers(0, len(pool), int(salted.sum()))]
+        return row
+
+    rows = [(np.full(t, 0.25, dtype=np.float32), t), (np.full(t, -0.0, dtype=np.float32), t)]
+    for frac in (0.5, 0.9, 0.99, 1.0):
+        rows += [(mixed(RADIX_NEGATIVE_KEYS, frac), t), (mixed(RADIX_ZERO_KEYS, frac), t)]
+    rows += [(mixed(RADIX_DIGIT_EDGES, 1.0), t), (mixed(RADIX_DIGIT_EDGES, 0.5), t)]
+    rows += [(mixed(RADIX_DIGIT_EDGES + RADIX_NEGATIVE_KEYS, 0.3), 1), (mixed(RADIX_NEGATIVE_KEYS, 1.0), 1)]
+    for count in (t + 1, t + 7, 2 * t, 100 * t):
+        rows.append((mixed(RADIX_DIGIT_EDGES + RADIX_NEGATIVE_KEYS, 0.2), count))
     values = np.stack([row for row, _ in rows])
     counts = np.array([count for _, count in rows], dtype=np.int32)
     return values, counts
@@ -321,7 +360,7 @@ def main_path_memory(torch, np):
 def phase_parity(torch, np) -> dict:
     from krr_tpu_torch.ops import cuda_select
     from krr_tpu_torch.ops.quantile import masked_max
-    from krr_tpu_torch.ops.selection import masked_percentile_bisect
+    from krr_tpu_torch.ops.selection import masked_percentile_bisect, selection_rank
 
     dev = torch.device(DEVICE)
     shapes = [(300, 1), (257, 31), (301, 1000), (129, 4097), (97, 8191), (64, 8192), (24, 70_001),
@@ -381,6 +420,36 @@ def phase_parity(torch, np) -> dict:
             plain = cuda_select.fleet_exact_plain(*args, q)
             check(same_bits(torch, kernel, plain), f"fleet_exact != plain at n={n} tc={tc} tm={tm} q={q}")
             cases += 1
+    # bisect_select's radix route: the rows above, with the cache edge just
+    # inside, at and past the row; and fewer steps than 31 (the bisection).
+    cache_ints = cuda_select.select_cache_ints()
+    for t in (300, cache_ints - 3, cache_ints, cache_ints + 5, 70_001):
+        values, counts = select_edge_rows(np, 800 + t, t)
+        v_cpu, c_cpu = torch.from_numpy(values), torch.from_numpy(counts)
+        v, c = v_cpu.to(dev), c_cpu.to(dev)
+        for q in (0.0, 50.0, 99.0, 100.0, 120.0):
+            kernel = cuda_select.masked_percentile_bisect_cuda(v, c, q)
+            plain = masked_percentile_bisect(v, c, q)
+            check(same_bits(torch, kernel, plain), f"bisect_select != plain on the radix rows at t={t} q={q}")
+            check(same_bits(torch, plain, masked_percentile_bisect(v_cpu, c_cpu, q)),
+                  f"plain bisect on the card != on the CPU on the radix rows at t={t} q={q}")
+            # Rows whose rank passes their keys (counts past the width; some at q >= 99).
+            past = (selection_rank(c_cpu, q) >= c_cpu.clamp(max=t)) & (c_cpu > 0)
+            check(bool((kernel.cpu().view(torch.int32)[past] == 0x7FFFFFFF).all()) and (q < 99 or bool(past.any())),
+                  f"bisect_select: a rank past the row's keys did not give 0x7fffffff at t={t} q={q}")
+            cases += 1
+        for num_iters in (0, 1, 17, 30):
+            kernel = cuda_select.masked_percentile_bisect_cuda(v, c, 99.0, num_iters=num_iters)
+            plain = masked_percentile_bisect(v, c, 99.0, num_iters=num_iters)
+            check(same_bits(torch, kernel, plain), f"bisect_select != plain at t={t} num_iters={num_iters}")
+            cases += 1
+    for num_iters in (0, 1, 17, 30):
+        values, counts = fuzz(np, 900 + num_iters, 33, 4097)
+        v, c = torch.from_numpy(values).to(dev), torch.from_numpy(counts).to(dev)
+        kernel = cuda_select.masked_percentile_bisect_cuda(v, c, 50.0, num_iters=num_iters)
+        check(same_bits(torch, kernel, masked_percentile_bisect(v, c, 50.0, num_iters=num_iters)),
+              f"bisect_select != plain on fuzzed rows at num_iters={num_iters}")
+        cases += 1
     sketch_cases, bucket_moves = sketch_parity(torch, np, errs)
     torch.cuda.synchronize()
     emit("parity", cases=cases + sketch_cases, bit_exact=True, max_abs_err=errs,
@@ -605,6 +674,17 @@ def phase_sketch_headline(torch, np) -> dict:
     plain_hist, plain_peak = cuda_sketch.digest_hist_plain(cpu, counts, b, DIGEST_MIN_VALUE, DIGEST_LOG_GAMMA)
     check(same_bits(torch, hist, plain_hist) and same_bits(torch, peak, plain_peak), "headline digest_hist != plain")
     del plain_hist, plain_peak
+    # Idle rows (an idle container's CPU reads 0): every sample in bucket 0,
+    # so the atomics of a block all hit one bin.
+    idle = torch.zeros_like(cpu)
+    idle_times = cuda_ms(torch, lambda: cuda_sketch.digest_hist(idle, counts, b, DIGEST_MIN_VALUE, DIGEST_LOG_GAMMA))
+    idle_hist, idle_peak = cuda_sketch.digest_hist(idle, counts, b, DIGEST_MIN_VALUE, DIGEST_LOG_GAMMA)
+    plain_hist, plain_peak = cuda_sketch.digest_hist_plain(idle, counts, b, DIGEST_MIN_VALUE, DIGEST_LOG_GAMMA)
+    check(same_bits(torch, idle_hist, plain_hist) and same_bits(torch, idle_peak, plain_peak),
+          "headline digest_hist != plain on the idle rows")
+    check(bool((idle_hist[:, 0] == t).all()), "idle rows: not every sample in bucket 0")
+    del idle, idle_hist, idle_peak, plain_hist, plain_peak
+    torch.cuda.empty_cache()
     # The library yardstick: one bincount over precomputed flat bucket indices
     # (the histogram alone, no bucketize and no peak).
     flat = cuda_sketch.bucket_indices(cpu, b, DIGEST_MIN_VALUE, DIGEST_LOG_GAMMA).to(torch.int64)
@@ -640,6 +720,8 @@ def phase_sketch_headline(torch, np) -> dict:
             "buckets": b, "ms": statistics.median(digest_times), "runs_ms": digest_times, "plain_ms": plain_digest_ms,
             "library_ms": statistics.median(bincount_times), "library": "torch.bincount (histogram only)",
             "bound_ms": digest_bound[0], "bound_by": digest_bound[1], "max_abs_err": 0.0,
+            "idle_rows_ms": statistics.median(idle_times), "idle_rows_runs_ms": idle_times,
+            "idle_over_random": statistics.median(idle_times) / statistics.median(digest_times),
         },
         "topk_select": {
             "k": k, "ms": statistics.median(topk_times), "runs_ms": topk_times, "plain_ms": plain_topk_ms,
@@ -649,6 +731,24 @@ def phase_sketch_headline(torch, np) -> dict:
     }
     emit("headline_sketch", **headline)
     return headline
+
+
+def phase_digest_proof() -> dict:
+    """The proof behind ``digest_hist``'s bucket tables: for each spec the
+    parity phase uses (B ∈ {16, 200, 2,560, 60,000} at min 1e-7, γ = 1.01),
+    the kernel's own bucket formula and its table route on all 2^32 float32
+    bit patterns, on the card. Zero mismatches, or the phase fails."""
+    from krr_tpu_torch.ops import cuda_sketch
+
+    specs = {}
+    for buckets in (16, 200, DIGEST_BUCKETS, 60_000):
+        started = time.perf_counter()
+        report = cuda_sketch.digest_table_check(buckets, DIGEST_MIN_VALUE, DIGEST_LOG_GAMMA)
+        report["seconds"] = time.perf_counter() - started
+        check(report["mismatches"] == 0, f"digest tables != bucket formula at B={buckets}: {report}")
+        specs[str(buckets)] = report
+    emit("digest_proof", patterns=2**32, min_value=DIGEST_MIN_VALUE, log_gamma=DIGEST_LOG_GAMMA, specs=specs)
+    return specs
 
 
 class _Inventory:
@@ -805,9 +905,9 @@ def phase_e2e(np, seed: int = 0) -> dict:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
-        "--phases", default="build,parity,headline,e2e",
-        help="comma-separated subset of build,parity,headline,e2e,row_max_main (default: the first "
-        "four; the kernels line and the ok line need all four)",
+        "--phases", default="build,parity,digest_proof,headline,e2e",
+        help="comma-separated subset of build,parity,digest_proof,headline,e2e,row_max_main (default: "
+        "the first five; the kernels line and the ok line need all five)",
     )
     args = parser.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -837,12 +937,13 @@ def main(argv=None) -> int:
     if "row_max_main" in phases:
         timed("row_max_main", phase_row_max_main, torch, np)
     parity = timed("parity", phase_parity, torch, np) if "parity" in phases else None
+    proof = timed("digest_proof", phase_digest_proof) if "digest_proof" in phases else None
     headline = timed("headline", phase_headline, torch, np) if "headline" in phases else None
     if headline is not None:
         headline.update(timed("headline_sketch", phase_sketch_headline, torch, np))
     e2e = timed("e2e", phase_e2e, np) if "e2e" in phases else None
     emit("walls", seconds=walls)
-    if headline is None or e2e is None or parity is None or "build" not in phases:
+    if headline is None or e2e is None or parity is None or proof is None or "build" not in phases:
         print(smi)
         return 0
     kernels = []

@@ -1,10 +1,10 @@
 // Device helpers shared by the port's kernels (select.cu, sketch.cu): the
 // ordered-bits map of the exact selection, the reference's float32 rank, a
 // block-wide reduction, the total-order keys of the NaN-propagating max, a
-// row visitor with 16-byte loads, the bit-space bisection loop and the radix
-// select that returns the same answer. ops/cuda_build.py hashes this header
-// into the name of every library it builds, so an edit here rebuilds every
-// kernel.
+// row visitor with 16-byte loads, the bit-space bisection loop, the radix
+// select that returns the same answer, and the head-cached row that K1 and
+// K4 run it over. ops/cuda_build.py hashes this header into the name of
+// every library it builds, so an edit here rebuilds every kernel.
 
 #pragma once
 
@@ -169,11 +169,12 @@ __device__ __forceinline__ int bisect_ordered(const int* cache, int cached, Tail
 
 // Shared memory of radix_select_ordered: the digit histogram, one column per
 // lane ([bin][lane], so the 32 lanes of a warp never hit one bank or one
-// address, however hot a bin), and the bin totals plus the picked digit and
-// residual rank.
+// address, however hot a bin), the bin totals plus the picked digit, the
+// residual rank and the candidate count, and the candidate buffer.
 constexpr int kRadixBins = 256;
 constexpr int kRadixHistInts = kRadixBins * 32;
-constexpr int kRadixPickInts = kRadixBins + 2;
+constexpr int kRadixPickInts = kRadixBins + 3;
+constexpr int kRadixCandidates = 2048;
 
 // The answer of bisect_ordered at 31 steps, by an MSB-first radix select:
 // max(b, 0) where b is the rank-th smallest (0-based) of the row's ordered
@@ -181,39 +182,60 @@ constexpr int kRadixPickInts = kRadixBins + 2;
 // negative key (a NaN with its sign bit set) counts toward the rank but can
 // never be the answer. The row is the same as bisect_ordered's: `cached`
 // ordered bits in shared memory (16-byte aligned) plus what
-// `visit_tail(f)` hands to f(key) for this thread.
+// `visit_tail(f)` hands to f(key) for this thread. The rank must be below
+// the row's key count: past it no digit passes the residual rank.
 //
 // u = bits ^ 0x80000000 turns signed order into unsigned order. Four passes
 // of 8-bit digits, each a histogram of the current digit over the keys whose
 // higher digits equal the prefix found so far, then a scan of the bins for
 // the digit where the running count passes the residual rank. 8 bits because
 // a lane-column histogram of 11 bits (2048 x 32 ints) would not fit beside
-// the cache. A negative first digit ends the search at 0.
+// the cache. A negative first digit ends the search at 0. The third pass
+// also copies the keys that match the 16-bit prefix into `candidates`; when
+// they fit (a few hundred on a row of spread values, against ties that
+// overflow it), the last pass reads them instead of the row.
 //
 // Every thread of the block calls it and gets the answer; `hist` holds
-// kRadixHistInts ints (16-byte aligned) and `pick` kRadixPickInts;
-// blockDim.x is a multiple of 32.
+// kRadixHistInts ints (16-byte aligned), `pick` kRadixPickInts and
+// `candidates` kRadixCandidates; blockDim.x is a multiple of 32.
 template <typename TailVisit>
 __device__ __forceinline__ int radix_select_ordered(const int* cache, int cached, TailVisit visit_tail, int rank,
-                                                    int* hist, int* pick) {
+                                                    int* hist, int* pick, int* candidates) {
   const int tid = static_cast<int>(threadIdx.x);
   const int stride = static_cast<int>(blockDim.x);
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int warps = stride >> 5;
+  int* found = pick + kRadixBins + 2;  // keys matching the 16-bit prefix
   unsigned prefix = 0u;  // the digits found so far, in place
   unsigned mask = 0u;    // their bit positions
   int residual = rank;   // the rank among the keys that match the prefix
+  if (tid == 0) *found = 0;  // ordered before the third pass by the first pass's barriers
   for (int shift = 24; shift >= 0; shift -= 8) {
     int4* hist4 = reinterpret_cast<int4*>(hist);
     for (int i = tid; i < kRadixHistInts / 4; i += stride) hist4[i] = make_int4(0, 0, 0, 0);
     __syncthreads();
-    const auto count = [&](int key) {
-      const unsigned u = static_cast<unsigned>(key) ^ 0x80000000u;
-      if ((u & mask) == prefix) atomicAdd(&hist[((u >> shift) & 0xffu) * 32 + lane], 1);
-    };
-    visit_cache(cache, cached, count);
-    visit_tail(count);
+    const int buffered = shift == 0 ? *found : kRadixCandidates + 1;  // final after the third pass
+    if (buffered <= kRadixCandidates) {
+      for (int i = tid; i < buffered; i += stride) {
+        const unsigned u = static_cast<unsigned>(candidates[i]) ^ 0x80000000u;
+        if ((u & mask) == prefix) atomicAdd(&hist[(u & 0xffu) * 32 + lane], 1);
+      }
+    } else {
+      const bool collect = shift == 8;
+      const auto count = [&](int key) {
+        const unsigned u = static_cast<unsigned>(key) ^ 0x80000000u;
+        if ((u & mask) == prefix) {
+          atomicAdd(&hist[((u >> shift) & 0xffu) * 32 + lane], 1);
+          if (collect) {
+            const int slot = atomicAdd(found, 1);
+            if (slot < kRadixCandidates) candidates[slot] = key;
+          }
+        }
+      };
+      visit_cache(cache, cached, count);
+      visit_tail(count);
+    }
     __syncthreads();
     for (int b = warp; b < kRadixBins; b += warps) {
       int total = hist[b * 32 + lane];
@@ -248,6 +270,58 @@ __device__ __forceinline__ int radix_select_ordered(const int* cache, int cached
     if (shift == 24 && digit < 0x80u) return 0;  // the key is negative: the answer is 0
   }
   return max(static_cast<int>(prefix ^ 0x80000000u), 0);
+}
+
+// Ordered bits of a row kept in shared memory by K1 and K4 beside the radix
+// histogram and the candidates: 46K ints (184 KB).
+constexpr int kRadixCacheInts = 46 * 1024;
+
+// A row of ordered bits read as two segments, one after the other: a[0, na)
+// then b[0, nb) (K4's chunk and state; K1 passes nb = 0). Its head,
+// positions [0, cached), is converted once into a shared-memory cache; its
+// tail is streamed from global memory with 16-byte loads on every pass.
+// Every thread of the block builds the same CachedRow.
+struct CachedRow {
+  const float* a;
+  int na;
+  const float* b;
+  int nb;
+  int cached;  // positions in the cache: a's head, then b's
+  int a_head;
+  int b_head;
+
+  __device__ __forceinline__ CachedRow(const float* a_, int na_, const float* b_, int nb_, int cache_cap)
+      : a(a_), na(na_), b(b_), nb(nb_), cached(min(na_ + nb_, cache_cap)), a_head(min(cached, na_)),
+        b_head(cached - a_head) {}
+
+  // Converts the head into `cache` (16-byte aligned), then a barrier.
+  __device__ __forceinline__ void fill(int* cache) const {
+    const int tid = static_cast<int>(threadIdx.x);
+    const int stride = static_cast<int>(blockDim.x);
+    visit_row(a, 0, a_head, tid, stride, [&](int p, float x) { cache[p] = ordered_bits(x); });
+    visit_row(b, 0, b_head, tid, stride, [&](int p, float x) { cache[na + p] = ordered_bits(x); });
+    __syncthreads();
+  }
+
+  // Calls f(key) for this thread's share of the tail, in a fixed order.
+  template <typename F>
+  __device__ __forceinline__ void visit_tail(F&& f) const {
+    const int tid = static_cast<int>(threadIdx.x);
+    const int stride = static_cast<int>(blockDim.x);
+    const auto key = [&](int, float x) { f(ordered_bits(x)); };
+    visit_row(a, a_head, na, tid, stride, key);
+    visit_row(b, b_head, nb, tid, stride, key);
+  }
+};
+
+// Fills the row's cache, then radix_select_ordered over the cache and the
+// tail: max(b, 0) for b the rank-th smallest key. The rank must be below the
+// row's key count (the digit walk has no digit to pick past it).
+__device__ __forceinline__ int cached_radix_select(const CachedRow& row, int* cache, int rank, int* hist, int* pick,
+                                                   int* candidates) {
+  row.fill(cache);
+  return radix_select_ordered(
+      cache, row.cached, [&](auto&& f) { row.visit_tail(f); }, rank, hist, pick, candidates);
 }
 
 }  // namespace krr

@@ -1,10 +1,11 @@
 // Hand-written Hopper (sm_90a) kernels for the exact `simple` strategy device
-// program: per-row CPU percentile by bit-space bisection, and per-row memory
-// peak. Built by nvcc into a shared library with a plain C interface and
+// program: per-row exact CPU percentile over the ordered bits, and per-row
+// memory peak. Built by nvcc into a shared library with a plain C interface and
 // loaded with ctypes (krr_tpu_torch/ops/cuda_build.py); the wrappers, the
 // input checks and the launch counters live in krr_tpu_torch/ops/cuda_select.py;
 // the device helpers (ordered bits, rank, block reduction, max keys, the row
-// visitor, the bisection loop) are shared with sketch.cu through common.cuh.
+// visitor, the bisection loop, the radix select over a head-cached row) are
+// shared with sketch.cu through common.cuh.
 //
 // Both kernels take a row-major [n, t] float32 matrix whose row i holds
 // counts[i] valid samples, left-justified; positions at or past counts[i]
@@ -15,21 +16,31 @@
 //   Same function: float -> value-monotone int32 bits (NaN keeps its bits;
 //   negatives, -0.0 and subnormals -> 0, as jnp.maximum(v, 0.0) gives on
 //   XLA's CPU backend), rank floor((n-1)*q/100) in float32 clamped into
-//   [0, n-1], 31 bisection steps over [0, INT32_MAX], canonical NaN for an
-//   empty row. The TPU kernel premasked invalid positions to INT32_MAX; this
-//   one skips them, which counts the same set for every mid < INT32_MAX.
-//   Bound: bytes. The least work reads the row once (4 B/sample), but
-//   bisection reads it once per step. A 120,960-sample row is 484 KB and
-//   does not fit the 227 KB of shared memory a block may use, so the TPU
-//   design (whole row tile resident in VMEM for all 31 steps) does not carry
-//   over. This design: one 1024-thread block per row; the first
-//   kSelectCacheInts ordered bits of the row are converted once into shared
-//   memory (~47% of a 7-day @ 5 s row), and each of the 31 steps counts the
-//   cached head from shared memory and streams the tail from global memory.
-//   With one such block per SM the 132 tails in flight (~254 KB each) fit
-//   the 50 MB L2, so the re-reads mostly hit L2 rather than HBM. The radix
-//   select of common.cuh (4 passes instead of 31, as K4 uses it) returns the
-//   same answer and is the known next step.
+//   [0, n-1], num_iters bisection steps over [0, INT32_MAX], canonical NaN
+//   for an empty row. The TPU kernel premasked invalid positions to
+//   INT32_MAX; this one skips them, which counts the same set for every
+//   mid < INT32_MAX.
+//   Bound: bytes. The least work reads the row once (4 B/sample); a
+//   120,960-sample row is 484 KB and does not fit the 227 KB of shared
+//   memory a block may use, so the TPU design (the whole row tile resident in
+//   VMEM for all 31 steps, each step one pass over it) does not carry over:
+//   31 passes over a row that does not fit meant 31 re-reads of its tail.
+//   This design: one 1024-thread block per row, the same shared layout and
+//   helper as K4 (common.cuh CachedRow, cached_radix_select). The first
+//   46K ordered bits of the row are converted once into shared memory with
+//   16-byte loads; at 31 steps (every call of the scans) the answer comes
+//   from the radix select, 8-bit digit passes over the cache and the tail
+//   (streamed with 16-byte loads) that give what the 31 steps pin:
+//   max(b, 0) for b the rank-th smallest key in signed order. The third
+//   pass keeps the keys that match the top 16 bits in a shared buffer (a few
+//   hundred on a row of spread values), so the fourth reads them instead of
+//   the row when they fit: the tail is read three times, not 31. The rank
+//   comes from counts[i], the keys stop at the width t: a rank past the keys
+//   (counts[i] > t) never satisfies a bisection step, which climbs to
+//   INT32_MAX (the NaN 0x7fffffff), and the digit walk would have no digit
+//   to pick, so that case is decided before the select. Fewer than 31 steps
+//   stop the bisection part way by definition and keep it: one pass over the
+//   cache and the tail per step.
 //
 // K2 row_max_kernel replaces krr_tpu/ops/pallas_select.py:_rowmax_kernel.
 //   Same function as jnp.max over the valid prefix on XLA's CPU backend:
@@ -52,43 +63,55 @@ using krr::block_reduce;
 using krr::kCanonicalNan;
 using krr::kInt32Max;
 using krr::kInt32Min;
-using krr::ordered_bits;
 
 constexpr int kSelectThreads = 1024;
 constexpr int kMaxThreads = 256;
-// Shared-memory header: 32 warp partials + the block total, padded.
-constexpr int kHeaderInts = 64;
-// Ordered bits of a row's head kept in shared memory: 57,344 ints + the
-// header = 229,632 bytes, inside the 232,448 bytes a block may use.
-constexpr int kSelectCacheInts = 56 * 1024;
+// Shared-memory header: the radix select's bin totals and pick
+// [0, kRadixPickInts), the bisection's reduction scratch [264, 297); padded to
+// 16 bytes. The radix histogram follows, then the candidates, then the
+// cache: 304 + 8,192 + 2,048 + 47,104 ints = 230,592 bytes, inside the
+// 232,448 bytes a block may use.
+constexpr int kSelectScratch = 264;
+constexpr int kSelectHeaderInts = 304;
+constexpr int kSelectFixedInts = kSelectHeaderInts + krr::kRadixHistInts + krr::kRadixCandidates;
+static_assert(krr::kRadixPickInts <= kSelectScratch, "header overlap");
+static_assert((kSelectFixedInts + krr::kRadixCacheInts) * 4 <= 232448, "shared memory");
+static_assert(kSelectFixedInts % 4 == 0, "the cache is 16-byte aligned");
 
 __global__ void __launch_bounds__(kSelectThreads)
 bisect_select_kernel(const float* __restrict__ values, const int* __restrict__ counts,
                      float* __restrict__ out, long long t, int cache_cap, float q, int num_iters) {
-  extern __shared__ int smem[];
-  int* scratch = smem;
-  int* cache = smem + kHeaderInts;
+  extern __shared__ __align__(16) int smem[];
+  int* pick = smem;
+  int* scratch = smem + kSelectScratch;
+  int* hist = smem + kSelectHeaderInts;
+  int* candidates = hist + krr::kRadixHistInts;
+  int* cache = smem + kSelectFixedInts;
 
   const long long row = blockIdx.x;
   const int count = counts[row];
-  const long long valid = min(static_cast<long long>(max(count, 0)), t);
   if (count <= 0) {
     if (threadIdx.x == 0) out[row] = __uint_as_float(kCanonicalNan);
     return;
   }
-  const float* __restrict__ v = values + row * t;
-  const int cached = static_cast<int>(min(valid, static_cast<long long>(cache_cap)));
-  const int stride = static_cast<int>(blockDim.x);
-  for (int i = static_cast<int>(threadIdx.x); i < cached; i += stride) cache[i] = ordered_bits(v[i]);
-  __syncthreads();
-
-  const auto tail_le = [=](int mid) {
-    int le = 0;
-    for (long long i = cached + threadIdx.x; i < valid; i += blockDim.x) le += ordered_bits(v[i]) <= mid;
-    return le;
-  };
-  const int lo = krr::bisect_ordered(cache, cached, tail_le, krr::selection_rank(count, q), num_iters, scratch);
-  if (threadIdx.x == 0) out[row] = __int_as_float(lo);
+  const int valid = static_cast<int>(min(static_cast<long long>(count), t));
+  const int rank = krr::selection_rank(count, q);
+  const krr::CachedRow keys(values + row * t, valid, nullptr, 0, cache_cap);
+  int answer;
+  if (num_iters < 31) {
+    keys.fill(cache);
+    const auto tail_le = [&](int mid) {
+      int le = 0;
+      keys.visit_tail([&](int key) { le += key <= mid; });
+      return le;
+    };
+    answer = krr::bisect_ordered(cache, keys.cached, tail_le, rank, num_iters, scratch);
+  } else if (rank >= valid) {
+    answer = kInt32Max;  // no step finds rank + 1 keys: the bisection climbs to INT32_MAX
+  } else {
+    answer = krr::cached_radix_select(keys, cache, rank, hist, pick, candidates);
+  }
+  if (threadIdx.x == 0) out[row] = __int_as_float(answer);
 }
 
 __global__ void __launch_bounds__(kMaxThreads)
@@ -115,8 +138,8 @@ extern "C" {
 int krr_bisect_select(const float* values, const int* counts, float* out, int n, long long t, float q,
                       int num_iters, void* stream) {
   if (n <= 0) return 0;
-  const int cache_cap = static_cast<int>(t < kSelectCacheInts ? t : kSelectCacheInts);
-  const int smem_bytes = (kHeaderInts + cache_cap) * static_cast<int>(sizeof(int));
+  const int cache_cap = static_cast<int>(t < krr::kRadixCacheInts ? t : krr::kRadixCacheInts);
+  const int smem_bytes = (kSelectFixedInts + cache_cap) * static_cast<int>(sizeof(int));
   cudaError_t err =
       cudaFuncSetAttribute(bisect_select_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -130,6 +153,9 @@ int krr_row_max(const float* values, const int* counts, float* out, int n, long 
   row_max_kernel<<<n, kMaxThreads, 0, static_cast<cudaStream_t>(stream)>>>(values, counts, out, t);
   return static_cast<int>(cudaGetLastError());
 }
+
+// The cache size, so a test can put the cache edge where it wants it.
+int krr_select_cache_ints(void) { return krr::kRadixCacheInts; }
 
 const char* krr_error_string(int code) { return cudaGetErrorString(static_cast<cudaError_t>(code)); }
 

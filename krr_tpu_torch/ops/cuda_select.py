@@ -4,8 +4,9 @@ Replaces `krr_tpu/ops/pallas_select.py`. Two hand-written kernels
 (`krr_tpu_torch/csrc/select.cu`, where each kernel's note says what it
 replaces, what bounds it on the card and what its design does about it):
 
-* ``bisect_select`` — per-row exact percentile by 31-step bit-space
-  bisection (the JAX package's ``_bisect_kernel``);
+* ``bisect_select`` — per-row exact percentile over the ordered bits: what
+  31 bit-space bisection steps pin, found by a radix select, or fewer
+  bisection steps when asked for (the JAX package's ``_bisect_kernel``);
 * ``row_max`` — per-row NaN-propagating max (``_rowmax_kernel``).
 
 Each wrapper checks device, dtype, shape and contiguity and raises on
@@ -43,6 +44,7 @@ _SIGNATURES = {
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_longlong, ctypes.c_void_p,
     ],
+    "krr_select_cache_ints": [],
 }
 
 
@@ -73,6 +75,12 @@ def check_rows(values: torch.Tensor, counts: torch.Tensor, what: str) -> None:
         raise ValueError(f"{what}: values and counts must be contiguous")
     if values.shape[0] > 2**31 - 1:
         raise ValueError(f"{what}: {values.shape[0]} rows exceed the kernel grid")
+
+
+def select_cache_ints() -> int:
+    """How many ordered bits of a row's head the ``bisect_select`` kernel
+    keeps in shared memory; builds the kernel's library on first use."""
+    return _library().krr_select_cache_ints()
 
 
 def _check_iters(num_iters: int) -> None:

@@ -58,8 +58,12 @@ NEG_INF_BITS = int(np.array(-np.inf, dtype=np.float32).view(np.int32))
 _SOURCE = "sketch"
 _SIGNATURES = {
     "krr_digest_hist": [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
+    ],
+    "krr_digest_table_ints": [ctypes.c_int, ctypes.c_float, ctypes.c_float],
+    "krr_digest_table_check": [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
     ],
     "krr_topk_select": [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -109,6 +113,24 @@ def digest_hist_plain(
     return hist, max_where(values, valid, float("-inf"))
 
 
+def _check_spec(num_buckets: int, min_value: float, log_gamma: float, what: str) -> None:
+    """Raise unless ``B ≥ 2`` and ``min_value`` and ``log γ`` are positive
+    and finite in float32 — the specs the digest kernel's tables take."""
+    if num_buckets < 2:
+        raise ValueError(f"{what}: num_buckets must be at least 2, got {num_buckets}")
+    for name, value in (("min_value", min_value), ("log_gamma", log_gamma)):
+        value32 = np.float32(value)
+        if not (np.isfinite(value32) and value32 > 0):
+            raise ValueError(f"{what}: {name} must be positive and finite in float32, got {value}")
+
+
+def _tables(lib: ctypes.CDLL, num_buckets: int, min_value: float, log_gamma: float, device) -> torch.Tensor:
+    """Scratch for the kernel's bucket tables (the edge table, then the
+    coarse table), which the library builds on the card at every call."""
+    ints = lib.krr_digest_table_ints(num_buckets, min_value, log_gamma)
+    return torch.empty((ints,), dtype=torch.int32, device=device)
+
+
 def digest_hist(
     values: torch.Tensor, eff_counts: torch.Tensor, num_buckets: int, min_value: float, log_gamma: float
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -117,8 +139,7 @@ def digest_hist(
     CUDA tensor, :func:`digest_hist_plain` on a CPU tensor. The peak is −inf
     for an empty row and NaN for a row holding NaN."""
     check_rows(values, eff_counts, "digest_hist")
-    if num_buckets < 2:
-        raise ValueError(f"digest_hist: num_buckets must be at least 2, got {num_buckets}")
+    _check_spec(num_buckets, min_value, log_gamma, "digest_hist")
     if values.device.type == "cpu":
         return digest_hist_plain(values, eff_counts, num_buckets, min_value, log_gamma)
     n, t = values.shape
@@ -127,15 +148,45 @@ def digest_hist(
     if n == 0:
         return hist, peak
     lib = _library()
+    tables = _tables(lib, num_buckets, min_value, log_gamma, values.device)
     with torch.cuda.device(values.device):
         stream = torch.cuda.current_stream(values.device).cuda_stream
         code = lib.krr_digest_hist(
-            values.data_ptr(), eff_counts.data_ptr(), hist.data_ptr(), peak.data_ptr(), n, t, num_buckets,
-            min_value, log_gamma, stream,
+            values.data_ptr(), eff_counts.data_ptr(), hist.data_ptr(), peak.data_ptr(), tables.data_ptr(), n, t,
+            num_buckets, min_value, log_gamma, stream,
         )
     cuda_build.raise_on_error(lib, code, "digest_hist")
     LAUNCHES["digest_hist"] += 1
     return hist, peak
+
+
+def digest_table_check(num_buckets: int, min_value: float, log_gamma: float, device="cuda") -> dict:
+    """The proof behind the ``digest_hist`` kernel's tables, on the card:
+    the kernel's own bucket formula and its table route over all 2^32
+    float32 bit patterns. Returns the mismatch count, the smallest
+    mismatching pattern (None when there is none), the number of edges (bit
+    patterns where the bucket steps up), the most edges any 2^16-pattern
+    range holds, and the coarse table's length."""
+    _check_spec(num_buckets, min_value, log_gamma, "digest_table_check")
+    lib = _library()
+    tables = _tables(lib, num_buckets, min_value, log_gamma, device)
+    result = torch.tensor([0, -1], dtype=torch.int64, device=device)  # -1: all ones as unsigned
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        code = lib.krr_digest_table_check(
+            tables.data_ptr(), result.data_ptr(), num_buckets, min_value, log_gamma, stream
+        )
+    cuda_build.raise_on_error(lib, code, "digest_table_check")
+    mismatches, first = (int(x) for x in result.cpu())
+    edges = np.unique(tables[1:num_buckets].cpu().numpy())
+    per_range = np.unique(edges >> 16, return_counts=True)[1]
+    return {
+        "mismatches": mismatches,
+        "first_mismatch_bits": None if mismatches == 0 else first & 0xFFFFFFFF,
+        "edges": int(edges.size),
+        "max_edges_per_2^16_range": int(per_range.max()),
+        "coarse_entries": int(tables.numel() - num_buckets),
+    }
 
 
 # ------------------------------------------------------------------- top-K

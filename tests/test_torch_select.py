@@ -203,6 +203,122 @@ class TestNanHighMaxKey:
         np.testing.assert_array_equal(port.view(np.int32), nan_high_row_max(values, counts).view(np.int32))
 
 
+def radix_tau(keys: np.ndarray, rank: int) -> int:
+    """numpy model of `csrc/common.cuh` ``radix_select_ordered``: flip the
+    sign bit (signed order → unsigned), then four 8-bit digits from the top,
+    each the smallest digit whose running count over the keys matching the
+    prefix passes the residual rank; the counts below it leave the residual.
+    A negative top digit ends the search at 0. Returns ``max(b, 0)`` for
+    ``b`` the rank-th smallest key."""
+    u = keys.astype(np.int32).view(np.uint32) ^ np.uint32(0x80000000)
+    prefix, mask, residual = 0, 0, rank
+    for shift in (24, 16, 8, 0):
+        candidates = u[(u & np.uint32(mask)) == np.uint32(prefix)]
+        hist = np.bincount((candidates >> np.uint32(shift)) & np.uint32(0xFF), minlength=256)
+        inclusive = np.cumsum(hist)
+        digit = int(np.argmax(inclusive > residual))
+        residual -= int(inclusive[digit] - hist[digit])
+        prefix |= digit << shift
+        mask |= 0xFF << shift
+        if shift == 24 and digit < 0x80:
+            return 0
+    return max(int(np.array(prefix ^ 0x80000000, dtype=np.uint32).view(np.int32)), 0)
+
+
+#: Bit patterns for K1's radix route: negative NaN payloads (negative keys,
+#: which count toward the rank; a rank landing on one gives +0.0), keys
+#: that read as 0 (negatives, ±0.0, subnormals, −inf), the all-ones NaN and
+#: digit edges 0x00 / 0xff (+inf, the largest finite, 1.0 and its
+#: neighbours, the smallest normal).
+NEGATIVE_KEYS = (0xFFC00000, 0xFFFFFFFF, 0xFF800001)
+ZERO_KEYS = (0xBF800000, 0x80000000, 0x00000000, 0x00000001, 0x807FFFFF, 0x800F0000, 0xFF800000)
+DIGIT_EDGES = (0x7F7FFFFF, 0x7FFFFFFF, 0x7F800000, 0x3F800000, 0x3F7FFFFF, 0x3F800001, 0x3F7FFF00, 0x00800000,
+               0x00FFFFFF)
+
+
+def radix_route_rows(seed: int, t: int):
+    """Rows aimed at K1's radix route at width ``t``: all-equal rows, rows
+    whose rank lands on negative NaN payloads or on keys that read as 0,
+    rows of ±0.0 and subnormals, digit-edge rows, counts of 1, and counts
+    past the width (the rank from the count may pass the row's keys)."""
+    rng = np.random.default_rng(seed)
+
+    def mixed(pool, frac):
+        row = rng.gamma(2.0, 0.05, size=t).astype(np.float32)
+        salted = rng.random(t) < frac
+        row[salted] = np.array(pool, dtype=np.uint32).view(np.float32)[rng.integers(0, len(pool), int(salted.sum()))]
+        return row
+
+    rows = [(np.full(t, 0.25, dtype=np.float32), t), (np.full(t, -0.0, dtype=np.float32), t)]
+    for frac in (0.5, 0.9, 0.99, 1.0):
+        rows += [(mixed(NEGATIVE_KEYS, frac), t), (mixed(ZERO_KEYS, frac), t)]
+    rows += [(mixed(NEGATIVE_KEYS + ZERO_KEYS, 1.0), t), (mixed(DIGIT_EDGES, 1.0), t), (mixed(DIGIT_EDGES, 0.5), t)]
+    rows += [(mixed(DIGIT_EDGES + NEGATIVE_KEYS, 0.3), 1), (mixed(NEGATIVE_KEYS, 1.0), 1), (mixed(ZERO_KEYS, 0.5), 0)]
+    for count in (t + 1, t + 7, 2 * t, 100 * t):
+        rows.append((mixed(DIGIT_EDGES + NEGATIVE_KEYS, 0.2), count))
+    values = np.stack([row for row, _ in rows])
+    counts = np.array([count for _, count in rows], dtype=np.int32)
+    return values, counts
+
+
+def radix_route(values: np.ndarray, counts: np.ndarray, q: float) -> np.ndarray:
+    """numpy model of `csrc/select.cu` ``bisect_select_kernel`` at 31 steps:
+    canonical NaN for an empty row; INT32_MAX (the NaN 0x7fffffff) when the
+    rank, taken from the count, is at or past the row's keys (a count past
+    the width), which is where 31 bisection steps climb; else
+    :func:`radix_tau` over the row's ordered bits."""
+    t = values.shape[1]
+    bits = port_selection.as_ordered_bits(torch.from_numpy(values)).numpy()
+    rank = port_selection.selection_rank(torch.from_numpy(counts), q).numpy()
+    out = np.full(len(counts), 0x7FC00000, dtype=np.int32)
+    for r, count in enumerate(counts):
+        if count > 0:
+            valid = min(int(count), t)
+            out[r] = port_selection.INT32_MAX if rank[r] >= valid else radix_tau(bits[r, :valid], int(rank[r]))
+    return out.view(np.float32)
+
+
+class TestRadixRouteModel:
+    """K1's 31-step route, modelled in numpy, gives what the bisection pins."""
+
+    @pytest.mark.parametrize("t", [1, 3, 300])
+    @pytest.mark.parametrize("q", QS)
+    def test_matches_plain_and_jnp_bisection(self, t, q):
+        """Bit for bit against the plain version and the JAX package's jnp
+        bisection, on every row. The JAX Pallas path pads T to 128 with
+        zeros that a row with a count past the width counts as samples, so
+        it is held to the rows whose count is within the width only."""
+        values, counts = radix_route_rows(700 + t, t)
+        model = radix_route(values, counts, q)
+        plain = port_selection.masked_percentile_bisect(*port_tensors(values, counts), q).numpy()
+        np.testing.assert_array_equal(model.view(np.int32), plain.view(np.int32))
+        assert_same(model, jax_selection.masked_percentile_bisect(values, counts, q))
+        inside = counts <= t
+        assert_same(
+            model[inside],
+            jax_pallas.masked_percentile_bisect_pallas(values[inside], counts[inside], q, interpret=True),
+        )
+
+    @pytest.mark.parametrize("q", [95.0, 99.0, 100.0, 120.0])
+    def test_counts_past_the_width_give_int32_max(self, q):
+        """A rank past the row's keys: the answer is the NaN 0x7fffffff."""
+        values, counts = radix_route_rows(710, 50)
+        past = counts >= 2 * 50
+        model = radix_route(values, counts, q).view(np.int32)
+        assert np.all(model[past] == port_selection.INT32_MAX)
+        plain = port_selection.masked_percentile_bisect(*port_tensors(values, counts), q).numpy().view(np.int32)
+        np.testing.assert_array_equal(plain[past], model[past])
+
+    @pytest.mark.parametrize("seed", [0, 1])
+    def test_fuzzed_rows(self, seed):
+        values, counts = fuzz(720 + seed, 40, 257, special_frac=0.3, ties=bool(seed))
+        counts[-5:] = [300, 514, 1000, 258, 257]  # past the width
+        for q in QS:
+            model = radix_route(values, counts, q)
+            plain = port_selection.masked_percentile_bisect(*port_tensors(values, counts), q).numpy()
+            np.testing.assert_array_equal(model.view(np.int32), plain.view(np.int32))
+
+
 class TestFleetExactParity:
     @pytest.mark.parametrize(
         "n, tc, tm", [(21, 700, 130), (13, 1, 450), (7, 0, 64), (7, 64, 0), (0, 32, 32)]

@@ -22,6 +22,8 @@ Tolerances, each with its reason:
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import pytest
 import torch
@@ -36,7 +38,7 @@ from krr_tpu_torch.ops import digest as port_digest
 from krr_tpu_torch.ops import quantile as port_quantile
 from krr_tpu_torch.ops import selection as port_selection
 from krr_tpu_torch.ops import topk_sketch as port_topk
-from tests.test_torch_select import SPECIAL, assert_same, port_tensors
+from tests.test_torch_select import SPECIAL, assert_same, port_tensors, radix_tau
 
 #: Edge values the JAX top-K kernel places exactly: its three-piece bf16
 #: split turns ±inf, NaN and magnitudes that round to inf in bf16 into NaN
@@ -44,6 +46,8 @@ from tests.test_torch_select import SPECIAL, assert_same, port_tensors
 #: parity phase holds the port's kernel against the plain version on all of
 #: them).
 FINITE_SPECIAL = SPECIAL[np.isfinite(SPECIAL) & (np.abs(SPECIAL) < 1e38)]
+#: Every edge pattern of the port's tests, as bits.
+SPECIAL_BITS_ALL = np.unique(SPECIAL.view(np.uint32))
 
 
 def fuzz(seed: int, n: int, t: int, special=SPECIAL, special_frac: float = 0.2, ties: bool = False):
@@ -139,6 +143,125 @@ class TestBucketize:
         q = quotient(jax_spec, values[miss])
         ulp = np.spacing(np.abs(q).astype(np.float32)).astype(np.float64)
         assert np.all(np.abs(q - np.round(q)) <= 4 * ulp)
+
+
+class DigestTables(NamedTuple):
+    """numpy model of `csrc/sketch.cu`'s bucket tables for one spec."""
+
+    edges: np.ndarray  # [B] int64: edges[b] the smallest pattern with bucket >= b (edges[0] unused)
+    coarse: np.ndarray  # one entry per 2^16-pattern range, packed as digest_tables_kernel packs it
+    base: int  # top 16 bits of the first pattern above min_value
+    min_bits: int
+
+
+def formula(bits: np.ndarray, spec) -> np.ndarray:
+    """The plain bucket formula on float32 bit patterns."""
+    values = torch.from_numpy(np.ascontiguousarray(bits, dtype=np.int64).astype(np.int32).view(np.float32))
+    return cuda_sketch.bucket_indices(values, spec.num_buckets, spec.min_value, spec.log_gamma).numpy().astype(np.int64)
+
+
+def first_above(spec, lo: np.ndarray, hi: np.ndarray, level: np.ndarray) -> np.ndarray:
+    """Per element, the smallest pattern in [lo, hi] whose bucket is at
+    least ``level`` (hi when none below it is), by bisection."""
+    lo, hi = lo.astype(np.int64), hi.astype(np.int64)
+    for _ in range(32):
+        mid = lo + (hi - lo) // 2
+        above = formula(mid, spec) >= level
+        lo, hi = np.where(above, lo, mid + 1), np.where(above, mid, hi)
+    return lo
+
+
+def digest_tables(spec, coarse_len=None) -> DigestTables:
+    """The tables as `digest_tables_kernel` builds them: each edge by
+    bisection over the patterns above ``min_value``; one coarse entry per
+    2^16-pattern range from the first pattern above ``min_value`` to the top
+    edge (estimated in double with a margin, as ``table_shape`` does, unless
+    ``coarse_len`` is given). A range whose bucket steps at most once, with
+    B below 2^15, packs its lower bucket and the step's low 16 bits; the
+    last range and the others hold ``~b0`` and walk up the edges."""
+    buckets = spec.num_buckets
+    min_bits = int(np.float32(spec.min_value).view(np.int32))
+    wanted = np.arange(1, buckets)
+    edges = np.concatenate([[port_selection.INT32_MIN], first_above(
+        spec, np.full(wanted.shape, min_bits + 1), np.full(wanted.shape, 0x7F800000), wanted)])
+    base = (min_bits + 1) >> 16
+    if coarse_len is None:
+        top = float(np.float32(spec.min_value)) * np.exp(float(np.float32(spec.log_gamma)) * (buckets - 2)) * 1.00001
+        top_bits = 0x7F800000 if top >= np.finfo(np.float32).max else int(np.float32(top).view(np.int32))
+        coarse_len = max((min(top_bits, 0x7F800000) >> 16) - base + 1, 1)
+    start = (base + np.arange(coarse_len, dtype=np.int64)) << 16
+    lo_end = np.maximum(start, min_bits + 1)
+    hi_end = np.minimum(start + 0xFFFF, 0x7F800000)
+    b0, b_end = formula(lo_end, spec), formula(hi_end, spec)
+    step = first_above(spec, lo_end + 1, hi_end, b0 + 1)
+    packed = np.where(b_end == b0, (b0 - 1) << 16, (b0 << 16) | (step - start))
+    single = (np.arange(coarse_len) < coarse_len - 1) & (buckets <= 2**15 - 1) & (b_end <= b0 + 1)
+    coarse = np.where(single, packed, ~b0)
+    return DigestTables(edges, coarse, base, min_bits)
+
+
+def table_route(bits: np.ndarray, spec, tables: DigestTables) -> np.ndarray:
+    """numpy model of `csrc/sketch.cu` ``table_bucket``: NaN → 1, a value
+    at or below ``min_value`` → 0, at or past the top edge → B − 1, else the
+    coarse entry of the pattern's 2^16 range (the last entry past the
+    table): a packed entry gives the bucket by one compare, ``~b0`` walks up
+    the edges from b0."""
+    bits = np.asarray(bits, dtype=np.int64).astype(np.int32).astype(np.int64)
+    last_bucket = spec.num_buckets - 1
+    out = np.zeros(bits.shape, dtype=np.int64)
+    nan = (bits & 0x7FFFFFFF) > 0x7F800000
+    top = ~nan & (bits >= tables.edges[-1])
+    inside = ~nan & ~top & (bits > tables.min_bits)
+    out[nan] = 1
+    out[top] = last_bucket
+    mine = bits[inside]
+    entry = tables.coarse[np.minimum((mine >> 16) - tables.base, len(tables.coarse) - 1)]
+    b = np.where(entry >= 0, (entry >> 16) + ((mine & 0xFFFF) >= (entry & 0xFFFF)), np.minimum(~entry, last_bucket - 1))
+    walk = entry < 0
+    while True:
+        step = walk & (mine >= tables.edges[np.minimum(b + 1, last_bucket)])
+        if not step.any():
+            break
+        b = b + step
+    out[inside] = b
+    return out
+
+
+#: (γ, B): the default spec, the two other bucket counts the card's parity
+#: checks at the default γ, and a small γ at which one 2^16-pattern range
+#: holds many edges (the walk up the edges takes many steps).
+TABLE_SPECS = [(1.01, 2560), (1.01, 16), (1.01, 200), (1.0001, 2560)]
+
+
+class TestBucketTables:
+    """The digest kernel's table route, modelled in numpy, equals the plain
+    formula on the CPU around every edge and on random bit patterns."""
+
+    @pytest.mark.parametrize("gamma, buckets", TABLE_SPECS)
+    def test_table_route_equals_the_formula(self, gamma, buckets):
+        spec = port_digest.DigestSpec(gamma=gamma, num_buckets=buckets)
+        tables = digest_tables(spec)
+        edges = np.unique(tables.edges[1:])
+        near = (edges[:, None] + np.arange(-64, 65)[None, :]).ravel()
+        rng = np.random.default_rng(buckets)
+        random = rng.integers(0, 2**32, size=1_000_000, dtype=np.uint64).astype(np.int64)
+        specials = SPECIAL_BITS_ALL.astype(np.int64)
+        for bits in (near, random, specials):
+            np.testing.assert_array_equal(table_route(bits, spec, tables), formula(bits, spec))
+        assert np.all(np.diff(tables.edges[1:]) >= 0)  # the edges rise with the bucket
+        per_range = np.unique(edges >> 16, return_counts=True)[1]
+        if (gamma, buckets) == (1.01, 2560):
+            assert edges.size == buckets - 1 and per_range.max() == 1
+            assert np.all(tables.coarse[:-1] >= 0)  # one read gives the bucket in every range but the last
+        if gamma == 1.0001:
+            assert per_range.max() > 8  # many edges in one range: the walk takes many steps
+
+    def test_an_underestimated_coarse_table_still_walks_to_the_answer(self):
+        spec = port_digest.DigestSpec(gamma=1.01, num_buckets=2560)
+        full = digest_tables(spec)
+        short = digest_tables(spec, coarse_len=len(full.coarse) // 3)
+        bits = (np.unique(full.edges[1:])[:, None] + np.arange(-3, 4)[None, :]).ravel()
+        np.testing.assert_array_equal(table_route(bits, spec, short), formula(bits, spec))
 
 
 # ------------------------------------------------------------- digest_hist
@@ -435,28 +558,6 @@ class TestTopK:
 # ----------------------------------------------------- the kernel's τ search
 
 
-def radix_tau(keys: np.ndarray, rank: int) -> int:
-    """numpy model of `csrc/common.cuh` ``radix_select_ordered``: flip the
-    sign bit (signed order → unsigned), then four 8-bit digits from the top,
-    each the smallest digit whose running count over the keys matching the
-    prefix passes the residual rank; the counts below it leave the residual.
-    A negative top digit ends the search at 0. Returns ``max(b, 0)`` for
-    ``b`` the rank-th smallest key."""
-    u = keys.astype(np.int32).view(np.uint32) ^ np.uint32(0x80000000)
-    prefix, mask, residual = 0, 0, rank
-    for shift in (24, 16, 8, 0):
-        candidates = u[(u & np.uint32(mask)) == np.uint32(prefix)]
-        hist = np.bincount((candidates >> np.uint32(shift)) & np.uint32(0xFF), minlength=256)
-        inclusive = np.cumsum(hist)
-        digit = int(np.argmax(inclusive > residual))
-        residual -= int(inclusive[digit] - hist[digit])
-        prefix |= digit << shift
-        mask |= 0xFF << shift
-        if shift == 24 and digit < 0x80:
-            return 0
-    return max(int(np.array(prefix ^ 0x80000000, dtype=np.uint32).view(np.int32)), 0)
-
-
 def edge_row_bits(seed: int, n: int, t: int) -> np.ndarray:
     """Rows for the τ search: negative NaN payloads (negative keys), the
     all-ones NaN 0x7fffffff, ±0.0, subnormals, negatives, digit edges and
@@ -570,6 +671,17 @@ class TestWrappers:
             cuda_sketch.topk_select(v, c, 0)
         with pytest.raises(ValueError):
             cuda_sketch.topk_select(v, c, 128, state=v)
+
+    @pytest.mark.parametrize(
+        "min_value, log_gamma", [(0.0, 0.01), (-1e-7, 0.01), (float("inf"), 0.01), (1e-7, 0.0), (1e-7, float("nan")),
+                                 (1e-50, 0.01)],
+    )
+    def test_rejects_specs_the_tables_do_not_take(self, min_value, log_gamma):
+        """The kernel's tables need min_value and log γ positive and finite
+        in float32 (1e-50 rounds to 0.0); both devices refuse the rest."""
+        v, c = port_tensors(*fuzz(135, 4, 16))
+        with pytest.raises(ValueError):
+            cuda_sketch.digest_hist(v, c, 64, min_value, log_gamma)
 
     @pytest.mark.parametrize("n, t, s", [(0, 8, 0), (4, 0, 0), (4, 0, 5), (3, 6, 0)])
     def test_degenerate_shapes(self, n, t, s):
