@@ -31,10 +31,11 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    of ``topk_select`` (sorted; K ∈ {128, 1280}, with and without a state)
    are bit-exact; ``digest_hist`` counts and peaks are bit-exact for
    B ∈ {16, 200, 2560} and for a B past shared memory (the global-memory
-   bins and tables). Between the card and the CPU the digest's bucket
-   indices may move one bucket where ``log`` differs by an ulp at a bucket
-   edge: the phase counts those moves and checks each is one bucket, at an
-   edge.
+   bins and tables). Both sketch kernels are also held to their plain
+   versions at the ``cli`` scans' shape (10,000 × 1,345). Between the card
+   and the CPU the digest's bucket indices may move one bucket where ``log``
+   differs by an ulp at a bucket edge: the phase counts those moves and
+   checks each is one bucket, at an edge.
 4. ``digest_proof`` — ``digest_hist`` takes a sample's bucket from tables
    (an edge table and a coarse index), exact where the bucket formula is
    monotone in the bit pattern: for each spec of the parity phase, the
@@ -64,6 +65,26 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    ``simple`` and ``exact_upgrade``, and for ``tdigest`` the same memory and
    every CPU value within one bucket of the card's.
 
+7. ``cli``     — the user's entry point, ``krr_tpu_torch``'s click command,
+   against the fake apiserver + fake Prometheus of ``tests/fakes/servers.py``
+   served from a child process (started when the phase begins, so its
+   fixture build overlaps no timed phase): 10,000 Deployments of one
+   container and one pod, 1,344 CPU and 1,344 memory samples per pod (14
+   days at 15 minutes, quantised as ``bench_e2e.py`` does) and the scan end
+   pinned on the fake's sample grid. ``simple``, ``tdigest`` and ``tdigest
+   --exact_upgrade true`` run in-process on the card, a cold and a warm run
+   each, each with every launch count set to 0 just before it and read just
+   after (the same kernels as ``e2e``); every scan has 10,000 rows and no
+   ``?``, ``exact_upgrade``'s JSON equals ``simple``'s, and the native
+   scanner loaded and streamed the stats queries. One ``python3 -m
+   krr_tpu_torch simple`` subprocess and one ``--device cpu`` run render
+   ``simple``'s JSON byte for byte; a ``--device cpu`` run of ``tdigest``
+   renders the same memory and every CPU value within one bucket of the
+   card's warm ``tdigest`` run. The warm runs' ``Runner.stats`` legs, the
+   strategy's own compute legs (pack, H2D, device, finalize), the fake's CPU
+   seconds, the wire and decoded bytes and the range queries' transport
+   phases (summed over queries) are printed.
+
 ``row_max_main`` — ``row_max`` at the memory shape of the ``simple`` scan,
 per wrapper call (host-bound at that size) and per launch replayed from a
 CUDA graph (the kernel's device time). Part of ``headline``; run alone
@@ -72,7 +93,9 @@ beside the script, so a copy of the script placed in an unpacked older
 commit times that commit's kernel the same way.
 
 The last three lines are the card's ``nvidia-smi`` name and power limit, one
-``{"kernels": [...]}`` JSON object, and ``{"ok": true, "device": {...}}``.
+``{"kernels": [...]}`` JSON object (launch counts from the ``cli`` phase's
+warm runs), and ``{"ok": true, "device": {...}}``. The script must run as a
+file (``python3 chip_smoke.py``): the fixture's child process re-imports it.
 """
 
 from __future__ import annotations
@@ -99,6 +122,11 @@ E2E_OBJECTS = 10_000
 E2E_PODS = 3
 E2E_SAMPLES_PER_POD = 40_320
 E2E_CPU_CHECK_ROWS = 256
+#: The ``cli`` phase's fleet: one pod per Deployment, 14 days at 15 minutes
+#: (the JAX package's default window and the reference's workload shape).
+CLI_OBJECTS = 10_000
+CLI_SAMPLES = 1_344
+CLI_STEP_SECONDS = 900.0
 #: The tdigest defaults: B = 2,560 buckets of γ = 1.01 above 1e-7, and the
 #: top-K width p99 needs over a 120,960-sample row.
 DIGEST_BUCKETS = 2560
@@ -109,8 +137,9 @@ TOPK_K = 1280
 #: flow on a machine without a card sets it to "cpu".
 DEVICE = "cuda"
 
-#: Each kernel: the TPU kernel it replaces, its source, and the e2e path
-#: whose launch count the kernels line reports.
+#: Each kernel: the TPU kernel it replaces, its source, and the scan path
+#: (of the ``e2e`` and ``cli`` phases) whose launch count the kernels line
+#: reports.
 KERNELS = {
     "bisect_select": ("krr_tpu/ops/pallas_select.py:61", "krr_tpu_torch/csrc/select.cu", "simple"),
     "row_max": ("krr_tpu/ops/pallas_select.py:93", "krr_tpu_torch/csrc/select.cu", "tdigest"),
@@ -542,7 +571,19 @@ def sketch_parity(torch, np, errs: dict) -> tuple[int, dict]:
                 check(same_bits(torch, sorted_rows(torch, plain), sorted_rows(torch, cpu)),
                       f"plain top-K on the card != on the CPU at {where}")
                 cases += 1
-    return cases, moves
+    # The shape the ``cli`` phase's scans give both kernels: 10,000 rows of
+    # a 14-day window at 15 minutes.
+    values, counts = fuzz(np, 700, CLI_OBJECTS, CLI_SAMPLES + 1)
+    v, c = torch.from_numpy(values).to(dev), torch.from_numpy(counts).to(dev)
+    hist, peak = cuda_sketch.digest_hist(v, c, DIGEST_BUCKETS, DIGEST_MIN_VALUE, DIGEST_LOG_GAMMA)
+    plain_hist, plain_peak = cuda_sketch.digest_hist_plain(v, c, DIGEST_BUCKETS, DIGEST_MIN_VALUE, DIGEST_LOG_GAMMA)
+    check(same_bits(torch, hist, plain_hist) and same_bits(torch, peak, plain_peak),
+          "digest_hist != plain at the cli phase's shape")
+    kernel = cuda_sketch.topk_select(v, c, TOPK_K)
+    plain = cuda_sketch.topk_select_plain(v, c, TOPK_K)
+    check(same_bits(torch, sorted_rows(torch, kernel), sorted_rows(torch, plain)),
+          "topk_select != plain (sorted rows) at the cli phase's shape")
+    return cases + 2, moves
 
 
 def phase_row_max_main(torch, np) -> dict:
@@ -885,29 +926,243 @@ def phase_e2e(np, seed: int = 0) -> dict:
               f"{path}: the CPU re-run's JSON differs from the GPU scan's")
         e2e["paths"][path]["cpu_recheck_wall_seconds"] = cpu_wall
     cpu_result, _cpu_runner, cpu_wall = scan(subset, "cpu", "tdigest")
-    same_cpu = 0
-    one_bucket = Decimal("0.01")  # γ − 1 at the default spec
-    for card, host in zip(results["tdigest"].scans[head], cpu_result.scans):
-        a = card.recommended.requests[ResourceType.CPU].value
-        b = host.recommended.requests[ResourceType.CPU].value
-        # One bucket is a factor gamma; the millicore ceiling adds up to 0.001.
-        check(abs(a - b) <= one_bucket * max(a, b) + Decimal("0.001"), f"tdigest CPU {a} on the card vs {b} on the CPU")
-        same_cpu += a == b
-        for kind in ("requests", "limits"):
-            check(getattr(card.recommended, kind)[ResourceType.Memory] == getattr(host.recommended, kind)[ResourceType.Memory],
-                  "tdigest memory differs between the card and the CPU")
     e2e["paths"]["tdigest"]["cpu_recheck_wall_seconds"] = cpu_wall
-    e2e["paths"]["tdigest"]["cpu_recheck_identical_cpu_values"] = same_cpu
+    e2e["paths"]["tdigest"]["cpu_recheck_identical_cpu_values"] = same_within_a_bucket(
+        Result(scans=results["tdigest"].scans[head]).format("json"), cpu_result.format("json")
+    )
     emit("e2e", **e2e)
     return e2e
+
+
+def same_within_a_bucket(card_json: str, cpu_json: str) -> int:
+    """Hold a tdigest scan's JSON on the CPU to the card's: the same objects
+    and memory, each CPU request within one bucket. Returns how many CPU
+    requests are identical."""
+    card = json.loads(card_json, parse_float=Decimal)["scans"]
+    host = json.loads(cpu_json, parse_float=Decimal)["scans"]
+    check(len(card) == len(host), f"tdigest: {len(host)} scans on the CPU, {len(card)} on the card")
+    check('"?"' not in cpu_json, "tdigest: an unknown ('?') value in the CPU run")
+    one_bucket = Decimal("0.01")  # γ − 1 at the default spec
+    same = 0
+    for a, b in zip(card, host):
+        check(a["object"] == b["object"], "tdigest: the CPU run's objects differ from the card's")
+        for kind in ("requests", "limits"):
+            check(a["recommended"][kind]["memory"] == b["recommended"][kind]["memory"],
+                  f"tdigest: memory {kind} differ between the card and the CPU")
+        x = a["recommended"]["requests"]["cpu"]["value"]
+        y = b["recommended"]["requests"]["cpu"]["value"]
+        # One bucket is a factor γ; the millicore ceiling adds up to 0.001.
+        check(abs(x - y) <= one_bucket * max(x, y) + Decimal("0.001"), f"tdigest CPU {x} on the card vs {y} on the CPU")
+        same += x == y
+    return same
+
+
+def _serve_fixture(n_objects: int, samples: int, conn) -> None:
+    """Child-process entry (multiprocessing ``spawn``): build the fake
+    cluster and Prometheus, serve them on localhost, report the port and the
+    series origin, and hold until the parent is done."""
+    import numpy as np
+
+    from tests.fakes.servers import FakeBackend, FakeCluster, FakeMetrics, ServerThread
+
+    started = time.perf_counter()
+    cluster = FakeCluster()
+    metrics = FakeMetrics()
+    # Range-accurate serving: each split window gets exactly its slice.
+    metrics.enforce_range = True
+    rng = np.random.default_rng(5)
+    for i in range(n_objects):
+        (pod,) = cluster.add_workload_with_pods("Deployment", f"wl-{i}", "default", pod_count=1)
+        # Realistic precision (irates ~0.1 millicore, page-granular working
+        # sets), as bench_e2e.py quantises them: iid full-precision
+        # mantissas would benchmark the RNG's entropy on the wire.
+        metrics.set_series(
+            "default", "main", pod,
+            cpu=np.round(rng.gamma(2.0, 0.05, samples), 4),
+            memory=np.floor(rng.uniform(5e7, 4e8, samples) / 4096) * 4096,
+        )
+    server = ServerThread(FakeBackend(cluster, metrics)).start()
+    conn.send((server.port, FakeBackend.SERIES_ORIGIN, time.perf_counter() - started))
+    conn.recv()  # the parent signals completion
+    server.stop()
+
+
+def _proc_cpu_seconds(pid: int) -> float:
+    """utime + stime of one process from /proc/<pid>/stat."""
+    with open(f"/proc/{pid}/stat", "rb") as f:
+        fields = f.read().rsplit(b")", 1)[1].split()
+    return (int(fields[11]) + int(fields[12])) / os.sysconf("SC_CLK_TCK")
+
+
+class FakeServers:
+    """The ``cli`` phase's fake apiserver + Prometheus in a child process,
+    stopped in ``close`` whatever happened."""
+
+    def __init__(self, n_objects: int, samples: int):
+        import multiprocessing
+
+        ctx = multiprocessing.get_context("spawn")
+        self._conn, child_conn = ctx.Pipe()
+        self.proc = ctx.Process(target=_serve_fixture, args=(n_objects, samples, child_conn), daemon=True)
+        self.proc.start()
+        self._ready = None
+
+    def ready(self) -> tuple[str, float, float]:
+        """(url, series origin, fixture build seconds), waiting for the child."""
+        if self._ready is None:
+            check(self._conn.poll(timeout=600), "the fake-server child did not start within 600 s")
+            port, origin, build_seconds = self._conn.recv()
+            self._ready = (f"http://127.0.0.1:{port}", origin, build_seconds)
+        return self._ready
+
+    def close(self) -> None:
+        with contextlib.suppress(OSError):
+            self._conn.send("done")
+        self.proc.join(timeout=15)
+        if self.proc.is_alive():
+            self.proc.kill()
+            self.proc.join(timeout=15)
+
+
+def phase_cli() -> dict:
+    import tempfile
+
+    from krr_tpu_torch import main as cli
+
+    # Started here, after the timed phases: the fixture build (tens of
+    # seconds of one host core) must not overlap the kernel timings.
+    fakes = FakeServers(CLI_OBJECTS, CLI_SAMPLES)
+    try:
+        url, origin, fixture_seconds = fakes.ready()
+        cli.load_commands()
+        scan_end = origin + (CLI_SAMPLES - 1) * CLI_STEP_SECONDS
+        with tempfile.TemporaryDirectory(prefix="krr-cli-smoke-") as tmp:
+            return _phase_cli(fakes, url, scan_end, fixture_seconds, os.path.join(tmp, "kubeconfig"))
+    finally:
+        fakes.close()
+
+
+def _phase_cli(fakes: FakeServers, url: str, scan_end: float, fixture_seconds: float, kubeconfig: str) -> dict:
+    import yaml
+    from click.testing import CliRunner
+
+    from krr_tpu_torch import main as cli
+    from krr_tpu_torch.core import runner as runner_module
+    from krr_tpu_torch.integrations import native
+    from krr_tpu_torch.integrations.prometheus import TRANSPORT_PHASES
+
+    with open(kubeconfig, "w") as f:
+        yaml.safe_dump({
+            "current-context": "fake",
+            "contexts": [{"name": "fake", "context": {"cluster": "fake", "user": "u"}}],
+            "clusters": [{"name": "fake", "cluster": {"server": url}}],
+            "users": [{"name": "u", "user": {"token": "t"}}],
+        }, f)
+    common = ["--kubeconfig", kubeconfig, "-p", url, "-q", "-f", "json", "--scan-end-timestamp", repr(scan_end)]
+
+    captured: list = []
+
+    class CapturingRunner(runner_module.Runner):
+        """The CLI's own Runner, remembered so its stats can be read."""
+
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            captured.append(self)
+
+    def invoke(args: list) -> tuple[str, dict, float]:
+        try:
+            click_runner = CliRunner(mix_stderr=False)
+        except TypeError:  # click >= 8.2 keeps stderr apart already
+            click_runner = CliRunner()
+        captured.clear()
+        original = runner_module.Runner
+        runner_module.Runner = CapturingRunner
+        try:
+            server_cpu = _proc_cpu_seconds(fakes.proc.pid)
+            started = time.perf_counter()
+            result = click_runner.invoke(cli.app, args, catch_exceptions=False)
+            wall = time.perf_counter() - started
+            server_cpu = _proc_cpu_seconds(fakes.proc.pid) - server_cpu
+        finally:
+            runner_module.Runner = original
+        check(result.exit_code == 0, f"cli {args[:3]} exited {result.exit_code}: {result.stdout[-2000:]}")
+        runner = captured[-1]
+        stats = {
+            **runner.stats,
+            # The compute leg split by the strategy's own clock.
+            "strategy_legs_seconds": dict(runner.session.strategy.leg_seconds),
+            "server_cpu_seconds": server_cpu,
+            "streamed_queries": runner.metrics.value("krr_tpu_prom_query_seconds_count", route="streamed") or 0.0,
+            "buffered_queries": runner.metrics.value("krr_tpu_prom_query_seconds_count", route="buffered") or 0.0,
+            # Per-query transport phases summed over the scan's range
+            # queries (concurrent queries overlap, so the sums may pass
+            # the fetch wall).
+            "prom_phase_seconds": {
+                phase: runner.metrics.value("krr_tpu_prom_phase_seconds_sum", phase=phase) or 0.0
+                for phase in TRANSPORT_PHASES
+            },
+        }
+        return result.stdout, stats, wall
+
+    paths = {
+        "simple": (["simple"], {"bisect_select", "row_max"}),
+        "tdigest": (["tdigest"], {"digest_hist", "row_max"}),
+        "tdigest_exact": (["tdigest", "--exact_upgrade", "true"], {"topk_select", "row_max"}),
+    }
+    report = {
+        "objects": CLI_OBJECTS, "samples_per_object": CLI_SAMPLES, "step_seconds": CLI_STEP_SECONDS,
+        "fixture_build_seconds": fixture_seconds, "paths": {},
+    }
+    rendered = {}
+    for path, (command, launched) in paths.items():
+        entry = {}
+        for run in ("cold", "warm"):
+            _reset_counts()
+            stdout, stats, wall = invoke([*command, *common, "--device", DEVICE])
+            launches, _generic = _read_counts()
+            scans = json.loads(stdout)["scans"]
+            check(len(scans) == CLI_OBJECTS, f"cli {path} {run}: {len(scans)} scans, expected {CLI_OBJECTS}")
+            check('"?"' not in stdout, f"cli {path} {run}: an unknown ('?') value in the scan")
+            check(all(launches[name] >= 1 for name in launched),
+                  f"cli {path} {run}: a kernel of the path did not launch: {launches}")
+            check(all(launches[name] == 0 for name in launches if name not in launched),
+                  f"cli {path} {run}: a kernel of another path launched: {launches}")
+            check(stats["failed_rows"] == 0, f"cli {path} {run}: failed rows {stats['failed_rows']}")
+            entry[run] = {"wall_seconds": wall, "runner_stats": stats, "launches": launches}
+            rendered[path] = stdout
+        report["paths"][path] = entry
+    check(rendered["tdigest_exact"] == rendered["simple"], "cli: tdigest exact_upgrade JSON != simple JSON")
+    check(native.library_loaded(), "cli: the native scanner did not load")
+    check(report["paths"]["simple"]["warm"]["runner_stats"]["streamed_queries"] > 0,
+          "cli: no stats query took the native streamed route")
+    report["native_library"] = native.SO_PATH
+
+    started = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "krr_tpu_torch", "simple", *common, "--device", DEVICE],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True, timeout=600,
+    )
+    report["subprocess_wall_seconds"] = time.perf_counter() - started
+    check(proc.returncode == 0, f"python3 -m krr_tpu_torch simple exited {proc.returncode}: {proc.stderr[-2000:]}")
+    check(proc.stdout == rendered["simple"], "cli: the subprocess's JSON != the in-process simple JSON")
+
+    stdout, stats, wall = invoke(["simple", *common, "--device", "cpu"])
+    report["cpu_run"] = {"wall_seconds": wall, "runner_stats": stats}
+    check(stdout == rendered["simple"], "cli: the --device cpu run's JSON != the card's simple JSON")
+
+    stdout, stats, wall = invoke(["tdigest", *common, "--device", "cpu"])
+    report["cpu_run_tdigest"] = {"wall_seconds": wall, "runner_stats": stats,
+                                 "identical_cpu_values": same_within_a_bucket(rendered["tdigest"], stdout)}
+    emit("cli", **report)
+    return report
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
-        "--phases", default="build,parity,digest_proof,headline,e2e",
-        help="comma-separated subset of build,parity,digest_proof,headline,e2e,row_max_main (default: "
-        "the first five; the kernels line and the ok line need all five)",
+        "--phases", default="build,parity,digest_proof,headline,e2e,cli",
+        help="comma-separated subset of build,parity,digest_proof,headline,e2e,cli,row_max_main (default: "
+        "the first six; the kernels line and the ok line need all six)",
     )
     args = parser.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -942,15 +1197,16 @@ def main(argv=None) -> int:
     if headline is not None:
         headline.update(timed("headline_sketch", phase_sketch_headline, torch, np))
     e2e = timed("e2e", phase_e2e, np) if "e2e" in phases else None
+    cli = timed("cli", phase_cli) if "cli" in phases else None
     emit("walls", seconds=walls)
-    if headline is None or e2e is None or parity is None or proof is None or "build" not in phases:
+    if headline is None or e2e is None or cli is None or parity is None or proof is None or "build" not in phases:
         print(smi)
         return 0
     kernels = []
     for name, (replaces, source, path) in KERNELS.items():
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": e2e["paths"][path]["launches"][name],
+            "launches": cli["paths"][path]["warm"]["launches"][name],
             "max_abs_err": max(parity[name], headline[name]["max_abs_err"]),
             "ms": headline[name]["ms"], "plain_ms": headline[name]["plain_ms"],
             "bound_ms": headline[name]["bound_ms"], "bound_by": headline[name]["bound_by"],

@@ -9,4 +9,14 @@ path runs. It imports nothing of the JAX package and never imports JAX.
 
 __version__ = "0.1.0"
 
-__all__ = ["__version__"]
+
+def run() -> None:
+    """CLI entry point (``krr-tpu-torch``). Defining a strategy/formatter
+    subclass before calling this registers it as a new sub-command / format
+    option — the JAX package's plugin contract."""
+    from krr_tpu_torch.main import run as _run
+
+    _run()
+
+
+__all__ = ["run", "__version__"]

@@ -10,8 +10,14 @@ Mirrors the UX contract of the reference's ``Configurable`` mixin
   printed to stdout on a fresh console — this separation is what makes
   ``krr simple -f json > out.json`` work.
 
-The JAX package's structured ``--log-format json`` channel joins log lines to
-trace spans; it arrives with the port's observability slice.
+Unlike the reference we don't force every component to inherit a mixin; a
+single :class:`KrrLogger` is constructed from the config and passed (or the
+module default used).
+
+The JAX package's structured ``--log-format json`` channel, which stamps
+each line with the active span's ids (`krr_tpu_torch.obs.trace.current_ids`
+is the hook it reads), waits for the port's observability slice (ROADMAP
+M8).
 """
 
 from __future__ import annotations
@@ -39,8 +45,10 @@ class KrrLogger:
 
         Machine output (str — json/yaml/pprint) is written RAW: rich's
         ``Console.print`` soft-wraps at the console width and runs its
-        highlighter over the payload, which can insert newlines inside a
-        fleet-sized JSON line and costs minutes on multi-MB results. Rich
+        highlighter over the payload, which (a) can insert newlines inside a
+        fleet-sized JSON line — corrupting ``-f json > out.json`` — and (b)
+        costs minutes on multi-MB results (measured: a 9.6 MB single-line
+        payload didn't finish in 10 min; a raw write is instant). Rich
         renderables (the table) still render through a fresh stdout console.
         """
         if isinstance(content, str):
@@ -81,6 +89,9 @@ class KrrLogger:
     def warning(self, message: str = "") -> None:
         self.echo(message, type="WARNING")
 
+    def error(self, message: str = "") -> None:
+        self.echo(message, type="ERROR")
+
     def debug(self, message: str = "") -> None:
         if not self.debug_active:
             return
@@ -92,3 +103,7 @@ class KrrLogger:
     def debug_exception(self) -> None:
         if self.debug_active:
             self.console.print_exception()
+
+
+#: Default logger for components constructed without an explicit one.
+NULL_LOGGER = KrrLogger(quiet=True)

@@ -1,0 +1,299 @@
+"""The port's CLI against the JAX package's, on the same fake cluster.
+
+Both ``app``s run in-process through click's ``CliRunner`` against the fake
+apiserver + fake Prometheus of ``tests/test_integrations.py`` (the port with
+``--device cpu``: its plain PyTorch versions). Machine formats and the table
+are compared byte for byte on stdout with ``-q`` (the greetings differ), for
+every strategy path and fetch option; flag names and boolean defaults are
+held to the JAX command's. The last test proves that without ``--device
+cpu`` the port asks for the card and refuses to scan here.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+
+import click
+import numpy as np
+import pytest
+import yaml
+from click.testing import CliRunner
+
+from krr_tpu import main as jax_main
+from krr_tpu_torch import main as port_main
+from krr_tpu_torch.core.config import Config as PortConfig
+from krr_tpu_torch.obs.trace import Tracer as PortTracer
+from krr_tpu_torch.obs.trace import current_ids
+from krr_tpu_torch.strategies.base import BaseStrategy as PortBaseStrategy
+
+from .fakes.servers import FakeBackend, FakeCluster, FakeMetrics, ServerThread
+from .test_integrations import fake_env  # noqa: F401  (module-scoped fixture)
+
+REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+#: The three device paths of the slice: simple (K1 + K2), tdigest (K3 + K2),
+#: tdigest with the exact upgrade (K4 + K2).
+STRATEGY_PATHS = {
+    "simple": ["simple"],
+    "tdigest": ["tdigest"],
+    "exact_upgrade": ["tdigest", "--exact_upgrade", "true"],
+}
+
+#: JAX flags with no counterpart in the port, or whose path waits for a
+#: later slice (ROADMAP): the SLO options, --statusz, --profile,
+#: --log-format, --pipeline-depth and the XLA cache; and the JAX
+#: strategies' mesh, Pallas and profiler settings.
+JAX_ONLY_FLAGS = {
+    "--pipeline-depth",
+    "--statusz",
+    "--profile",
+    "--log-format",
+    "--jax-compilation-cache-dir",
+    "--slo-scan-failure-budget",
+    "--slo-fetch-failure-budget",
+    "--slo-scan-latency",
+    "--slo-freshness",
+    "--slo-read-p99",
+    "--slo-fast-window",
+    "--slo-slow-window",
+    "--slo-fast-burn",
+    "--slo-slow-burn",
+    "--use_mesh",
+    "--mesh_time_axis",
+    "--use_pallas",
+    "--profile_dir",
+}
+#: Port flags the JAX command lacks: the compute device.
+PORT_ONLY_FLAGS = {"--device"}
+
+#: SERIES_ORIGIN on the minute grid (1.7e9 % 60 == 20): the alignment that
+#: server-side downsampling requires.
+ALIGNED_ORIGIN = 1_699_999_980.0
+
+
+@pytest.fixture(scope="module")
+def apps():
+    jax_main.load_commands()
+    port_main.load_commands()
+    return jax_main.app, port_main.app
+
+
+def _invoke(app, args):
+    return CliRunner().invoke(app, args, catch_exceptions=False)
+
+
+def _both(apps, env, args):
+    """Run the same scan through both CLIs; returns (jax, port) results."""
+    common = [*args, "--kubeconfig", env["kubeconfig"], "-p", env["server"].url, "-q"]
+    jax_app, port_app = apps
+    return _invoke(jax_app, common), _invoke(port_app, [*common, "--device", "cpu"])
+
+
+@pytest.mark.parametrize("fmt", ["json", "yaml", "pprint", "table"])
+@pytest.mark.parametrize("path", sorted(STRATEGY_PATHS))
+def test_stdout_bytes_equal_jax(apps, fake_env, path, fmt):  # noqa: F811
+    jax_result, port_result = _both(apps, fake_env, [*STRATEGY_PATHS[path], "-f", fmt])
+    assert jax_result.exit_code == 0, jax_result.output
+    assert port_result.exit_code == 0, port_result.output
+    assert port_result.output == jax_result.output
+    if fmt == "json":
+        scans = json.loads(port_result.output)["scans"]
+        assert len(scans) == 4  # web main + sidecar, db, migrate
+
+
+FETCH_OPTIONS = {
+    "plan_fixed": ["--fetch-plan", "fixed"],
+    "plan_adaptive": ["--fetch-plan", "adaptive", "--fetch-plan-target-series", "2"],
+    "per_workload": ["--batched-fleet-queries", "false"],
+    "compression_off": ["--fetch-compression", "off"],
+    "per_workload_pods": ["--bulk-pod-discovery", "false"],
+}
+
+
+@pytest.mark.parametrize("option", sorted(FETCH_OPTIONS))
+@pytest.mark.parametrize("path", sorted(STRATEGY_PATHS))
+def test_fetch_options_equal_jax(apps, fake_env, path, option):  # noqa: F811
+    jax_result, port_result = _both(
+        apps, fake_env, [*STRATEGY_PATHS[path], "-f", "json", *FETCH_OPTIONS[option]]
+    )
+    assert jax_result.exit_code == 0, jax_result.output
+    assert port_result.exit_code == 0, port_result.output
+    assert port_result.output == jax_result.output
+
+
+@pytest.fixture(scope="module")
+def aligned_env(tmp_path_factory):
+    """A fake whose series sit on the absolute minute grid with ranged
+    slicing on, so ``--fetch-downsample auto`` engages at an aligned
+    ``--scan-end-timestamp``."""
+    cluster = FakeCluster()
+    metrics = FakeMetrics()
+    metrics.enforce_range = True
+    rng = np.random.default_rng(77)
+    for ns, workloads, pods in (("alpha", 2, 2), ("beta", 1, 3)):
+        for w in range(workloads):
+            for pod in cluster.add_workload_with_pods("Deployment", f"{ns}-wl{w}", ns, pod_count=pods):
+                metrics.set_series(
+                    ns, "main", pod,
+                    cpu=rng.gamma(2.0, 0.05, 96), memory=rng.uniform(5e7, 4e8, 96),
+                )
+    backend = FakeBackend(cluster, metrics)
+    backend.SERIES_ORIGIN = ALIGNED_ORIGIN
+    server = ServerThread(backend).start()
+    kubeconfig = tmp_path_factory.mktemp("aligned") / "kubeconfig"
+    kubeconfig.write_text(yaml.dump({
+        "current-context": "fake",
+        "contexts": [{"name": "fake", "context": {"cluster": "fake", "user": "u"}}],
+        "clusters": [{"name": "fake", "cluster": {"server": server.url}}],
+        "users": [{"name": "u", "user": {"token": "t"}}],
+    }))
+    yield {"server": server, "kubeconfig": str(kubeconfig)}
+    server.stop()
+
+
+@pytest.mark.parametrize("path", sorted(STRATEGY_PATHS))
+def test_downsample_auto_equal_jax(apps, aligned_env, path, tmp_path):
+    window = [
+        "--history_duration", "1", "--timeframe_duration", "1",
+        "--scan-end-timestamp", str(ALIGNED_ORIGIN + 3600.0),
+    ]
+    dump = tmp_path / "port.prom"
+    jax_result, port_result = _both(
+        apps, aligned_env,
+        [*STRATEGY_PATHS[path], "-f", "json", *window, "--fetch-downsample", "auto",
+         "--metrics-dump", str(dump)],
+    )
+    assert jax_result.exit_code == 0, jax_result.output
+    assert port_result.exit_code == 0, port_result.output
+    assert port_result.output == jax_result.output
+    scans = json.loads(port_result.output)["scans"]
+    assert len(scans) == 3 and all(
+        s["recommended"]["requests"]["cpu"]["value"] != "?" for s in scans
+    )
+    downsampled = [
+        line for line in dump.read_text().splitlines()
+        if line.startswith("krr_tpu_fetch_downsampled_total{")
+    ]
+    if path == "simple":  # memory rides the stats route, which downsamples
+        assert downsampled and float(downsampled[0].rsplit(" ", 1)[1]) >= 1
+    else:  # tdigest fetches raw memory: nothing is eligible
+        assert not downsampled
+    # Downsampling is bit-exact: the raw fetch renders the same bytes.
+    _, raw_result = _both(apps, aligned_env, [*STRATEGY_PATHS[path], "-f", "json", *window])
+    assert raw_result.output == port_result.output
+
+
+@pytest.mark.parametrize("strict", [False, True])
+def test_failing_namespace_renders_unknown_and_strict_exits_3(apps, fake_env, strict):  # noqa: F811
+    args = [
+        "simple", "-f", "json", "--backoff-cap-seconds", "0.01",
+        "--retry-deadline-seconds", "0.05", *(["--strict"] if strict else []),
+    ]
+    fake_env["metrics"].fail_namespaces = frozenset({"prod"})
+    try:
+        jax_result, port_result = _both(apps, fake_env, args)
+    finally:
+        fake_env["metrics"].fail_namespaces = frozenset()
+    assert jax_result.exit_code == port_result.exit_code == (3 if strict else 0)
+    if strict:
+        return
+    assert port_result.output == jax_result.output
+    cpu = {
+        (s["object"]["namespace"], s["object"]["name"]): s["recommended"]["requests"]["cpu"]["value"]
+        for s in json.loads(port_result.output)["scans"]
+    }
+    assert cpu[("prod", "db")] == "?"
+    assert cpu[("default", "web")] != "?"
+
+
+def test_trace_spans_carry_the_scan_id_current_ids_reads(apps, fake_env, tmp_path):  # noqa: F811
+    """``--trace`` keeps stdout byte-equal to the JAX CLI's and writes the
+    scan's spans under one scan id; inside a span ``current_ids`` (the hook
+    the structured log channel of ROADMAP M8 reads) gives that span's ids,
+    outside any span nothing."""
+    jax_app, port_app = apps
+    args = ["simple", "--kubeconfig", fake_env["kubeconfig"], "-p", fake_env["server"].url,
+            "-q", "-f", "json"]
+    trace = tmp_path / "trace.json"
+    port_result = _invoke(port_app, [*args, "--device", "cpu", "--trace", str(trace)])
+    jax_result = _invoke(jax_app, args)
+    assert port_result.exit_code == jax_result.exit_code == 0
+    assert port_result.stdout == jax_result.stdout
+    events = [e for e in json.loads(trace.read_text())["traceEvents"] if e["ph"] == "X"]
+    assert {"scan", "discover", "fetch", "compute", "prom_query"} <= {e["name"] for e in events}
+    (root,) = [e for e in events if e["name"] == "scan"]
+    assert {e["args"]["trace_id"] for e in events} == {root["args"]["trace_id"]}
+
+    tracer = PortTracer()
+    assert current_ids() == (None, None)
+    with tracer.span("scan") as scan:
+        with tracer.span("fetch") as fetch:
+            assert current_ids() == (scan.trace_id, f"{fetch.span_id:x}")
+        assert current_ids() == (scan.trace_id, f"{scan.span_id:x}")
+    assert current_ids() == (None, None)
+
+
+def _flag_names(command: click.Command) -> "set[str]":
+    return {
+        opt for param in command.params if isinstance(param, click.Option)
+        for opt in param.opts if opt.startswith("--")
+    }
+
+
+@pytest.mark.parametrize("name", ["simple", "tdigest"])
+def test_help_lists_the_jax_flags(apps, name):
+    jax_app, port_app = apps
+    jax_flags = _flag_names(jax_app.commands[name])
+    port_flags = _flag_names(port_app.commands[name])
+    assert port_flags - jax_flags == PORT_ONLY_FLAGS
+    assert jax_flags - port_flags == JAX_ONLY_FLAGS & jax_flags
+    help_text = _invoke(port_app, [name, "--help"]).output
+    for flag in port_flags:
+        assert flag in help_text
+
+
+def _boolean_options(command: click.Command) -> "list[click.Option]":
+    return [
+        p for p in command.params
+        if isinstance(p, click.Option)
+        and (p.is_flag or getattr(p, "is_bool_flag", False) or p.type is click.BOOL)
+    ]
+
+
+@pytest.mark.parametrize("name", ["simple", "tdigest"])
+def test_boolean_defaults_match_jax_and_fields(apps, name):
+    """The real parser with no flags lands every boolean on the JAX
+    command's default and on the Config / settings field it feeds (the
+    click single-name inverted-flag trap)."""
+    jax_app, port_app = apps
+    port_command = port_app.commands[name]
+    jax_defaults = {
+        opt.name: opt.default for opt in _boolean_options(jax_app.commands[name])
+    }
+    ctx = port_command.make_context(name, [], resilient_parsing=True)
+    fields = {
+        **PortConfig.model_fields,
+        **PortBaseStrategy.find(name).get_settings_type().model_fields,
+    }
+    options = _boolean_options(port_command)
+    assert options
+    for opt in options:
+        assert ctx.params[opt.name] == opt.default == jax_defaults[opt.name], opt.name
+        assert fields[opt.name].default == opt.default, opt.name
+
+
+def test_without_device_cpu_the_scan_asks_for_cuda(fake_env):  # noqa: F811
+    """``python -m krr_tpu_torch simple`` defaults to the card: with no card
+    it exits non-zero naming CUDA, and prints no scan."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "krr_tpu_torch", "simple", "-q", "-f", "json",
+         "--kubeconfig", fake_env["kubeconfig"], "-p", fake_env["server"].url],
+        cwd=REPO_ROOT, capture_output=True, text=True, timeout=120,
+        env={**os.environ, "CUDA_VISIBLE_DEVICES": ""},
+    )
+    assert proc.returncode != 0
+    assert "cuda" in (proc.stdout + proc.stderr).lower()
+    assert '"scans"' not in proc.stdout
