@@ -35,7 +35,13 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    versions at the ``cli`` scans' shape (10,000 × 1,345). Between the card
    and the CPU the digest's bucket indices may move one bucket where ``log``
    differs by an ulp at a bucket edge: the phase counts those moves and
-   checks each is one bucket, at an edge.
+   checks each is one bucket, at an edge. ``radix_digit_hist`` is bit-exact
+   against its plain version in one pass (every digit shift, prefixes taken
+   from the rows' own keys, bins that already hold counts) on the radix
+   rows above, fuzzed rows, odd widths, ``w = 1``, N = 0 and T = 0; and
+   over 4 passes, as the streamed radix select, which must give K1's
+   answer on the resident window for odd chunk splits. The streamed max,
+   digest and top-K builds on the card equal the resident kernels' results.
 4. ``digest_proof`` — ``digest_hist`` takes a sample's bucket from tables
    (an edge table and a coarse index), exact where the bucket formula is
    monotone in the bit pattern: for each spec of the parity phase, the
@@ -50,7 +56,13 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    library yardsticks (``torch.kthvalue`` at the same rank, ``torch.amax``,
    ``torch.bincount`` of precomputed bucket indices — histogram only — and
    ``torch.topk``), each kernel's bound, and parity of the kernels with the
-   plain versions; also ``row_max_main`` below.
+   plain versions; also ``row_max_main`` below. ``radix_digit_hist`` per
+   launch on one 10,000 × 8,192 chunk of the same values (the first pass,
+   where every key counts, and the last, under each row's own 24-bit
+   prefix), its plain version once, ``torch.bincount`` of precomputed
+   ``row·256 + digit`` as its yardstick (histogram only) and its bound; and
+   ``digest_hist`` on one such chunk beside the build of its bucket tables
+   (once per spec and device).
 6. ``e2e``     — scans through ``Runner.run`` with in-memory inventory and
    history sources: 10,000 objects × 3 pods, 40,320 CPU samples and 40,320
    raw memory samples per pod (7 days at 5 s) made with numpy from a seed,
@@ -65,7 +77,25 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    ``simple`` and ``exact_upgrade``, and for ``tdigest`` the same memory and
    every CPU value within one bucket of the card's.
 
-7. ``cli``     — the user's entry point, ``krr_tpu_torch``'s click command,
+7. ``stream``  — host streaming (a window past ``--host_stream_mb``) through
+   ``Runner.run`` with ``host_stream_mb=1000`` on ``e2e``'s fleet, whose CPU
+   window is 4.84 GB as float32 and whose raw memory window is 9.68 GB as
+   float64 on the host: 8,192-column chunks from two pinned host buffers
+   into two device buffers. ``simple`` (q = 99: the top-K sketch,
+   ``topk_select`` once a chunk, ``row_max`` once for the stats-route
+   memory), ``tdigest`` (``digest_hist`` and ``row_max`` once a chunk) and
+   ``tdigest --exact_upgrade`` (``topk_select`` and ``row_max``) must render
+   ``e2e``'s JSON byte for byte; ``simple`` at q = 50 (K past the sketch
+   budget: the streamed radix select, ``radix_digit_hist`` once a chunk in
+   each of 4 passes) must render a resident q = 50 scan's. Each with every
+   count set to 0 just before it: the exact launch counts, no other kernel,
+   no generic fold, 10,000 rows and no ``?``, and a peak of allocated device
+   memory below 1.5 GB (the resident scans' peaks are printed beside it).
+   The legs (pack, host fill, copy wait, fold by CUDA events, stream wall),
+   chunks, passes and pinned bytes are printed. Run alone
+   (``--phases stream``) it builds the fleet and the resident references
+   itself.
+8. ``cli``     — the user's entry point, ``krr_tpu_torch``'s click command,
    against the fake apiserver + fake Prometheus of ``tests/fakes/servers.py``
    served from a child process (started when the phase begins, so its
    fixture build overlaps no timed phase): 10,000 Deployments of one
@@ -94,7 +124,8 @@ commit times that commit's kernel the same way.
 
 The last three lines are the card's ``nvidia-smi`` name and power limit, one
 ``{"kernels": [...]}`` JSON object (launch counts from the ``cli`` phase's
-warm runs), and ``{"ok": true, "device": {...}}``. The script must run as a
+warm runs; ``radix_digit_hist``'s from the ``stream`` phase's q = 50 scan),
+and ``{"ok": true, "device": {...}}``. The script must run as a
 file (``python3 chip_smoke.py``): the fixture's child process re-imports it.
 """
 
@@ -137,17 +168,28 @@ TOPK_K = 1280
 #: flow on a machine without a card sets it to "cpu".
 DEVICE = "cuda"
 
-#: Each kernel: the TPU kernel it replaces, its source, and the scan path
-#: (of the ``e2e`` and ``cli`` phases) whose launch count the kernels line
-#: reports.
+#: The ``stream`` phase: the window past this many MB streams from host.
+STREAM_MB = 1000
+#: The streamed chunk width (the ``simple`` strategy's, the ``tdigest``
+#: default ``chunk_size``).
+STREAM_CHUNK = 8192
+#: Allocated device memory a streamed scan may reach: two chunk buffers of
+#: 328 MB plus the sketch state and temporaries.
+STREAM_PEAK_BYTES = 1.5e9
+
+#: Each kernel: what it replaces (a TPU kernel; K5 the jnp count pass of the
+#: JAX package's streamed bisection), its source, and the phase and scan
+#: path whose launch count the kernels line reports.
 KERNELS = {
-    "bisect_select": ("krr_tpu/ops/pallas_select.py:61", "krr_tpu_torch/csrc/select.cu", "simple"),
-    "row_max": ("krr_tpu/ops/pallas_select.py:93", "krr_tpu_torch/csrc/select.cu", "tdigest"),
-    "digest_hist": ("krr_tpu/ops/pallas_sketch.py:99", "krr_tpu_torch/csrc/sketch.cu", "tdigest"),
-    "topk_select": ("krr_tpu/ops/pallas_sketch.py:284", "krr_tpu_torch/csrc/sketch.cu", "tdigest_exact"),
+    "bisect_select": ("krr_tpu/ops/pallas_select.py:61", "krr_tpu_torch/csrc/select.cu", "cli", "simple"),
+    "row_max": ("krr_tpu/ops/pallas_select.py:93", "krr_tpu_torch/csrc/select.cu", "cli", "tdigest"),
+    "digest_hist": ("krr_tpu/ops/pallas_sketch.py:99", "krr_tpu_torch/csrc/sketch.cu", "cli", "tdigest"),
+    "topk_select": ("krr_tpu/ops/pallas_sketch.py:284", "krr_tpu_torch/csrc/sketch.cu", "cli", "tdigest_exact"),
+    "radix_digit_hist": ("krr_tpu/ops/selection.py:142", "krr_tpu_torch/csrc/select.cu", "stream", "simple_p50"),
 }
 #: The kernels' function names in the built libraries' SASS.
-SASS_KERNELS = ("bisect_select_kernel", "row_max_kernel", "digest_hist_kernel", "topk_select_kernel")
+SASS_KERNELS = ("bisect_select_kernel", "row_max_kernel", "digest_hist_kernel", "topk_select_kernel",
+                "radix_digit_hist_kernel")
 
 
 class SmokeFailure(AssertionError):
@@ -480,10 +522,85 @@ def phase_parity(torch, np) -> dict:
               f"bisect_select != plain on fuzzed rows at num_iters={num_iters}")
         cases += 1
     sketch_cases, bucket_moves = sketch_parity(torch, np, errs)
+    stream_cases = stream_parity(torch, np, errs)
     torch.cuda.synchronize()
-    emit("parity", cases=cases + sketch_cases, bit_exact=True, max_abs_err=errs,
+    emit("parity", cases=cases + sketch_cases + stream_cases, bit_exact=True, max_abs_err=errs,
          digest_bucket_moves_card_vs_cpu=bucket_moves)
     return errs
+
+
+def stream_parity(torch, np, errs: dict) -> int:
+    """``radix_digit_hist`` against its plain version on the card and on the
+    CPU, one pass at a time; the streamed radix select (4 passes) against
+    K1 on the resident window; and the streamed max, digest and top-K
+    builds against the resident kernels, for odd chunk splits. Returns the
+    case count."""
+    from krr_tpu_torch.ops import cuda_select, cuda_sketch
+    from krr_tpu_torch.ops import digest as digest_ops
+    from krr_tpu_torch.ops import topk_sketch as topk_ops
+    from krr_tpu_torch.ops.quantile import masked_max_from_host
+    from krr_tpu_torch.ops.selection import (
+        INT32_MIN, RADIX_BINS, RADIX_SHIFTS, as_ordered_bits, masked_percentile_bisect_from_host,
+    )
+
+    dev = torch.device(DEVICE)
+    errs["radix_digit_hist"] = 0.0
+    cases = 0
+    inputs = [select_edge_rows(np, 1000 + t, t) for t in (1, 3, 300, 4097)]
+    inputs += [fuzz(np, 1100 + i, n, t, 0.3) for i, (n, t) in
+               enumerate([(300, 1), (257, 31), (129, 4097), (64, 8192), (33, 8191), (0, 16), (5, 0)])]
+    for values, counts in inputs:
+        n, t = values.shape
+        rng = np.random.default_rng(n * 7 + t)
+        v_cpu, c_cpu = torch.from_numpy(values), torch.from_numpy(counts)
+        v, c = v_cpu.to(dev), c_cpu.to(dev)
+        keys = (as_ordered_bits(v_cpu) ^ INT32_MIN) if t else torch.zeros((n, 1), dtype=torch.int32)
+        # Each row's prefix from one of its own keys (so keys match), the last row's at random.
+        prefixes = keys[torch.arange(n), torch.from_numpy(rng.integers(0, max(t, 1), n))].contiguous()
+        if n:
+            prefixes[-1] = int(rng.integers(INT32_MIN, 2**31))
+        for shift in RADIX_SHIFTS:
+            start = torch.from_numpy(rng.integers(0, 100, (n, RADIX_BINS)).astype(np.int32))
+            kernel = cuda_select.radix_digit_hist(v, c, prefixes.to(dev), start.clone().to(dev), shift)
+            plain = cuda_select.radix_digit_hist_plain(v, c, prefixes.to(dev), start.clone().to(dev), shift)
+            cpu = cuda_select.radix_digit_hist_plain(v_cpu, c_cpu, prefixes, start, shift)
+            check(same_bits(torch, kernel, plain), f"radix_digit_hist != plain at n={n} t={t} shift={shift}")
+            check(same_bits(torch, plain, cpu), f"plain digit histogram on the card != on the CPU at n={n} t={t}")
+            cases += 1
+    # The 4 passes: the streamed radix select against K1 on the resident window.
+    for i, (t, chunk) in enumerate([(300, 7), (4097, 1000), (70_001, 8192), (HEADLINE_T, STREAM_CHUNK)]):
+        values, counts = select_edge_rows(np, 1200 + t, t) if t <= 70_001 else fuzz(np, 1200 + i, 16, t, 0.2)
+        v, c = torch.from_numpy(values).to(dev), torch.from_numpy(counts).to(dev)
+        for q in (0.0, 50.0, 99.0, 100.0, 120.0):
+            streamed = masked_percentile_bisect_from_host(values, counts, q, chunk, device=DEVICE)
+            resident = cuda_select.masked_percentile_bisect_cuda(v, c, q).cpu().numpy()
+            check(np.array_equal(streamed.view(np.int32), resident.view(np.int32)),
+                  f"streamed radix select != K1 at t={t} chunk={chunk} q={q}")
+            cases += 1
+    # The streamed max, digest and top-K builds against the resident kernels.
+    values, counts = fuzz(np, 1300, 257, 4097, 0.2)
+    memory = np.round(np.random.default_rng(1301).uniform(2e7, 4e9, size=(257, 4097)))
+    v, c = torch.from_numpy(values).to(dev), torch.from_numpy(counts).to(dev)
+    mem32 = torch.from_numpy(np.ascontiguousarray(memory / 1e6, dtype=np.float32)).to(dev)
+    for chunk in (1000, 4096):
+        streamed = masked_max_from_host(values, counts, chunk, device=DEVICE)
+        check(np.array_equal(streamed.view(np.int32), cuda_select.masked_max_cuda(v, c).cpu().numpy().view(np.int32)),
+              f"streamed max != row_max at chunk={chunk}")
+        streamed = masked_max_from_host(memory, counts, chunk, scale=1e6, device=DEVICE)
+        resident = cuda_select.masked_max_cuda(mem32, c).cpu().numpy()
+        check(np.array_equal(streamed.view(np.int32), resident.view(np.int32)),
+              f"streamed memory max != row_max at chunk={chunk}")
+        spec = digest_ops.DigestSpec()
+        streamed_digest = digest_ops.build_from_host(spec, values, counts, chunk, device=DEVICE)
+        resident_digest = digest_ops.build_from_packed(spec, v, c)
+        check(all(same_bits(torch, a, b) for a, b in zip(streamed_digest, resident_digest)),
+              f"streamed digest != digest_hist at chunk={chunk}")
+        streamed_topk = topk_ops.build_from_host(values, counts, TOPK_K, chunk, device=DEVICE)
+        resident_topk = cuda_sketch.topk_select(v, c, TOPK_K)
+        check(same_bits(torch, sorted_rows(torch, streamed_topk.values), sorted_rows(torch, resident_topk)),
+              f"streamed top-K != topk_select at chunk={chunk}")
+        cases += 4
+    return cases
 
 
 def sketch_parity(torch, np, errs: dict) -> tuple[int, dict]:
@@ -774,6 +891,76 @@ def phase_sketch_headline(torch, np) -> dict:
     return headline
 
 
+def phase_stream_headline(torch, np) -> dict:
+    """``radix_digit_hist`` on one streamed chunk of the headline rows
+    (10,000 × 8,192, CPU-like values generated on the card): the first pass
+    (every key counts) and the last (under each row's own 24-bit prefix),
+    its plain version, ``torch.bincount`` over precomputed ``row·256 +
+    digit`` and the bound; and ``digest_hist`` on such a chunk beside the
+    build of its bucket tables, which it does once per spec and device."""
+    from krr_tpu_torch.ops import cuda_select, cuda_sketch
+    from krr_tpu_torch.ops.selection import INT32_MIN, RADIX_BINS, as_ordered_bits
+
+    dev = torch.device(DEVICE)
+    n, w = HEADLINE_ROWS, STREAM_CHUNK
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    chunk = torch.rand((n, w), generator=gen, device=dev, dtype=torch.float32)
+    chunk.mul_(chunk).mul_(0.8).add_(1e-4)
+    eff = torch.full((n,), w, dtype=torch.int32, device=dev)
+    keys = as_ordered_bits(chunk) ^ INT32_MIN
+    first = torch.zeros((n,), dtype=torch.int32, device=dev)
+    own = keys[:, 0].contiguous()  # the last pass under the first key's 24-bit prefix: few keys match
+
+    def digit_pass(prefixes, shift):
+        return cuda_select.radix_digit_hist(chunk, eff, prefixes, torch.zeros((n, RADIX_BINS), dtype=torch.int32,
+                                                                            device=dev), shift)
+
+    first_times = cuda_ms(torch, lambda: digit_pass(first, 24))
+    last_times = cuda_ms(torch, lambda: digit_pass(own, 0))
+    kernel = digit_pass(first, 24)
+    plain_ms = cuda_ms(torch, lambda: cuda_select.radix_digit_hist_plain(
+        chunk, eff, first, torch.zeros((n, RADIX_BINS), dtype=torch.int32, device=dev), 24), warmup=0, runs=1)[0]
+    plain = cuda_select.radix_digit_hist_plain(chunk, eff, first, torch.zeros_like(kernel), 24)
+    check(same_bits(torch, kernel, plain), "headline radix_digit_hist != plain (first pass)")
+    check(same_bits(torch, digit_pass(own, 0), cuda_select.radix_digit_hist_plain(
+        chunk, eff, own, torch.zeros_like(kernel), 0)), "headline radix_digit_hist != plain (last pass)")
+    flat = ((keys.to(torch.int64) >> 24) & 0xFF) + (torch.arange(n, device=dev, dtype=torch.int64) * RADIX_BINS)[:, None]
+    flat = flat.view(-1)
+    library_times = cuda_ms(torch, lambda: torch.bincount(flat, minlength=n * RADIX_BINS), warmup=1, runs=3)
+    check(bool(torch.equal(torch.bincount(flat, minlength=n * RADIX_BINS).view(n, RADIX_BINS).to(torch.int32), kernel)),
+          "torch.bincount of the first digits != radix_digit_hist")
+    del flat, keys, plain
+    # Bytes: the chunk, the prefix lengths and prefixes read once, the bins
+    # read and written once.
+    digit_bytes = 4 * n * w + 8 * n + 2 * 4 * n * RADIX_BINS
+    digit_bound = max(1e3 * digit_bytes / PEAK_BYTES_PER_S, 1e3 * n * w / PEAK_F32_OPS_PER_S)
+    digest_times = cuda_ms(torch, lambda: cuda_sketch.digest_hist(chunk, eff, DIGEST_BUCKETS, DIGEST_MIN_VALUE,
+                                                                  DIGEST_LOG_GAMMA))
+    tables_times = cuda_ms(torch, lambda: cuda_sketch.build_digest_tables(DIGEST_BUCKETS, DIGEST_MIN_VALUE,
+                                                                          DIGEST_LOG_GAMMA, dev), runs=11)
+    del chunk, eff, kernel
+    torch.cuda.empty_cache()
+    result = {
+        "radix_digit_hist": {
+            "shape": [n, w], "ms": statistics.median(first_times), "runs_ms": first_times,
+            "last_pass_ms": statistics.median(last_times), "last_pass_runs_ms": last_times,
+            "plain_ms": plain_ms, "library_ms": statistics.median(library_times),
+            "library": "torch.bincount (histogram only)", "bound_ms": digit_bound,
+            "bound_by": "bytes" if 1e3 * digit_bytes / PEAK_BYTES_PER_S >= 1e3 * n * w / PEAK_F32_OPS_PER_S
+            else "operations",
+            "max_abs_err": 0.0,
+        },
+        "digest_chunk": {
+            "shape": [n, w], "ms": statistics.median(digest_times), "runs_ms": digest_times,
+            "tables_ms": statistics.median(tables_times), "tables_runs_ms": tables_times,
+            "tables_over_chunk": statistics.median(tables_times) / statistics.median(digest_times),
+        },
+    }
+    emit("headline_stream", **result)
+    return result
+
+
 def phase_digest_proof() -> dict:
     """The proof behind ``digest_hist``'s bucket tables: for each spec the
     parity phase uses (B ∈ {16, 200, 2,560, 60,000} at min 1e-7, γ = 1.01),
@@ -844,40 +1031,50 @@ def _read_counts() -> tuple[dict, dict]:
     return {**cuda_select.LAUNCHES, **cuda_sketch.LAUNCHES}, dict(chunked.GENERIC_FOLDS)
 
 
-def phase_e2e(np, seed: int = 0) -> dict:
-    from krr_tpu_torch.core.config import Config
-    from krr_tpu_torch.core.runner import Runner
-    from krr_tpu_torch.models import K8sObjectData, ResourceAllocations, ResourceType, Result
+class E2EFleet:
+    """The ``e2e`` and ``stream`` phases' fleet: 10,000 objects of 3 pods and
+    the flat CPU and raw memory samples the in-memory history source
+    serves, made with numpy from a seed."""
 
-    t0 = time.perf_counter()
-    rng = np.random.default_rng(seed)
-    size = E2E_OBJECTS * E2E_PODS * E2E_SAMPLES_PER_POD
-    cpu_flat = rng.random(size, dtype=np.float32)
-    np.multiply(cpu_flat, cpu_flat, out=cpu_flat)
-    cpu_flat *= np.float32(0.8)
-    cpu_flat += np.float32(1e-4)
-    mem_flat = rng.random(size, dtype=np.float32)  # bytes: 50 MB to 4 GB
-    mem_flat *= np.float32(3.95e9)
-    mem_flat += np.float32(5e7)
-    mem_max = mem_flat.reshape(E2E_OBJECTS, E2E_PODS, E2E_SAMPLES_PER_POD).max(axis=2).astype(np.float64)
-    allocations = ResourceAllocations(
-        requests={ResourceType.CPU: "500m", ResourceType.Memory: "1Gi"},
-        limits={ResourceType.CPU: None, ResourceType.Memory: "2Gi"},
-    )
-    objects = [
-        K8sObjectData(
-            name=f"workload-{i}", container="main", namespace=f"ns-{i % 50}", kind="Deployment",
-            pods=[f"workload-{i}-pod-{p}" for p in range(E2E_PODS)], allocations=allocations,
+    def __init__(self, np, seed: int = 0):
+        from krr_tpu_torch.models import K8sObjectData, ResourceAllocations, ResourceType
+
+        started = time.perf_counter()
+        self.np = np
+        rng = np.random.default_rng(seed)
+        size = E2E_OBJECTS * E2E_PODS * E2E_SAMPLES_PER_POD
+        self.cpu_flat = rng.random(size, dtype=np.float32)
+        np.multiply(self.cpu_flat, self.cpu_flat, out=self.cpu_flat)
+        self.cpu_flat *= np.float32(0.8)
+        self.cpu_flat += np.float32(1e-4)
+        self.mem_flat = rng.random(size, dtype=np.float32)  # bytes: 50 MB to 4 GB
+        self.mem_flat *= np.float32(3.95e9)
+        self.mem_flat += np.float32(5e7)
+        self.mem_max = self.mem_flat.reshape(E2E_OBJECTS, E2E_PODS, E2E_SAMPLES_PER_POD).max(axis=2).astype(np.float64)
+        allocations = ResourceAllocations(
+            requests={ResourceType.CPU: "500m", ResourceType.Memory: "1Gi"},
+            limits={ResourceType.CPU: None, ResourceType.Memory: "2Gi"},
         )
-        for i in range(E2E_OBJECTS)
-    ]
-    setup_seconds = time.perf_counter() - t0
+        self.objects = [
+            K8sObjectData(
+                name=f"workload-{i}", container="main", namespace=f"ns-{i % 50}", kind="Deployment",
+                pods=[f"workload-{i}-pod-{p}" for p in range(E2E_PODS)], allocations=allocations,
+            )
+            for i in range(E2E_OBJECTS)
+        ]
+        self.setup_seconds = time.perf_counter() - started
 
-    def scan(subset, device: str, strategy: str, **other_args):
+    def scan(self, subset, device: str, strategy: str, **other_args):
+        """One ``Runner.run`` over ``subset``: (result, runner, wall seconds)."""
+        from krr_tpu_torch.core.config import Config
+        from krr_tpu_torch.core.runner import Runner
+        from krr_tpu_torch.models import ResourceType
+
         runner = Runner(
             Config(quiet=True, format="json", device=device, strategy=strategy, other_args=other_args),
             inventory=_Inventory(subset),
-            history_factory=lambda cluster: _History(np, cpu_flat, mem_flat, mem_max, ResourceType),
+            history_factory=lambda cluster: _History(self.np, self.cpu_flat, self.mem_flat, self.mem_max,
+                                                     ResourceType),
         )
         with open(os.devnull, "w") as sink, contextlib.redirect_stdout(sink):
             started = time.perf_counter()
@@ -885,21 +1082,31 @@ def phase_e2e(np, seed: int = 0) -> dict:
             wall = time.perf_counter() - started
         return result, runner, wall
 
-    paths = {
-        "simple": ("simple", {}, {"bisect_select", "row_max"}),
-        "tdigest": ("tdigest", {}, {"digest_hist", "row_max"}),
-        "tdigest_exact": ("tdigest", {"exact_upgrade": True}, {"topk_select", "row_max"}),
-    }
+
+#: The ``e2e`` scans: (strategy, settings, kernels that launch).
+E2E_PATHS = {
+    "simple": ("simple", {}, {"bisect_select", "row_max"}),
+    "tdigest": ("tdigest", {}, {"digest_hist", "row_max"}),
+    "tdigest_exact": ("tdigest", {"exact_upgrade": True}, {"topk_select", "row_max"}),
+}
+
+
+def phase_e2e(torch, fleet: E2EFleet) -> tuple[dict, dict]:
+    """The three resident scans; returns the report and each path's JSON."""
+    from krr_tpu_torch.models import Result
+
     e2e = {
         "objects": E2E_OBJECTS, "samples_per_object": E2E_PODS * E2E_SAMPLES_PER_POD,
-        "setup_seconds": setup_seconds, "paths": {}, "cpu_recheck_rows": E2E_CPU_CHECK_ROWS,
+        "setup_seconds": fleet.setup_seconds, "paths": {}, "cpu_recheck_rows": E2E_CPU_CHECK_ROWS,
     }
     rendered = {}
     results = {}
-    for path, (strategy, args, launched) in paths.items():
+    for path, (strategy, args, launched) in E2E_PATHS.items():
         _reset_counts()
-        result, runner, wall = scan(objects, DEVICE, strategy, **args)
+        torch.cuda.reset_peak_memory_stats()
+        result, runner, wall = fleet.scan(fleet.objects, DEVICE, strategy, **args)
         launches, generic_folds = _read_counts()
+        peak = torch.cuda.max_memory_allocated()
         render_started = time.perf_counter()
         rendered[path] = result.format("json")
         render_seconds = time.perf_counter() - render_started
@@ -914,24 +1121,77 @@ def phase_e2e(np, seed: int = 0) -> dict:
             "run_wall_seconds": wall, "runner_stats": runner.stats,
             "legs_seconds": {**runner.session.strategy.leg_seconds, "render_json": render_seconds},
             "launches": launches, "generic_folds": generic_folds, "json_bytes": len(rendered[path]),
+            "peak_device_bytes": peak,
         }
     check(rendered["tdigest_exact"] == rendered["simple"], "tdigest exact_upgrade JSON != simple JSON")
 
-    subset = objects[:E2E_CPU_CHECK_ROWS]
+    subset = fleet.objects[:E2E_CPU_CHECK_ROWS]
     head = slice(0, E2E_CPU_CHECK_ROWS)
     for path in ("simple", "tdigest_exact"):
-        strategy, args, _ = paths[path]
-        cpu_result, _cpu_runner, cpu_wall = scan(subset, "cpu", strategy, **args)
+        strategy, args, _ = E2E_PATHS[path]
+        cpu_result, _cpu_runner, cpu_wall = fleet.scan(subset, "cpu", strategy, **args)
         check(Result(scans=results[path].scans[head]).format("json") == cpu_result.format("json"),
               f"{path}: the CPU re-run's JSON differs from the GPU scan's")
         e2e["paths"][path]["cpu_recheck_wall_seconds"] = cpu_wall
-    cpu_result, _cpu_runner, cpu_wall = scan(subset, "cpu", "tdigest")
+    cpu_result, _cpu_runner, cpu_wall = fleet.scan(subset, "cpu", "tdigest")
     e2e["paths"]["tdigest"]["cpu_recheck_wall_seconds"] = cpu_wall
     e2e["paths"]["tdigest"]["cpu_recheck_identical_cpu_values"] = same_within_a_bucket(
         Result(scans=results["tdigest"].scans[head]).format("json"), cpu_result.format("json")
     )
     emit("e2e", **e2e)
-    return e2e
+    return e2e, rendered
+
+
+def phase_stream(torch, fleet: E2EFleet, rendered: "dict | None") -> dict:
+    """The ``e2e`` fleet's window streamed from host (``host_stream_mb``):
+    four scans through ``Runner.run``, each held to its resident
+    reference's JSON byte for byte, with exact launch counts and a peak of
+    allocated device memory below ``STREAM_PEAK_BYTES``. ``rendered`` holds
+    the ``e2e`` phase's JSON; None builds the references here."""
+    chunks = -(-(E2E_PODS * E2E_SAMPLES_PER_POD) // STREAM_CHUNK)
+    scans = {
+        # path: (strategy, settings, reference path, exact launch counts)
+        "simple": ("simple", {}, "simple", {"topk_select": chunks, "row_max": 1}),
+        "tdigest": ("tdigest", {}, "tdigest", {"digest_hist": chunks, "row_max": chunks}),
+        "tdigest_exact": ("tdigest", {"exact_upgrade": True}, "tdigest_exact",
+                          {"topk_select": chunks, "row_max": chunks}),
+        "simple_p50": ("simple", {"cpu_percentile": 50}, "simple_p50",
+                       {"radix_digit_hist": 4 * chunks, "row_max": 1}),
+    }
+    references = dict(rendered or {})
+    report: dict = {"host_stream_mb": STREAM_MB, "chunk_size": STREAM_CHUNK, "scans": {}, "resident": {}}
+    wanted = {"simple_p50": ("simple", {"cpu_percentile": 50})}
+    if rendered is None:
+        wanted.update({path: (strategy, args) for path, (strategy, args, _) in E2E_PATHS.items()})
+    for path, (strategy, args) in wanted.items():  # the resident references
+        torch.cuda.reset_peak_memory_stats()
+        result, runner, wall = fleet.scan(fleet.objects, DEVICE, strategy, host_stream_mb=-1, **args)
+        references[path] = result.format("json")
+        check('"?"' not in references[path], f"stream: an unknown ('?') value in the resident {path} scan")
+        report["resident"][path] = {"run_wall_seconds": wall, "peak_device_bytes": torch.cuda.max_memory_allocated(),
+                                    "legs_seconds": runner.session.strategy.leg_seconds}
+    for path, (strategy, args, reference, expected) in scans.items():
+        _reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        result, runner, wall = fleet.scan(fleet.objects, DEVICE, strategy, host_stream_mb=STREAM_MB, **args)
+        launches, generic_folds = _read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        strategy_obj = runner.session.strategy
+        stream_json = result.format("json")
+        check(strategy_obj.stream_stats is not None, f"stream {path}: the scan did not stream")
+        check(len(result.scans) == E2E_OBJECTS, f"stream {path}: {len(result.scans)} scans, expected {E2E_OBJECTS}")
+        check('"?"' not in stream_json, f"stream {path}: an unknown ('?') value in the scan")
+        check(launches == {**{name: 0 for name in launches}, **expected},
+              f"stream {path}: launches {launches}, expected {expected} and no other kernel")
+        check(not any(generic_folds.values()), f"stream {path}: a fold took the generic path: {generic_folds}")
+        check(peak < STREAM_PEAK_BYTES, f"stream {path}: peak allocated device memory {peak} >= {STREAM_PEAK_BYTES}")
+        check(stream_json == references[reference], f"stream {path}: JSON != the resident {reference} scan's")
+        report["scans"][path] = {
+            "run_wall_seconds": wall, "legs_seconds": strategy_obj.leg_seconds,
+            "stream": strategy_obj.stream_stats, "launches": launches, "peak_device_bytes": peak,
+        }
+    emit("stream", **report)
+    return report
 
 
 def same_within_a_bucket(card_json: str, cpu_json: str) -> int:
@@ -1160,9 +1420,9 @@ def _phase_cli(fakes: FakeServers, url: str, scan_end: float, fixture_seconds: f
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
-        "--phases", default="build,parity,digest_proof,headline,e2e,cli",
-        help="comma-separated subset of build,parity,digest_proof,headline,e2e,cli,row_max_main (default: "
-        "the first six; the kernels line and the ok line need all six)",
+        "--phases", default="build,parity,digest_proof,headline,e2e,stream,cli",
+        help="comma-separated subset of build,parity,digest_proof,headline,e2e,stream,cli,row_max_main "
+        "(default: the first seven; the kernels line and the ok line need all seven)",
     )
     args = parser.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -1196,17 +1456,23 @@ def main(argv=None) -> int:
     headline = timed("headline", phase_headline, torch, np) if "headline" in phases else None
     if headline is not None:
         headline.update(timed("headline_sketch", phase_sketch_headline, torch, np))
-    e2e = timed("e2e", phase_e2e, np) if "e2e" in phases else None
+        headline.update(timed("headline_stream", phase_stream_headline, torch, np))
+    fleet = timed("fleet", E2EFleet, np) if {"e2e", "stream"} & phases else None
+    e2e, rendered = timed("e2e", phase_e2e, torch, fleet) if "e2e" in phases else (None, None)
+    stream = timed("stream", phase_stream, torch, fleet, rendered) if "stream" in phases else None
+    del fleet, rendered  # the fleet's 9.7 GB of samples are not needed past here
     cli = timed("cli", phase_cli) if "cli" in phases else None
     emit("walls", seconds=walls)
-    if headline is None or e2e is None or cli is None or parity is None or proof is None or "build" not in phases:
+    if None in (headline, e2e, stream, cli, parity, proof) or "build" not in phases:
         print(smi)
         return 0
+    launched = {"cli": lambda path: cli["paths"][path]["warm"]["launches"],
+                "stream": lambda path: stream["scans"][path]["launches"]}
     kernels = []
-    for name, (replaces, source, path) in KERNELS.items():
+    for name, (replaces, source, phase, path) in KERNELS.items():
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": cli["paths"][path]["warm"]["launches"][name],
+            "launches": launched[phase](path)[name],
             "max_abs_err": max(parity[name], headline[name]["max_abs_err"]),
             "ms": headline[name]["ms"], "plain_ms": headline[name]["plain_ms"],
             "bound_ms": headline[name]["bound_ms"], "bound_by": headline[name]["bound_by"],

@@ -54,6 +54,25 @@
 //   only when t % 4 == 0) and before a scalar tail at the count. The work per
 //   sample is branch-free: NaN takes the key INT32_MAX, above every other
 //   value's, so one max reduction gives the peak and the NaN flag together.
+//
+// K5 radix_digit_hist_kernel replaces no Pallas kernel: it is the count pass
+//   of the JAX package's host-streamed selection
+//   (krr_tpu/ops/selection.py:masked_percentile_bisect_from_host, a jnp
+//   masked compare-and-sum per bisection step, 31 passes over the host
+//   chunks). The port streams K1's radix select instead (4 passes,
+//   krr_tpu_torch/ops/selection.py): one pass per 8-bit digit, and this
+//   kernel folds one time chunk of a pass into the running [n, 256] digit
+//   histogram of each row: digit (u >> shift) & 0xff of every valid key
+//   u = ordered_bits ^ 0x80000000 whose digits above `shift` equal the row's
+//   prefix, as radix_select_ordered (common.cuh) counts them.
+//   Bound: bytes, one read of the chunk (the bins are 1 KB a row). This
+//   design: one 256-thread block per row, 16-byte loads with visit_row's
+//   scalar head and tail, a shared histogram with one column per lane
+//   ([bin][lane], as K1 and K4 keep theirs: a hot bin, as on idle rows whose
+//   keys are all zero, costs no bank conflict and no contention inside a
+//   warp), then one warp per bin sums the 32 columns and adds the total
+//   into the row's global bin. No other block touches the row in a launch,
+//   so the global bins take plain adds, not atomics.
 
 #include "common.cuh"
 
@@ -131,6 +150,37 @@ row_max_kernel(const float* __restrict__ values, const int* __restrict__ counts,
   if (threadIdx.x == 0) out[row] = best == kInt32Max ? __uint_as_float(kCanonicalNan) : krr::from_max_key(best);
 }
 
+constexpr int kDigitThreads = 256;
+
+__global__ void __launch_bounds__(kDigitThreads)
+radix_digit_hist_kernel(const float* __restrict__ values, const int* __restrict__ eff,
+                        const int* __restrict__ prefixes, int* __restrict__ bins, long long t, int shift) {
+  __shared__ __align__(16) int hist[krr::kRadixHistInts];
+  const int tid = static_cast<int>(threadIdx.x);
+  const int stride = static_cast<int>(blockDim.x);
+  const long long row = blockIdx.x;
+  const int valid = static_cast<int>(min(static_cast<long long>(max(eff[row], 0)), t));
+  if (valid == 0) return;  // nothing to add: the row's bins stay as they are
+  int4* hist4 = reinterpret_cast<int4*>(hist);
+  for (int i = tid; i < krr::kRadixHistInts / 4; i += stride) hist4[i] = make_int4(0, 0, 0, 0);
+  __syncthreads();
+  const unsigned mask = shift >= 24 ? 0u : 0xffffffffu << (shift + 8);  // the digits above `shift`
+  const unsigned prefix = static_cast<unsigned>(prefixes[row]) & mask;
+  const int lane = tid & 31;
+  krr::visit_row(values + row * t, 0, valid, tid, stride, [&](int, float x) {
+    const unsigned u = static_cast<unsigned>(krr::ordered_bits(x)) ^ 0x80000000u;
+    if ((u & mask) == prefix) atomicAdd(&hist[((u >> shift) & 0xffu) * 32 + lane], 1);
+  });
+  __syncthreads();
+  int* out = bins + row * krr::kRadixBins;
+  const int warp = tid >> 5;
+  for (int b = warp; b < krr::kRadixBins; b += stride >> 5) {
+    int total = hist[b * 32 + lane];
+    for (int offset = 16; offset > 0; offset >>= 1) total += __shfl_xor_sync(0xffffffffu, total, offset);
+    if (lane == 0 && total) out[b] += total;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -151,6 +201,14 @@ int krr_bisect_select(const float* values, const int* counts, float* out, int n,
 int krr_row_max(const float* values, const int* counts, float* out, int n, long long t, void* stream) {
   if (n <= 0) return 0;
   row_max_kernel<<<n, kMaxThreads, 0, static_cast<cudaStream_t>(stream)>>>(values, counts, out, t);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int krr_radix_digit_hist(const float* values, const int* eff, const int* prefixes, int* bins, int n, long long t,
+                         int shift, void* stream) {
+  if (n <= 0 || t <= 0) return 0;
+  radix_digit_hist_kernel<<<n, kDigitThreads, 0, static_cast<cudaStream_t>(stream)>>>(values, eff, prefixes, bins,
+                                                                                      t, shift);
   return static_cast<int>(cudaGetLastError());
 }
 

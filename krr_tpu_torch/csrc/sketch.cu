@@ -26,8 +26,10 @@
 //   divisions, an accurate logf, floor and the clips: some 55-60 instructions
 //   a sample) and one 4-byte load in flight per thread. This design: the row
 //   is read with common.cuh visit_row (16-byte loads, four in flight), and
-//   the bucket comes from two int32 tables built at every call by
-//   digest_tables_kernel with the kernel's own bucket_index: the edge table
+//   the bucket comes from two int32 tables that krr_digest_tables builds on
+//   the card once per spec (the wrapper keeps them per spec and device: a
+//   build costs about a third of a streamed 8,192-column chunk's fold) with
+//   digest_tables_kernel and the kernel's own bucket_index: the edge table
 //   E[b], the smallest bit pattern whose bucket is >= b, found by bisection
 //   over the patterns, and the coarse table, one entry per 2^16-pattern range
 //   of (min_value, E[B - 1]). A range whose bucket steps at most once (every
@@ -400,22 +402,27 @@ cudaError_t build_tables(int* tables, int num_buckets, TableShape shape, float m
 
 extern "C" {
 
-// Ints of scratch krr_digest_hist and krr_digest_table_check need for the
+// Ints of scratch krr_digest_tables and krr_digest_table_check need for the
 // tables of a spec (min_value and log_gamma positive and finite, B >= 2).
 int krr_digest_table_ints(int num_buckets, float min_value, float log_gamma) {
   return num_buckets + table_shape(num_buckets, min_value, log_gamma).coarse_len;
 }
 
-int krr_digest_hist(const float* values, const int* counts, float* hist, float* peak, int* tables, int n,
+// Builds the tables of a spec into `tables`, which krr_digest_hist reads.
+int krr_digest_tables(int* tables, int num_buckets, float min_value, float log_gamma, void* stream) {
+  return static_cast<int>(build_tables(tables, num_buckets, table_shape(num_buckets, min_value, log_gamma),
+                                       min_value, log_gamma, static_cast<cudaStream_t>(stream)));
+}
+
+// `tables` holds the spec's tables, built by krr_digest_tables.
+int krr_digest_hist(const float* values, const int* counts, float* hist, float* peak, const int* tables, int n,
                     long long t, int num_buckets, float min_value, float log_gamma, void* stream) {
   if (n <= 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const TableShape shape = table_shape(num_buckets, min_value, log_gamma);
-  cudaError_t err = build_tables(tables, num_buckets, shape, min_value, log_gamma, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
   const long long smem = (2LL * num_buckets + shape.coarse_len) * static_cast<long long>(sizeof(int));
   if (smem <= kHistSmemBytes) {
-    err = cudaFuncSetAttribute(digest_hist_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    const cudaError_t err = cudaFuncSetAttribute(digest_hist_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
     digest_hist_kernel<true><<<n, kHistThreads, static_cast<int>(smem), s>>>(

@@ -1,20 +1,31 @@
-"""Shared time-axis chunk scan for mergeable sketch builds.
+"""Shared time-axis chunk scans for mergeable builds.
 
-Port of the resident half of `krr_tpu/ops/chunked.py`. Both sketch families
-(log-bucket digest, exact top-K) can fold a packed ``[N, T]`` matrix chunk by
-chunk into a fixed-size state, and the validity contract lives here, once: a
-position is valid iff it is inside this array's real width AND its *global*
-position (local + ``time_offset``) is below the row's total count. The
-sharded and host-streamed builds pass a per-shard ``time_offset``; chunks
-here are slices of the array itself, so no pad column ever exists.
+Port of `krr_tpu/ops/chunked.py`. Both sketch families (log-bucket digest,
+exact top-K), the streamed row max and the streamed radix select fold a
+packed ``[N, T]`` matrix chunk by chunk into a fixed-size state, and the
+validity contract lives here, once: a position is valid iff it is inside the
+matrix's real width AND its *global* position (local + ``time_offset``) is
+below the row's total count. Chunks are slices of the matrix itself, so no
+pad column ever exists (the JAX package pads the last chunk and masks it).
 
-The host-streamed fold (``HostChunkStreamer``) waits for ROADMAP M6.
+Two scans share that contract:
+
+* :func:`scan_time_chunks` — the matrix is on the device; chunks are its
+  column slices.
+* :class:`HostChunkStreamer` / :func:`stream_host_chunks` — the matrix stays
+  in host memory and each time chunk is copied to the device on its own, so
+  device memory holds the state plus two chunks. On the card the copies run
+  on a side stream from two pinned host buffers into two device buffers, so
+  chunk i + 1 is filled and copied while chunk i folds (see the class).
 """
 
 from __future__ import annotations
 
-from typing import Callable, TypeVar
+import time
+from dataclasses import dataclass
+from typing import Callable, Optional, TypeVar
 
+import numpy as np
 import torch
 
 State = TypeVar("State")
@@ -79,3 +90,215 @@ def scan_time_chunks(
         valid = local_pos[None, :] + time_offset < counts[:, None].to(torch.int64)
         state = fold(state, chunk, valid)
     return state
+
+
+#: Rows per block of the host fill's scale-and-cast: bounds the float64
+#: temporary of ``block / scale`` to a few MB however wide the chunk is.
+_FILL_ELEMENTS = 1 << 21
+
+
+@dataclass
+class StreamStats:
+    """What host streams did, summed over every pass of every streamer that
+    was handed this object. On the card ``copy_seconds`` and
+    ``fold_seconds`` are device times between CUDA events (the copies on the
+    side stream, the folds on the compute stream); on the CPU there is no
+    copy and ``fold_seconds`` is host time. ``copy_wait_seconds`` is host
+    time spent waiting for a pinned buffer's previous copy before refilling
+    it; ``wall_seconds`` is host time from a pass's first fill to its state
+    being ready on the device."""
+
+    passes: int = 0
+    chunks: int = 0
+    host_bytes: int = 0
+    host_fill_seconds: float = 0.0
+    copy_wait_seconds: float = 0.0
+    copy_seconds: float = 0.0
+    fold_seconds: float = 0.0
+    wall_seconds: float = 0.0
+    pinned_bytes: int = 0
+
+    def as_dict(self) -> dict:
+        return dict(self.__dict__)
+
+
+class HostChunkStreamer:
+    """Folds over a host ``[N, T]`` numpy matrix, streaming time chunks of
+    ``chunk_size`` columns (the last one narrower) to ``device``.
+
+    ``fold(state, chunk, eff)`` gets the ``[N, w]`` float32 chunk on the
+    device (contiguous) and ``eff``, the ``[N]`` int32 length of each row's
+    valid prefix in the chunk: validity is always a per-row prefix (position
+    ``p`` of the chunk starting at column ``s`` is valid iff
+    ``s + p + time_offset < counts[i]``), so the folds hand it to the
+    kernels as it is and never build a mask. The fold must be an exact merge
+    and row-local, so the result is bit-identical to a resident fold for
+    any chunk size.
+
+    Each chunk is divided by ``scale`` (when not 1) with the host matrix's
+    own dtype — float64 for the memory window — and then cast to float32 by
+    numpy, as the resident pack (`krr_tpu_torch.strategies.simple.
+    fleet_device_arrays`) and the JAX package's ``_host_chunk`` do: the
+    bytes on the device are the same.
+
+    On a CUDA device: two pinned host staging buffers and two device chunk
+    buffers, allocated at the first :meth:`run` and reused by every later
+    one (:meth:`run` may be called any number of times over one matrix, as
+    the streamed radix select does four times). Chunk i uses buffer pair
+    ``i % 2``. The host fills a pinned buffer only after that buffer's
+    previous copy has finished (its copy event); the copy is issued
+    ``non_blocking`` on a side stream, after the fold that last read the
+    device buffer (its fold event); the fold runs on the caller's current
+    stream (every kernel wrapper launches there) after the chunk's copy
+    event. So chunk i + 1 is filled on the host and copied while chunk i
+    folds on the card. On the CPU the same folds run in the same order, with
+    no pinning and no streams. ``stats`` (a :class:`StreamStats`) collects
+    the legs."""
+
+    def __init__(
+        self,
+        values: np.ndarray,
+        counts: np.ndarray,
+        chunk_size: int,
+        time_offset: int = 0,
+        scale: float = 1.0,
+        *,
+        device: "torch.device | str" = "cuda",
+        stats: Optional[StreamStats] = None,
+    ):
+        if chunk_size < 1:
+            raise ValueError(f"chunk_size must be positive, got {chunk_size}")
+        if values.ndim != 2:
+            raise ValueError(f"values must be a 2-D host array, got shape {values.shape}")
+        self.values = values
+        self.n, self.t = values.shape
+        counts32 = np.ascontiguousarray(counts, dtype=np.int32)
+        if counts32.shape != (self.n,):
+            raise ValueError(f"{counts32.shape[0] if counts32.ndim else 0} counts for {self.n} rows")
+        self.chunk_size = chunk_size
+        self.time_offset = time_offset
+        self.scale = scale
+        self.device = torch.device(device)
+        if self.device.type not in ("cpu", "cuda"):
+            raise ValueError(f"unsupported device {self.device}")
+        self.counts = torch.from_numpy(counts32).to(self.device)
+        self.num_chunks = -(-self.t // chunk_size) if self.n else 0
+        self.stats = StreamStats() if stats is None else stats
+        self._pinned: list[torch.Tensor] = []
+        self._chunks: list[torch.Tensor] = []
+        self._copy_stream: Optional[torch.cuda.Stream] = None
+
+    def _bounds(self, i: int) -> tuple[int, int]:
+        start = i * self.chunk_size
+        return start, min(start + self.chunk_size, self.t)
+
+    def _eff(self, start: int, width: int) -> torch.Tensor:
+        """Per-row valid prefix length of the chunk starting at ``start``."""
+        return torch.clamp(self.counts - (self.time_offset + start), 0, width).to(torch.int32)
+
+    def _fill(self, i: int, out: np.ndarray) -> None:
+        """Write chunk i, scaled and cast to float32, into ``out`` ([N, w])."""
+        start, end = self._bounds(i)
+        block = self.values[:, start:end]
+        started = time.perf_counter()
+        if self.scale == 1.0:
+            np.copyto(out, block, casting="unsafe")  # numpy's float32 cast, or a plain copy
+        else:  # divide before the float32 cast, in row blocks that bound the temporary
+            rows = max(1, _FILL_ELEMENTS // max(end - start, 1))
+            for r in range(0, self.n, rows):
+                out[r : r + rows] = block[r : r + rows] / self.scale
+        self.stats.host_fill_seconds += time.perf_counter() - started
+        self.stats.host_bytes += block.size * block.itemsize
+
+    def run(self, init: State, fold: Callable[[State, torch.Tensor, torch.Tensor], State]) -> State:
+        """One full pass: fold every chunk into ``init``; returns the state
+        (on the device, its folds finished)."""
+        if self.n == 0 or self.t == 0:
+            return init
+        started = time.perf_counter()
+        if self.device.type == "cuda":
+            state = self._run_cuda(init, fold)
+        else:
+            state = self._run_cpu(init, fold)
+        self.stats.passes += 1
+        self.stats.chunks += self.num_chunks
+        self.stats.wall_seconds += time.perf_counter() - started
+        return state
+
+    def _run_cpu(self, state: State, fold) -> State:
+        for i in range(self.num_chunks):
+            start, end = self._bounds(i)
+            chunk = np.empty((self.n, end - start), dtype=np.float32)
+            self._fill(i, chunk)
+            folded = time.perf_counter()
+            state = fold(state, torch.from_numpy(chunk), self._eff(start, end - start))
+            self.stats.fold_seconds += time.perf_counter() - folded
+        return state
+
+    def _buffers(self) -> None:
+        """The two pinned staging buffers and the two device chunk buffers,
+        flat, each as large as the widest chunk (allocated once)."""
+        if self._chunks:
+            return
+        size = self.n * min(self.chunk_size, self.t)
+        self._pinned = [torch.empty(size, dtype=torch.float32, pin_memory=True) for _ in range(2)]
+        self._chunks = [torch.empty(size, dtype=torch.float32, device=self.device) for _ in range(2)]
+        self._copy_stream = torch.cuda.Stream(self.device)
+        self.stats.pinned_bytes += 2 * 4 * size  # and as many device bytes
+
+    def _run_cuda(self, state: State, fold) -> State:
+        self._buffers()
+        compute = torch.cuda.current_stream(self.device)
+        copy_stream = self._copy_stream
+        copied: list = [None, None]  # per buffer pair: its last copy's event
+        folded: list = [None, None]  # per buffer pair: its last fold's end event
+        timings = []
+        for i in range(self.num_chunks):
+            slot = i % 2
+            start, end = self._bounds(i)
+            size = self.n * (end - start)
+            if copied[slot] is not None:  # the pinned buffer is still being read
+                waited = time.perf_counter()
+                copied[slot].synchronize()
+                self.stats.copy_wait_seconds += time.perf_counter() - waited
+            pinned = self._pinned[slot][:size]
+            self._fill(i, pinned.numpy().reshape(self.n, end - start))
+            chunk = self._chunks[slot][:size]
+            with torch.cuda.stream(copy_stream):
+                if folded[slot] is not None:  # the device buffer is still being folded
+                    copy_stream.wait_event(folded[slot])
+                copy_start = torch.cuda.Event(enable_timing=True)
+                copy_start.record(copy_stream)
+                chunk.copy_(pinned, non_blocking=True)
+                copied[slot] = torch.cuda.Event(enable_timing=True)
+                copied[slot].record(copy_stream)
+            compute.wait_event(copied[slot])
+            fold_start = torch.cuda.Event(enable_timing=True)
+            fold_start.record(compute)
+            state = fold(state, chunk.view(self.n, end - start), self._eff(start, end - start))
+            folded[slot] = torch.cuda.Event(enable_timing=True)
+            folded[slot].record(compute)
+            timings.append((copy_start, copied[slot], fold_start, folded[slot]))
+        compute.synchronize()
+        for copy_start, copy_end, fold_start, fold_end in timings:
+            self.stats.copy_seconds += copy_start.elapsed_time(copy_end) / 1e3
+            self.stats.fold_seconds += fold_start.elapsed_time(fold_end) / 1e3
+        return state
+
+
+def stream_host_chunks(
+    values: np.ndarray,
+    counts: np.ndarray,
+    init: State,
+    fold: Callable[[State, torch.Tensor, torch.Tensor], State],
+    chunk_size: int,
+    time_offset: int = 0,
+    scale: float = 1.0,
+    *,
+    device: "torch.device | str" = "cuda",
+    stats: Optional[StreamStats] = None,
+) -> State:
+    """One-shot convenience wrapper over :class:`HostChunkStreamer`."""
+    return HostChunkStreamer(
+        values, counts, chunk_size, time_offset=time_offset, scale=scale, device=device, stats=stats
+    ).run(init, fold)

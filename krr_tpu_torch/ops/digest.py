@@ -31,9 +31,9 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from krr_tpu_torch.ops.chunked import dispatch_prefix_kernel, scan_time_chunks
+from krr_tpu_torch.ops.chunked import StreamStats, dispatch_prefix_kernel, scan_time_chunks, stream_host_chunks
 from krr_tpu_torch.ops.cuda_sketch import bucket_indices, digest_hist, row_histogram
-from krr_tpu_torch.ops.quantile import max_where
+from krr_tpu_torch.ops.quantile import max_where, peak_max
 
 
 @dataclass(frozen=True)
@@ -79,11 +79,17 @@ def bucketize(spec: DigestSpec, values: torch.Tensor) -> torch.Tensor:
     return bucket_indices(values, spec.num_buckets, spec.min_value, spec.log_gamma)
 
 
-def _peak_max(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Elementwise max of two peak vectors with the row max's semantics
-    (NaN propagates, +0.0 above −0.0), whatever the argument order."""
-    pair = torch.stack([a, b], dim=1)
-    return max_where(pair, torch.ones_like(pair, dtype=torch.bool), float("-inf"))
+def add_prefix_chunk(spec: DigestSpec, digest: Digest, values: torch.Tensor, eff: torch.Tensor) -> Digest:
+    """Fold one contiguous ``[N, Tc]`` chunk whose valid positions are the
+    prefixes ``values[i, :eff[i]]`` into the digest: one ``digest_hist``
+    call — the kernel branch of :func:`add_chunk`, and the fold of the
+    host-streamed build."""
+    hist, chunk_peak = digest_hist(values, eff, spec.num_buckets, spec.min_value, spec.log_gamma)
+    return Digest(
+        counts=digest.counts + hist,
+        total=digest.total + eff.to(torch.float32),
+        peak=peak_max(digest.peak, chunk_peak),
+    )
 
 
 def add_chunk(
@@ -104,21 +110,14 @@ def add_chunk(
 
     def kernel(operands: "tuple[Digest, torch.Tensor, torch.Tensor]") -> Digest:
         digest, values, _ = operands
-        hist, chunk_peak = digest_hist(
-            values.contiguous(), eff, spec.num_buckets, spec.min_value, spec.log_gamma
-        )
-        return Digest(
-            counts=digest.counts + hist,
-            total=digest.total + eff.to(torch.float32),
-            peak=_peak_max(digest.peak, chunk_peak),
-        )
+        return add_prefix_chunk(spec, digest, values.contiguous(), eff)
 
     def generic(operands: "tuple[Digest, torch.Tensor, torch.Tensor]") -> Digest:
         digest, values, valid = operands
         return Digest(
             counts=digest.counts + row_histogram(bucketize(spec, values), valid, spec.num_buckets),
             total=digest.total + eff.to(torch.float32),
-            peak=_peak_max(digest.peak, max_where(values, valid, float("-inf"))),
+            peak=peak_max(digest.peak, max_where(values, valid, float("-inf"))),
         )
 
     return dispatch_prefix_kernel("digest", kernel, generic, (digest, values, valid), valid, eff, mask_is_prefix)
@@ -126,7 +125,7 @@ def add_chunk(
 
 def merge(a: Digest, b: Digest) -> Digest:
     """Associative, commutative merge."""
-    return Digest(counts=a.counts + b.counts, total=a.total + b.total, peak=_peak_max(a.peak, b.peak))
+    return Digest(counts=a.counts + b.counts, total=a.total + b.total, peak=peak_max(a.peak, b.peak))
 
 
 def bucket_estimates(spec: DigestSpec) -> torch.Tensor:
@@ -208,4 +207,32 @@ def build_from_packed(
         lambda digest, chunk, valid: add_chunk(spec, digest, chunk, valid, mask_is_prefix=True),
         chunk_size,
         time_offset,
+    )
+
+
+def build_from_host(
+    spec: DigestSpec,
+    values: np.ndarray,
+    counts: np.ndarray,
+    chunk_size: int = 8192,
+    time_offset: int = 0,
+    *,
+    device: "torch.device | str" = "cuda",
+    stats: Optional[StreamStats] = None,
+) -> Digest:
+    """Build a digest from a **host** ``[N, T]`` matrix, streaming time
+    chunks to the device (`krr_tpu_torch.ops.chunked.HostChunkStreamer`):
+    bit-identical to :func:`build_from_packed`, while device memory holds
+    only the digest plus two chunks. Every chunk is one ``digest_hist`` call
+    through :func:`add_prefix_chunk` — the streamer's validity is a prefix
+    by construction, so no fold takes the generic path."""
+    return stream_host_chunks(
+        values,
+        counts,
+        empty(spec, values.shape[0], device=device),
+        lambda digest, chunk, eff: add_prefix_chunk(spec, digest, chunk, eff),
+        chunk_size,
+        time_offset,
+        device=device,
+        stats=stats,
     )

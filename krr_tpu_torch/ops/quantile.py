@@ -13,13 +13,21 @@ is taken over an integer key that orders float32 totally, so the result does
 not depend on the order of the reduction; a row holding NaN returns the
 canonical NaN (the JAX package may return the NaN's own payload — NaN either
 way, and ``"?"`` downstream). :func:`max_where` is the same max over any
-mask; the digest's peak uses it with ``-inf`` for an empty row.
+mask; the digest's peak uses it with ``-inf`` for an empty row, and
+:func:`peak_max` combines two such maxima.
+
+:func:`masked_max_from_host` is the max of a window that stays in host
+memory (`krr_tpu_torch.ops.chunked`), one ``row_max`` launch per time chunk.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
+import numpy as np
 import torch
 
+from krr_tpu_torch.ops.chunked import StreamStats, stream_host_chunks
 from krr_tpu_torch.ops.selection import (
     EXPONENT_BITS,
     INT32_MIN,
@@ -69,3 +77,51 @@ def max_where(values: torch.Tensor, mask: torch.Tensor, empty: float) -> torch.T
 def masked_max(values: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
     """Per-row max of the valid prefix; NaN for empty rows."""
     return max_where(values, valid_mask(counts, values.shape[1]), float("nan"))
+
+
+def peak_max(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Elementwise max of two ``[N]`` maxima with the row max's semantics
+    (NaN propagates as the canonical NaN, +0.0 above −0.0, subnormals read
+    as zero of their sign), whatever the argument order: the max of a row
+    split in two parts equals the max of the whole row, bit for bit."""
+    pair = torch.stack([a, b], dim=1)
+    return max_where(pair, torch.ones_like(pair, dtype=torch.bool), float("-inf"))
+
+
+def masked_max_from_host(
+    values: np.ndarray,
+    counts: np.ndarray,
+    chunk_size: int = 8192,
+    scale: float = 1.0,
+    *,
+    device: "torch.device | str" = "cuda",
+    stats: Optional[StreamStats] = None,
+) -> np.ndarray:
+    """Per-row max of the valid prefix of a **host** ``[N, T]`` matrix
+    (divided by ``scale`` first when it is not 1), streamed to the device in
+    time chunks so the whole matrix never lives there; NaN for empty rows.
+    Bit-identical to :func:`masked_max` — and to one ``row_max`` launch — on
+    the same scaled float32 data.
+
+    Each chunk's max comes from the ``row_max`` kernel on the card (its
+    plain version on the CPU) with −inf for a row whose samples all lie in
+    other chunks, and :func:`peak_max` folds it into the running max; NaN
+    for ``count == 0`` only at the end."""
+    from krr_tpu_torch.ops.cuda_select import row_max_chunk  # cuda_select imports this module
+
+    counts = np.asarray(counts)
+    n = values.shape[0]
+    if n == 0:
+        return np.zeros((0,), dtype=np.float32)
+    init = torch.full((n,), float("-inf"), dtype=torch.float32, device=device)
+    peak = stream_host_chunks(
+        values,
+        counts,
+        init,
+        lambda state, chunk, eff: peak_max(state, row_max_chunk(chunk, eff)),
+        chunk_size,
+        scale=scale,
+        device=device,
+        stats=stats,
+    )
+    return np.where(counts > 0, peak.cpu().numpy(), np.float32(np.nan)).astype(np.float32)

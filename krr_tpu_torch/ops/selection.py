@@ -23,11 +23,21 @@ CPU backend in the reference tests:
   ×q, ÷100, floor, clip). The divisor is a tensor, never a Python scalar:
   PyTorch may turn division by a scalar into multiplication by its
   reciprocal, which rounds differently.
+
+:func:`masked_percentile_bisect_from_host` selects the same sample from a
+window that stays in host memory, by K1's radix select streamed over time
+chunks: 4 passes of the host matrix where the JAX package's streamed
+bisection makes 31.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
+import numpy as np
 import torch
+
+from krr_tpu_torch.ops.chunked import HostChunkStreamer, StreamStats
 
 INT32_MAX = 2**31 - 1
 #: Smallest positive normal float32, as bits: patterns below it (as signed
@@ -37,6 +47,10 @@ INT32_MIN = -(2**31)
 #: Bits above this (magnitude only) are NaN; this itself is +inf.
 EXPONENT_BITS = 0x7F800000
 MAGNITUDE_MASK = 0x7FFFFFFF
+#: Bins of one 8-bit digit of the radix select.
+RADIX_BINS = 256
+#: The radix select's digit shifts, most significant first.
+RADIX_SHIFTS = (24, 16, 8, 0)
 
 
 def as_ordered_bits(values: torch.Tensor) -> torch.Tensor:
@@ -112,3 +126,71 @@ def masked_percentile_bisect(
     mask = valid_mask(counts, values.shape[1])
     result = bisect_loop(as_ordered_bits(values), mask, selection_rank(counts, q), num_iters=num_iters)
     return torch.where(counts > 0, result, torch.full_like(result, float("nan")))
+
+
+def radix_pick(bins: torch.Tensor, residual: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """One digit of the radix select from a pass's ``[N, 256]`` histogram:
+    the smallest digit whose inclusive count passes the residual rank, and
+    the residual rank among the keys that carry it. A row whose keys do not
+    reach past the residual (a row already decided) gets digit 255."""
+    cum = torch.cumsum(bins, dim=1, dtype=torch.int64)
+    digit = torch.clamp_max((cum <= residual[:, None]).sum(dim=1), RADIX_BINS - 1)
+    below = torch.gather(cum, 1, torch.clamp_min(digit - 1, 0)[:, None])[:, 0]
+    return digit, residual - torch.where(digit > 0, below, torch.zeros_like(below))
+
+
+def masked_percentile_bisect_from_host(
+    values: np.ndarray,
+    counts: np.ndarray,
+    q: float,
+    chunk_size: int = 8192,
+    *,
+    device: "torch.device | str" = "cuda",
+    stats: Optional[StreamStats] = None,
+) -> np.ndarray:
+    """Exact percentile of a **host** ``[N, T]`` matrix that does not fit
+    on the device: the sample :func:`masked_percentile_bisect` selects (31
+    bisection steps), for any ``q``. Returns a host float32 array; NaN for
+    empty rows.
+
+    The JAX package streams its 31 bisection steps, each a counting pass
+    over the host chunks. This is the answer of K1's radix select
+    (`krr_tpu_torch/csrc/common.cuh` ``radix_select_ordered``) streamed
+    instead: four passes over the host chunks, one per 8-bit digit of
+    ``u = ordered bits ^ 0x80000000`` from the top. Pass p adds each chunk's
+    digit histogram over the valid keys that carry the row's prefix into
+    ``[N, 256]`` int32 bins (``radix_digit_hist``, the K5 kernel on the
+    card); between passes :func:`radix_pick` takes the digit where the
+    count passes the residual rank. The answer is ``max(b, 0)`` for ``b``
+    the selected key read as signed, so a row whose first digit is below
+    0x80 (a negative key: a NaN with its sign bit set) gives 0. As in K1,
+    two kinds of row are decided before the first pass: ``count == 0``
+    gives NaN, and a rank at or past the row's valid keys (a count past the
+    width) gives the bits 0x7fffffff, where the bisection climbs; those
+    rows fold no chunk. 4 passes move 4/31 of the host→device bytes of the
+    streamed bisection."""
+    from krr_tpu_torch.ops.cuda_select import radix_digit_hist  # cuda_select imports this module
+
+    counts32 = np.ascontiguousarray(counts, dtype=np.int32)
+    n, t = values.shape
+    if n == 0:
+        return np.zeros((0,), dtype=np.float32)
+    host_counts = torch.from_numpy(counts32)
+    rank = selection_rank(host_counts, q).to(torch.int64)
+    # The rank at or past the row's keys (empty rows among them): no digit
+    # passes it, the bisection climbs. These rows fold nothing.
+    past = rank >= torch.clamp(host_counts, 0, t)
+    streamer = HostChunkStreamer(values, np.where(past.numpy(), 0, counts32), chunk_size, device=device, stats=stats)
+    dev = streamer.device
+    prefix = torch.zeros((n,), dtype=torch.int64, device=dev)  # the u digits found so far
+    residual = rank.to(dev)
+    for shift in RADIX_SHIFTS:
+        prefix32 = torch.where(prefix >= 2**31, prefix - 2**32, prefix).to(torch.int32)
+        bins = torch.zeros((n, RADIX_BINS), dtype=torch.int32, device=dev)
+        bins = streamer.run(bins, lambda b, chunk, eff: radix_digit_hist(chunk, eff, prefix32, b, shift))
+        digit, residual = radix_pick(bins, residual)
+        prefix = prefix | (digit << shift)
+    answer = torch.clamp_min(prefix - 2**31, 0).to(torch.int32)  # max(b, 0), b = u ^ 0x80000000 as signed
+    answer = torch.where(past.to(dev), torch.full_like(answer, INT32_MAX), answer)
+    out = answer.view(torch.float32).cpu().numpy()
+    return np.where(counts32 > 0, out, np.float32(np.nan)).astype(np.float32)

@@ -20,9 +20,10 @@ from __future__ import annotations
 import math
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
-from krr_tpu_torch.ops.chunked import dispatch_prefix_kernel, scan_time_chunks
+from krr_tpu_torch.ops.chunked import StreamStats, dispatch_prefix_kernel, scan_time_chunks, stream_host_chunks
 from krr_tpu_torch.ops.cuda_sketch import topk_select
 from krr_tpu_torch.ops.quantile import max_where
 from krr_tpu_torch.ops.selection import as_ordered_bits, bisect_loop
@@ -61,6 +62,16 @@ def _valid_slots(sketch: TopKSketch) -> torch.Tensor:
     return torch.clamp_max(sketch.total, float(k)).to(torch.int32)
 
 
+def add_prefix_chunk(sketch: TopKSketch, values: torch.Tensor, eff: torch.Tensor) -> TopKSketch:
+    """Fold one contiguous ``[N, Tc]`` chunk whose valid positions are the
+    prefixes ``values[i, :eff[i]]`` into the sketch: one ``topk_select``
+    call over the chunk and the running state — the kernel branch of
+    :func:`add_chunk`, and the fold of the host-streamed build."""
+    k = sketch.values.shape[1]
+    new_values = topk_select(values, eff, k, state=sketch.values, state_counts=_valid_slots(sketch))
+    return TopKSketch(values=new_values, total=sketch.total + eff.to(torch.float32))
+
+
 def add_chunk(
     sketch: TopKSketch,
     values: torch.Tensor,
@@ -75,13 +86,12 @@ def add_chunk(
     mask is checked, and a mask that is not a prefix takes the JAX package's
     generic ``top_k(concat)`` path, which keeps raw values — the same
     multiset up to the clamp of negatives."""
-    n, k = sketch.values.shape
+    k = sketch.values.shape[1]
     eff = valid.sum(dim=1, dtype=torch.int32)
 
     def kernel(operands: "tuple[TopKSketch, torch.Tensor, torch.Tensor]") -> TopKSketch:
         sketch, values, _ = operands
-        new_values = topk_select(values.contiguous(), eff, k, state=sketch.values, state_counts=_valid_slots(sketch))
-        return TopKSketch(values=new_values, total=sketch.total + eff.to(torch.float32))
+        return add_prefix_chunk(sketch, values.contiguous(), eff)
 
     def generic(operands: "tuple[TopKSketch, torch.Tensor, torch.Tensor]") -> TopKSketch:
         sketch, values, valid = operands
@@ -155,4 +165,31 @@ def build_from_packed(
         lambda sketch, chunk, valid: add_chunk(sketch, chunk, valid, mask_is_prefix=True),
         chunk_size,
         time_offset,
+    )
+
+
+def build_from_host(
+    values: np.ndarray,
+    counts: np.ndarray,
+    k: int,
+    chunk_size: int = 8192,
+    time_offset: int = 0,
+    *,
+    device: "torch.device | str" = "cuda",
+    stats: Optional[StreamStats] = None,
+) -> TopKSketch:
+    """Build the sketch from a **host** ``[N, T]`` matrix, streaming time
+    chunks to the device (`krr_tpu_torch.ops.chunked.HostChunkStreamer`):
+    the same multiset as :func:`build_from_packed`, with device memory
+    bounded by the ``[N, K]`` state plus two chunks. Every chunk is one
+    ``topk_select`` call with the running state (:func:`add_prefix_chunk`)."""
+    return stream_host_chunks(
+        values,
+        counts,
+        empty(values.shape[0], k, device=device),
+        add_prefix_chunk,
+        chunk_size,
+        time_offset,
+        device=device,
+        stats=stats,
     )

@@ -8,9 +8,12 @@ in one program — bit-space bisection for the CPU percentile, masked max for
 memory — with one readback. The memory buffer multiplication and all rounding
 stay on the host in exact Decimal arithmetic.
 
-This slice runs the resident single-device path. The multi-device mesh and
-host streaming (a window larger than device memory) wait for later slices;
-a window past the streaming threshold raises instead of taking another path.
+A window past ``host_stream_mb`` stays in host memory and streams to the
+device in time chunks (`krr_tpu_torch.ops.chunked`): the exact top-K sketch
+when the percentile's rank-from-the-top fits ``exact_sketch_budget``, else
+the streamed radix select, and the streamed max for memory — each selects
+the same sample as the resident path. The multi-device mesh waits for a
+later slice.
 """
 
 from __future__ import annotations
@@ -26,8 +29,11 @@ import torch
 from krr_tpu_torch.core.rounding import as_decimal
 from krr_tpu_torch.models.allocations import ResourceType
 from krr_tpu_torch.models.series import FleetBatch
+from krr_tpu_torch.ops import topk_sketch as topk_ops
+from krr_tpu_torch.ops.chunked import StreamStats
 from krr_tpu_torch.ops.cuda_select import fleet_exact
-from krr_tpu_torch.ops.topk_sketch import required_k
+from krr_tpu_torch.ops.quantile import masked_max_from_host
+from krr_tpu_torch.ops.selection import masked_percentile_bisect_from_host
 from krr_tpu_torch.strategies.base import BatchedStrategy, ResourceRecommendation, RunResult, StrategySettings
 from krr_tpu_torch.utils.device import resolve_device
 
@@ -35,6 +41,9 @@ from krr_tpu_torch.utils.device import resolve_device
 #: scaling to (decimal) megabytes before device transfer keeps every value the
 #: rounding layer can distinguish exactly representable (SURVEY.md §7 "Hard parts").
 MEMORY_SCALE = 1_000_000.0
+
+#: Time-chunk width for host-streamed builds in the simple strategy.
+HOST_STREAM_CHUNK = 8192
 
 
 def finalize_fleet(
@@ -90,7 +99,7 @@ def exact_topk_k(capacity: int, q: float, budget: int) -> Optional[int]:
     The single cut-over decision site, shared by every strategy and build
     flavor, so the paths can never disagree about which sketch serves a
     percentile."""
-    k = required_k(capacity, q)
+    k = topk_ops.required_k(capacity, q)
     return k if 0 < k <= budget else None
 
 
@@ -103,6 +112,16 @@ def _stream_threshold_bytes(setting_mb: int, device: torch.device) -> Optional[i
     if device.type == "cuda":  # auto: leave room for temporaries
         return int(torch.cuda.mem_get_info(device)[1] * 0.4)
     return 6_000_000_000
+
+
+def streamed_legs(pack: float, stream: float, stats: StreamStats, query: float, finalize: float) -> dict:
+    """The legs of a streamed ``run_batch``: pack, the stream's wall, its
+    host fill, copy wait and fold (device time on the card) summed over
+    every pass, then query and finalize."""
+    return {
+        "pack": pack, "stream": stream, "host_fill": stats.host_fill_seconds,
+        "copy_wait": stats.copy_wait_seconds, "fold": stats.fold_seconds, "query": query, "finalize": finalize,
+    }
 
 
 def use_host_stream(batch: FleetBatch, device: torch.device, setting_mb: int) -> bool:
@@ -133,9 +152,9 @@ class SimpleStrategySettings(StrategySettings):
         0,
         ge=-1,
         description=(
-            "Float32 window size (MB per device) past which the window would have to stream "
-            "from host memory; 0 = auto (~40% of device memory), -1 = never. Host streaming is "
-            "not ported yet: a larger window raises."
+            "Stream the packed window from host memory in double-buffered time chunks when its "
+            "float32 footprint exceeds this many MB per device, so the full matrix never lives in "
+            "device memory. 0 = auto (stream past ~40% of device memory); -1 = never stream."
         ),
     )
     exact_sketch_budget: int = pd.Field(
@@ -163,9 +182,48 @@ class SimpleStrategy(BatchedStrategy[SimpleStrategySettings]):
     def __init__(self, settings: SimpleStrategySettings):
         super().__init__(settings)
         self.device = resolve_device(settings.device)
-        #: Wall seconds of the last ``run_batch``'s legs (pack, h2d,
-        #: fleet_exact incl. its one readback, finalize).
+        #: Wall seconds of the last ``run_batch``'s legs: resident (pack,
+        #: h2d, fleet_exact incl. its one readback, finalize) or streamed
+        #: (:func:`streamed_legs`).
         self.leg_seconds: dict[str, float] = {}
+        #: The last streamed ``run_batch``'s :class:`StreamStats` as a
+        #: dict; None after a resident one.
+        self.stream_stats: Optional[dict] = None
+
+    def _streamed_exact(self, batch: FleetBatch, q: float, stats: StreamStats) -> tuple:
+        """(CPU percentile, memory peak in MB) with the window streamed from
+        host: the one-pass exact top-K sketch when the rank-from-the-top
+        fits, the four-pass streamed radix select otherwise — both select
+        the sample the resident path selects. The percentile may still be
+        on the device (a tensor); the peak is a host array."""
+        cpu = batch.packed(ResourceType.CPU)
+        mem = batch.packed(ResourceType.Memory)
+        k = exact_topk_k(cpu.capacity, q, self.settings.exact_sketch_budget)
+        if k is not None:
+            sketch = topk_ops.build_from_host(
+                cpu.values, cpu.counts, k, HOST_STREAM_CHUNK, device=self.device, stats=stats
+            )
+            cpu_p = topk_ops.percentile(sketch, q)
+        else:  # mid-range percentile: no bounded exact sketch
+            cpu_p = masked_percentile_bisect_from_host(
+                cpu.values, cpu.counts, q, HOST_STREAM_CHUNK, device=self.device, stats=stats
+            )
+        mem_max = masked_max_from_host(
+            mem.values, mem.counts, HOST_STREAM_CHUNK, scale=MEMORY_SCALE, device=self.device, stats=stats
+        )
+        return cpu_p, mem_max
+
+    def _run_streamed(self, batch: FleetBatch, q: float, pack_seconds: float) -> list[RunResult]:
+        stats = StreamStats()
+        t0 = time.perf_counter()
+        cpu_p, mem_max = self._streamed_exact(batch, q, stats)
+        t1 = time.perf_counter()
+        cpu_p = cpu_p.cpu().numpy() if isinstance(cpu_p, torch.Tensor) else cpu_p
+        t2 = time.perf_counter()
+        results = finalize_fleet(cpu_p, mem_max, self.settings.memory_buffer_percentage)
+        self.leg_seconds = streamed_legs(pack_seconds, t1 - t0, stats, t2 - t1, time.perf_counter() - t2)
+        self.stream_stats = stats.as_dict()
+        return results
 
     def run_batch(self, batch: FleetBatch) -> list[RunResult]:
         if not batch.objects:
@@ -174,12 +232,10 @@ class SimpleStrategy(BatchedStrategy[SimpleStrategySettings]):
         t0 = time.perf_counter()
         batch.packed(ResourceType.CPU)
         batch.packed(ResourceType.Memory)
-        if use_host_stream(batch, self.device, self.settings.host_stream_mb):
-            raise NotImplementedError(
-                "the packed window exceeds the device-resident threshold (host_stream_mb); "
-                "host streaming is ROADMAP Queue 1 item M6 and is not ported yet"
-            )
         t1 = time.perf_counter()
+        if use_host_stream(batch, self.device, self.settings.host_stream_mb):
+            return self._run_streamed(batch, q, t1 - t0)
+        self.stream_stats = None
         cpu_values, cpu_counts = fleet_device_arrays(batch, ResourceType.CPU, device=self.device)
         mem_values, mem_counts = fleet_device_arrays(
             batch, ResourceType.Memory, scale=MEMORY_SCALE, device=self.device

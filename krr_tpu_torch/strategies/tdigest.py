@@ -13,10 +13,13 @@ sketch (`krr_tpu_torch.ops.topk_sketch`, the ``topk_select`` kernel) when
 the percentile's rank-from-the-top fits ``exact_sketch_budget`` — zero CPU
 error, the same answer as ``simple``.
 
+A window past ``host_stream_mb`` stays in host memory and streams to the
+device in ``chunk_size`` time chunks (`krr_tpu_torch.ops.chunked`): the same
+sketch built chunk by chunk, bit-identical, and the streamed memory max.
+
 Not ported yet, and raising ``NotImplementedError`` that names the ROADMAP
-item: ``state_path`` (the durable digest store), ``digest_ingest`` (history
-digested at parse time) and a window past ``host_stream_mb`` (host
-streaming, M6).
+item: ``state_path`` (the durable digest store) and ``digest_ingest``
+(history digested at parse time).
 """
 
 from __future__ import annotations
@@ -31,8 +34,10 @@ from krr_tpu_torch.models.allocations import ResourceType
 from krr_tpu_torch.models.series import FleetBatch
 from krr_tpu_torch.ops import digest as digest_ops
 from krr_tpu_torch.ops import topk_sketch as topk_ops
+from krr_tpu_torch.ops.chunked import StreamStats
 from krr_tpu_torch.ops.cuda_select import masked_max_cuda
 from krr_tpu_torch.ops.digest import DigestSpec
+from krr_tpu_torch.ops.quantile import masked_max_from_host
 from krr_tpu_torch.strategies.base import BatchedStrategy, RunResult
 from krr_tpu_torch.strategies.simple import (
     MEMORY_SCALE,
@@ -40,6 +45,7 @@ from krr_tpu_torch.strategies.simple import (
     exact_topk_k,
     finalize_fleet,
     fleet_device_arrays,
+    streamed_legs,
     use_host_stream,
 )
 from krr_tpu_torch.utils.device import resolve_device
@@ -54,7 +60,7 @@ class TDigestStrategySettings(SimpleStrategySettings):
         8192,
         ge=128,
         description=(
-            "Time-axis chunk size for streamed digest builds (host streaming, not ported yet); "
+            "Time-axis chunk size of the host-streamed builds (a window past host_stream_mb); "
             "the resident build walks each row in one kernel launch."
         ),
     )
@@ -102,19 +108,23 @@ class TDigestStrategy(BatchedStrategy[TDigestStrategySettings]):
         if settings.state_path:
             raise NotImplementedError(
                 "tdigest state_path (the durable digest store, DigestStore/durastore) is not ported "
-                "yet: ROADMAP Queue 1, after the CLI, the loaders and M6"
+                "yet: ROADMAP Queue 1"
             )
         if settings.digest_ingest:
             raise NotImplementedError(
                 "tdigest digest_ingest (DigestedFleet and the native fused parse) is not ported yet: "
-                "ROADMAP Queue 1, after the CLI, the loaders and M6"
+                "ROADMAP Queue 1"
             )
         super().__init__(settings)
         self.device = resolve_device(settings.device)
-        #: Wall seconds of the last ``run_batch``'s legs (pack, h2d, build —
-        #: the sketch kernel, query — percentile + memory max + the one
-        #: readback, finalize).
+        #: Wall seconds of the last ``run_batch``'s legs: resident (pack,
+        #: h2d, build — the sketch kernel, query — percentile + memory max +
+        #: the one readback, finalize) or streamed
+        #: (`krr_tpu_torch.strategies.simple.streamed_legs`).
         self.leg_seconds: dict[str, float] = {}
+        #: The last streamed ``run_batch``'s :class:`StreamStats` as a
+        #: dict; None after a resident one.
+        self.stream_stats: Optional[dict] = None
 
     def _exact_topk_k(self, capacity: int, q: float) -> Optional[int]:
         """K for the exact top-K sketch, or None when the histogram digest
@@ -124,6 +134,42 @@ class TDigestStrategy(BatchedStrategy[TDigestStrategySettings]):
             return None
         return exact_topk_k(capacity, q, self.settings.exact_sketch_budget)
 
+    def _use_host_stream(self, batch: FleetBatch) -> bool:
+        return use_host_stream(batch, self.device, self.settings.host_stream_mb)
+
+    def _streamed_sketch(self, batch: FleetBatch, spec: DigestSpec, q: float, stats: StreamStats) -> tuple:
+        """(CPU percentile, memory peak in MB) with the window streamed from
+        host in ``chunk_size`` time chunks: the percentile still on the
+        device (a tensor), the peak a host array."""
+        chunk = self.settings.chunk_size
+        cpu = batch.packed(ResourceType.CPU)
+        mem = batch.packed(ResourceType.Memory)
+        k = self._exact_topk_k(cpu.capacity, q)
+        if k is not None:
+            sketch = topk_ops.build_from_host(cpu.values, cpu.counts, k, chunk, device=self.device, stats=stats)
+            cpu_p = topk_ops.percentile(sketch, q)
+        else:
+            cpu_digest = digest_ops.build_from_host(
+                spec, cpu.values, cpu.counts, chunk, device=self.device, stats=stats
+            )
+            cpu_p = digest_ops.percentile(spec, cpu_digest, q)
+        mem_max = masked_max_from_host(
+            mem.values, mem.counts, chunk, scale=MEMORY_SCALE, device=self.device, stats=stats
+        )
+        return cpu_p, mem_max
+
+    def _run_streamed(self, batch: FleetBatch, spec: DigestSpec, q: float, pack_seconds: float) -> list[RunResult]:
+        stats = StreamStats()
+        t0 = time.perf_counter()
+        cpu_p, mem_max = self._streamed_sketch(batch, spec, q, stats)
+        t1 = time.perf_counter()
+        cpu_p = cpu_p.cpu().numpy()
+        t2 = time.perf_counter()
+        results = finalize_fleet(cpu_p, mem_max, self.settings.memory_buffer_percentage)
+        self.leg_seconds = streamed_legs(pack_seconds, t1 - t0, stats, t2 - t1, time.perf_counter() - t2)
+        self.stream_stats = stats.as_dict()
+        return results
+
     def run_batch(self, batch: FleetBatch) -> list[RunResult]:
         if not batch.objects:
             return []
@@ -132,12 +178,10 @@ class TDigestStrategy(BatchedStrategy[TDigestStrategySettings]):
         t0 = time.perf_counter()
         cpu = batch.packed(ResourceType.CPU)
         batch.packed(ResourceType.Memory)
-        if use_host_stream(batch, self.device, self.settings.host_stream_mb):
-            raise NotImplementedError(
-                "the packed window exceeds the device-resident threshold (host_stream_mb); "
-                "host streaming is ROADMAP Queue 1 item M6 and is not ported yet"
-            )
         t1 = time.perf_counter()
+        if self._use_host_stream(batch):
+            return self._run_streamed(batch, spec, q, t1 - t0)
+        self.stream_stats = None
         cpu_values, cpu_counts = fleet_device_arrays(batch, ResourceType.CPU, device=self.device)
         mem_values, mem_counts = fleet_device_arrays(
             batch, ResourceType.Memory, scale=MEMORY_SCALE, device=self.device

@@ -23,6 +23,7 @@ import yaml
 from click.testing import CliRunner
 
 from krr_tpu import main as jax_main
+from krr_tpu.strategies.base import BaseStrategy as JaxBaseStrategy
 from krr_tpu_torch import main as port_main
 from krr_tpu_torch.core.config import Config as PortConfig
 from krr_tpu_torch.obs.trace import Tracer as PortTracer
@@ -184,6 +185,72 @@ def test_downsample_auto_equal_jax(apps, aligned_env, path, tmp_path):
     # Downsampling is bit-exact: the raw fetch renders the same bytes.
     _, raw_result = _both(apps, aligned_env, [*STRATEGY_PATHS[path], "-f", "json", *window])
     assert raw_result.output == port_result.output
+
+
+#: The JAX strategies' host-streamed methods.
+JAX_STREAMED = {"simple": "_streamed_exact", "tdigest": "_streamed_sketch"}
+#: The long-window fake: 2 Deployments of 3 pods, 45,000 samples a pod at 1
+#: minute, so the packed CPU window alone (2 × 135,000 float32) passes
+#: ``--host_stream_mb 1``.
+LONG_SAMPLES = 45_000
+
+
+@pytest.fixture(scope="module")
+def long_env(tmp_path_factory):
+    cluster = FakeCluster()
+    metrics = FakeMetrics()
+    metrics.enforce_range = True
+    rng = np.random.default_rng(78)
+    for w in range(2):
+        for pod in cluster.add_workload_with_pods("Deployment", f"long-wl{w}", "default", pod_count=3):
+            metrics.set_series(
+                "default", "main", pod,
+                cpu=np.round(rng.gamma(2.0, 0.05, LONG_SAMPLES), 4),
+                memory=np.floor(rng.uniform(5e7, 4e8, LONG_SAMPLES) / 4096) * 4096,
+            )
+    backend = FakeBackend(cluster, metrics)
+    server = ServerThread(backend).start()
+    kubeconfig = tmp_path_factory.mktemp("long") / "kubeconfig"
+    kubeconfig.write_text(yaml.dump({
+        "current-context": "fake",
+        "contexts": [{"name": "fake", "context": {"cluster": "fake", "user": "u"}}],
+        "clusters": [{"name": "fake", "cluster": {"server": server.url}}],
+        "users": [{"name": "u", "user": {"token": "t"}}],
+    }))
+    end = backend.SERIES_ORIGIN + (LONG_SAMPLES - 1) * 60.0
+    yield {"server": server, "kubeconfig": str(kubeconfig), "end": end}
+    server.stop()
+
+
+@pytest.mark.parametrize("path", ["simple", "tdigest"])
+def test_host_stream_equal_jax(apps, long_env, path, monkeypatch):
+    """``--host_stream_mb 1`` on a window past 1 MB: the port streams the
+    window from host memory (its streamed path runs once) and prints the
+    JAX CLI's bytes. The JAX command runs with ``--use_mesh false``: on its
+    eight virtual CPU devices the threshold is per device, and a mesh would
+    keep this window resident."""
+    window = [
+        "--history_duration", str(LONG_SAMPLES // 60), "--timeframe_duration", "1",
+        "--scan-end-timestamp", repr(long_env["end"]), "--host_stream_mb", "1",
+    ]
+    common = [path, "-f", "json", *window, "--kubeconfig", long_env["kubeconfig"], "-p", long_env["server"].url, "-q"]
+    calls = []
+    for strategy, method in ((PortBaseStrategy.find(path), "_run_streamed"),
+                             (JaxBaseStrategy.find(path), JAX_STREAMED[path])):
+        def spy(self, *args, _strategy=strategy, _streamed=getattr(strategy, method)):
+            calls.append(_strategy.__module__.split(".")[0])
+            return _streamed(self, *args)
+
+        monkeypatch.setattr(strategy, method, spy)
+    jax_app, port_app = apps
+    jax_result = _invoke(jax_app, [*common, "--use_mesh", "false"])
+    port_result = _invoke(port_app, [*common, "--device", "cpu"])
+    assert jax_result.exit_code == 0, jax_result.output
+    assert port_result.exit_code == 0, port_result.output
+    assert port_result.output == jax_result.output
+    assert calls == ["krr_tpu", "krr_tpu_torch"]  # both CLIs took their streamed path
+    scans = json.loads(port_result.output)["scans"]
+    assert len(scans) == 2 and all(s["recommended"]["requests"]["cpu"]["value"] != "?" for s in scans)
 
 
 @pytest.mark.parametrize("strict", [False, True])

@@ -350,7 +350,7 @@ class TestWrappers:
             cuda_select.fleet_exact(v, c, v, c, 99.0).numpy(),
             cuda_select.fleet_exact_plain(v, c, v, c, 99.0).numpy(),
         )
-        assert cuda_select.LAUNCHES == {"bisect_select": 0, "row_max": 0}
+        assert cuda_select.LAUNCHES == {"bisect_select": 0, "row_max": 0, "radix_digit_hist": 0}
 
     @pytest.mark.parametrize(
         "bad",

@@ -91,6 +91,16 @@ def make_fleet(seed: int = 7, n_objects: int = 30):
     return objects, {"cpu": cpu, "memory": memory}
 
 
+def long_histories(histories, length: int = 9_000):
+    """The fleet's histories with every non-empty pod series repeated out
+    to ``length`` samples: a packed window past 1 MB (``host_stream_mb=1``)
+    that still holds empty rows."""
+    return {
+        resource: [{pod: np.resize(s, length) if s.size else s for pod, s in row.items()} for row in rows]
+        for resource, rows in histories.items()
+    }
+
+
 def object_key(obj) -> tuple:
     return (obj.cluster, obj.namespace, obj.name, obj.container)
 
@@ -311,12 +321,32 @@ class TestRunBatchParity:
         with pytest.raises(ValueError, match="memory"):
             fleet_batch_from_dicts(dumps, {"cpu": histories["cpu"]})
 
-    def test_window_past_stream_threshold_raises(self, fleet):
-        _jax_objs, dumps, histories = fleet
-        big = {"cpu": [{"p": np.ones(400_000)} for _ in dumps], "memory": histories["memory"]}
-        strategy = port_simple.SimpleStrategy(port_simple.SimpleStrategySettings(device="cpu", host_stream_mb=1))
-        with pytest.raises(NotImplementedError, match="M6"):
-            strategy.run_batch(fleet_batch_from_dicts(dumps, big))
+    @pytest.mark.parametrize("q", [Decimal(99), Decimal(50)], ids=["p99-topk", "p50-radix"])
+    def test_window_past_stream_threshold_streams(self, fleet, q):
+        """A window past ``host_stream_mb`` streams from host memory — the
+        top-K sketch at p99, the streamed radix select at p50, the streamed
+        max for memory — and gives the JAX package's streamed Decimals and
+        the port's resident ones."""
+        jax_objs, dumps, histories = fleet
+        long = long_histories(histories)
+        settings = {"cpu_percentile": q, "host_stream_mb": 1}
+        jax_batch = jax_models.FleetBatch.build(jax_objs, {jax_models.ResourceType(k): v for k, v in long.items()})
+        ref = jax_simple.SimpleStrategy(jax_simple.SimpleStrategySettings(use_mesh=False, **settings)).run_batch(
+            jax_batch
+        )
+        streamed = port_simple.SimpleStrategy(port_simple.SimpleStrategySettings(device="cpu", **settings))
+        port = streamed.run_batch(fleet_batch_from_dicts(dumps, long))
+        resident = port_simple.SimpleStrategy(
+            port_simple.SimpleStrategySettings(device="cpu", cpu_percentile=q, host_stream_mb=-1)
+        ).run_batch(fleet_batch_from_dicts(dumps, long))
+        assert streamed.stream_stats["chunks"] >= 8 and streamed.stream_stats["passes"] == (2 if q == 99 else 5)
+        assert set(streamed.leg_seconds) == {"pack", "stream", "host_fill", "copy_wait", "fold", "query", "finalize"}
+        assert len(port) == len(ref) == len(resident) == len(jax_objs)
+        for p, r, s in zip(port, ref, resident):
+            for resource in port_models.ResourceType:
+                jax_resource = jax_models.ResourceType(resource.value)
+                assert str(p[resource].request) == str(r[jax_resource].request) == str(s[resource].request)
+                assert str(p[resource].limit) == str(r[jax_resource].limit) == str(s[resource].limit)
 
     def test_per_object_run_matches_batch(self, fleet):
         _jax_objs, dumps, histories = fleet

@@ -324,16 +324,80 @@ class TestDigestHist:
 # --------------------------------------------------------- the digest's ops
 
 
+def assert_digests_bit_equal(one_shot: port_digest.Digest, scanned: port_digest.Digest, values: np.ndarray) -> None:
+    """Bit equality of two digests; on failure the message says which of
+    counts, total and peak differ, on which rows, with the differing
+    entries and each such row's valid samples' bucket indices."""
+    report = []
+    for field, a, b in zip(port_digest.Digest._fields, one_shot, scanned):
+        a_bits, b_bits = a.numpy().view(np.int32), b.numpy().view(np.int32)
+        if a_bits.shape != b_bits.shape:
+            report.append(f"{field}: shapes {a_bits.shape} != {b_bits.shape}")
+            continue
+        differ = np.argwhere(a_bits != b_bits)
+        if differ.size:
+            rows = sorted({int(i[0]) for i in differ})
+            entries = [(tuple(int(x) for x in i), a.numpy()[tuple(i)], b.numpy()[tuple(i)]) for i in differ[:20]]
+            report.append(f"{field}: {len(differ)} entries differ on rows {rows}: (index, one-shot, chunked) {entries}")
+    if report:
+        spec = port_digest.DigestSpec()
+        buckets = port_digest.bucketize(spec, torch.from_numpy(values)).numpy()
+        report.append(f"torch threads {torch.get_num_threads()}, first row's buckets {buckets[0][:40].tolist()}")
+        raise AssertionError("chunked digest != one-shot digest:\n" + "\n".join(report))
+
+
+#: Process state another test file may leave in a pytest-xdist worker:
+#: thread counts, the FPU's flush-to-zero mode, and a JAX computation run
+#: in the same process first.
+WORKER_STATES = ["threads-1", "threads-3", "flush-denormal", "after-jax"]
+
+
+@pytest.fixture
+def worker_state(request):
+    threads = torch.get_num_threads()
+    state = request.param
+    if state.startswith("threads-"):
+        torch.set_num_threads(int(state.split("-")[1]))
+    elif state == "flush-denormal":
+        torch.set_flush_denormal(True)
+    else:
+        jax_digest.build_from_packed(jax_digest.DigestSpec(), *fuzz(82, 7, 300), chunk_size=128)
+    try:
+        yield state
+    finally:
+        torch.set_num_threads(threads)
+        torch.set_flush_denormal(False)
+
+
 class TestDigestOps:
     @pytest.mark.parametrize("chunk_size", [1, 7, 128, 1000])
     @pytest.mark.parametrize("time_offset", [0, 300])
     def test_chunked_equals_one_shot(self, chunk_size, time_offset):
         _, spec = specs(1.01, 2560)
-        v, c = port_tensors(*fuzz(81, 19, 700))
+        values, counts = fuzz(81, 19, 700)
+        v, c = port_tensors(values, counts)
         one_shot = port_digest.build_from_packed(spec, v, c, time_offset=time_offset)
         scanned = port_digest.build_from_packed(spec, v, c, chunk_size=chunk_size, time_offset=time_offset)
-        for a, b in zip(one_shot, scanned):
-            np.testing.assert_array_equal(a.numpy().view(np.int32), b.numpy().view(np.int32))
+        assert_digests_bit_equal(one_shot, scanned, values)
+
+    @pytest.mark.parametrize("worker_state", WORKER_STATES, indirect=True)
+    def test_chunked_equals_one_shot_whatever_ran_before(self, worker_state):
+        """Chunked == one-shot in 128-column chunks with the suspected
+        worker state set up first, on the same inputs, on values within an
+        ulp of every bucket edge and through the host-streamed build."""
+        chunk_size = 128
+        _, spec = specs(1.01, 2560)
+        values, counts = fuzz(81, 19, 700)
+        j = np.arange(1, 2559, dtype=np.float64)
+        edges = (spec.min_value * spec.gamma**j).astype(np.float32)
+        near = np.concatenate([np.nextafter(edges, np.float32(0)), edges, np.nextafter(edges, np.float32(np.inf))])
+        for vals, cnts in ((values, counts), (near[: 12 * 639].reshape(12, 639), np.full(12, 639, np.int32))):
+            v, c = port_tensors(vals, cnts)
+            one_shot = port_digest.build_from_packed(spec, v, c)
+            assert_digests_bit_equal(one_shot, port_digest.build_from_packed(spec, v, c, chunk_size=chunk_size), vals)
+            assert_digests_bit_equal(
+                one_shot, port_digest.build_from_host(spec, vals, cnts, chunk_size, device="cpu"), vals
+            )
 
     def test_merge_is_associative_and_commutative(self):
         _, spec = specs(1.01, 2560)

@@ -35,6 +35,7 @@ from tests.test_torch_simple import (
     MemoryInventory,
     history_factory,
     jax_objects,
+    long_histories,
     make_fleet,
     render_table,
 )
@@ -233,14 +234,40 @@ class TestNotPortedYet:
         with pytest.raises(NotImplementedError, match=item):
             port_tdigest.TDigestStrategy(port_tdigest.TDigestStrategySettings(device="cpu", **args))
 
-    def test_window_past_stream_threshold_raises(self, fleet):
-        _jax_objs, dumps, histories = fleet
-        big = {"cpu": [{"p": np.ones(400_000)} for _ in dumps], "memory": histories["memory"]}
-        strategy = port_tdigest.TDigestStrategy(
-            port_tdigest.TDigestStrategySettings(device="cpu", host_stream_mb=1)
+
+class TestHostStream:
+    @pytest.mark.parametrize("sketch", list(SKETCHES))
+    def test_window_past_stream_threshold_streams(self, fleet, sketch):
+        """A window past ``host_stream_mb`` streams from host memory in
+        ``chunk_size`` chunks (the digest or the top-K sketch, and the
+        streamed memory max): the port's resident Decimals exactly, and the
+        JAX package's streamed ones — memory and the exact sketch exactly,
+        the digest's CPU within two float32 ulps (``test_raw_decimals``)."""
+        jax_objs, dumps, histories = fleet
+        long = long_histories(histories)
+        args = {**SKETCHES[sketch], "host_stream_mb": 1, "chunk_size": 4096}
+        jax_batch = jax_models.FleetBatch.build(jax_objs, {jax_models.ResourceType(k): v for k, v in long.items()})
+        ref = jax_tdigest.TDigestStrategy(jax_tdigest.TDigestStrategySettings(use_mesh=False, **args)).run_batch(
+            jax_batch
         )
-        with pytest.raises(NotImplementedError, match="M6"):
-            strategy.run_batch(fleet_batch_from_dicts(dumps, big))
+        streamed = port_tdigest.TDigestStrategy(port_tdigest.TDigestStrategySettings(device="cpu", **args))
+        port = streamed.run_batch(fleet_batch_from_dicts(dumps, long))
+        resident = port_tdigest.TDigestStrategy(
+            port_tdigest.TDigestStrategySettings(device="cpu", **{**args, "host_stream_mb": -1})
+        ).run_batch(fleet_batch_from_dicts(dumps, long))
+        assert streamed.stream_stats["passes"] == 2 and streamed.stream_stats["chunks"] >= 14
+        assert len(port) == len(ref) == len(resident) == len(jax_objs)
+        cpu_apart = []
+        for p, r, s in zip(port, ref, resident):
+            for resource in port_models.ResourceType:
+                jax_resource = jax_models.ResourceType(resource.value)
+                assert str(p[resource].request) == str(s[resource].request)
+                assert str(p[resource].limit) == str(s[resource].limit) == str(r[jax_resource].limit)
+                if resource == port_models.ResourceType.CPU and sketch == "digest":
+                    cpu_apart.append(ulps_apart(str(p[resource].request), str(r[jax_resource].request)))
+                else:
+                    assert str(p[resource].request) == str(r[jax_resource].request)
+        assert max(cpu_apart, default=0) <= 2
 
 
 class TestSettings:
