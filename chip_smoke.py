@@ -95,7 +95,23 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    chunks, passes and pinned bytes are printed. Run alone
    (``--phases stream``) it builds the fleet and the resident references
    itself.
-8. ``cli``     — the user's entry point, ``krr_tpu_torch``'s click command,
+8. ``state``   — ``tdigest --state_path`` (the durable digest store) through
+   ``Runner.run`` on ``e2e``'s fleet: one resident scan (``digest_hist`` and
+   ``row_max`` launched exactly once each, nothing else) and one streamed at
+   ``host_stream_mb=1000`` (each once a chunk, 15 chunks), each into a fresh
+   state directory with one WAL record appended (at this size the persist
+   passes the compaction threshold and folds it into base shards). The
+   store's counts, totals and
+   peaks and its memory sample counts and peaks must equal, bit for bit,
+   what the scan's own ``digest_hist`` and ``row_max`` calls returned
+   (captured by wrapping them); reopening the state (manifest and WAL
+   replay) must recover the same arrays; the streamed state must equal the
+   resident one; each render must carry ``e2e``'s ``tdigest`` memory byte
+   for byte and every CPU value within one bucket (the store answers from
+   the host query). The legs (digest, fold, quantile, persist), the WAL
+   bytes and the reopen time are printed. Run alone (``--phases state``) it
+   builds the fleet and the resident reference itself.
+9. ``cli``     — the user's entry point, ``krr_tpu_torch``'s click command,
    against the fake apiserver + fake Prometheus of ``tests/fakes/servers.py``
    served from a child process (started when the phase begins, so its
    fixture build overlaps no timed phase): 10,000 Deployments of one
@@ -110,10 +126,19 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    krr_tpu_torch simple`` subprocess and one ``--device cpu`` run render
    ``simple``'s JSON byte for byte; a ``--device cpu`` run of ``tdigest``
    renders the same memory and every CPU value within one bucket of the
-   card's warm ``tdigest`` run. The warm runs' ``Runner.stats`` legs, the
-   strategy's own compute legs (pack, H2D, device, finalize), the fake's CPU
-   seconds, the wire and decoded bytes and the range queries' transport
-   phases (summed over queries) are printed.
+   card's warm ``tdigest`` run. ``tdigest --digest_ingest true`` at
+   ``--pipeline-depth 4`` and ``0`` (in the order 4, 0, 0, 4) prints the
+   same JSON with no kernel launched (the query is host numpy, as in the
+   JAX package) and the pipeline's legs at depth 4. ``tdigest --state_path`` runs twice into one
+   sharded state (``digest_hist`` 1 + ``row_max`` 1 each; the second run
+   doubles every count and total and appends one WAL record), once with
+   ``--store_format legacy`` (the first run's arrays) and once with
+   ``--device cpu`` (the first run's arrays, the counts but for one-bucket
+   moves of edge samples, which are counted). The warm runs'
+   ``Runner.stats`` legs, the strategy's own compute legs (pack, H2D,
+   device, finalize; digest, fold, quantile, persist), the store's WAL
+   bytes, the fake's CPU seconds, the wire and decoded bytes and the range
+   queries' transport phases (summed over queries) are printed.
 
 ``row_max_main`` — ``row_max`` at the memory shape of the ``simple`` scan,
 per wrapper call (host-bound at that size) and per launch replayed from a
@@ -1194,10 +1219,163 @@ def phase_stream(torch, fleet: E2EFleet, rendered: "dict | None") -> dict:
     return report
 
 
-def same_within_a_bucket(card_json: str, cpu_json: str) -> int:
+def store_arrays(path: str) -> dict:
+    """The digest store at ``path`` reopened (manifest, base shards and WAL
+    replay, or the legacy file): its keys and arrays."""
+    from krr_tpu_torch.core.streaming import DigestStore
+    from krr_tpu_torch.ops.digest import DigestSpec
+
+    store = DigestStore.open_or_create(path, DigestSpec())
+    return {"keys": list(store.keys), **{f: getattr(store, f) for f in STORE_FIELDS}}
+
+
+#: The digest store's per-row arrays, all float32.
+STORE_FIELDS = ("cpu_counts", "cpu_total", "cpu_peak", "mem_total", "mem_peak")
+
+
+def same_store_bits(np, a: dict, b: dict) -> bool:
+    return a["keys"] == b["keys"] and all(
+        a[f].dtype == b[f].dtype == np.float32 and np.array_equal(a[f].view(np.uint32), b[f].view(np.uint32))
+        for f in STORE_FIELDS
+    )
+
+
+def bucket_moves(np, a, b) -> tuple[int, int]:
+    """(samples that moved, moves wider than one bucket) between two count
+    matrices of the same samples: a one-bucket move changes the running
+    count at exactly one bucket, so per row ``sum |cumsum(a − b)|`` equals
+    the moved samples when every move is one bucket, and exceeds it
+    otherwise."""
+    diff = a.astype(np.float64) - b.astype(np.float64)
+    moved = int(np.abs(diff).sum() // 2)
+    return moved, int(np.abs(np.cumsum(diff, axis=1)).sum()) - moved
+
+
+def wal_records(path: str) -> int:
+    """Records in the state directory's live WAL, counted from its frames
+    (``[u32 length][u32 crc32][payload]`` after an 8-byte header); 0 after
+    a persist that passed the compaction threshold folded them into base
+    shards."""
+    import struct
+
+    with open(os.path.join(path, "MANIFEST.json")) as f:
+        wal = json.load(f)["wal"]
+    with open(os.path.join(path, wal), "rb") as f:
+        blob = f.read()
+    count, pos = 0, 8
+    while pos < len(blob):
+        (length,) = struct.unpack_from("<I", blob, pos)
+        pos += 8 + length
+        count += 1
+    check(pos == len(blob), f"{path}: a torn WAL frame")
+    return count
+
+
+def phase_state(torch, np, fleet: E2EFleet, rendered: "dict | None") -> dict:
+    """``tdigest --state_path`` on the ``e2e`` fleet through ``Runner.run``:
+    the window digest on the card (``digest_hist`` and ``row_max`` once
+    each, resident; once a chunk, streamed at ``host_stream_mb``), folded
+    into the durable store and persisted as one WAL record. The store must
+    hold exactly the kernels' outputs (captured from the scan's own calls),
+    the streamed state must equal the resident one bit for bit, reopening
+    must recover the same arrays, and the render must carry ``e2e``'s
+    memory byte for byte and each CPU value within one bucket of it (the
+    store answers from the host query). ``rendered`` holds the ``e2e``
+    phase's JSON; None runs the resident ``tdigest`` reference here."""
+    import tempfile
+
+    from krr_tpu_torch.core.durastore import DurableStore
+    from krr_tpu_torch.core.streaming import object_key
+    from krr_tpu_torch.ops import digest as digest_ops
+    from krr_tpu_torch.ops.digest import DigestSpec
+    from krr_tpu_torch.strategies import tdigest as tdigest_module
+
+    report: dict = {"objects": E2E_OBJECTS, "host_stream_mb": STREAM_MB, "scans": {}}
+    reference = (rendered or {}).get("tdigest")
+    if reference is None:
+        result, _runner, wall = fleet.scan(fleet.objects, DEVICE, "tdigest")
+        reference = result.format("json")
+        report["reference_wall_seconds"] = wall
+    chunks = -(-(E2E_PODS * E2E_SAMPLES_PER_POD) // STREAM_CHUNK)
+    expected = {"resident": {"digest_hist": 1, "row_max": 1},
+                "streamed": {"digest_hist": chunks, "row_max": chunks}}
+    captured: dict = {}
+    build, row_max = digest_ops.build_from_packed, tdigest_module.masked_max_cuda
+
+    def spy_build(spec, values, counts, *args, **kwargs):
+        captured["digest"] = build(spec, values, counts, *args, **kwargs)
+        return captured["digest"]
+
+    def spy_row_max(values, counts):
+        captured["mem_max"], captured["mem_counts"] = row_max(values, counts), counts
+        return captured["mem_max"]
+
+    keys = [object_key(obj) for obj in fleet.objects]
+    states = {}
+    with tempfile.TemporaryDirectory(prefix="krr-state-smoke-") as tmp:
+        for window, extra in (("resident", {}), ("streamed", {"host_stream_mb": STREAM_MB})):
+            path = os.path.join(tmp, window)
+            digest_ops.build_from_packed, tdigest_module.masked_max_cuda = spy_build, spy_row_max
+            try:
+                _reset_counts()
+                torch.cuda.reset_peak_memory_stats()
+                result, runner, wall = fleet.scan(fleet.objects, DEVICE, "tdigest", state_path=path, **extra)
+                launches, generic_folds = _read_counts()
+            finally:
+                digest_ops.build_from_packed, tdigest_module.masked_max_cuda = build, row_max
+            strategy = runner.session.strategy
+            state_json = result.format("json")
+            check(launches == {**{name: 0 for name in launches}, **expected[window]},
+                  f"state {window}: launches {launches}, expected {expected[window]} and no other kernel")
+            check(not any(generic_folds.values()), f"state {window}: a fold took the generic path: {generic_folds}")
+            check((strategy.stream_stats is not None) == (window == "streamed"),
+                  f"state {window}: the window did {'not ' if window == 'streamed' else ''}stream")
+            check(len(result.scans) == E2E_OBJECTS and '"?"' not in state_json,
+                  f"state {window}: {len(result.scans)} scans or an unknown value")
+            check(strategy.store_stats["wal_appends"] == 1 and strategy.store_stats["epoch"] == 1,
+                  f"state {window}: expected one WAL record appended, store {strategy.store_stats}")
+            states[window] = store_arrays(path)
+            check(states[window]["keys"] == keys, f"state {window}: store keys != the fleet's object keys")
+            identical = same_within_a_bucket(reference, state_json)
+            report["scans"][window] = {
+                "run_wall_seconds": wall, "legs_seconds": strategy.leg_seconds,
+                "store": {**strategy.store_stats, "live_wal_records": wal_records(path),
+                          "base_shards": sum(name.startswith("base-") for name in os.listdir(path))},
+                "stream": strategy.stream_stats, "launches": launches,
+                "peak_device_bytes": torch.cuda.max_memory_allocated(), "identical_cpu_values": identical,
+            }
+            if window == "resident":
+                digest, mem_max = captured.pop("digest"), captured.pop("mem_max")
+                mem_counts = captured.pop("mem_counts")
+                kernel = {
+                    "cpu_counts": digest.counts.cpu().numpy(), "cpu_total": digest.total.cpu().numpy(),
+                    "cpu_peak": digest.peak.cpu().numpy(),
+                    "mem_total": mem_counts.cpu().numpy().astype(np.float32),
+                    "mem_peak": np.where(np.isnan(m := mem_max.cpu().numpy()), np.float32(-np.inf), m),
+                }
+                del digest, mem_max, mem_counts
+                check(same_store_bits(np, states[window], {"keys": keys, **kernel}),
+                      "state: the store's arrays != digest_hist's and row_max's outputs on the window")
+                started = time.perf_counter()
+                durable = DurableStore.open(path, DigestSpec())
+                recovered = {"keys": list(durable.store.keys),
+                             **{f: getattr(durable.store, f) for f in STORE_FIELDS}}
+                epoch = durable.epoch
+                durable.close()
+                report["reopen_seconds"] = time.perf_counter() - started
+                check(epoch == 1 and same_store_bits(np, recovered, states[window]),
+                      "state: reopening the state did not recover the same arrays")
+    check(same_store_bits(np, states["streamed"], states["resident"]),
+          "state: the streamed window's store != the resident window's")
+    emit("state", **report)
+    return report
+
+
+def same_within_a_bucket(card_json: str, cpu_json: str, cpu_within: bool = True) -> int:
     """Hold a tdigest scan's JSON on the CPU to the card's: the same objects
-    and memory, each CPU request within one bucket. Returns how many CPU
-    requests are identical."""
+    and memory, each CPU request within one bucket (``cpu_within=False``:
+    the CPU requests unchecked). Returns how many CPU requests are
+    identical."""
     card = json.loads(card_json, parse_float=Decimal)["scans"]
     host = json.loads(cpu_json, parse_float=Decimal)["scans"]
     check(len(card) == len(host), f"tdigest: {len(host)} scans on the CPU, {len(card)} on the card")
@@ -1212,7 +1390,8 @@ def same_within_a_bucket(card_json: str, cpu_json: str) -> int:
         x = a["recommended"]["requests"]["cpu"]["value"]
         y = b["recommended"]["requests"]["cpu"]["value"]
         # One bucket is a factor γ; the millicore ceiling adds up to 0.001.
-        check(abs(x - y) <= one_bucket * max(x, y) + Decimal("0.001"), f"tdigest CPU {x} on the card vs {y} on the CPU")
+        check(not cpu_within or abs(x - y) <= one_bucket * max(x, y) + Decimal("0.001"),
+              f"tdigest CPU {x} on the card vs {y} on the CPU")
         same += x == y
     return same
 
@@ -1351,6 +1530,7 @@ def _phase_cli(fakes: FakeServers, url: str, scan_end: float, fixture_seconds: f
             **runner.stats,
             # The compute leg split by the strategy's own clock.
             "strategy_legs_seconds": dict(runner.session.strategy.leg_seconds),
+            "store_stats": getattr(runner.session.strategy, "store_stats", None),
             "server_cpu_seconds": server_cpu,
             "streamed_queries": runner.metrics.value("krr_tpu_prom_query_seconds_count", route="streamed") or 0.0,
             "buffered_queries": runner.metrics.value("krr_tpu_prom_query_seconds_count", route="buffered") or 0.0,
@@ -1413,16 +1593,88 @@ def _phase_cli(fakes: FakeServers, url: str, scan_end: float, fixture_seconds: f
     stdout, stats, wall = invoke(["tdigest", *common, "--device", "cpu"])
     report["cpu_run_tdigest"] = {"wall_seconds": wall, "runner_stats": stats,
                                  "identical_cpu_values": same_within_a_bucket(rendered["tdigest"], stdout)}
+    report.update(_cli_ingest(invoke, common))
+    report.update(_cli_state(invoke, common, rendered["tdigest"], os.path.dirname(kubeconfig)))
     emit("cli", **report)
     return report
+
+
+def _cli_ingest(invoke, common: list) -> dict:
+    """``tdigest --digest_ingest true`` streamed (``--pipeline-depth 4``) and
+    staged (``0``), in ABBA order so the two compare within one run: the
+    same stdout, no kernel launched (the query is host numpy, as in the JAX
+    package), the pipeline's legs printed."""
+    runs, outputs = {}, {}
+    for run, depth in (("4a", "4"), ("0a", "0"), ("0b", "0"), ("4b", "4")):
+        _reset_counts()
+        stdout, stats, wall = invoke(["tdigest", "--digest_ingest", "true", "--pipeline-depth", depth, *common,
+                                      "--device", DEVICE])
+        launches, _generic = _read_counts()
+        check(not any(launches.values()), f"cli digest_ingest depth {depth}: a kernel launched: {launches}")
+        check(len(json.loads(stdout)["scans"]) == CLI_OBJECTS and '"?"' not in stdout,
+              f"cli digest_ingest depth {depth}: missing or unknown scans")
+        check(stats["failed_rows"] == 0, f"cli digest_ingest depth {depth}: failed rows {stats['failed_rows']}")
+        check(("pipeline_batches" in stats) == (depth != "0"), f"cli digest_ingest depth {depth}: pipeline stats")
+        outputs[run] = stdout
+        runs[run] = {"wall_seconds": wall, "runner_stats": stats, "launches": launches}
+    check(len(set(outputs.values())) == 1, "cli digest_ingest: --pipeline-depth 4 and 0 print different JSON")
+    return {"digest_ingest": runs}
+
+
+def _cli_state(invoke, common: list, tdigest_json: str, tmp: str) -> dict:
+    """``tdigest --state_path`` on the card: twice into one sharded state
+    (the second run doubles every count and appends one WAL record), once
+    into a legacy file (the first run's arrays), and once with ``--device
+    cpu`` (the first run's arrays but for one-bucket moves of edge
+    samples). Each on-card run launches ``digest_hist`` and ``row_max``
+    once and renders ``tdigest``'s memory, each CPU value within a bucket
+    (but the second run's, which ranks twice the samples)."""
+    import numpy as np
+
+    runs, arrays = {}, {}
+    for name, state, extra in (
+        ("sharded_1", "sharded", []), ("sharded_2", "sharded", []),
+        ("legacy", "legacy.npz", ["--store_format", "legacy"]), ("cpu", "cpu", []),
+    ):
+        path = os.path.join(tmp, state)
+        device = "cpu" if name == "cpu" else DEVICE
+        _reset_counts()
+        stdout, stats, wall = invoke(["tdigest", "--state_path", path, *extra, *common, "--device", device])
+        launches, _generic = _read_counts()
+        if device != "cpu":
+            check(launches == {**{k: 0 for k in launches}, "digest_hist": 1, "row_max": 1},
+                  f"cli state {name}: launches {launches}, expected digest_hist 1 and row_max 1")
+        check(stats["failed_rows"] == 0, f"cli state {name}: failed rows {stats['failed_rows']}")
+        arrays[name] = store_arrays(path)
+        # The second run answers from twice the samples: its CPU ranks (and
+        # so its buckets) may differ from one window's; memory may not.
+        runs[name] = {"wall_seconds": wall, "runner_stats": stats, "launches": launches,
+                      "identical_cpu_values": same_within_a_bucket(tdigest_json, stdout, name != "sharded_2")}
+        if state != "legacy.npz":
+            runs[name]["live_wal_records"] = wal_records(path)
+    appends = [tuple(runs[name]["runner_stats"]["store_stats"][k] for k in ("wal_appends", "epoch"))
+               for name in ("sharded_1", "sharded_2", "legacy")]
+    check(appends == [(1, 1), (1, 2), (0, 0)],
+          f"cli state: (WAL appends, epoch) per run {appends}: each sharded run must append one record")
+    first, second = arrays["sharded_1"], arrays["sharded_2"]
+    doubled = {**first, "cpu_counts": 2 * first["cpu_counts"], "cpu_total": 2 * first["cpu_total"],
+               "mem_total": 2 * first["mem_total"]}
+    check(same_store_bits(np, second, doubled), "cli state: the second run did not double the first run's counts")
+    check(same_store_bits(np, arrays["legacy"], first), "cli state: the legacy file != the sharded state's arrays")
+    cpu = arrays["cpu"]
+    check(same_store_bits(np, {**cpu, "cpu_counts": first["cpu_counts"]}, first),
+          "cli state: --device cpu totals or peaks != the card's")
+    moved, wider = bucket_moves(np, cpu["cpu_counts"], first["cpu_counts"])
+    check(wider == 0, f"cli state: {wider} samples moved more than one bucket between the card and the CPU")
+    return {"state": runs, "state_cpu_samples_moved_one_bucket": moved}
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
-        "--phases", default="build,parity,digest_proof,headline,e2e,stream,cli",
-        help="comma-separated subset of build,parity,digest_proof,headline,e2e,stream,cli,row_max_main "
-        "(default: the first seven; the kernels line and the ok line need all seven)",
+        "--phases", default="build,parity,digest_proof,headline,e2e,stream,state,cli",
+        help="comma-separated subset of build,parity,digest_proof,headline,e2e,stream,state,cli,row_max_main "
+        "(default: the first eight; the kernels line and the ok line need all eight)",
     )
     args = parser.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -1457,13 +1709,14 @@ def main(argv=None) -> int:
     if headline is not None:
         headline.update(timed("headline_sketch", phase_sketch_headline, torch, np))
         headline.update(timed("headline_stream", phase_stream_headline, torch, np))
-    fleet = timed("fleet", E2EFleet, np) if {"e2e", "stream"} & phases else None
+    fleet = timed("fleet", E2EFleet, np) if {"e2e", "stream", "state"} & phases else None
     e2e, rendered = timed("e2e", phase_e2e, torch, fleet) if "e2e" in phases else (None, None)
     stream = timed("stream", phase_stream, torch, fleet, rendered) if "stream" in phases else None
+    state = timed("state", phase_state, torch, np, fleet, rendered) if "state" in phases else None
     del fleet, rendered  # the fleet's 9.7 GB of samples are not needed past here
     cli = timed("cli", phase_cli) if "cli" in phases else None
     emit("walls", seconds=walls)
-    if None in (headline, e2e, stream, cli, parity, proof) or "build" not in phases:
+    if None in (headline, e2e, stream, state, cli, parity, proof) or "build" not in phases:
         print(smi)
         return 0
     launched = {"cli": lambda path: cli["paths"][path]["warm"]["launches"],

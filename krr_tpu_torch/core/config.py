@@ -123,6 +123,14 @@ class Config(pd.BaseModel):
     #: reproducible scans (two runs see identical samples). Default: now.
     scan_end_timestamp: Optional[float] = None
 
+    #: Scan-pipeline depth (`krr_tpu_torch.core.pipeline`): digest-ingest
+    #: scans fetch the fleet as per-namespace batches and fold each batch
+    #: while the rest still fetch, with at most this many batches in flight
+    #: at each of the fetch and the fold-queue stages (bounded backpressure:
+    #: ≤ 2 × depth + 1 fetched-but-unfolded batches ever exist). 0 disables
+    #: streaming — the staged gather-then-fold path.
+    pipeline_depth: int = pd.Field(4, ge=0)
+
     #: Fleet-axis host chunking: the raw path's packed [rows × T] copy is
     #: built (and run) at most this many rows at a time
     #: (`krr_tpu_torch.strategies.base.run_batch_row_chunks`).

@@ -6,8 +6,11 @@ strategy call per row chunk, instead of per-object tasks and per-object
 strategy calls. The inventory and the per-cluster history sources default
 to the real Kubernetes and Prometheus loaders (`krr_tpu_torch.integrations`)
 and may be injected instead (``inventory=``, ``history_factory=``) — fakes
-and third-party backends. Digest ingest and the streamed scan pipeline wait
-for the digest-ingest slice.
+and third-party backends. With ``digest_ingest`` the fleet arrives as
+per-object digests instead (``gather_fleet_digests``, or, at
+``pipeline_depth`` > 0, ``stream_fleet_digests``: discovery, fetch and fold
+overlap through `krr_tpu_torch.core.pipeline`), and the strategy's
+``run_digested`` recommends from them.
 
 Failure semantics: a cluster whose history source fails degrades to empty
 histories for its objects — their scans render as UNKNOWN (``?``) instead of
@@ -21,8 +24,11 @@ import inspect
 import time
 from typing import Callable, Optional, Protocol, Union
 
+import numpy as np
+
 from krr_tpu_torch import __version__
 from krr_tpu_torch.core.config import Config
+from krr_tpu_torch.core.pipeline import PipelineStats, ScanPipeline
 from krr_tpu_torch.core.rounding import round_value
 from krr_tpu_torch.models.allocations import ResourceAllocations, ResourceType
 from krr_tpu_torch.models.objects import K8sObjectData
@@ -66,6 +72,33 @@ class InventorySource(Protocol):
 
 def _empty_histories(objects: list[K8sObjectData]) -> dict[ResourceType, list[RaggedHistory]]:
     return {resource: [{} for _ in objects] for resource in ResourceType}
+
+
+def fold_histories(
+    fleet, indices: "list[int] | range", fetched: dict[ResourceType, list[RaggedHistory]], spec
+) -> None:
+    """Digest raw fetched histories into ``fleet`` rows ``indices`` on host —
+    the fallback fold for sources without a fused parse+digest path (fakes,
+    third-party backends). A failure mid-fold UNWINDS every row the batch
+    touched before re-raising: the caller's failure handling marks the batch
+    failed/UNKNOWN, and a partially-written row surviving under that marking
+    would quietly serve a recommendation computed from half a window (or
+    double-count the half on a refetch)."""
+    from krr_tpu_torch.integrations.native import _digest_python
+
+    try:
+        for local_i, global_i in enumerate(indices):
+            for samples in fetched[ResourceType.CPU][local_i].values():
+                counts, total, peak = _digest_python(samples, spec.gamma, spec.min_value, spec.num_buckets)
+                fleet.merge_cpu_row(global_i, counts, total, peak)
+            for samples in fetched[ResourceType.Memory][local_i].values():
+                if samples.size:
+                    fleet.merge_mem_row(global_i, float(samples.size), float(samples.max()))
+    except BaseException:
+        rows = list(indices)
+        fleet.clear_cpu_rows(rows)
+        fleet.clear_mem_rows(rows)
+        raise
 
 
 def round_allocations(
@@ -251,6 +284,359 @@ class ScanSession:
         batch.failed_rows.update(failed)
         return batch
 
+    async def gather_fleet_digests(
+        self,
+        objects: list[K8sObjectData],
+        *,
+        history_seconds: Optional[float] = None,
+        step_seconds: Optional[float] = None,
+        end_time: Optional[float] = None,
+        raise_on_failure: bool = False,
+    ) -> "DigestedFleet":
+        """Digest-ingest fetch (tdigest ``--digest_ingest`` and the serve
+        scheduler): per cluster, use the source's fused parse+digest path when
+        it has one; otherwise fetch raw and digest on host — so fakes and
+        third-party sources keep working. The window defaults to the strategy
+        settings; an explicit ``history_seconds``/``end_time`` narrows it to a
+        delta window (``[end_time - history_seconds, end_time]``). Default
+        failure semantics match the raw path (cluster failure → empty digests
+        → UNKNOWN scans); with ``raise_on_failure`` a cluster failure raises
+        instead — the serve scheduler needs the distinction, because folding
+        an empty window and moving on would silently LOSE that window's
+        samples from the accumulated store, where a one-shot scan merely
+        renders one run's objects as UNKNOWN. Coverage caveat:
+        ``raise_on_failure`` sees cluster-level failures plus per-query
+        failures a source reports via ``fleet.failed_rows`` (the bundled
+        PrometheusLoader does); a third-party source that swallows its own
+        query errors into empty histories is indistinguishable from a
+        genuinely idle fleet and cannot be caught here."""
+        from krr_tpu_torch.models.series import DigestedFleet
+
+        settings = self.strategy.settings
+        spec = settings.cpu_spec()
+        if history_seconds is None:
+            history_seconds = settings.history_timedelta.total_seconds()
+        if step_seconds is None:
+            step_seconds = settings.timeframe_timedelta.total_seconds()
+
+        by_cluster: dict[Optional[str], list[int]] = {}
+        for i, obj in enumerate(objects):
+            by_cluster.setdefault(obj.cluster, []).append(i)
+
+        fleet = DigestedFleet.empty(objects, spec.gamma, spec.min_value, spec.num_buckets)
+
+        async def fetch_cluster(cluster: Optional[str], indices: list[int]) -> None:
+            subset = [objects[i] for i in indices]
+            try:
+                with self.tracer.span("fetch", cluster=cluster or "default", rows=len(subset)):
+                    source = self.get_history_source(cluster)
+                    if hasattr(source, "gather_fleet_digests"):
+                        sub_fleet = await source.gather_fleet_digests(
+                            subset, history_seconds, step_seconds,
+                            spec.gamma, spec.min_value, spec.num_buckets,
+                            **self._end_time_kwargs(end_time),
+                        )
+                    else:
+                        sub_fleet = None
+                        fetched = await source.gather_fleet(
+                            subset, history_seconds, step_seconds, **self._end_time_kwargs(end_time)
+                        )
+                with self.tracer.span("fold", rows=len(subset)):
+                    if sub_fleet is not None:
+                        fleet.merge_from(sub_fleet, indices)
+                    else:
+                        fold_histories(fleet, indices, fetched, spec)
+            except Exception as e:
+                if raise_on_failure:
+                    raise
+                # Unwind before marking: a mid-merge failure (fold_histories
+                # unwinds its own rows; a partial merge_from does not) must
+                # not leave half a batch's samples behind a failed marker —
+                # each cluster owns a disjoint row set, so the clear cannot
+                # touch another fetch's work.
+                fleet.clear_cpu_rows(indices)
+                fleet.clear_mem_rows(indices)
+                fleet.failed_rows.update(indices)
+                self.logger.warning(
+                    f"Failed to gather digests for cluster {cluster or 'default'}: {e} — "
+                    f"marking {len(subset)} objects as unknown"
+                )
+                self.logger.debug_exception()
+
+        # return_exceptions so sibling clusters' fetches settle before a
+        # failure surfaces (raising early would orphan their downloads).
+        results = await asyncio.gather(
+            *[fetch_cluster(c, idx) for c, idx in by_cluster.items()], return_exceptions=True
+        )
+        for r in results:
+            if isinstance(r, BaseException):
+                raise r
+        if raise_on_failure and fleet.failed_rows:
+            # Per-QUERY terminal failures inside a reachable source degrade
+            # to empty rows and are only recorded (fleet.failed_rows) — for
+            # an incremental caller that is still a lost window, so surface
+            # it as loudly as a cluster failure.
+            raise RuntimeError(
+                f"{len(fleet.failed_rows)} of {len(objects)} object fetches failed terminally"
+            )
+        return fleet
+
+    # ------------------------------------------------------- streamed pipeline
+    async def discover_stream(self):
+        """Yield ``(cluster_ordinal, positions, objects)`` inventory batches
+        as they complete (`KubernetesLoader.stream_scannable_objects`) — the
+        discovery producer of the scan pipeline. Inventories without a
+        streaming API degrade to one staged batch, so injected fakes and
+        third-party sources keep working."""
+        inventory = self.get_inventory()
+        clusters = await inventory.list_clusters()
+        self.logger.debug(f"Using clusters: {clusters if clusters is not None else 'inner cluster'}")
+        stream = getattr(inventory, "stream_scannable_objects", None)
+        if stream is None:
+            objects = await inventory.list_scannable_objects(clusters)
+            if objects:
+                yield 0, list(range(len(objects))), objects
+            return
+        async for item in stream(clusters):
+            yield item
+
+    @staticmethod
+    def _digest_batches(objects: list[K8sObjectData], depth: int) -> "list[list[int]]":
+        """Partition a staged inventory into pipeline fetch batches: whole
+        namespaces of one cluster, coalesced to ~``2 × depth`` batches per
+        cluster. A namespace never splits across batches — each batch's
+        namespace-batched query would refetch the whole namespace response
+        per batch otherwise — and batches never mix clusters (one history
+        source per batch)."""
+        by_cluster: dict[Optional[str], list[int]] = {}
+        for i, obj in enumerate(objects):
+            by_cluster.setdefault(obj.cluster, []).append(i)
+        batches: list[list[int]] = []
+        for indices in by_cluster.values():
+            by_namespace: dict[str, list[int]] = {}
+            for i in indices:
+                by_namespace.setdefault(objects[i].namespace, []).append(i)
+            target = max(1, len(indices) // (2 * depth))
+            current: list[int] = []
+            for namespace_indices in by_namespace.values():
+                current.extend(namespace_indices)
+                if len(current) >= target:
+                    batches.append(current)
+                    current = []
+            if current:
+                batches.append(current)
+        return batches
+
+    async def stream_fleet_digests(
+        self,
+        objects: Optional[list[K8sObjectData]] = None,
+        *,
+        history_seconds: Optional[float] = None,
+        step_seconds: Optional[float] = None,
+        end_time: Optional[float] = None,
+        raise_on_failure: bool = False,
+        pipeline_depth: Optional[int] = None,
+    ) -> "tuple[list[K8sObjectData], DigestedFleet, PipelineStats]":
+        """The streamed twin of :meth:`gather_fleet_digests`: fetch the fleet
+        as per-namespace batches and FOLD each batch concurrently with the
+        remaining fetches through a bounded pipeline (`krr_tpu_torch.core.pipeline`)
+        instead of gathering everything and folding after.
+
+        With ``objects`` (the serve scheduler's staged inventory) the batches
+        are namespace groups of the given fleet and each arriving batch folds
+        straight into the preallocated aggregate. Without it, DISCOVERY
+        streams too: each namespace starts fetching as soon as its inventory
+        resolves (`discover_stream`), batches buffer as they fold, and the
+        aggregate assembles once the fleet's size is known — returned objects
+        are sorted back to the exact staged discovery order, so streamed and
+        staged scans agree on everything including list order.
+
+        Backpressure: at most ``pipeline_depth`` batch fetches run at once
+        and at most ``pipeline_depth`` fetched batches queue unfolded, so
+        fetched-but-unfolded host state stays bounded at ``2 × depth + 1``
+        batches no matter how wide the fleet is (HTTP-level concurrency
+        within a batch is still the loader's ``prometheus_max_connections``).
+        Exactness: batch folds are digest merges (integer-valued count adds,
+        peak maxes), so arrival-order folding is bit-identical to the staged
+        path — asserted in tests, not assumed. Failure semantics match
+        :meth:`gather_fleet_digests` batch-wise: a failed batch degrades to
+        empty rows marked in ``failed_rows`` (→ UNKNOWN scans), or aborts
+        the whole call under ``raise_on_failure`` — after sibling fetches
+        settle, and with the same terminal ``failed_rows`` check."""
+        from krr_tpu_torch.models.series import DigestedFleet
+
+        settings = self.strategy.settings
+        spec = settings.cpu_spec()
+        if history_seconds is None:
+            history_seconds = settings.history_timedelta.total_seconds()
+        if step_seconds is None:
+            step_seconds = settings.timeframe_timedelta.total_seconds()
+        if pipeline_depth is None:
+            pipeline_depth = self.config.pipeline_depth
+        depth = max(1, int(pipeline_depth))
+
+        staged_inventory = objects is not None
+        fleet: Optional[DigestedFleet] = None
+        if staged_inventory:
+            fleet = DigestedFleet.empty(objects, spec.gamma, spec.min_value, spec.num_buckets)
+        #: Discovery-streamed batches buffer here until the fleet size is
+        #: known; their digest state sums to exactly the final aggregate's,
+        #: so the buffer is bounded by the product itself, not the fetch.
+        folded: list = []
+
+        def digest_payload(subset: list[K8sObjectData], payload) -> "DigestedFleet":
+            """One batch's payload → a sub-fleet (runs on the fold thread):
+            an already-digested sub-fleet passes through; raw histories
+            digest on host here, overlapped with the remaining fetches; a
+            failed fetch (None) degrades to empty rows, all marked failed."""
+            if isinstance(payload, DigestedFleet):
+                return payload
+            sub = DigestedFleet.empty(subset, spec.gamma, spec.min_value, spec.num_buckets)
+            if payload is None:
+                sub.failed_rows.update(range(len(subset)))
+                return sub
+            try:
+                fold_histories(sub, range(len(subset)), payload, spec)
+            except Exception as e:
+                if raise_on_failure:
+                    raise
+                # fold_histories already unwound the partial rows.
+                sub.failed_rows.update(range(len(subset)))
+                self.logger.warning(
+                    f"Failed to digest a fetched batch of {len(subset)} objects: {e} — "
+                    f"marking them as unknown"
+                )
+                self.logger.debug_exception()
+            return sub
+
+        failed_batch_count = [0]
+
+        def fold(batch) -> None:
+            key, subset, payload = batch
+            sub = digest_payload(subset, payload)
+            if sub.failed_rows:
+                failed_batch_count[0] += 1
+            if fleet is not None:
+                fleet.merge_from(sub, key)
+            else:
+                folded.append((key, subset, sub))
+
+        fetch_semaphore = asyncio.Semaphore(depth)
+
+        async def fetch_batch(pipeline: ScanPipeline, key, subset: list[K8sObjectData]) -> None:
+            # The fetch slot is held THROUGH the put: releasing it before
+            # enqueueing would let completed payloads pile up blocked at the
+            # queue without bound while fresh fetches keep starting — exactly
+            # the unbounded host state the depth cap exists to prevent.
+            async with fetch_semaphore:
+                cluster = subset[0].cluster
+                with self.tracer.span(
+                    "fetch",
+                    namespace=",".join(sorted({obj.namespace for obj in subset})),
+                    cluster=cluster or "default",
+                    rows=len(subset),
+                ):
+                    try:
+                        source = self.get_history_source(cluster)
+                        if hasattr(source, "gather_fleet_digests"):
+                            payload = await source.gather_fleet_digests(
+                                subset, history_seconds, step_seconds,
+                                spec.gamma, spec.min_value, spec.num_buckets,
+                                **self._end_time_kwargs(end_time),
+                            )
+                        else:
+                            payload = await source.gather_fleet(
+                                subset, history_seconds, step_seconds, **self._end_time_kwargs(end_time)
+                            )
+                    except Exception as e:
+                        if raise_on_failure:
+                            raise
+                        self.logger.warning(
+                            f"Failed to gather digests for cluster {cluster or 'default'}: {e} — "
+                            f"marking {len(subset)} objects as unknown"
+                        )
+                        self.logger.debug_exception()
+                        payload = None
+                await pipeline.put((key, subset, payload))
+
+        async with ScanPipeline(
+            fold, depth=depth, tracer=self.tracer, metrics=self.metrics
+        ) as pipeline:
+            if staged_inventory:
+                results = await asyncio.gather(
+                    *[
+                        fetch_batch(
+                            pipeline,
+                            np.asarray(indices, dtype=np.int64),
+                            [objects[i] for i in indices],
+                        )
+                        for indices in self._digest_batches(objects, depth)
+                    ],
+                    return_exceptions=True,
+                )
+            else:
+                discover_started = time.perf_counter()
+                # start/finish (not a ``with`` block): activating the span
+                # here would make every fetch task launched in the loop body
+                # a CHILD of discover instead of a sibling under the scan.
+                discover_span = self.tracer.start_span("discover")
+                fetch_tasks: list[asyncio.Task] = []
+                try:
+                    async for ordinal, positions, subset in self.discover_stream():
+                        fetch_tasks.append(
+                            asyncio.ensure_future(
+                                fetch_batch(pipeline, (ordinal, positions), subset)
+                            )
+                        )
+                    pipeline.stats.discover_seconds = time.perf_counter() - discover_started
+                finally:
+                    discover_span.set(batches=len(fetch_tasks))
+                    self.tracer.finish_span(discover_span)
+                    # Settle every launched fetch even when discovery raises —
+                    # orphaned downloads would outlive the scan.
+                    results = await asyncio.gather(*fetch_tasks, return_exceptions=True)
+        # Pipeline closed: every accepted batch has folded. Surface fetch
+        # failures only now, after siblings settled (the fan-out contract).
+        pipeline.stats.failed_batches = failed_batch_count[0]
+        for r in results:
+            if isinstance(r, BaseException):
+                raise r
+
+        if not staged_inventory:
+            objects, fleet = await asyncio.to_thread(
+                self._assemble_streamed, folded, spec, DigestedFleet
+            )
+        assert fleet is not None
+        if raise_on_failure and fleet.failed_rows:
+            raise RuntimeError(
+                f"{len(fleet.failed_rows)} of {len(objects)} object fetches failed terminally"
+            )
+        return objects, fleet, pipeline.stats
+
+    @staticmethod
+    def _assemble_streamed(folded: list, spec, fleet_type):
+        """Assemble discovery-streamed batches into the final aggregate in
+        the exact staged order: every row's ``(cluster ordinal, staged
+        position)`` key defines its rank, batches merge at their ranks
+        (vectorized — contiguous batches hit the slice fast path), and each
+        sub-fleet frees as soon as it lands so peak memory stays ~one fleet
+        plus the batch in flight."""
+        pairs = [
+            (ordinal, position, j, local_i)
+            for j, ((ordinal, positions), _subset, _sub) in enumerate(folded)
+            for local_i, position in enumerate(positions)
+        ]
+        pairs.sort()
+        final_objects = [folded[j][1][local_i] for (_o, _p, j, local_i) in pairs]
+        ranks = [np.empty(len(subset), dtype=np.int64) for (_key, subset, _sub) in folded]
+        for rank, (_o, _p, j, local_i) in enumerate(pairs):
+            ranks[j][local_i] = rank
+        fleet = fleet_type.empty(final_objects, spec.gamma, spec.min_value, spec.num_buckets)
+        for j in range(len(folded)):
+            fleet.merge_from(folded[j][2], ranks[j])
+            folded[j] = None  # free the sub-fleet's arrays as we go
+        return final_objects, fleet
+
     async def close(self) -> None:
         """Close every successfully-built history source that supports it,
         and the inventory (pooled apiserver clients)."""
@@ -346,19 +732,43 @@ class Runner:
     async def _collect_result_traced(self, scan_span) -> Result:
         self.session.begin_scan()
         t0, c0 = time.perf_counter(), time.process_time()
-        objects = await self.session.discover()
-        t1, c1 = time.perf_counter(), time.process_time()
-        self.logger.info(f"Found {len(objects)} scannable objects")
-        batch = await self.session.gather_fleet_history(objects)
-        failed_rows = len(batch.failed_rows)
-        t2, c2 = time.perf_counter(), time.process_time()
-        # The batched strategy call is device bound; keep the loop
-        # responsive. Row-chunked so the packed copy never exceeds
-        # max_fleet_rows_per_device rows at a time.
-        with self.tracer.span("compute", rows=len(objects)):
-            raw_results = await asyncio.to_thread(
-                run_batch_row_chunks, self._strategy, batch, self.config.max_fleet_rows_per_device
-            )
+        digest_ingest = bool(getattr(self._strategy.settings, "digest_ingest", False)) and hasattr(
+            self._strategy, "run_digested"
+        )
+        pipeline_stats = None
+        if digest_ingest and self.config.pipeline_depth > 0:
+            # Streamed scan pipeline: discovery, fetch, and fold overlap
+            # (`ScanSession.stream_fleet_digests`). Discovery has no distinct
+            # wall phase anymore; its span is reported from inside the
+            # pipeline and its CPU rides the fetch leg.
+            objects, fleet, pipeline_stats = await self.session.stream_fleet_digests()
+            failed_rows = len(fleet.failed_rows)
+            t1, c1 = t0 + pipeline_stats.discover_seconds, c0
+            self.logger.info(f"Found {len(objects)} scannable objects")
+            t2, c2 = time.perf_counter(), time.process_time()
+            with self.tracer.span("compute", rows=len(objects)):
+                raw_results = await asyncio.to_thread(self._strategy.run_digested, fleet)
+        else:
+            objects = await self.session.discover()
+            t1, c1 = time.perf_counter(), time.process_time()
+            self.logger.info(f"Found {len(objects)} scannable objects")
+            if digest_ingest:  # staged digest path (pipeline_depth=0)
+                fleet = await self.session.gather_fleet_digests(objects)
+                failed_rows = len(fleet.failed_rows)
+                t2, c2 = time.perf_counter(), time.process_time()
+                with self.tracer.span("compute", rows=len(objects)):
+                    raw_results = await asyncio.to_thread(self._strategy.run_digested, fleet)
+            else:
+                batch = await self.session.gather_fleet_history(objects)
+                failed_rows = len(batch.failed_rows)
+                t2, c2 = time.perf_counter(), time.process_time()
+                # The batched strategy call is device bound; keep the loop
+                # responsive. Row-chunked so the packed copy never exceeds
+                # max_fleet_rows_per_device rows at a time.
+                with self.tracer.span("compute", rows=len(objects)):
+                    raw_results = await asyncio.to_thread(
+                        run_batch_row_chunks, self._strategy, batch, self.config.max_fleet_rows_per_device
+                    )
         t3, c3 = time.perf_counter(), time.process_time()
 
         scans = [
@@ -387,6 +797,30 @@ class Runner:
             "wire_bytes": self.metrics.total("krr_tpu_prom_wire_bytes_total"),
             "decoded_bytes": self.metrics.total("krr_tpu_prom_decoded_bytes_total"),
         }
+        if pipeline_stats is not None:
+            self.stats.update(
+                {
+                    "pipeline_fetch_seconds": pipeline_stats.fetch_seconds,
+                    "pipeline_fold_seconds": pipeline_stats.fold_seconds,
+                    "pipeline_overlap_seconds": pipeline_stats.overlap_seconds,
+                    "pipeline_overlap_pct": pipeline_stats.overlap_pct,
+                    "pipeline_batches": float(pipeline_stats.batches),
+                    # Bottleneck attribution: producers blocked in put =
+                    # fold-bound, consumer starved in get = fetch-bound.
+                    "pipeline_put_blocked_seconds": pipeline_stats.put_blocked_seconds,
+                    "pipeline_get_starved_seconds": pipeline_stats.get_starved_seconds,
+                    "pipeline_peak_queue_depth": float(pipeline_stats.peak_queue_depth),
+                    "pipeline_mean_queue_depth": pipeline_stats.mean_queue_depth,
+                }
+            )
+            self.metrics.set(
+                "krr_tpu_scan_pipeline_wait_seconds",
+                pipeline_stats.put_blocked_seconds, side="producer_blocked",
+            )
+            self.metrics.set(
+                "krr_tpu_scan_pipeline_wait_seconds",
+                pipeline_stats.get_starved_seconds, side="consumer_starved",
+            )
         end_to_end = (len(objects) / (t3 - t0)) if t3 > t0 and objects else 0.0
         retries = int(self.stats["fetch_retries"])
         self.logger.info(

@@ -371,7 +371,7 @@ class ClusterLoader:
 
     async def _list_kind_items(self, kind: str, path: str) -> list[dict[str, Any]]:
         """List one workload kind's items, namespace-filtered — the listing
-        half of discovery."""
+        half of discovery, shared by the staged and streamed paths."""
         self.logger.debug(f"Listing {kind}s in {self.cluster or 'default'}")
         api = await self.api()
         if self.config.namespaces == "*":
@@ -428,6 +428,14 @@ class ClusterLoader:
             return namespace != "kube-system"  # never scanned by default (reference behavior)
         return namespace in self.config.namespaces
 
+    def _record_failure(self) -> None:
+        """Fail-soft, but never silent: a discovery listing that degraded
+        this cluster to an empty inventory is counted per cluster."""
+        if self.metrics is not None:
+            self.metrics.inc(
+                "krr_tpu_discovery_cluster_failures_total", cluster=self.cluster or "default"
+            )
+
     async def list_scannable_objects(self) -> list[K8sObjectData]:
         self.logger.debug(f"Listing scannable objects in {self.cluster or 'default'}")
         try:
@@ -435,11 +443,7 @@ class ClusterLoader:
                 *[self._list_workloads(kind, path) for kind, path in WORKLOAD_ENDPOINTS]
             )
         except Exception as e:
-            # Fail-soft, but never silent: counted per cluster and logged.
-            if self.metrics is not None:
-                self.metrics.inc(
-                    "krr_tpu_discovery_cluster_failures_total", cluster=self.cluster or "default"
-                )
+            self._record_failure()
             self.logger.error(f"Error trying to list workloads in cluster {self.cluster or 'default'}: {e}")
             self.logger.debug_exception()
             return []
@@ -447,6 +451,83 @@ class ClusterLoader:
         # Namespace filtering already happened in _list_workloads (before pod
         # resolution); this flatten is the whole remaining job.
         return [obj for objs in per_kind for obj in objs]
+
+    async def stream_scannable_objects(self):
+        """Yield ``(positions, objects)`` batches, one per namespace, as each
+        namespace's pod index resolves — the streamed-discovery half of the
+        scan pipeline (`krr_tpu_torch.core.pipeline`): a namespace whose inventory
+        is complete starts its Prometheus fetch while other namespaces' pod
+        indexes are still in flight.
+
+        ``positions[i]`` is the staged index ``objects[i]`` would have had in
+        :meth:`list_scannable_objects`' flat list (kind-major item order), so
+        a consumer that sorts by position reconstructs the staged order
+        exactly — streamed and staged scans then disagree on nothing, list
+        order included. Failure granularity is FINER than the staged path's
+        cluster-wide fail-soft: a namespace whose pod index fails is skipped
+        with a logged error while its siblings still scan (the staged path
+        would drop the whole cluster); a failed workload listing still drops
+        the cluster, matching staged."""
+        if not self.config.bulk_pod_discovery:
+            # Per-workload server-side pod resolution has no per-namespace
+            # completion structure to stream — one staged batch.
+            objects = await self.list_scannable_objects()
+            if objects:
+                yield list(range(len(objects))), objects
+            return
+        self.logger.debug(f"Streaming scannable objects in {self.cluster or 'default'}")
+        try:
+            per_kind = await asyncio.gather(
+                *[self._list_kind_items(kind, path) for kind, path in WORKLOAD_ENDPOINTS]
+            )
+        except Exception as e:
+            self._record_failure()
+            self.logger.error(f"Error trying to list workloads in cluster {self.cluster or 'default'}: {e}")
+            self.logger.debug_exception()
+            return
+        # Staged (kind-major) traversal, bucketed per namespace with each
+        # workload's would-be object position carried along.
+        position = 0
+        by_namespace: dict[str, list[tuple[str, dict[str, Any], int]]] = {}
+        for (kind, _path), items in zip(WORKLOAD_ENDPOINTS, per_kind):
+            for item in items:
+                pod_spec = (((item.get("spec") or {}).get("template") or {}).get("spec")) or {}
+                by_namespace.setdefault(item["metadata"]["namespace"], []).append(
+                    (kind, item, position)
+                )
+                position += len(pod_spec.get("containers") or [])
+        tasks = {
+            asyncio.ensure_future(self._namespace_pod_labels(namespace)): namespace
+            for namespace in by_namespace
+        }
+        try:
+            pending = set(tasks)
+            while pending:
+                done, pending = await asyncio.wait(pending, return_when=asyncio.FIRST_COMPLETED)
+                for task in done:
+                    namespace = tasks[task]
+                    try:
+                        index = task.result()
+                    except Exception as e:
+                        self.logger.error(
+                            f"Error resolving pods for namespace {namespace} in "
+                            f"{self.cluster or 'default'}: {e} — skipping its workloads"
+                        )
+                        self.logger.debug_exception()
+                        continue
+                    positions: list[int] = []
+                    objects: list[K8sObjectData] = []
+                    for kind, item, item_position in by_namespace[namespace]:
+                        selector = (item.get("spec") or {}).get("selector")
+                        pods = index.select(selector) if selector else []
+                        built = self._make_objects(kind, item, pods)
+                        positions.extend(range(item_position, item_position + len(built)))
+                        objects.extend(built)
+                    if objects:
+                        yield positions, objects
+        finally:
+            for task in tasks:  # an abandoned generator must not leak tasks
+                task.cancel()
 
     async def close(self) -> None:
         if self._api is not None:
@@ -529,6 +610,51 @@ class KubernetesLoader:
             loader.begin_round()
         nested = await asyncio.gather(*[loader.list_scannable_objects() for loader in loaders])
         return [obj for objs in nested for obj in objs]
+
+    async def stream_scannable_objects(self, clusters: Optional[list[str]]):
+        """Yield ``(cluster_ordinal, positions, objects)`` batches as each
+        cluster's namespaces complete discovery (`ClusterLoader.
+        stream_scannable_objects`), interleaved across clusters in completion
+        order. ``cluster_ordinal`` is the cluster's index in the staged
+        cluster list, so sorting batches by ``(ordinal, position)`` recovers
+        exactly :meth:`list_scannable_objects`' flat order. Per-cluster
+        errors degrade to that cluster's absence (fail-soft, like staged)."""
+        loaders = self._loaders(clusters)
+        await self._prune_dropped_clusters([loader.cluster for loader in loaders])
+        queue: asyncio.Queue = asyncio.Queue()
+        _CLUSTER_DONE = object()
+        for loader in loaders:
+            loader.begin_round()
+
+        async def pump(ordinal: int, loader: ClusterLoader) -> None:
+            try:
+                async for positions, objects in loader.stream_scannable_objects():
+                    await queue.put((ordinal, positions, objects))
+            except Exception as e:
+                # The generator records its own listing failures; this
+                # catches everything past them (a mid-stream transport
+                # death) — same fail-soft verdict, same accounting.
+                loader._record_failure()
+                self.logger.error(
+                    f"Error trying to list workloads in cluster {loader.cluster or 'default'}: {e}"
+                )
+                self.logger.debug_exception()
+            finally:
+                await queue.put(_CLUSTER_DONE)
+
+        pumps = [asyncio.ensure_future(pump(i, loader)) for i, loader in enumerate(loaders)]
+        try:
+            remaining = len(loaders)
+            while remaining:
+                item = await queue.get()
+                if item is _CLUSTER_DONE:
+                    remaining -= 1
+                    continue
+                yield item
+        finally:
+            for task in pumps:  # an abandoned generator must not leak pumps
+                task.cancel()
+            await asyncio.gather(*pumps, return_exceptions=True)
 
     async def close(self) -> None:
         """Close the pooled apiserver clients."""

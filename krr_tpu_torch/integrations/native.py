@@ -11,13 +11,15 @@ back to the pure-Python parser when no compiler is available: the native path
 is a host optimization, not a requirement. ``KRR_TPU_NATIVE_DIR`` points an
 installed copy at the sources.
 
-What the one-shot raw scan reads: ``parse_matrix`` (response bytes → list of
+What the scans read: ``parse_matrix`` (response bytes → list of
 ((pod, container), float64 samples); the key is the series' ``pod`` /
 ``container`` label pair, either component ``""`` when the query's grouping
-omits that label), ``parse_matrix_stats`` (per-series count + exact max) and
-the streamed stats sink (:class:`StreamIngest`). The fused digest parse and
-the remote-write decoder of `krr_tpu/integrations/native.py` wait for the
-digest-ingest and push-ingest slices.
+omits that label), ``parse_matrix_stats`` (per-series count + exact max),
+the fused parse+digest ``parse_matrix_digest`` (digest ingest), and the
+streamed sink (:class:`StreamIngest`, stats or digest mode). Digest ingest
+bucketizes with the same C++ code as the JAX package, so both packages'
+ingest digests agree bit for bit. The remote-write decoder of
+`krr_tpu/integrations/native.py` waits for the push-ingest slice.
 """
 
 from __future__ import annotations
@@ -97,6 +99,20 @@ def _load_library() -> Optional[ctypes.CDLL]:
                 ctypes.c_char_p,
                 ctypes.c_long,
             ]
+            lib.krr_parse_matrix_digest.restype = ctypes.c_long
+            lib.krr_parse_matrix_digest.argtypes = [
+                ctypes.c_char_p,
+                ctypes.c_long,
+                ctypes.c_double,
+                ctypes.c_double,
+                ctypes.c_long,
+                ctypes.POINTER(ctypes.c_double),
+                ctypes.POINTER(ctypes.c_double),
+                ctypes.POINTER(ctypes.c_double),
+                ctypes.c_long,
+                ctypes.c_char_p,
+                ctypes.c_long,
+            ]
             lib.krr_parse_matrix_stats.restype = ctypes.c_long
             lib.krr_parse_matrix_stats.argtypes = [
                 ctypes.c_char_p,
@@ -131,6 +147,25 @@ def _load_library() -> Optional[ctypes.CDLL]:
             lib.krr_stream_free.argtypes = [ctypes.c_void_p]
             lib.krr_stream_reserve.restype = ctypes.c_long
             lib.krr_stream_reserve.argtypes = [ctypes.c_void_p, ctypes.c_long]
+            lib.krr_stream_fold_into.restype = ctypes.c_long
+            lib.krr_stream_fold_into.argtypes = [
+                ctypes.c_void_p,
+                ctypes.POINTER(ctypes.c_long),
+                ctypes.c_long,
+                ctypes.POINTER(ctypes.c_double),
+                ctypes.c_long,
+            ]
+            lib.krr_digest_array.restype = ctypes.c_longlong
+            lib.krr_digest_array.argtypes = [
+                ctypes.POINTER(ctypes.c_double),
+                ctypes.c_longlong,
+                ctypes.c_double,
+                ctypes.c_double,
+                ctypes.c_longlong,
+                ctypes.POINTER(ctypes.c_double),
+                ctypes.POINTER(ctypes.c_double),
+                ctypes.POINTER(ctypes.c_double),
+            ]
             _lib = lib
         except (OSError, AttributeError, subprocess.SubprocessError) as e:
             _build_failed = True
@@ -264,27 +299,93 @@ def parse_matrix(body: bytes) -> list[tuple[SeriesKey, np.ndarray]]:
     return parse_matrix_python(body)
 
 
+#: Result of a fused parse+digest pass: per-series (series key, bucket counts,
+#: total sample count, exact max).
+DigestedSeries = list[tuple[SeriesKey, np.ndarray, float, float]]
+
+
+def _digest_python(samples: np.ndarray, gamma: float, min_value: float, num_buckets: int):
+    """Vectorized fallback with the bucketize semantics of `krr_tpu_torch.ops.digest`."""
+    counts = np.zeros(num_buckets, dtype=np.float64)
+    if samples.size == 0:
+        return counts, 0.0, -np.inf
+    safe = np.maximum(samples, min_value)
+    raw = np.floor(np.log(safe / min_value) / np.log(gamma)).astype(np.int64)
+    idx = np.where(samples <= min_value, 0, 1 + np.clip(raw, 0, num_buckets - 2))
+    np.add.at(counts, idx, 1.0)
+    return counts, float(samples.size), float(samples.max())
+
+
+def parse_matrix_digest(
+    body: bytes, gamma: float, min_value: float, num_buckets: int
+) -> DigestedSeries:
+    """Fused parse + per-series digest accumulation.
+
+    The streaming-ingest hot path: every sample goes straight from the
+    response bytes into its log bucket (native single pass, O(num_buckets)
+    memory per series — raw sample arrays are never materialized). Bucket
+    layout matches `krr_tpu_torch.ops.digest.bucketize`; note the native path
+    computes ``log`` in float64 while the device path uses float32, so a
+    sample sitting exactly on a bucket boundary may land one bucket apart —
+    within the digest's stated relative error, but not bit-identical.
+    """
+    lib = _load_library()
+    if lib is not None and b'"status":"error"' not in body[:4096]:
+        # Exact series count up front: the counts matrix is
+        # series x num_buckets doubles, so a body-length-proportional guess
+        # would allocate ~320x the response size for nothing.
+        series_cap = lib.krr_count_series(body, len(body))
+        if series_cap >= 0:
+            names_cap = _names_cap(body, series_cap)
+            counts = np.zeros((series_cap, num_buckets), dtype=np.float64)
+            totals = np.zeros(series_cap, dtype=np.float64)
+            peaks = np.zeros(series_cap, dtype=np.float64)
+            names = ctypes.create_string_buffer(names_cap)
+            n = lib.krr_parse_matrix_digest(
+                body,
+                len(body),
+                gamma,
+                min_value,
+                num_buckets,
+                counts.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+                totals.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+                peaks.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+                series_cap,
+                names,
+                names_cap,
+            )
+            if n >= 0:
+                keys = _split_keys(names.value, n)
+                return [(keys[i], counts[i].copy(), float(totals[i]), float(peaks[i])) for i in range(n)]
+    return [
+        (key, *_digest_python(samples, gamma, min_value, num_buckets))
+        for key, samples in parse_matrix(body)
+    ]
+
+
 class StreamIngest:
-    """Streaming stats parse over arbitrary chunk boundaries
+    """Streaming fused parse+fold over arbitrary chunk boundaries
     (`native/faststream.cpp`): feed response bytes as they arrive from the
-    socket; per-series (count, max) accumulate in native memory, so neither
-    the body nor raw samples are ever materialized. None from
-    :func:`open_stream` when the native library is unavailable — callers
-    fall back to buffered parsing.
+    socket; per-series digests/stats accumulate in native memory, so neither
+    the body nor raw samples are ever materialized. ``num_buckets=0`` selects
+    the stats-only sink (memory resource). None from :func:`open_stream` when
+    the native library is unavailable — callers fall back to buffered parsing.
 
     Usage::
 
-        stream = open_stream()
+        stream = open_stream(gamma, min_value, num_buckets)
         while chunk := read(...):
             stream.feed(chunk)
-        series = stream.finish()   # SeriesStats
+        series = stream.finish()   # DigestedSeries or SeriesStats
     """
 
-    def __init__(self, lib, handle: int):
+    def __init__(self, lib, handle: int, num_buckets: int):
         self._lib = lib
         self._handle = handle
+        self._num_buckets = num_buckets
+        self._count: Optional[int] = None
         #: Serializes every native call against abort(): on the httpx route
-        #: feed/finish run in executor threads, and a cancelled awaiter's
+        #: feed/finalize run in executor threads, and a cancelled awaiter's
         #: cleanup could otherwise free the handle WHILE a worker is still
         #: parsing into it (use-after-free). With the lock, abort blocks
         #: until the in-flight call returns; the late worker then sees the
@@ -300,10 +401,10 @@ class StreamIngest:
 
     def feed_view(self, buf, n: int) -> None:
         """Feed the first ``n`` bytes of a REUSABLE writable buffer (a pooled
-        ``bytearray``) without materializing a ``bytes`` copy per chunk. The
-        native parser consumes the bytes before returning (anything
-        unconsumed is copied into its own carry), so the caller may refill
-        ``buf`` as soon as this returns."""
+        ``bytearray``) without materializing a ``bytes`` copy per chunk — the
+        zero-hop sink path's fast lane. The native parser consumes the bytes
+        before returning (anything unconsumed is copied into its own carry),
+        so the caller may refill ``buf`` as soon as this returns."""
         with self._op_lock:
             if self._handle is None:
                 raise ValueError("stream already finished")
@@ -311,41 +412,147 @@ class StreamIngest:
             if self._lib.krr_stream_feed(self._handle, ptr, n) != 0:
                 raise ValueError("malformed Prometheus stream")
 
-    def finish(self) -> "SeriesStats":
-        """Close the stream and return ``[(key, total, peak), …]``."""
+    def finish_parse(self) -> "StreamIngest":
+        """End-of-body validation WITHOUT reading anything out: the handle
+        stays alive for :meth:`read_meta` / :meth:`fold_counts_into`, and the
+        caller owns releasing it (:meth:`free`). This is the fleet fast path —
+        the folded state crosses into Python as one band-sparse native add
+        into the final arrays instead of a dense matrix readout."""
         with self._op_lock:
-            handle, self._handle = self._handle, None
+            handle = self._handle
             if handle is None:
                 raise ValueError("stream already finished")
-            try:
-                n = self._lib.krr_stream_finish(handle)
-                if n < 0:
-                    raise ValueError(
-                        "truncated Prometheus stream (body ended mid-series)"
-                        if n == -3
-                        else "malformed Prometheus stream (no result array)"
-                    )
-                if n == 0:
-                    return []
-                names_cap = self._lib.krr_stream_names_len(handle)
-                names = ctypes.create_string_buffer(names_cap)
-                totals = np.zeros(n, dtype=np.float64)
-                peaks = np.zeros(n, dtype=np.float64)
-                rc = self._lib.krr_stream_read(
-                    handle,
-                    names,
-                    names_cap,
-                    totals.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
-                    peaks.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
-                    None,
-                    n,
-                )
-                if rc != 0:
-                    raise ValueError("stream readout capacity mismatch")
-                keys = _split_keys(names.raw[:names_cap], n)
-                return [(keys[i], float(totals[i]), float(peaks[i])) for i in range(n)]
-            finally:
+            n = self._lib.krr_stream_finish(handle)
+            if n < 0:
+                self._handle = None
                 self._lib.krr_stream_free(handle)
+                raise ValueError(
+                    "truncated Prometheus stream (body ended mid-series)"
+                    if n == -3
+                    else "malformed Prometheus stream (no result array)"
+                )
+            self._count = int(n)
+            return self
+
+    def read_meta(self) -> tuple[bytes, np.ndarray, np.ndarray]:
+        """(names bytes, totals, peaks) — the cheap per-series readout (no
+        counts matrix) that lets the caller build a row mapping before the
+        native counts fold. Requires :meth:`finish_parse`. The names bytes
+        are '\\n'-joined "pod\\tcontainer" records (:func:`_split_keys`);
+        identical bytes across windows mean an identical series list, so
+        callers can reuse a cached mapping without decoding."""
+        with self._op_lock:
+            if self._handle is None or self._count is None:
+                raise ValueError("read_meta requires a live, parse-finished stream")
+            n = self._count
+            totals = np.empty(n, dtype=np.float64)
+            peaks = np.empty(n, dtype=np.float64)
+            if not n:
+                return b"", totals, peaks
+            names_cap = self._lib.krr_stream_names_len(self._handle)
+            names = ctypes.create_string_buffer(names_cap)
+            rc = self._lib.krr_stream_read(
+                self._handle,
+                names,
+                names_cap,
+                totals.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+                peaks.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+                None,
+                n,
+            )
+            if rc != 0:
+                raise ValueError("stream readout capacity mismatch")
+            return names.raw[:names_cap], totals, peaks
+
+    def fold_counts_into(self, rows: np.ndarray, dst: np.ndarray) -> None:
+        """Add every series' touched bucket span into ``dst[rows[i]]``
+        (``rows[i] < 0`` skips) — one GIL-released native pass straight into
+        the caller's [n_rows × num_buckets] float64 accumulator (digest mode
+        only). Requires :meth:`finish_parse`."""
+        with self._op_lock:
+            # Real exceptions, not asserts: these guard a raw native write —
+            # stripped under ``python -O`` they would become out-of-bounds
+            # memory corruption instead of a caller error.
+            if self._handle is None or self._count is None:
+                raise ValueError("fold_counts_into requires a live, parse-finished stream")
+            if not (
+                dst.dtype == np.float64
+                and dst.flags["C_CONTIGUOUS"]
+                and dst.ndim == 2
+                and dst.shape[1] == self._num_buckets
+            ):
+                raise ValueError(
+                    f"dst must be C-contiguous float64 [rows × {self._num_buckets}]"
+                )
+            rows = np.ascontiguousarray(rows, dtype=np.int64)
+            if rows.shape != (self._count,):
+                raise ValueError(f"rows must cover all {self._count} series")
+            rc = self._lib.krr_stream_fold_into(
+                self._handle,
+                rows.ctypes.data_as(ctypes.POINTER(ctypes.c_long)),
+                self._count,
+                dst.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+                dst.shape[0],
+            )
+            if rc != 0:
+                raise ValueError("stream fold shape/mode mismatch")
+
+    def finish(self):
+        """Close the stream and return the folded series.
+
+        Digest mode returns the MATRIX form ``(keys, counts [n × buckets]
+        float64, totals [n], peaks [n])`` — the arrays are exclusively owned
+        by the caller. The earlier per-row tuple readout (one ``.copy()`` +
+        tuple per series) cost ~3.7 s per 100k-series window, several times
+        the native parse itself; consumers fold the matrix with vectorized
+        ops instead (`krr_tpu_torch.integrations.prometheus`). Stats mode returns
+        ``[(key, total, peak), …]`` — scalars, nothing to vectorize."""
+        with self._op_lock:
+            return self._finish_locked()
+
+    def _finish_locked(self):
+        handle, self._handle = self._handle, None
+        if handle is None:
+            raise ValueError("stream already finished")
+        try:
+            n = self._lib.krr_stream_finish(handle)
+            if n < 0:
+                raise ValueError(
+                    "truncated Prometheus stream (body ended mid-series)"
+                    if n == -3
+                    else "malformed Prometheus stream (no result array)"
+                )
+            if n == 0:
+                if self._num_buckets:
+                    empty = np.zeros((0, self._num_buckets), dtype=np.float64)
+                    return [], empty, np.zeros(0, np.float64), np.zeros(0, np.float64)
+                return []
+            names_cap = self._lib.krr_stream_names_len(handle)
+            names = ctypes.create_string_buffer(names_cap)
+            totals = np.zeros(n, dtype=np.float64)
+            peaks = np.zeros(n, dtype=np.float64)
+            counts = (
+                np.zeros((n, self._num_buckets), dtype=np.float64)
+                if self._num_buckets
+                else None
+            )
+            rc = self._lib.krr_stream_read(
+                handle,
+                names,
+                names_cap,
+                totals.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+                peaks.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+                counts.ctypes.data_as(ctypes.POINTER(ctypes.c_double)) if counts is not None else None,
+                n,
+            )
+            if rc != 0:
+                raise ValueError("stream readout capacity mismatch")
+            keys = _split_keys(names.raw[:names_cap], n)
+            if counts is not None:
+                return keys, counts, totals, peaks
+            return [(keys[i], float(totals[i]), float(peaks[i])) for i in range(n)]
+        finally:
+            self._lib.krr_stream_free(handle)
 
     def abort(self) -> None:
         """Release native memory without reading results (fetch failed).
@@ -356,10 +563,15 @@ class StreamIngest:
             if handle is not None:
                 self._lib.krr_stream_free(handle)
 
+    #: Terminal call of the finish_parse path (same release as a failed
+    #: fetch's abort — the name marks intent at call sites).
+    free = abort
+
     def __del__(self):
         # Safety net for ownership gaps (e.g. a consumer cancelled between
-        # fetch and finish). No lock: reachable refcount zero means no
-        # concurrent op can hold the stream.
+        # fetch and fold): a still-live handle pins up to GB-scale native
+        # state, far too big to leave to process exit. No lock: reachable
+        # refcount zero means no concurrent op can hold the stream.
         handle = getattr(self, "_handle", None)
         if handle is not None:
             self._handle = None
@@ -371,22 +583,25 @@ def stream_available() -> bool:
     return _load_library() is not None
 
 
-def open_stream(reserve_series: int = 0) -> Optional[StreamIngest]:
-    """A streaming stats-ingest handle, or None when the native library (the
-    only implementation) is unavailable. ``reserve_series`` pre-sizes the
-    native state for the expected series count (the probed estimate, padded
-    for churn): no realloc-doubling copies (a reserve failure silently falls
-    back to growth-on-demand)."""
+def open_stream(
+    gamma: float = 0.0, min_value: float = 0.0, num_buckets: int = 0, reserve_series: int = 0
+) -> Optional[StreamIngest]:
+    """A streaming ingest handle, or None when the native library (the only
+    implementation) is unavailable. ``num_buckets=0`` (the default) = the
+    stats-only sink.
+    ``reserve_series`` pre-sizes the native state for the expected series
+    count (the probed estimate, padded for churn): no realloc-doubling
+    copies, and the counts matrix's untouched pages stay lazily zero-mapped
+    (a reserve failure silently falls back to growth-on-demand)."""
     lib = _load_library()
     if lib is None:
         return None
-    # num_buckets=0 selects the native stats-only sink.
-    handle = lib.krr_stream_new(0.0, 0.0, 0)
+    handle = lib.krr_stream_new(gamma, min_value, num_buckets)
     if not handle:
         return None
     if reserve_series > 0:
         lib.krr_stream_reserve(handle, reserve_series + reserve_series // 8 + 64)
-    return StreamIngest(lib, handle)
+    return StreamIngest(lib, handle, num_buckets)
 
 
 #: Result of a stats-only parse: per-series (series key, total sample count,
@@ -421,3 +636,37 @@ def parse_matrix_stats(body: bytes) -> SeriesStats:
         (key, float(samples.size), float(samples.max()) if samples.size else float("-inf"))
         for key, samples in parse_matrix(body)
     ]
+
+
+def digest_samples(
+    samples: np.ndarray, gamma: float, min_value: float, num_buckets: int
+) -> tuple[np.ndarray, float, float]:
+    """Digest a plain sample array through the SAME implementation the range
+    fetch uses: the native bucketizer when the library is loaded, the Python
+    fallback otherwise. The push ingest plane folds through this so push-fed
+    windows are bit-identical to range-fetched ones in either regime (the
+    two bucketize expressions can round a boundary-sitting sample into
+    adjacent buckets; mixing them across paths would break the push-vs-pull
+    exactness gate)."""
+    lib = _load_library()
+    samples = np.ascontiguousarray(samples, dtype=np.float64)
+    if lib is None:
+        return _digest_python(samples, gamma, min_value, num_buckets)
+    counts = np.zeros(num_buckets, dtype=np.float64)
+    if samples.size == 0:
+        return counts, 0.0, -np.inf
+    total = ctypes.c_double(0.0)
+    peak = ctypes.c_double(0.0)
+    rc = lib.krr_digest_array(
+        samples.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+        samples.size,
+        gamma,
+        min_value,
+        num_buckets,
+        counts.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+        ctypes.byref(total),
+        ctypes.byref(peak),
+    )
+    if rc != 0:
+        raise ValueError(f"invalid digest parameters (gamma={gamma}, min_value={min_value})")
+    return counts, total.value, peak.value

@@ -28,12 +28,11 @@ Python (`robusta_krr/core/integrations/prometheus.py:108-155`)
 PromQL is kept byte-compatible with the reference's queries
 (`prometheus.py:123,136`) so recording-rule expectations carry over.
 
-A copy of `krr_tpu/integrations/prometheus.py` that keeps what
-``gather_fleet`` reaches: the raw and httpx transports, compression, the
-circuit breaker, the retry budget, windows, fan-out, the adaptive plan, and
-the stats route with its server-side downsampling. The digest-ingest route
-(``gather_fleet_digests``, the fused parse+digest fold) waits for the
-digest-ingest slice.
+A copy of `krr_tpu/integrations/prometheus.py`: the raw and httpx
+transports, compression, the circuit breaker, the retry budget, windows,
+fan-out, the adaptive plan, the stats route with its server-side
+downsampling, and the digest-ingest route (``gather_fleet_digests``: the
+fused parse+digest fold straight into ``DigestedFleet`` rows).
 """
 
 from __future__ import annotations
@@ -1465,7 +1464,8 @@ class PrometheusLoader:
         (status, ``finalize(stream)`` or None, error body). The stream is
         aborted on any failure — a partially-fed stream can never be resumed
         (retrying would duplicate samples), so each attempt starts a fresh
-        one. ``finalize`` reads the folded series out (``StreamIngest.finish``).
+        one. ``finalize`` is either ``StreamIngest.finish`` (full readout) or
+        ``finish_parse`` (hand the live stream back for a native fold).
         ``meter`` counts the fed bytes for the query span/telemetry — the
         body is never materialized, so the sink is the only place its size
         is observable.
@@ -2009,7 +2009,8 @@ class PrometheusLoader:
     ):
         """Range query whose response bytes feed a native ingest stream as
         they arrive (no body materialization); returns ``finalize(stream)``
-        — the folded entries (``StreamIngest.finish``). Rides
+        — the folded entries (``StreamIngest.finish``) or the live
+        parse-finished stream (``finish_parse``, the fleet fold path). Rides
         the raw transport when available, else httpx ``aiter_bytes``
         (proxied/userinfo environments keep zero-copy ingest too). Same
         retry policy as the buffered path — each attempt runs on a FRESH
@@ -2060,6 +2061,97 @@ class PrometheusLoader:
                 self._raw.update_headers(fresh)
             if self._client is not None:
                 self._client.headers.update(fresh)
+
+    class _FleetFoldSink:
+        """Folds parse-finished native ingest streams STRAIGHT into
+        `DigestedFleet` rows — the streamed routes' terminal stage.
+
+        Per window: one cheap meta readout (names/totals/peaks — no counts
+        matrix), a row mapping from series keys to fleet rows via the
+        prebuilt route, two vectorized total/peak accumulations, and (digest
+        mode) ONE band-sparse native fold into the final ``cpu_counts``
+        array (`StreamIngest.fold_counts_into`). This replaces the former
+        chain — dense matrix readout → window accumulator → entries → route
+        → per-row merges — whose four-plus full-matrix passes per window
+        were the dominant measured client cost of the 100k fetch wall.
+
+        Routing semantics match `_route_series` + the per-entry fold:
+        first series per key per window (empty series are harmless no-ops —
+        zero totals, -inf peaks, empty spans), unrouted keys dropped,
+        multi-target keys (overlapping selectors) folded once per target
+        via extra passes. Windows whose names bytes repeat (the typical
+        same-query-every-window case) reuse the cached row mapping without
+        decoding a single key."""
+
+        def __init__(self, fleet, route: dict, resource: ResourceType):
+            self._fleet = fleet
+            self._route = route
+            self._cpu = resource is ResourceType.CPU
+            self._cached_names: Optional[bytes] = None
+            self._cached_passes: Optional[list[np.ndarray]] = None
+            #: consume runs OFF the event loop (worker threads) at fleet
+            #: width; windows of the same query target the same fleet rows,
+            #: so their folds must serialize.
+            self._fold_lock = threading.Lock()
+
+        def _row_passes(self, keys: list) -> "list[np.ndarray]":
+            """Row maps covering every (series, target) pair: the main pass
+            routes each kept series to its first target; rare extra targets
+            (overlapping selectors) get follow-up passes, one target per
+            series per pass."""
+            rows = np.full(len(keys), -1, dtype=np.int64)
+            extra: list[tuple[int, int]] = []
+            seen: set = set()
+            for i, key in enumerate(keys):
+                if key in seen:
+                    continue
+                seen.add(key)
+                targets = self._route.get(key)
+                if not targets:
+                    continue
+                rows[i] = targets[0]
+                extra.extend((i, t) for t in targets[1:])
+            passes = [rows]
+            while extra:
+                next_rows = np.full(len(keys), -1, dtype=np.int64)
+                rest: list[tuple[int, int]] = []
+                used: set[int] = set()
+                for i, t in extra:
+                    if i in used:
+                        rest.append((i, t))
+                    else:
+                        used.add(i)
+                        next_rows[i] = t
+                passes.append(next_rows)
+                extra = rest
+            return passes
+
+        def consume(self, index: int, stream) -> None:
+            from krr_tpu_torch.integrations.native import _split_keys
+
+            try:
+                with self._fold_lock:
+                    names, totals, peaks = stream.read_meta()
+                    if self._cached_names is not None and names == self._cached_names:
+                        passes = self._cached_passes
+                    else:
+                        passes = self._row_passes(_split_keys(names, len(totals)))
+                        self._cached_names, self._cached_passes = names, passes
+                    fleet = self._fleet
+                    for rows in passes:
+                        valid = rows >= 0
+                        if not valid.any():
+                            continue
+                        targets = rows[valid]
+                        if self._cpu:
+                            np.add.at(fleet.cpu_total, targets, totals[valid])
+                            np.maximum.at(fleet.cpu_peak, targets, peaks[valid])
+                            stream.fold_counts_into(rows, fleet.cpu_counts)
+                        else:
+                            np.add.at(fleet.mem_total, targets, totals[valid])
+                            np.maximum.at(fleet.mem_peak, targets, peaks[valid])
+            finally:
+                stream.free()
 
     @staticmethod
     def _kept(parse, keep: "Optional[set]"):
@@ -2156,8 +2248,9 @@ class PrometheusLoader:
     async def _fold_windows(
         self, query: str, start: float, end: float, step_seconds: float, parse,
         expected_series: int, init, fold, keep: "Optional[set]" = None,
-        stream_factory=None, points_divisor: int = 1, meters=None,
-    ) -> "list[tuple]":
+        stream_factory=None, stream_sink=None, stream_entries=None,
+        points_divisor: int = 1, meters=None,
+    ) -> "Optional[list[tuple]]":
         """Sub-window fan-out with INCREMENTAL merging for order-independent
         folds (digest/stats — counts add, peaks max): each window's parse
         output folds into the shared per-series state as soon as it lands,
@@ -2175,7 +2268,14 @@ class PrometheusLoader:
         stream AS THEY ARRIVE — the body is never materialized at all — on
         the raw transport when available, else through httpx ``aiter_bytes``
         (proxied environments); ``parse`` serves only the buffered fallback
-        (native lib absent / no compiler).
+        (native lib absent / no compiler). With ``stream_sink`` (a
+        `_FleetFoldSink`), streamed windows skip the readout entirely: each
+        parse-finished stream is handed to ``stream_sink.consume``, which
+        folds it natively into the fleet's final arrays — the return value
+        is then None (nothing left to route). The buffered fallback ignores
+        the sink and returns entries as usual. ``stream_entries`` adapts a
+        matrix-form ``finish()`` result (digest streams) back to per-entry
+        tuples for sink-less streamed calls.
         """
         merged: dict = {}
 
@@ -2196,19 +2296,41 @@ class PrometheusLoader:
             from krr_tpu_torch.integrations.native import StreamIngest, stream_available
 
             use_stream = await asyncio.to_thread(stream_available)
+        use_sink = use_stream and stream_sink is not None
         if use_stream:
             step = step_string(step_seconds)
+            if use_sink:
+                finalize = StreamIngest.finish_parse
+            elif stream_entries is not None:
+                # No sink on a matrix-form (digest) stream: adapt finish()'s
+                # matrix back to per-entry tuples so the dict consume gets
+                # what it expects — the API path for sink-less callers.
+                def finalize(stream):
+                    return stream_entries(stream.finish())
+
+            else:
+                finalize = StreamIngest.finish
 
             async def fetch_entries(w_start: float, w_end: float):
                 return await self._fetch_streamed_series(
-                    query, w_start, w_end, step, stream_factory, StreamIngest.finish, meters=meters
+                    query, w_start, w_end, step, stream_factory, finalize, meters=meters
                 )
 
         else:
             fetch_entries = self._buffered_fetch_entries(query, step_seconds, parse, meters)
 
+        if use_sink:
+            # Off the loop: a window's consume is a Python routing pass plus
+            # vectorized/native folds over up to fleet-width state — tens to
+            # ~150 ms that would stall every concurrent fetch (and the httpx
+            # route's chunk pump) if run inline; the sink's fold lock
+            # serializes same-query windows across worker threads.
+            def sink_consume(index, stream):
+                return asyncio.to_thread(stream_sink.consume, index, stream)
+
         await self._window_fan_out(
-            start, end, step_seconds, expected_series, fetch_entries, consume,
+            start, end, step_seconds, expected_series, fetch_entries,
+            sink_consume if use_sink else consume,
             # Streamed windows never hold the body — their looser cap trades
             # retry granularity for fewer windows (less fixed per-window cost
             # AND less concurrent native state). The buffered fallback (no
@@ -2221,6 +2343,8 @@ class PrometheusLoader:
             ),
             points_divisor=points_divisor,
         )
+        if use_sink:
+            return None
         return [(key, *state) for key, state in merged.items()]
 
     @staticmethod
@@ -2707,6 +2831,60 @@ class PrometheusLoader:
         )
         return histories
 
+    async def _query_range_digest(
+        self,
+        query: str,
+        start: float,
+        end: float,
+        step_seconds: float,
+        gamma: float,
+        min_value: float,
+        num_buckets: int,
+        expected_series: int = 0,
+        keep: "Optional[set]" = None,
+        sink=None,
+        points_divisor: int = 1,
+        meters=None,
+    ) -> "Optional[list[tuple[tuple, np.ndarray, float, float]]]":
+        """Range query whose response folds straight into per-series digests
+        (fused native parse+digest, `krr_tpu_torch.integrations.native`) — raw
+        sample arrays are never materialized. Split sub-windows merge exactly
+        (bucket counts add, peaks max — the digest's defining property).
+        With ``sink`` (a `_FleetFoldSink`) the streamed route folds each
+        window natively into the fleet arrays and returns None; entries come
+        back only on the buffered fallback."""
+        from functools import partial
+
+        from krr_tpu_torch.integrations.native import open_stream, parse_matrix_digest
+
+        def fold(state, entry):
+            counts, total, peak = state
+            counts += entry[1]  # owned array (see _fold_windows) — in place
+            return (counts, total + entry[2], max(peak, entry[3]))
+
+        def matrix_entries(result):
+            keys, counts, totals, peaks = result
+            return [
+                (keys[i], counts[i].copy(), float(totals[i]), float(peaks[i]))
+                for i in range(len(keys))
+            ]
+
+        return await self._fold_windows(
+            query, start, end, step_seconds,
+            partial(parse_matrix_digest, gamma=gamma, min_value=min_value, num_buckets=num_buckets),
+            expected_series,
+            init=lambda e: (e[1], e[2], e[3]),
+            fold=fold,
+            keep=keep,
+            stream_factory=partial(
+                open_stream, gamma, min_value, num_buckets, reserve_series=expected_series
+            ),
+            stream_sink=sink,
+            stream_entries=matrix_entries,  # sink-less callers get entries back
+            points_divisor=points_divisor,
+            meters=meters,
+        )
+
     # --------------------------------------------------- downsampled stats
     def _downsample_plan(
         self, start: float, end: float, step_seconds: float,
@@ -2888,13 +3066,14 @@ class PrometheusLoader:
 
     async def _query_range_stats(
         self, query: str, start: float, end: float, step_seconds: float,
-        expected_series: int = 0, keep: "Optional[set]" = None,
+        expected_series: int = 0, keep: "Optional[set]" = None, sink=None,
         points_divisor: int = 1, meters=None,
         downsample_ns: "tuple[str, ...]" = (),
-    ) -> "list[tuple[tuple, float, float]]":
+    ) -> "Optional[list[tuple[tuple, float, float]]]":
         """Range query → per-series (pod, count, max) only — the memory
         ingest, which needs no histogram and no per-sample log(). Split
-        sub-windows merge exactly (counts add, peaks max).
+        sub-windows merge exactly (counts add, peaks max). ``sink`` as in
+        `_query_range_digest` (returns None when it consumed the windows).
 
         ``downsample_ns`` (the query's namespaces) opts the query into
         server-side pre-aggregation when ``--fetch-downsample`` is on and
@@ -2953,10 +3132,151 @@ class PrometheusLoader:
             init=lambda e: (e[1], e[2]),
             fold=lambda s, e: (s[0] + e[1], max(s[1], e[2])),
             keep=keep,
-            stream_factory=partial(open_stream, reserve_series=expected_series),
+            # num_buckets=0 selects the stats-only native sink.
+            stream_factory=partial(open_stream, 0.0, 0.0, 0, reserve_series=expected_series),
+            stream_sink=sink,
             points_divisor=points_divisor,
             meters=meters,
         )
+
+    async def gather_fleet_digests(
+        self,
+        objects: list[K8sObjectData],
+        history_seconds: float,
+        step_seconds: float,
+        gamma: float,
+        min_value: float,
+        num_buckets: int,
+        end_time: Optional[float] = None,
+    ) -> "DigestedFleet":
+        """Digest-ingest fetch: every response's samples are bucketized at
+        parse time; per-pod digests merge into per-object digests by exact
+        count addition / peak max. Ingest memory is O(num_buckets) per object
+        instead of O(window length). Namespace-batched by default with the
+        same per-workload fallback as ``gather_fleet``; failed queries degrade
+        to empty digests (→ UNKNOWN scans)."""
+        from krr_tpu_torch.models.series import DigestedFleet
+
+        await self._ensure_connected()
+        end = datetime.datetime.now().timestamp() if end_time is None else end_time
+        start = end - history_seconds
+        fleet = DigestedFleet.empty(objects, gamma, min_value, num_buckets)
+
+        async def fetch_cpu(
+            query: str, expected_series: int, keep: "Optional[set]" = None,
+            sink=None, points_divisor: int = 1, meters=None,
+        ) -> "Optional[list[tuple[tuple, np.ndarray, float, float]]]":
+            return await self._query_range_digest(
+                query, start, end, step_seconds, gamma, min_value, num_buckets,
+                expected_series=expected_series, keep=keep, sink=sink,
+                points_divisor=points_divisor, meters=meters,
+            )
+
+        async def per_workload(i: int, obj: K8sObjectData, resource: ResourceType) -> None:
+            if not obj.pods:
+                return
+            pod_regex = "|".join(re.escape(pod) for pod in obj.pods)
+            query = QUERY_BUILDERS[resource](obj.namespace, pod_regex, obj.container)
+            # Per-workload queries group by pod only → series key (pod, "").
+            route = {(pod, ""): [i] for pod in obj.pods}
+            sink = self._FleetFoldSink(fleet, route, resource)
+            wanted = set(obj.pods)
+            seen: set[str] = set()  # first series per pod, like gather_fleet
+            try:
+                if resource is ResourceType.CPU:
+                    series = await fetch_cpu(query, len(obj.pods), sink=sink)
+                    if series is None:  # streamed: folded straight into row i
+                        return
+                    for (pod, _c), counts, total, peak in series:
+                        if pod in wanted and total > 0 and pod not in seen:
+                            seen.add(pod)
+                            fleet.merge_cpu_row(i, counts, total, peak)
+                else:
+                    # Memory needs only count+max (max × buffer): the cheaper
+                    # stats pass, no histogram.
+                    series = await self._query_range_stats(
+                        query, start, end, step_seconds,
+                        expected_series=len(obj.pods), sink=sink,
+                        downsample_ns=(obj.namespace,),
+                    )
+                    if series is None:
+                        return
+                    for (pod, _c), total, peak in series:
+                        if pod in wanted and total > 0 and pod not in seen:
+                            seen.add(pod)
+                            fleet.merge_mem_row(i, total, peak)
+            except BaseException as e:
+                # The sink folds windows in as they land — unwind any partial
+                # folds so this object degrades to the empty (UNKNOWN) state
+                # the pre-streamed path guaranteed. BaseException, matching
+                # per_namespace: a CancelledError mid-fetch must not leave
+                # double-countable partially-folded rows behind if the caller
+                # (a cancelled/retried serve scan) keeps the fleet.
+                if resource is ResourceType.CPU:
+                    fleet.clear_cpu_rows([i])
+                else:
+                    fleet.clear_mem_rows([i])
+                if not isinstance(e, Exception):
+                    raise
+                # This handler is the TERMINAL failure site for both fetch
+                # modes (batched failures fall back here) — record the row
+                # so incremental consumers know the window is incomplete.
+                fleet.failed_rows.add(i)
+                self.logger.warning(f"Query failed for {obj} {resource}: {e}")
+                return
+
+        async def per_group(
+            group: PlanGroup, resource: ResourceType, points_divisor: int = 1
+        ):
+            query = self._group_query(resource, group, objects)
+            route = self._group_route(objects, group)
+            # Probed for every kind, shards included: a shard's pod regex
+            # also matches the pods' UNSCANNED sidecar containers, so the
+            # routed count alone undercounts and would oversize windows
+            # against the sample budget (422 → halved retry → per-workload
+            # fallback on every scan).
+            expected = await self._expected_series(query, route, end)
+            sink = self._FleetFoldSink(fleet, route, resource)
+            meters: list = []
+            try:
+                if resource is ResourceType.CPU:
+                    fetched = await fetch_cpu(
+                        query, expected, keep=set(route), sink=sink,
+                        points_divisor=points_divisor, meters=meters,
+                    )
+                    if fetched is None:  # streamed: folded straight into fleet rows
+                        return expected, meters
+                    series: list = [row for row in fetched if row[2] > 0]
+                    merge = fleet.merge_cpu_row
+                else:
+                    fetched = await self._query_range_stats(
+                        query, start, end, step_seconds,
+                        expected_series=expected, keep=set(route), sink=sink,
+                        points_divisor=points_divisor, meters=meters,
+                        downsample_ns=group.namespaces,
+                    )
+                    if fetched is None:
+                        return expected, meters
+                    series = [row for row in fetched if row[1] > 0]
+                    merge = fleet.merge_mem_row
+            except BaseException:
+                # Partial windows may already sit in the fleet rows (the sink
+                # folds incrementally); clear them so the halved-window retry
+                # or per-workload fallback starts from zero — anything else
+                # double-counts every sample the failed attempt delivered.
+                if resource is ResourceType.CPU:
+                    fleet.clear_cpu_rows(group.indices)
+                else:
+                    fleet.clear_mem_rows(group.indices)
+                raise
+            self._route_series(route, series, lambda i, key, *payload: merge(i, *payload))
+            return expected, meters
+
+        await self._fan_out(
+            objects, per_workload, per_group,
+            points=int((end - start) // effective_step_seconds(step_seconds)) + 1,
+        )
+        return fleet
 
     async def close(self) -> None:
         if self._client is not None:

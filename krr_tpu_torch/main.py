@@ -10,7 +10,7 @@ command/option, preserving the plugin contract. A scan runs on the card
 
 Not ported yet (ROADMAP): the ``serve``, ``shard``, ``replica``, ``diff``,
 ``eval``, ``analyze`` and ``fleet-status`` commands, and the ``--statusz``,
-``--profile``, ``--pipeline-depth`` and SLO options of the scan commands.
+``--profile`` and SLO options of the scan commands.
 """
 
 from __future__ import annotations
@@ -353,6 +353,18 @@ def _common_options() -> list[click.Option]:
             help=(
                 "Pin the scan window's right edge to an absolute unix timestamp "
                 "(reproducible scans / offline benchmarks). Default: now."
+            ),
+        ),
+        PanelOption(
+            ["--pipeline-depth"],
+            type=int,
+            default=4,
+            show_default=True,
+            help=(
+                "Streamed scan-pipeline depth for digest-ingest scans: fetch the "
+                "fleet as per-namespace batches and fold each batch while the rest "
+                "still fetch, with at most this many batches in flight per stage "
+                "(bounded backpressure). 0 = the staged gather-then-fold path."
             ),
         ),
         PanelOption(

@@ -12,7 +12,8 @@ assignment (atomic under the GIL).
 The metric names keep the ``krr_tpu_`` prefix, so dashboards and recording
 rules read both packages alike. Only the families this package fires are
 declared; the serve, store, federation, ingest and SLO families arrive with
-the slices that fire them.
+the slices that fire them (the one-shot ``state_path`` scan passes no
+registry to the durable store, as in the JAX package).
 """
 
 from __future__ import annotations
@@ -42,6 +43,10 @@ SCAN_METRICS: tuple[tuple, ...] = (
     ("krr_tpu_fetch_rows_total", "counter", "Cumulative object fetches attempted by completed scans."),
     ("krr_tpu_fetch_failed_rows_total", "counter", "Cumulative object fetches that failed terminally."),
     ("krr_tpu_last_scan_timestamp_seconds", "gauge", "Unix time of the last scan's window end."),
+    # The streamed scan pipeline of digest-ingest scans
+    # (`krr_tpu_torch.core.pipeline`).
+    ("krr_tpu_scan_pipeline_wait_seconds", "gauge", "Last scan's streamed-pipeline wait time by side: producer_blocked = producers stalled in put() (fold-bound), consumer_starved = the consumer parked in get() (fetch-bound)."),
+    ("krr_tpu_scan_pipeline_queue_depth", "gauge", "Live streamed-pipeline queue occupancy, sampled at every put and get."),
     ("krr_tpu_prom_query_seconds", "histogram", "Prometheus range-query latency by data plane (buffered|streamed), retries included.", DEFAULT_SECONDS_BUCKETS),
     ("krr_tpu_prom_query_retries_total", "counter", "Prometheus range-query retry attempts beyond each query's first try."),
     ("krr_tpu_prom_points_total", "counter", "Evaluation-grid points covered by successful Prometheus range queries."),

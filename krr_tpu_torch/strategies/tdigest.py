@@ -17,19 +17,29 @@ A window past ``host_stream_mb`` stays in host memory and streams to the
 device in ``chunk_size`` time chunks (`krr_tpu_torch.ops.chunked`): the same
 sketch built chunk by chunk, bit-identical, and the streamed memory max.
 
-Not ported yet, and raising ``NotImplementedError`` that names the ROADMAP
-item: ``state_path`` (the durable digest store) and ``digest_ingest``
-(history digested at parse time).
+With ``state_path`` (`krr_tpu/strategies/tdigest.py:267-293`) each run
+builds the fetched window's digest on the device — ``digest_hist`` plus
+``row_max`` on the scaled memory window, resident or streamed — reads it
+back once, and folds it into the durable host store
+(`krr_tpu_torch.core.streaming`, `krr_tpu_torch.core.durastore`), which
+answers the query from the merged history and persists one WAL record. The
+store always holds the mergeable histogram digest, never the top-K sketch.
+With ``digest_ingest`` the history arrives digested at parse time
+(``run_digested``): the query is host numpy, as in the JAX package, and no
+kernel runs.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Literal, Optional
+from typing import TYPE_CHECKING, Literal, Optional
 
+import numpy as np
 import pydantic as pd
 import torch
 
+from krr_tpu_torch.core.durastore import DurableStore
+from krr_tpu_torch.core.streaming import DigestStore, FsOps, object_key
 from krr_tpu_torch.models.allocations import ResourceType
 from krr_tpu_torch.models.series import FleetBatch
 from krr_tpu_torch.ops import digest as digest_ops
@@ -50,6 +60,9 @@ from krr_tpu_torch.strategies.simple import (
 )
 from krr_tpu_torch.utils.device import resolve_device
 
+if TYPE_CHECKING:
+    from krr_tpu_torch.models.series import DigestedFleet
+
 
 class TDigestStrategySettings(SimpleStrategySettings):
     digest_gamma: float = pd.Field(
@@ -68,7 +81,9 @@ class TDigestStrategySettings(SimpleStrategySettings):
         False,
         description=(
             "Digest-at-ingest mode: Prometheus responses fold straight into per-object digests at "
-            "parse time, so raw sample arrays are never materialized. Not ported yet: raises."
+            "parse time (native fused parse+bucketize), so raw sample arrays are never "
+            "materialized. CPU accuracy is the digest bound (0.5% at default gamma); memory stays "
+            "exact."
         ),
     )
     exact_upgrade: bool = pd.Field(
@@ -81,18 +96,37 @@ class TDigestStrategySettings(SimpleStrategySettings):
     state_path: Optional[str] = pd.Field(
         None,
         description=(
-            "Path to the digest state for incremental/streaming scans (the durable digest store). "
-            "Not ported yet: raises."
+            "Path to the digest state for incremental/streaming scans: each run merges the "
+            "fetched window into the stored per-container digests and recommends from the merged "
+            "history. Sharded format makes this a state DIRECTORY (manifest + base shards + delta "
+            "WAL); legacy single-file state auto-migrates on first open."
         ),
     )
     store_format: Literal["sharded", "legacy"] = pd.Field(
         "sharded",
-        description="On-disk digest state format of state_path: 'sharded' (default) or 'legacy'.",
+        description=(
+            "On-disk digest state format: 'sharded' (default) is the durable state directory — "
+            "checksummed base shards plus a delta WAL, one appended record per merge; 'legacy' "
+            "keeps the classic single-file atomic rewrite."
+        ),
     )
 
     def cpu_spec(self) -> DigestSpec:
         # 1e-7 cores ≈ 0.1 µcore resolution floor; top bucket ≥ 10k cores.
         return DigestSpec(gamma=self.digest_gamma, min_value=1e-7, num_buckets=self.digest_buckets)
+
+
+class _AppendCountingFs(FsOps):
+    """The default filesystem ops, counting the WAL appends of one persist."""
+
+    def __init__(self) -> None:
+        self.appends = 0
+        self.appended_bytes = 0
+
+    def append(self, f, data: bytes) -> None:
+        super().append(f, data)
+        self.appends += 1
+        self.appended_bytes += len(data)
 
 
 def _fence(device: torch.device) -> None:
@@ -105,26 +139,27 @@ class TDigestStrategy(BatchedStrategy[TDigestStrategySettings]):
     __display_name__ = "tdigest"
 
     def __init__(self, settings: TDigestStrategySettings):
-        if settings.state_path:
-            raise NotImplementedError(
-                "tdigest state_path (the durable digest store, DigestStore/durastore) is not ported "
-                "yet: ROADMAP Queue 1"
-            )
-        if settings.digest_ingest:
-            raise NotImplementedError(
-                "tdigest digest_ingest (DigestedFleet and the native fused parse) is not ported yet: "
-                "ROADMAP Queue 1"
-            )
         super().__init__(settings)
         self.device = resolve_device(settings.device)
-        #: Wall seconds of the last ``run_batch``'s legs: resident (pack,
-        #: h2d, build — the sketch kernel, query — percentile + memory max +
-        #: the one readback, finalize) or streamed
-        #: (`krr_tpu_torch.strategies.simple.streamed_legs`).
+        #: Wall seconds of the last call's legs: a resident ``run_batch``
+        #: (pack, h2d, build — the sketch kernel, query — percentile +
+        #: memory max + the one readback, finalize), a streamed one
+        #: (`krr_tpu_torch.strategies.simple.streamed_legs`), a
+        #: ``state_path`` one (pack, digest — the window digest built on the
+        #: device and read back, fold, quantile, persist, finalize) or
+        #: ``run_digested`` (fold, quantile and persist with a store;
+        #: quantile alone without; finalize).
         self.leg_seconds: dict[str, float] = {}
-        #: The last streamed ``run_batch``'s :class:`StreamStats` as a
-        #: dict; None after a resident one.
+        #: The last streamed window's :class:`StreamStats` as a dict; None
+        #: after a resident one.
         self.stream_stats: Optional[dict] = None
+        #: The store after the last ``state_path`` persist: its rows, the
+        #: rows this run folded, the WAL records and bytes this persist
+        #: appended (one record; none for the legacy file), the live WAL's
+        #: bytes (a persist that passes the compaction threshold folds the
+        #: WAL into base shards, leaving its 8-byte header) and the epoch
+        #: (durable persists so far); None when no store was used.
+        self.store_stats: Optional[dict] = None
 
     def _exact_topk_k(self, capacity: int, q: float) -> Optional[int]:
         """K for the exact top-K sketch, or None when the histogram digest
@@ -158,6 +193,131 @@ class TDigestStrategy(BatchedStrategy[TDigestStrategySettings]):
         )
         return cpu_p, mem_max
 
+    def _streamed_window_digest(self, batch: FleetBatch, spec: DigestSpec, stats: StreamStats) -> tuple:
+        """`_window_digest` without device residency: the CPU digest and the
+        memory peak streamed from host, one ``digest_hist`` and one
+        ``row_max`` launch a chunk (`krr_tpu/strategies/tdigest.py:128-147`)."""
+        chunk = self.settings.chunk_size
+        cpu = batch.packed(ResourceType.CPU)
+        mem = batch.packed(ResourceType.Memory)
+        cpu_digest = digest_ops.build_from_host(
+            spec, cpu.values, cpu.counts, chunk, device=self.device, stats=stats
+        )
+        n, b = cpu_digest.counts.shape
+        host = torch.cat([cpu_digest.counts.reshape(-1), cpu_digest.total, cpu_digest.peak]).cpu().numpy()
+        mem_peak = masked_max_from_host(
+            mem.values, mem.counts, chunk, scale=MEMORY_SCALE, device=self.device, stats=stats
+        )
+        return host[: n * b].reshape(n, b), host[n * b : n * b + n], host[n * b + n :], mem_peak
+
+    def _window_digest(self, batch: FleetBatch, spec: DigestSpec) -> tuple:
+        """Digest + memory peak of the fetched window as host arrays:
+        float32 CPU counts ``[N, B]``, totals and peaks, the memory sample
+        counts, and the memory peak in MB (−inf for an empty row, as the
+        store wants) — `krr_tpu/strategies/tdigest.py:173-203`. Resident:
+        one ``digest_hist`` launch on the CPU window and one ``row_max`` on
+        the scaled memory window, read back in one copy."""
+        mem_total = np.asarray(batch.packed(ResourceType.Memory).counts, dtype=np.float32)
+        if self._use_host_stream(batch):
+            stats = StreamStats()
+            counts, total, peak, mem_peak = self._streamed_window_digest(batch, spec, stats)
+            self.stream_stats = stats.as_dict()
+        else:
+            self.stream_stats = None
+            cpu_values, cpu_counts = fleet_device_arrays(batch, ResourceType.CPU, device=self.device)
+            mem_values, mem_counts = fleet_device_arrays(
+                batch, ResourceType.Memory, scale=MEMORY_SCALE, device=self.device
+            )
+            cpu_digest = digest_ops.build_from_packed(spec, cpu_values, cpu_counts)
+            mem_max = masked_max_cuda(mem_values, mem_counts)
+            # One readback: the flat concatenation keeps the counts block a
+            # contiguous [N, B] view of the host copy.
+            n, b = cpu_digest.counts.shape
+            host = torch.cat(
+                [cpu_digest.counts.reshape(-1), cpu_digest.total, cpu_digest.peak, mem_max]
+            ).cpu().numpy()
+            counts, total = host[: n * b].reshape(n, b), host[n * b : n * b + n]
+            peak, mem_peak = host[n * b + n : n * b + 2 * n], host[n * b + 2 * n :]
+        assert counts.shape[0] == len(batch)
+        # An empty memory row reads NaN from the row max; the store wants -inf.
+        mem_peak = np.where(np.isnan(mem_peak), -np.inf, mem_peak)
+        return counts, total, peak, mem_total, mem_peak
+
+    def _store_round(self, spec: DigestSpec, q: float, rows: int, fold) -> tuple:
+        """One locked store cycle (`krr_tpu/strategies/tdigest.py:267-293`):
+        open the durable state with ``DurableStore.open``'s defaults, ``fold``
+        the window into its store (→ the store rows), query the merged
+        history, persist one delta, close. Returns (CPU percentile, memory
+        peak in MB) for the folded rows and records the fold / quantile /
+        persist legs and :attr:`store_stats`."""
+        fs = _AppendCountingFs()
+        with DigestStore.locked(self.settings.state_path):
+            durable = DurableStore.open(self.settings.state_path, spec, store_format=self.settings.store_format, fs=fs)
+            try:
+                t0 = time.perf_counter()
+                store_rows = fold(durable.store)
+                t1 = time.perf_counter()
+                cpu_p, mem_max = durable.store.query_recommendation(store_rows, q)
+                t2 = time.perf_counter()
+                durable.save_delta()
+                t3 = time.perf_counter()
+                self.leg_seconds.update({"fold": t1 - t0, "quantile": t2 - t1, "persist": t3 - t2})
+                self.store_stats = {
+                    "rows": len(durable.store.keys),
+                    "folded_rows": rows,
+                    "wal_appends": fs.appends,
+                    "wal_appended_bytes": fs.appended_bytes,
+                    "wal_bytes": durable.wal_size,
+                    "epoch": durable.epoch,
+                }
+            finally:
+                durable.close()
+        return cpu_p, mem_max
+
+    def run_digested(self, fleet: "DigestedFleet") -> list[RunResult]:
+        """Recommend from pre-digested history (the ``digest_ingest`` fetch
+        mode, `krr_tpu/strategies/tdigest.py:205-251`): the window's digests
+        are already built, so this is the percentile query — and, with
+        ``state_path``, the same store merge as the raw path. Host numpy by
+        design, as in the JAX package: ingest digests are born in host
+        memory, so no kernel runs."""
+        q = float(self.settings.cpu_percentile)
+        spec = DigestSpec(gamma=fleet.gamma, min_value=fleet.min_value, num_buckets=fleet.cpu_counts.shape[1])
+        self.leg_seconds = {}
+        self.stream_stats = None
+        self.store_stats = None
+        t0 = time.perf_counter()
+        if self.settings.state_path:
+            cpu_p, mem_max = self._store_round(
+                spec, q, len(fleet.objects), lambda store: store.fold_fleet(fleet, mem_scale=MEMORY_SCALE)
+            )
+        else:
+            cpu_p = digest_ops.percentile_host(spec, fleet.cpu_counts, fleet.cpu_total, fleet.cpu_peak, q)
+            mem_peak_mb = np.where(np.isfinite(fleet.mem_peak), fleet.mem_peak / MEMORY_SCALE, -np.inf)
+            mem_max = np.where(fleet.mem_total > 0, mem_peak_mb, np.nan)
+            self.leg_seconds["quantile"] = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        results = finalize_fleet(np.asarray(cpu_p), np.asarray(mem_max), self.settings.memory_buffer_percentage)
+        self.leg_seconds["finalize"] = time.perf_counter() - t1
+        return results
+
+    def _run_state(self, batch: FleetBatch, spec: DigestSpec, q: float, pack_seconds: float) -> list[RunResult]:
+        """The ``state_path`` run: the window digest on the device, then the
+        store cycle on the host."""
+        self.leg_seconds = {"pack": pack_seconds}
+        t0 = time.perf_counter()
+        counts, total, peak, mem_total, mem_peak = self._window_digest(batch, spec)
+        self.leg_seconds["digest"] = time.perf_counter() - t0
+        keys = [object_key(obj) for obj in batch.objects]
+        cpu_p, mem_max = self._store_round(
+            spec, q, len(keys),
+            lambda store: store.merge_window(keys, counts, total, peak, mem_total, mem_peak),
+        )
+        t1 = time.perf_counter()
+        results = finalize_fleet(np.asarray(cpu_p), np.asarray(mem_max), self.settings.memory_buffer_percentage)
+        self.leg_seconds["finalize"] = time.perf_counter() - t1
+        return results
+
     def _run_streamed(self, batch: FleetBatch, spec: DigestSpec, q: float, pack_seconds: float) -> list[RunResult]:
         stats = StreamStats()
         t0 = time.perf_counter()
@@ -179,6 +339,9 @@ class TDigestStrategy(BatchedStrategy[TDigestStrategySettings]):
         cpu = batch.packed(ResourceType.CPU)
         batch.packed(ResourceType.Memory)
         t1 = time.perf_counter()
+        self.store_stats = None
+        if self.settings.state_path:
+            return self._run_state(batch, spec, q, t1 - t0)
         if self._use_host_stream(batch):
             return self._run_streamed(batch, spec, q, t1 - t0)
         self.stream_stats = None

@@ -45,10 +45,9 @@ STRATEGY_PATHS = {
 
 #: JAX flags with no counterpart in the port, or whose path waits for a
 #: later slice (ROADMAP): the SLO options, --statusz, --profile,
-#: --log-format, --pipeline-depth and the XLA cache; and the JAX
-#: strategies' mesh, Pallas and profiler settings.
+#: --log-format and the XLA cache; and the JAX strategies' mesh, Pallas and
+#: profiler settings.
 JAX_ONLY_FLAGS = {
-    "--pipeline-depth",
     "--statusz",
     "--profile",
     "--log-format",
@@ -251,6 +250,72 @@ def test_host_stream_equal_jax(apps, long_env, path, monkeypatch):
     assert calls == ["krr_tpu", "krr_tpu_torch"]  # both CLIs took their streamed path
     scans = json.loads(port_result.output)["scans"]
     assert len(scans) == 2 and all(s["recommended"]["requests"]["cpu"]["value"] != "?" for s in scans)
+
+
+@pytest.mark.parametrize("depth", ["4", "0"])
+@pytest.mark.parametrize("fmt", ["json", "yaml", "pprint", "table"])
+def test_digest_ingest_equal_jax(apps, fake_env, fmt, depth):  # noqa: F811
+    """``tdigest --digest_ingest true``, streamed (``--pipeline-depth 4``)
+    and staged (``0``): the port's stdout is the JAX CLI's."""
+    jax_result, port_result = _both(
+        apps, fake_env, ["tdigest", "--digest_ingest", "true", "--pipeline-depth", depth, "-f", fmt]
+    )
+    assert jax_result.exit_code == 0, jax_result.output
+    assert port_result.exit_code == 0, port_result.output
+    assert port_result.output == jax_result.output
+    if fmt == "json":
+        assert len(json.loads(port_result.output)["scans"]) == 4
+
+
+def _state_runs(apps, env, state: "dict[str, str]", args, runs: int = 2):
+    """``runs`` consecutive ``tdigest --state_path`` scans per CLI, each
+    into its own state; yields (jax, port) results per run."""
+    jax_app, port_app = apps
+    common = ["tdigest", *args, "--kubeconfig", env["kubeconfig"], "-p", env["server"].url, "-q"]
+    for _ in range(runs):
+        yield (
+            _invoke(jax_app, [*common, "--state_path", state["jax"]]),
+            _invoke(port_app, [*common, "--state_path", state["port"], "--device", "cpu"]),
+        )
+
+
+@pytest.mark.parametrize("store_format", ["sharded", "legacy"])
+@pytest.mark.parametrize("fmt", ["json", "yaml", "pprint", "table"])
+def test_state_path_two_runs_equal_jax(apps, fake_env, tmp_path, fmt, store_format):  # noqa: F811
+    """Two consecutive ``tdigest --state_path`` runs into one state: each
+    run's stdout is the JAX CLI's, and the state has the JAX shape (a
+    directory with a manifest and a two-record WAL, or one ``.npz``)."""
+    state = {name: str(tmp_path / name) for name in ("jax", "port")}
+    for jax_result, port_result in _state_runs(
+        apps, fake_env, state, ["-f", fmt, "--store_format", store_format]
+    ):
+        assert jax_result.exit_code == 0, jax_result.output
+        assert port_result.exit_code == 0, port_result.output
+        assert port_result.output == jax_result.output
+    if store_format == "legacy":
+        assert os.path.isfile(state["port"]) and not os.path.exists(state["port"] + ".lock")
+    else:
+        names = sorted(os.listdir(state["port"]))
+        assert names == sorted(os.listdir(state["jax"])) == ["MANIFEST.json", "wal-00000000.log"]
+        manifest = json.loads(open(os.path.join(state["port"], "MANIFEST.json")).read())
+        assert manifest["format"] == 1
+
+
+@pytest.mark.parametrize("first", ["jax", "port"])
+def test_state_begun_by_one_cli_continued_by_the_other(apps, fake_env, tmp_path, first):  # noqa: F811
+    """A state begun by one package's CLI and continued by the other's
+    prints what a state driven by the JAX CLI alone prints."""
+    jax_app, port_app = apps
+    common = ["tdigest", "-f", "json", "--kubeconfig", fake_env["kubeconfig"], "-p", fake_env["server"].url, "-q"]
+    mixed, control = str(tmp_path / "mixed"), str(tmp_path / "control")
+    clis = {"jax": (jax_app, []), "port": (port_app, ["--device", "cpu"])}
+    second = "port" if first == "jax" else "jax"
+    for who in (first, second, first):
+        app, extra = clis[who]
+        got = _invoke(app, [*common, "--state_path", mixed, *extra])
+        want = _invoke(jax_app, [*common, "--state_path", control])
+        assert got.exit_code == want.exit_code == 0, got.output
+        assert got.output == want.output
 
 
 @pytest.mark.parametrize("strict", [False, True])

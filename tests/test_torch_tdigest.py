@@ -22,10 +22,12 @@ import torch
 import krr_tpu.core.config as jax_config
 import krr_tpu.core.runner as jax_runner
 import krr_tpu.models as jax_models
+import krr_tpu.models.series as jax_series
 import krr_tpu.strategies.tdigest as jax_tdigest
 import krr_tpu_torch.core.config as port_config
 import krr_tpu_torch.core.runner as port_runner
 import krr_tpu_torch.models as port_models
+import krr_tpu_torch.models.series as port_series
 import krr_tpu_torch.strategies.tdigest as port_tdigest
 from krr_tpu_torch.models.interop import fleet_batch_from_dicts, objects_from_dicts
 from krr_tpu_torch.ops import digest as port_digest
@@ -225,14 +227,49 @@ class TestRunBatchParity:
 
 
 class TestNotPortedYet:
+    """The two settings that raised ``NotImplementedError`` until the
+    incremental tdigest path was ported (the test keeps its name): each now
+    builds a strategy whose run gives the JAX package's raw Decimals —
+    ``state_path`` through ``run_batch`` into a fresh store, ``digest_ingest``
+    through ``run_digested`` on the fleet digested by each package's own
+    ``fold_histories``."""
+
     @pytest.mark.parametrize(
         "args, item",
-        [({"state_path": "state"}, "durable digest store"), ({"digest_ingest": True}, "DigestedFleet")],
+        [({"state_path": "state"}, "state_path"), ({"digest_ingest": True}, "digest_ingest")],
         ids=["state_path", "digest_ingest"],
     )
-    def test_settings_raise(self, args, item):
-        with pytest.raises(NotImplementedError, match=item):
-            port_tdigest.TDigestStrategy(port_tdigest.TDigestStrategySettings(device="cpu", **args))
+    def test_settings_raise(self, fleet, tmp_path, args, item):
+        jax_objs, dumps, histories = fleet
+        if item == "state_path":
+            args = {"state_path": str(tmp_path / "state")}
+        port = port_tdigest.TDigestStrategy(port_tdigest.TDigestStrategySettings(device="cpu", **args))
+        jax = jax_tdigest.TDigestStrategy(
+            jax_tdigest.TDigestStrategySettings(use_mesh=False, **{**args, "state_path": args.get("state_path")
+                                                                   and str(tmp_path / "jax-state")})
+        )
+        jax_fetched = {jax_models.ResourceType(k): v for k, v in histories.items()}
+        if item == "state_path":
+            ref = jax.run_batch(jax_models.FleetBatch.build(jax_objs, jax_fetched))
+            got = port.run_batch(fleet_batch_from_dicts(dumps, histories))
+            assert port.store_stats["epoch"] == 1 and port.store_stats["rows"] == len(dumps)
+        else:
+            spec = port.settings.cpu_spec()
+            port_objs = objects_from_dicts(dumps)
+            fleets = []
+            for runner, series, objects, fetched in (
+                (jax_runner, jax_series, jax_objs, jax_fetched),
+                (port_runner, port_series, port_objs, {port_models.ResourceType(k): v for k, v in histories.items()}),
+            ):
+                digested = series.DigestedFleet.empty(objects, spec.gamma, spec.min_value, spec.num_buckets)
+                runner.fold_histories(digested, range(len(objects)), fetched, spec)
+                fleets.append(digested)
+            ref, got = jax.run_digested(fleets[0]), port.run_digested(fleets[1])
+        assert len(got) == len(ref) == len(dumps)
+        for p, r in zip(got, ref):
+            for resource in port_models.ResourceType:
+                want = r[jax_models.ResourceType(resource.value)]
+                assert (str(p[resource].request), str(p[resource].limit)) == (str(want.request), str(want.limit))
 
 
 class TestHostStream:
