@@ -36,12 +36,14 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    and the CPU the digest's bucket indices may move one bucket where ``log``
    differs by an ulp at a bucket edge: the phase counts those moves and
    checks each is one bucket, at an edge. ``radix_digit_hist`` is bit-exact
-   against its plain version in one pass (every digit shift, prefixes taken
-   from the rows' own keys, bins that already hold counts) on the radix
-   rows above, fuzzed rows, odd widths, ``w = 1``, N = 0 and T = 0; and
-   over 4 passes, as the streamed radix select, which must give K1's
-   answer on the resident window for odd chunk splits. The streamed max,
-   digest and top-K builds on the card equal the resident kernels' results.
+   against its plain version in one pass (every (shift, bits) of the
+   streamed schedule 11/11/10, every 8-bit digit, and 1- and 12-bit digits;
+   prefixes taken from the rows' own keys, bins that already hold counts)
+   on the radix rows above, rows on the 11- and 10-bit digit edges, fuzzed
+   rows, odd widths, ``w = 1``, N = 0 and T = 0; and over 3 passes (and 4
+   of 8 bits), as the streamed radix select, which must give K1's answer on
+   the resident window for odd chunk splits. The streamed max, digest and
+   top-K builds on the card equal the resident kernels' results.
 4. ``digest_proof`` — ``digest_hist`` takes a sample's bucket from tables
    (an edge table and a coarse index), exact where the bucket formula is
    monotone in the bit pattern: for each spec of the parity phase, the
@@ -58,11 +60,12 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    ``torch.topk``), each kernel's bound, and parity of the kernels with the
    plain versions; also ``row_max_main`` below. ``radix_digit_hist`` per
    launch on one 10,000 × 8,192 chunk of the same values (the first pass,
-   where every key counts, and the last, under each row's own 24-bit
-   prefix), its plain version once, ``torch.bincount`` of precomputed
-   ``row·256 + digit`` as its yardstick (histogram only) and its bound; and
-   ``digest_hist`` on one such chunk beside the build of its bucket tables
-   (once per spec and device).
+   where every key counts, the middle and the last, under each row's own
+   11- and 22-bit prefix, idle rows of zeros, and the 8-bit schedule's
+   four passes), the per-select total, its plain version once, ``torch.bincount`` of precomputed ``row·2^bits +
+   digit`` as its yardstick (histogram only) and its bound (the non-zero
+   bins counted from the output); and ``digest_hist`` on one such chunk
+   beside the build of its bucket tables (once per spec and device).
 6. ``e2e``     — scans through ``Runner.run`` with in-memory inventory and
    history sources: 10,000 objects × 3 pods, 40,320 CPU samples and 40,320
    raw memory samples per pod (7 days at 5 s) made with numpy from a seed,
@@ -87,7 +90,7 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    ``tdigest --exact_upgrade`` (``topk_select`` and ``row_max``) must render
    ``e2e``'s JSON byte for byte; ``simple`` at q = 50 (K past the sketch
    budget: the streamed radix select, ``radix_digit_hist`` once a chunk in
-   each of 4 passes) must render a resident q = 50 scan's. Each with every
+   each of 3 passes) must render a resident q = 50 scan's. Each with every
    count set to 0 just before it: the exact launch counts, no other kernel,
    no generic fold, 10,000 rows and no ``?``, and a peak of allocated device
    memory below 1.5 GB (the resident scans' peaks are printed beside it).
@@ -212,6 +215,9 @@ KERNELS = {
     "topk_select": ("krr_tpu/ops/pallas_sketch.py:284", "krr_tpu_torch/csrc/sketch.cu", "cli", "tdigest_exact"),
     "radix_digit_hist": ("krr_tpu/ops/selection.py:142", "krr_tpu_torch/csrc/select.cu", "stream", "simple_p50"),
 }
+#: ``radix_digit_hist``'s (shift, bits) cases in the parity phase: the
+#: streamed schedule, the 8-bit digits, and the narrowest and widest digits.
+DIGIT_CASES = ((21, 11), (10, 11), (0, 10), (24, 8), (16, 8), (8, 8), (0, 8), (31, 1), (0, 1), (20, 12), (5, 12))
 #: The kernels' function names in the built libraries' SASS.
 SASS_KERNELS = ("bisect_select_kernel", "row_max_kernel", "digest_hist_kernel", "topk_select_kernel",
                 "radix_digit_hist_kernel")
@@ -380,6 +386,12 @@ RADIX_NEGATIVE_KEYS = (0xFFC00000, 0xFFFFFFFF, 0xFF800001)
 RADIX_ZERO_KEYS = (0xBF800000, 0x80000000, 0x00000000, 0x00000001, 0x807FFFFF, 0x800F0000, 0xFF800000)
 RADIX_DIGIT_EDGES = (0x7F7FFFFF, 0x7FFFFFFF, 0x7F800000, 0x7F800001, 0x3F800000, 0x3F7FFFFF, 0x3F800001,
                     0x3F7FFF00, 0x00800000, 0x00FFFFFF)
+#: Bit patterns on the digit edges of the streamed select's 11/11/10
+#: schedule: the low 21 or 10 bits all zeros or all ones, in positive
+#: values, positive NaN and negative NaN (whose key is negative).
+STREAM_DIGIT_EDGES = (0x3F800000, 0x3F9FFFFF, 0x3FA00000, 0x3F8003FF, 0x3F800400, 0x3F7FFC00, 0x3F7FFBFF,
+                      0x00800000, 0x00BFFFFF, 0x7F7FFFFF, 0x7F600000, 0x7FFFFC00, 0x7F800400, 0xFFE00000,
+                      0xFFDFFFFF, 0xFFC003FF)
 
 
 def topk_edge_rows(np, seed: int, t: int, k: int):
@@ -421,7 +433,8 @@ def topk_edge_rows(np, seed: int, t: int, k: int):
 def select_edge_rows(np, seed: int, t: int):
     """Rows aimed at ``bisect_select``'s radix route at width ``t``: all-equal
     rows, rows whose rank lands on negative NaN payloads (answer +0.0) or on
-    keys that read as 0, digit-edge rows, counts of 1, and counts past the
+    keys that read as 0, rows on the 8-bit digit edges and on the streamed
+    schedule's 11- and 10-bit edges, counts of 1, and counts past the
     width (the rank, taken from the count, may pass the row's keys: answer
     the NaN 0x7fffffff)."""
     rng = np.random.default_rng(seed)
@@ -436,6 +449,7 @@ def select_edge_rows(np, seed: int, t: int):
     for frac in (0.5, 0.9, 0.99, 1.0):
         rows += [(mixed(RADIX_NEGATIVE_KEYS, frac), t), (mixed(RADIX_ZERO_KEYS, frac), t)]
     rows += [(mixed(RADIX_DIGIT_EDGES, 1.0), t), (mixed(RADIX_DIGIT_EDGES, 0.5), t)]
+    rows += [(mixed(STREAM_DIGIT_EDGES, 1.0), t), (mixed(STREAM_DIGIT_EDGES, 0.5), t)]
     rows += [(mixed(RADIX_DIGIT_EDGES + RADIX_NEGATIVE_KEYS, 0.3), 1), (mixed(RADIX_NEGATIVE_KEYS, 1.0), 1)]
     for count in (t + 1, t + 7, 2 * t, 100 * t):
         rows.append((mixed(RADIX_DIGIT_EDGES + RADIX_NEGATIVE_KEYS, 0.2), count))
@@ -556,16 +570,17 @@ def phase_parity(torch, np) -> dict:
 
 def stream_parity(torch, np, errs: dict) -> int:
     """``radix_digit_hist`` against its plain version on the card and on the
-    CPU, one pass at a time; the streamed radix select (4 passes) against
-    K1 on the resident window; and the streamed max, digest and top-K
-    builds against the resident kernels, for odd chunk splits. Returns the
-    case count."""
+    CPU, one pass at a time, at every digit of the streamed schedule, every
+    8-bit digit and 1- and 12-bit digits; the streamed radix select (3
+    passes, and 4 of 8 bits) against K1 on the resident window; and the
+    streamed max, digest and top-K builds against the resident kernels, for
+    odd chunk splits. Returns the case count."""
     from krr_tpu_torch.ops import cuda_select, cuda_sketch
     from krr_tpu_torch.ops import digest as digest_ops
     from krr_tpu_torch.ops import topk_sketch as topk_ops
     from krr_tpu_torch.ops.quantile import masked_max_from_host
     from krr_tpu_torch.ops.selection import (
-        INT32_MIN, RADIX_BINS, RADIX_SHIFTS, as_ordered_bits, masked_percentile_bisect_from_host,
+        INT32_MIN, RADIX_SHIFTS, STREAM_DIGITS, as_ordered_bits, masked_percentile_bisect_from_host,
     )
 
     dev = torch.device(DEVICE)
@@ -584,24 +599,27 @@ def stream_parity(torch, np, errs: dict) -> int:
         prefixes = keys[torch.arange(n), torch.from_numpy(rng.integers(0, max(t, 1), n))].contiguous()
         if n:
             prefixes[-1] = int(rng.integers(INT32_MIN, 2**31))
-        for shift in RADIX_SHIFTS:
-            start = torch.from_numpy(rng.integers(0, 100, (n, RADIX_BINS)).astype(np.int32))
-            kernel = cuda_select.radix_digit_hist(v, c, prefixes.to(dev), start.clone().to(dev), shift)
-            plain = cuda_select.radix_digit_hist_plain(v, c, prefixes.to(dev), start.clone().to(dev), shift)
-            cpu = cuda_select.radix_digit_hist_plain(v_cpu, c_cpu, prefixes, start, shift)
-            check(same_bits(torch, kernel, plain), f"radix_digit_hist != plain at n={n} t={t} shift={shift}")
+        for shift, bits in DIGIT_CASES:
+            start = torch.from_numpy(rng.integers(0, 100, (n, 1 << bits)).astype(np.int32))
+            kernel = cuda_select.radix_digit_hist(v, c, prefixes.to(dev), start.clone().to(dev), shift, bits)
+            plain = cuda_select.radix_digit_hist_plain(v, c, prefixes.to(dev), start.clone().to(dev), shift, bits)
+            cpu = cuda_select.radix_digit_hist_plain(v_cpu, c_cpu, prefixes, start, shift, bits)
+            check(same_bits(torch, kernel, plain),
+                  f"radix_digit_hist != plain at n={n} t={t} shift={shift} bits={bits}")
             check(same_bits(torch, plain, cpu), f"plain digit histogram on the card != on the CPU at n={n} t={t}")
             cases += 1
-    # The 4 passes: the streamed radix select against K1 on the resident window.
+    # The 3 passes (and the 4 of 8 bits): the streamed radix select against K1 on the resident window.
+    eight_bit = tuple((shift, 8) for shift in RADIX_SHIFTS)
     for i, (t, chunk) in enumerate([(300, 7), (4097, 1000), (70_001, 8192), (HEADLINE_T, STREAM_CHUNK)]):
         values, counts = select_edge_rows(np, 1200 + t, t) if t <= 70_001 else fuzz(np, 1200 + i, 16, t, 0.2)
         v, c = torch.from_numpy(values).to(dev), torch.from_numpy(counts).to(dev)
         for q in (0.0, 50.0, 99.0, 100.0, 120.0):
-            streamed = masked_percentile_bisect_from_host(values, counts, q, chunk, device=DEVICE)
             resident = cuda_select.masked_percentile_bisect_cuda(v, c, q).cpu().numpy()
-            check(np.array_equal(streamed.view(np.int32), resident.view(np.int32)),
-                  f"streamed radix select != K1 at t={t} chunk={chunk} q={q}")
-            cases += 1
+            for digits in (STREAM_DIGITS, eight_bit) if t == 4097 else (STREAM_DIGITS,):
+                streamed = masked_percentile_bisect_from_host(values, counts, q, chunk, device=DEVICE, digits=digits)
+                check(np.array_equal(streamed.view(np.int32), resident.view(np.int32)),
+                      f"streamed radix select != K1 at t={t} chunk={chunk} q={q} digits={digits}")
+                cases += 1
     # The streamed max, digest and top-K builds against the resident kernels.
     values, counts = fuzz(np, 1300, 257, 4097, 0.2)
     memory = np.round(np.random.default_rng(1301).uniform(2e7, 4e9, size=(257, 4097)))
@@ -918,13 +936,14 @@ def phase_sketch_headline(torch, np) -> dict:
 
 def phase_stream_headline(torch, np) -> dict:
     """``radix_digit_hist`` on one streamed chunk of the headline rows
-    (10,000 × 8,192, CPU-like values generated on the card): the first pass
-    (every key counts) and the last (under each row's own 24-bit prefix),
-    its plain version, ``torch.bincount`` over precomputed ``row·256 +
-    digit`` and the bound; and ``digest_hist`` on such a chunk beside the
+    (10,000 × 8,192, CPU-like values generated on the card), at each pass of
+    the streamed schedule: the first (every key counts), the middle and the
+    last (under each row's own 11- and 22-bit prefix); on idle rows of zeros
+    (one hot bin); the 8-bit schedule's four passes; its plain version, ``torch.bincount`` over precomputed ``row·2^bits + digit`` and
+    the bound of each pass. Then ``digest_hist`` on such a chunk beside the
     build of its bucket tables, which it does once per spec and device."""
     from krr_tpu_torch.ops import cuda_select, cuda_sketch
-    from krr_tpu_torch.ops.selection import INT32_MIN, RADIX_BINS, as_ordered_bits
+    from krr_tpu_torch.ops.selection import INT32_MIN, RADIX_SHIFTS, STREAM_DIGITS, as_ordered_bits
 
     dev = torch.device(DEVICE)
     n, w = HEADLINE_ROWS, STREAM_CHUNK
@@ -932,50 +951,74 @@ def phase_stream_headline(torch, np) -> dict:
     gen.manual_seed(2)
     chunk = torch.rand((n, w), generator=gen, device=dev, dtype=torch.float32)
     chunk.mul_(chunk).mul_(0.8).add_(1e-4)
+    idle = torch.zeros_like(chunk)
     eff = torch.full((n,), w, dtype=torch.int32, device=dev)
     keys = as_ordered_bits(chunk) ^ INT32_MIN
-    first = torch.zeros((n,), dtype=torch.int32, device=dev)
-    own = keys[:, 0].contiguous()  # the last pass under the first key's 24-bit prefix: few keys match
+    own = keys[:, 0].contiguous()  # each row's first key: the later passes under its prefix
+    (first_shift, first_bits), (middle_shift, middle_bits), (last_shift, last_bits) = STREAM_DIGITS
+    zero = torch.zeros((n,), dtype=torch.int32, device=dev)
+    passes = {  # name: (values, prefixes, shift, bits)
+        "first": (chunk, zero, first_shift, first_bits),
+        "middle": (chunk, own, middle_shift, middle_bits),
+        "last": (chunk, own, last_shift, last_bits),
+        "idle": (idle, zero, first_shift, first_bits),
+    }
 
-    def digit_pass(prefixes, shift):
-        return cuda_select.radix_digit_hist(chunk, eff, prefixes, torch.zeros((n, RADIX_BINS), dtype=torch.int32,
-                                                                            device=dev), shift)
+    def bound_of(out) -> tuple[float, str]:
+        # Bytes: the chunk, the prefix lengths and prefixes read once, and
+        # each non-zero bin read and written once (the bins start at zero).
+        nonzero = int(torch.count_nonzero(out))
+        digit_bytes = 4 * n * w + 8 * n + 2 * 4 * nonzero
+        bytes_ms, ops_ms = 1e3 * digit_bytes / PEAK_BYTES_PER_S, 1e3 * n * w / PEAK_F32_OPS_PER_S
+        return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
-    first_times = cuda_ms(torch, lambda: digit_pass(first, 24))
-    last_times = cuda_ms(torch, lambda: digit_pass(own, 0))
-    kernel = digit_pass(first, 24)
-    plain_ms = cuda_ms(torch, lambda: cuda_select.radix_digit_hist_plain(
-        chunk, eff, first, torch.zeros((n, RADIX_BINS), dtype=torch.int32, device=dev), 24), warmup=0, runs=1)[0]
-    plain = cuda_select.radix_digit_hist_plain(chunk, eff, first, torch.zeros_like(kernel), 24)
-    check(same_bits(torch, kernel, plain), "headline radix_digit_hist != plain (first pass)")
-    check(same_bits(torch, digit_pass(own, 0), cuda_select.radix_digit_hist_plain(
-        chunk, eff, own, torch.zeros_like(kernel), 0)), "headline radix_digit_hist != plain (last pass)")
-    flat = ((keys.to(torch.int64) >> 24) & 0xFF) + (torch.arange(n, device=dev, dtype=torch.int64) * RADIX_BINS)[:, None]
+    result: dict = {"shape": [n, w], "digits": [list(d) for d in STREAM_DIGITS]}
+    for name, (values, prefixes, shift, bits) in passes.items():
+        out = torch.zeros((n, 1 << bits), dtype=torch.int32, device=dev)
+        times = cuda_ms(torch, lambda: cuda_select.radix_digit_hist(values, eff, prefixes, out, shift, bits), warmup=2)
+        out.zero_()
+        cuda_select.radix_digit_hist(values, eff, prefixes, out, shift, bits)
+        plain = cuda_select.radix_digit_hist_plain(values, eff, prefixes, torch.zeros_like(out), shift, bits)
+        check(same_bits(torch, out, plain), f"headline radix_digit_hist != plain ({name} pass)")
+        pass_bound, bound_by = bound_of(out)
+        result[name] = {"shift": shift, "bits": bits, "ms": statistics.median(times), "runs_ms": times,
+                        "nonzero_bins": int(torch.count_nonzero(out)), "bound_ms": pass_bound, "bound_by": bound_by,
+                        "bound_share": pass_bound / statistics.median(times)}
+        if name == "first":
+            first_out, first_bound = out, (pass_bound, bound_by)
+            plain_ms = cuda_ms(torch, lambda: cuda_select.radix_digit_hist_plain(
+                values, eff, prefixes, torch.zeros_like(out), shift, bits), warmup=0, runs=1)[0]
+        del plain
+    eight_bit_ms = []
+    for shift in RADIX_SHIFTS:  # the 8-bit schedule's passes, under each row's own prefix
+        out = torch.zeros((n, 256), dtype=torch.int32, device=dev)
+        prefixes = zero if shift == 24 else own
+        eight_bit_ms.append(statistics.median(cuda_ms(
+            torch, lambda: cuda_select.radix_digit_hist(chunk, eff, prefixes, out, shift, 8), warmup=2)))
+    del out
+    result["per_select_ms"] = sum(result[name]["ms"] for name in ("first", "middle", "last"))
+    result["per_select_8bit_ms"] = sum(eight_bit_ms)
+    result["eight_bit_pass_ms"] = eight_bit_ms
+    flat = ((keys.to(torch.int64) >> first_shift) & ((1 << first_bits) - 1)) + (
+        torch.arange(n, device=dev, dtype=torch.int64) * (1 << first_bits))[:, None]
     flat = flat.view(-1)
-    library_times = cuda_ms(torch, lambda: torch.bincount(flat, minlength=n * RADIX_BINS), warmup=1, runs=3)
-    check(bool(torch.equal(torch.bincount(flat, minlength=n * RADIX_BINS).view(n, RADIX_BINS).to(torch.int32), kernel)),
+    library_times = cuda_ms(torch, lambda: torch.bincount(flat, minlength=n << first_bits), warmup=1, runs=3)
+    check(bool(torch.equal(torch.bincount(flat, minlength=n << first_bits).view(n, -1).to(torch.int32), first_out)),
           "torch.bincount of the first digits != radix_digit_hist")
-    del flat, keys, plain
-    # Bytes: the chunk, the prefix lengths and prefixes read once, the bins
-    # read and written once.
-    digit_bytes = 4 * n * w + 8 * n + 2 * 4 * n * RADIX_BINS
-    digit_bound = max(1e3 * digit_bytes / PEAK_BYTES_PER_S, 1e3 * n * w / PEAK_F32_OPS_PER_S)
+    del flat, keys, idle, first_out
+    result.update({
+        "ms": result["first"]["ms"], "plain_ms": plain_ms, "library_ms": statistics.median(library_times),
+        "library": "torch.bincount (histogram only)", "bound_ms": first_bound[0], "bound_by": first_bound[1],
+        "max_abs_err": 0.0,
+    })
     digest_times = cuda_ms(torch, lambda: cuda_sketch.digest_hist(chunk, eff, DIGEST_BUCKETS, DIGEST_MIN_VALUE,
                                                                   DIGEST_LOG_GAMMA))
     tables_times = cuda_ms(torch, lambda: cuda_sketch.build_digest_tables(DIGEST_BUCKETS, DIGEST_MIN_VALUE,
                                                                           DIGEST_LOG_GAMMA, dev), runs=11)
-    del chunk, eff, kernel
+    del chunk, eff
     torch.cuda.empty_cache()
     result = {
-        "radix_digit_hist": {
-            "shape": [n, w], "ms": statistics.median(first_times), "runs_ms": first_times,
-            "last_pass_ms": statistics.median(last_times), "last_pass_runs_ms": last_times,
-            "plain_ms": plain_ms, "library_ms": statistics.median(library_times),
-            "library": "torch.bincount (histogram only)", "bound_ms": digit_bound,
-            "bound_by": "bytes" if 1e3 * digit_bytes / PEAK_BYTES_PER_S >= 1e3 * n * w / PEAK_F32_OPS_PER_S
-            else "operations",
-            "max_abs_err": 0.0,
-        },
+        "radix_digit_hist": result,
         "digest_chunk": {
             "shape": [n, w], "ms": statistics.median(digest_times), "runs_ms": digest_times,
             "tables_ms": statistics.median(tables_times), "tables_runs_ms": tables_times,
@@ -1181,7 +1224,7 @@ def phase_stream(torch, fleet: E2EFleet, rendered: "dict | None") -> dict:
         "tdigest_exact": ("tdigest", {"exact_upgrade": True}, "tdigest_exact",
                           {"topk_select": chunks, "row_max": chunks}),
         "simple_p50": ("simple", {"cpu_percentile": 50}, "simple_p50",
-                       {"radix_digit_hist": 4 * chunks, "row_max": 1}),
+                       {"radix_digit_hist": 3 * chunks, "row_max": 1}),
     }
     references = dict(rendered or {})
     report: dict = {"host_stream_mb": STREAM_MB, "chunk_size": STREAM_CHUNK, "scans": {}, "resident": {}}

@@ -59,20 +59,30 @@
 //   of the JAX package's host-streamed selection
 //   (krr_tpu/ops/selection.py:masked_percentile_bisect_from_host, a jnp
 //   masked compare-and-sum per bisection step, 31 passes over the host
-//   chunks). The port streams K1's radix select instead (4 passes,
-//   krr_tpu_torch/ops/selection.py): one pass per 8-bit digit, and this
-//   kernel folds one time chunk of a pass into the running [n, 256] digit
-//   histogram of each row: digit (u >> shift) & 0xff of every valid key
-//   u = ordered_bits ^ 0x80000000 whose digits above `shift` equal the row's
-//   prefix, as radix_select_ordered (common.cuh) counts them.
-//   Bound: bytes, one read of the chunk (the bins are 1 KB a row). This
-//   design: one 256-thread block per row, 16-byte loads with visit_row's
-//   scalar head and tail, a shared histogram with one column per lane
-//   ([bin][lane], as K1 and K4 keep theirs: a hot bin, as on idle rows whose
-//   keys are all zero, costs no bank conflict and no contention inside a
-//   warp), then one warp per bin sums the 32 columns and adds the total
-//   into the row's global bin. No other block touches the row in a launch,
-//   so the global bins take plain adds, not atomics.
+//   chunks). The port streams a radix select instead (3 passes of 11, 11
+//   and 10 bits, krr_tpu_torch/ops/selection.py): one pass per digit, and
+//   this kernel folds one time chunk of a pass into the running
+//   [n, 2^bits] digit histogram of each row: digit
+//   (u >> shift) & (2^bits - 1), for 1 <= bits <= 12, of every valid key
+//   u = ordered_bits ^ 0x80000000 whose bits above shift + bits equal the
+//   row's prefix.
+//   Bound: bytes, one read of the chunk plus a read and a write of each
+//   non-zero bin (a row's keys fill a few dozen of 2,048 bins on the first
+//   pass, fewer under a prefix). The 8-bit design before it kept a
+//   [256 bins][32 lanes] shared histogram per row (32 KB, 256 KB at 11
+//   bits) and paid a zero and a 32-column sum per row as large as the
+//   row's 32 KB of loads. This design: one shared histogram of 2^bits ints
+//   per row, zeroed with 16-byte stores; 16-byte loads through visit_row;
+//   after one __syncthreads only the non-zero bins are added into the
+//   row's global bins. A hot bin (an idle row's keys all read 0) is
+//   counted as a run per thread, added to the shared bin when the bin
+//   changes, and a warp whose runs all end on one bin adds their sum once:
+//   an idle row costs one shared add per warp, not one per key. One
+//   256-thread block per row (32 registers, 8 blocks an SM): with the fixed
+//   cost per row this small, short-lived blocks overlap each other (a
+//   persistent grid, each block walking rows gridDim.x apart, was measured
+//   and was not faster: PERF.md). Only the block that owns a row writes its
+//   bins in a launch, so the global bins take plain adds, not atomics.
 
 #include "common.cuh"
 
@@ -154,30 +164,43 @@ constexpr int kDigitThreads = 256;
 
 __global__ void __launch_bounds__(kDigitThreads)
 radix_digit_hist_kernel(const float* __restrict__ values, const int* __restrict__ eff,
-                        const int* __restrict__ prefixes, int* __restrict__ bins, long long t, int shift) {
-  __shared__ __align__(16) int hist[krr::kRadixHistInts];
+                        const int* __restrict__ prefixes, int* __restrict__ bins, long long t, int shift, int bits) {
+  extern __shared__ __align__(16) int hist[];  // 2^bits ints, at least 4
   const int tid = static_cast<int>(threadIdx.x);
   const int stride = static_cast<int>(blockDim.x);
   const long long row = blockIdx.x;
   const int valid = static_cast<int>(min(static_cast<long long>(max(eff[row], 0)), t));
   if (valid == 0) return;  // nothing to add: the row's bins stay as they are
+  const int nbins = 1 << bits;
   int4* hist4 = reinterpret_cast<int4*>(hist);
-  for (int i = tid; i < krr::kRadixHistInts / 4; i += stride) hist4[i] = make_int4(0, 0, 0, 0);
+  for (int i = tid; i < (nbins + 3) / 4; i += stride) hist4[i] = make_int4(0, 0, 0, 0);
   __syncthreads();
-  const unsigned mask = shift >= 24 ? 0u : 0xffffffffu << (shift + 8);  // the digits above `shift`
+  const unsigned digit_mask = static_cast<unsigned>(nbins - 1);
+  const unsigned mask = shift + bits >= 32 ? 0u : 0xffffffffu << (shift + bits);  // the bits above the digit
   const unsigned prefix = static_cast<unsigned>(prefixes[row]) & mask;
-  const int lane = tid & 31;
+  int last = -1;  // this thread's run: `run` keys of bin `last`
+  int run = 0;
   krr::visit_row(values + row * t, 0, valid, tid, stride, [&](int, float x) {
     const unsigned u = static_cast<unsigned>(krr::ordered_bits(x)) ^ 0x80000000u;
-    if ((u & mask) == prefix) atomicAdd(&hist[((u >> shift) & 0xffu) * 32 + lane], 1);
+    const bool match = (u & mask) == prefix;
+    const int bin = static_cast<int>((u >> shift) & digit_mask);
+    const bool change = match && bin != last;
+    if (change && run) atomicAdd(&hist[last], run);
+    run = change ? 1 : run + match;
+    last = change ? bin : last;
   });
+  const int lead = __shfl_sync(0xffffffffu, last, 0);
+  if (__all_sync(0xffffffffu, last == lead)) {  // one bin for the whole warp: one add
+    const int total = __reduce_add_sync(0xffffffffu, run);
+    if ((tid & 31) == 0 && total) atomicAdd(&hist[lead], total);
+  } else if (run) {
+    atomicAdd(&hist[last], run);
+  }
   __syncthreads();
-  int* out = bins + row * krr::kRadixBins;
-  const int warp = tid >> 5;
-  for (int b = warp; b < krr::kRadixBins; b += stride >> 5) {
-    int total = hist[b * 32 + lane];
-    for (int offset = 16; offset > 0; offset >>= 1) total += __shfl_xor_sync(0xffffffffu, total, offset);
-    if (lane == 0 && total) out[b] += total;
+  int* out = bins + row * nbins;
+  for (int b = tid; b < nbins; b += stride) {
+    const int count = hist[b];
+    if (count) out[b] += count;
   }
 }
 
@@ -205,10 +228,11 @@ int krr_row_max(const float* values, const int* counts, float* out, int n, long 
 }
 
 int krr_radix_digit_hist(const float* values, const int* eff, const int* prefixes, int* bins, int n, long long t,
-                         int shift, void* stream) {
+                         int shift, int bits, void* stream) {
   if (n <= 0 || t <= 0) return 0;
-  radix_digit_hist_kernel<<<n, kDigitThreads, 0, static_cast<cudaStream_t>(stream)>>>(values, eff, prefixes, bins,
-                                                                                      t, shift);
+  const int smem_bytes = max(1 << bits, 4) * static_cast<int>(sizeof(int));
+  radix_digit_hist_kernel<<<n, kDigitThreads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(values, eff, prefixes,
+                                                                                             bins, t, shift, bits);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -8,9 +8,10 @@ replaces, what bounds it on the card and what its design does about it):
   31 bit-space bisection steps pin, found by a radix select, or fewer
   bisection steps when asked for (the JAX package's ``_bisect_kernel``);
 * ``row_max`` — per-row NaN-propagating max (``_rowmax_kernel``);
-* ``radix_digit_hist`` — one time chunk's 8-bit digit histogram of the
-  ordered bits under each row's prefix, added into running ``[N, 256]``
-  bins: the count pass of the host-streamed radix select
+* ``radix_digit_hist`` — one time chunk's histogram of one digit
+  (``bits`` wide, at ``shift``) of the ordered bits under each row's
+  prefix, added into running ``[N, 2^bits]`` bins: the count pass of the
+  host-streamed radix select
   (`krr_tpu_torch.ops.selection.masked_percentile_bisect_from_host`). It
   replaces no Pallas kernel, but the jnp count pass of the JAX package's
   streamed bisection.
@@ -37,7 +38,7 @@ from krr_tpu_torch.ops import cuda_build
 from krr_tpu_torch.ops.quantile import masked_max, max_where
 from krr_tpu_torch.ops.selection import (
     INT32_MIN,
-    RADIX_BINS,
+    MAX_DIGIT_BITS,
     as_ordered_bits,
     masked_percentile_bisect,
     valid_mask,
@@ -58,7 +59,7 @@ _SIGNATURES = {
     ],
     "krr_radix_digit_hist": [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ],
     "krr_select_cache_ints": [],
 }
@@ -238,21 +239,24 @@ def row_max_chunk(values: torch.Tensor, eff: torch.Tensor) -> torch.Tensor:
     return torch.where(eff > 0, out, torch.full_like(out, float("-inf")))
 
 
-def _check_digit_args(values, eff, prefixes, bins, shift: int) -> None:
+def _check_digit_args(values, eff, prefixes, bins, shift: int, bits: int) -> None:
     check_rows(values, eff, "radix_digit_hist")
+    if not 1 <= bits <= MAX_DIGIT_BITS or shift < 0 or shift + bits > 32:
+        raise ValueError(
+            f"radix_digit_hist: need 1 <= bits <= {MAX_DIGIT_BITS}, shift >= 0 and shift + bits <= 32, "
+            f"got shift {shift}, bits {bits}"
+        )
     n = values.shape[0]
     if prefixes.dtype != torch.int32 or tuple(prefixes.shape) != (n,) or not prefixes.is_contiguous():
         raise TypeError(f"radix_digit_hist: prefixes must be a contiguous [{n}] int32 tensor")
-    if bins.dtype != torch.int32 or tuple(bins.shape) != (n, RADIX_BINS) or not bins.is_contiguous():
-        raise TypeError(f"radix_digit_hist: bins must be a contiguous [{n}, {RADIX_BINS}] int32 tensor")
+    if bins.dtype != torch.int32 or tuple(bins.shape) != (n, 1 << bits) or not bins.is_contiguous():
+        raise TypeError(f"radix_digit_hist: bins must be a contiguous [{n}, {1 << bits}] int32 tensor")
     if prefixes.device != values.device or bins.device != values.device:
         raise ValueError("radix_digit_hist: values, prefixes and bins must share a device")
-    if shift not in (0, 8, 16, 24):
-        raise ValueError(f"radix_digit_hist: shift must be 0, 8, 16 or 24, got {shift}")
 
 
 def radix_digit_hist_plain(
-    values: torch.Tensor, eff: torch.Tensor, prefixes: torch.Tensor, bins: torch.Tensor, shift: int
+    values: torch.Tensor, eff: torch.Tensor, prefixes: torch.Tensor, bins: torch.Tensor, shift: int, bits: int
 ) -> torch.Tensor:
     """The plain PyTorch version of :func:`radix_digit_hist`, on any device:
     the digits of the matching valid keys, masked, ``scatter_add_`` into
@@ -260,25 +264,26 @@ def radix_digit_hist_plain(
     if values.shape[0] == 0 or values.shape[1] == 0:
         return bins
     u = (as_ordered_bits(values) ^ INT32_MIN).to(torch.int64) & 0xFFFFFFFF  # signed order -> unsigned
-    mask = 0 if shift >= 24 else (0xFFFFFFFF << (shift + 8)) & 0xFFFFFFFF
+    mask = (0xFFFFFFFF << (shift + bits)) & 0xFFFFFFFF  # the bits above the digit
     prefix = prefixes.to(torch.int64) & mask
     match = valid_mask(eff, values.shape[1]) & ((u & mask) == prefix[:, None])
-    return bins.scatter_add_(1, (u >> shift) & 0xFF, match.to(torch.int32))
+    return bins.scatter_add_(1, (u >> shift) & ((1 << bits) - 1), match.to(torch.int32))
 
 
 def radix_digit_hist(
-    values: torch.Tensor, eff: torch.Tensor, prefixes: torch.Tensor, bins: torch.Tensor, shift: int
+    values: torch.Tensor, eff: torch.Tensor, prefixes: torch.Tensor, bins: torch.Tensor, shift: int, bits: int
 ) -> torch.Tensor:
     """Add one time chunk into the running digit histogram ``bins``
-    (``[N, 256]`` int32, in place; returned): for each row, digit
-    ``(u >> shift) & 0xff`` of every key ``u = ordered_bits ^ 0x80000000``
-    of the valid prefix ``values[i, :eff[i]]`` whose digits above ``shift``
-    equal those of ``prefixes[i]`` (the bits of a u-prefix, as int32). The
-    ``radix_digit_hist`` kernel on a CUDA tensor, the plain version on a CPU
-    tensor — bit-identical."""
-    _check_digit_args(values, eff, prefixes, bins, shift)
+    (``[N, 2^bits]`` int32, in place; returned): for each row, digit
+    ``(u >> shift) & (2^bits - 1)`` of every key ``u = ordered_bits ^
+    0x80000000`` of the valid prefix ``values[i, :eff[i]]`` whose bits
+    above ``shift + bits`` equal those of ``prefixes[i]`` (the bits of a
+    u-prefix, as int32). ``1 <= bits <= 12``, ``shift >= 0`` and ``shift +
+    bits <= 32``. The ``radix_digit_hist`` kernel on a CUDA tensor, the
+    plain version on a CPU tensor — bit-identical."""
+    _check_digit_args(values, eff, prefixes, bins, shift, bits)
     if values.device.type == "cpu":
-        return radix_digit_hist_plain(values, eff, prefixes, bins, shift)
+        return radix_digit_hist_plain(values, eff, prefixes, bins, shift, bits)
     n, t = values.shape
     if n == 0 or t == 0:
         return bins
@@ -286,7 +291,7 @@ def radix_digit_hist(
     with torch.cuda.device(values.device):
         stream = torch.cuda.current_stream(values.device).cuda_stream
         code = lib.krr_radix_digit_hist(
-            values.data_ptr(), eff.data_ptr(), prefixes.data_ptr(), bins.data_ptr(), n, t, shift, stream
+            values.data_ptr(), eff.data_ptr(), prefixes.data_ptr(), bins.data_ptr(), n, t, shift, bits, stream
         )
     cuda_build.raise_on_error(lib, code, "radix_digit_hist")
     LAUNCHES["radix_digit_hist"] += 1

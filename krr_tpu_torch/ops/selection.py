@@ -25,14 +25,14 @@ CPU backend in the reference tests:
   reciprocal, which rounds differently.
 
 :func:`masked_percentile_bisect_from_host` selects the same sample from a
-window that stays in host memory, by K1's radix select streamed over time
-chunks: 4 passes of the host matrix where the JAX package's streamed
-bisection makes 31.
+window that stays in host memory, by a radix select streamed over time
+chunks: 3 passes of the host matrix (11-, 11- and 10-bit digits) where the
+JAX package's streamed bisection makes 31.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -47,10 +47,13 @@ INT32_MIN = -(2**31)
 #: Bits above this (magnitude only) are NaN; this itself is +inf.
 EXPONENT_BITS = 0x7F800000
 MAGNITUDE_MASK = 0x7FFFFFFF
-#: Bins of one 8-bit digit of the radix select.
-RADIX_BINS = 256
-#: The radix select's digit shifts, most significant first.
+#: K1's and K4's digit shifts (8-bit digits), most significant first.
 RADIX_SHIFTS = (24, 16, 8, 0)
+#: The streamed radix select's digits as (shift, bits), most significant
+#: first: 2,048, 2,048 and 1,024 bins, so three passes over the host window.
+STREAM_DIGITS = ((21, 11), (10, 11), (0, 10))
+#: The widest digit ``radix_digit_hist`` takes (4,096 bins).
+MAX_DIGIT_BITS = 12
 
 
 def as_ordered_bits(values: torch.Tensor) -> torch.Tensor:
@@ -129,14 +132,30 @@ def masked_percentile_bisect(
 
 
 def radix_pick(bins: torch.Tensor, residual: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """One digit of the radix select from a pass's ``[N, 256]`` histogram:
+    """One digit of the radix select from a pass's ``[N, B]`` histogram:
     the smallest digit whose inclusive count passes the residual rank, and
     the residual rank among the keys that carry it. A row whose keys do not
-    reach past the residual (a row already decided) gets digit 255."""
-    cum = torch.cumsum(bins, dim=1, dtype=torch.int64)
-    digit = torch.clamp_max((cum <= residual[:, None]).sum(dim=1), RADIX_BINS - 1)
+    reach past the residual (a row already decided) gets digit B − 1. The
+    inclusive counts stay int32, as a row's count is, and a binary search
+    finds the digit, so the pick holds one int32 copy of the bins beside
+    them."""
+    cum = torch.cumsum(bins, dim=1, dtype=torch.int32)
+    passed = torch.searchsorted(cum, residual.to(torch.int32)[:, None], right=True)[:, 0]  # bins with cum <= rank
+    digit = torch.clamp_max(passed, bins.shape[1] - 1)
     below = torch.gather(cum, 1, torch.clamp_min(digit - 1, 0)[:, None])[:, 0]
     return digit, residual - torch.where(digit > 0, below, torch.zeros_like(below))
+
+
+def check_digits(digits: Sequence[tuple[int, int]]) -> None:
+    """Raise unless ``digits`` are (shift, bits) pairs that tile the 32 key
+    bits from the top down, each 1 to ``MAX_DIGIT_BITS`` bits wide."""
+    top = 32
+    for shift, bits in digits:
+        if not 1 <= bits <= MAX_DIGIT_BITS or shift + bits != top:
+            raise ValueError(f"digits {tuple(digits)} do not tile the 32 key bits from the top")
+        top = shift
+    if top != 0:
+        raise ValueError(f"digits {tuple(digits)} do not reach bit 0")
 
 
 def masked_percentile_bisect_from_host(
@@ -147,6 +166,7 @@ def masked_percentile_bisect_from_host(
     *,
     device: "torch.device | str" = "cuda",
     stats: Optional[StreamStats] = None,
+    digits: Sequence[tuple[int, int]] = STREAM_DIGITS,
 ) -> np.ndarray:
     """Exact percentile of a **host** ``[N, T]`` matrix that does not fit
     on the device: the sample :func:`masked_percentile_bisect` selects (31
@@ -156,21 +176,25 @@ def masked_percentile_bisect_from_host(
     The JAX package streams its 31 bisection steps, each a counting pass
     over the host chunks. This is the answer of K1's radix select
     (`krr_tpu_torch/csrc/common.cuh` ``radix_select_ordered``) streamed
-    instead: four passes over the host chunks, one per 8-bit digit of
-    ``u = ordered bits ^ 0x80000000`` from the top. Pass p adds each chunk's
-    digit histogram over the valid keys that carry the row's prefix into
-    ``[N, 256]`` int32 bins (``radix_digit_hist``, the K5 kernel on the
-    card); between passes :func:`radix_pick` takes the digit where the
-    count passes the residual rank. The answer is ``max(b, 0)`` for ``b``
-    the selected key read as signed, so a row whose first digit is below
-    0x80 (a negative key: a NaN with its sign bit set) gives 0. As in K1,
-    two kinds of row are decided before the first pass: ``count == 0``
+    instead, one pass over the host chunks per digit of ``u = ordered bits
+    ^ 0x80000000`` from the top: ``digits`` (shift, bits), by default
+    11, 11 and 10 bits. Pass p adds each chunk's digit histogram over the
+    valid keys that carry the row's prefix into ``[N, 2^bits]`` int32 bins
+    (``radix_digit_hist``, the K5 kernel on the card); between passes
+    :func:`radix_pick` takes the digit where the count passes the residual
+    rank. The answer does not depend on the schedule: the strategies take
+    the default, and ``digits`` takes another (K1's four 8-bit digits, say)
+    only so that the tests and the chip check can show it. It is ``max(b, 0)``
+    for ``b`` the selected key read as signed, so a row whose top bit of
+    ``u`` is 0 (a negative key: a NaN with its sign bit set) gives 0. As in
+    K1, two kinds of row are decided before the first pass: ``count == 0``
     gives NaN, and a rank at or past the row's valid keys (a count past the
     width) gives the bits 0x7fffffff, where the bisection climbs; those
-    rows fold no chunk. 4 passes move 4/31 of the host→device bytes of the
+    rows fold no chunk. 3 passes move 3/31 of the host→device bytes of the
     streamed bisection."""
     from krr_tpu_torch.ops.cuda_select import radix_digit_hist  # cuda_select imports this module
 
+    check_digits(digits)
     counts32 = np.ascontiguousarray(counts, dtype=np.int32)
     n, t = values.shape
     if n == 0:
@@ -184,10 +208,10 @@ def masked_percentile_bisect_from_host(
     dev = streamer.device
     prefix = torch.zeros((n,), dtype=torch.int64, device=dev)  # the u digits found so far
     residual = rank.to(dev)
-    for shift in RADIX_SHIFTS:
+    for shift, bits in digits:
         prefix32 = torch.where(prefix >= 2**31, prefix - 2**32, prefix).to(torch.int32)
-        bins = torch.zeros((n, RADIX_BINS), dtype=torch.int32, device=dev)
-        bins = streamer.run(bins, lambda b, chunk, eff: radix_digit_hist(chunk, eff, prefix32, b, shift))
+        bins = torch.zeros((n, 1 << bits), dtype=torch.int32, device=dev)
+        bins = streamer.run(bins, lambda b, chunk, eff: radix_digit_hist(chunk, eff, prefix32, b, shift, bits))
         digit, residual = radix_pick(bins, residual)
         prefix = prefix | (digit << shift)
     answer = torch.clamp_min(prefix - 2**31, 0).to(torch.int32)  # max(b, 0), b = u ^ 0x80000000 as signed

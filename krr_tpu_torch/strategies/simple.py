@@ -193,7 +193,7 @@ class SimpleStrategy(BatchedStrategy[SimpleStrategySettings]):
     def _streamed_exact(self, batch: FleetBatch, q: float, stats: StreamStats) -> tuple:
         """(CPU percentile, memory peak in MB) with the window streamed from
         host: the one-pass exact top-K sketch when the rank-from-the-top
-        fits, the four-pass streamed radix select otherwise — both select
+        fits, the three-pass streamed radix select otherwise — both select
         the sample the resident path selects. The percentile may still be
         on the device (a tensor); the peak is a host array."""
         cpu = batch.packed(ResourceType.CPU)

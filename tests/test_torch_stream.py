@@ -70,6 +70,33 @@ def resident(values: np.ndarray, scale: float) -> np.ndarray:
     return np.ascontiguousarray(values / scale if scale != 1.0 else values, dtype=np.float32)
 
 
+#: Bit patterns on the digit edges of the streamed 11/11/10 schedule (the
+#: low 21 or 10 bits all zeros or all ones) in positive values, positive
+#: NaN and negative NaN (a negative key).
+STREAM_EDGES = (0x3F800000, 0x3F9FFFFF, 0x3FA00000, 0x3F8003FF, 0x3F800400, 0x3F7FFC00, 0x3F7FFBFF, 0x00800000,
+                0x00BFFFFF, 0x7F7FFFFF, 0x7F600000, 0x7FFFFC00, 0x7F800400, 0xFFE00000, 0xFFDFFFFF, 0xFFC003FF)
+
+
+def stream_edge_rows(seed: int, t: int):
+    """Rows on the streamed schedule's digit edges: edge patterns alone and
+    salted into gamma-like values, patterns that share their top 21 bits
+    and straddle the 10-bit edge (the last pass decides among them), ones
+    that straddle the 21-bit edge, and a count of 1."""
+    rng = np.random.default_rng(seed)
+    pool = np.array(STREAM_EDGES, dtype=np.uint32).view(np.float32)
+    rows = []
+    for frac in (1.0, 0.5, 0.1):
+        row = rng.gamma(2.0, 0.05, size=t).astype(np.float32)
+        salted = rng.random(t) < frac
+        row[salted] = rng.choice(pool, int(salted.sum()))
+        rows.append(row)
+    for base in (0x3F800000, 0x3F9FFC00):
+        rows.append((base + rng.integers(0, 2048, t)).astype(np.uint32).view(np.float32))
+    values = np.stack(rows + [rows[0]])
+    counts = np.array([t] * len(rows) + [1], dtype=np.int32)
+    return values, counts
+
+
 # ------------------------------------------------------------ the streamer
 
 
@@ -235,12 +262,46 @@ class TestStreamedSelect:
         np.testing.assert_array_equal(port.view(np.int32), want.view(np.int32))
 
     @pytest.mark.parametrize("chunk_size", CHUNKS)
-    @pytest.mark.parametrize("q", [50.0, 99.0])
+    @pytest.mark.parametrize("q", [50.0, 99.0, 0.0, 90.0, 100.0])
     def test_equals_jax_streamed_bisection(self, chunk_size, q):
+        """The 3-pass schedule against the JAX package's 31-pass streamed
+        bisection, bit for bit (NaN payloads included)."""
         values, counts = fuzz(242, N, T)
         counts[-1] = T + 9
         port = port_selection.masked_percentile_bisect_from_host(values, counts, q, chunk_size, device="cpu")
-        assert_same(port, jax_selection.masked_percentile_bisect_from_host(values, counts, q, chunk_size))
+        ref = np.asarray(jax_selection.masked_percentile_bisect_from_host(values, counts, q, chunk_size), np.float32)
+        assert_same(port, ref)
+        np.testing.assert_array_equal(port.view(np.int32), ref.view(np.int32))
+
+    @pytest.mark.parametrize("q", QS)
+    def test_schedule_does_not_change_the_answer(self, q):
+        """K1's hard rows and rows on the 11- and 10-bit digit edges: the
+        default 11/11/10 schedule, 12/12/8 and the 8-bit schedule give the
+        same sample, which is K1's (the numpy model)."""
+        hard, edges = radix_route_rows(751, 300), stream_edge_rows(752, 300)
+        values, counts = (np.concatenate([a, b]) for a, b in zip(hard, edges))
+        want = radix_route(values, counts, q).view(np.int32)
+        for digits in (port_selection.STREAM_DIGITS, ((20, 12), (8, 12), (0, 8)),
+                       tuple((shift, 8) for shift in port_selection.RADIX_SHIFTS)):
+            port = port_selection.masked_percentile_bisect_from_host(values, counts, q, 37, device="cpu",
+                                                                     digits=digits)
+            np.testing.assert_array_equal(port.view(np.int32), want, err_msg=f"digits {digits}")
+
+    def test_three_passes_on_the_cpu(self):
+        values, counts = fuzz(243, N, T)
+        stats = chunked.StreamStats()
+        port_selection.masked_percentile_bisect_from_host(values, counts, 50.0, 50, device="cpu", stats=stats)
+        assert (stats.passes, stats.chunks) == (3, 3 * -(-T // 50))
+
+    @pytest.mark.parametrize(
+        "digits",
+        [((21, 11), (10, 11)), ((21, 11), (10, 11), (0, 11)), ((20, 13), (0, 20)), ((24, 8), (8, 16), (0, 8))],
+        ids=["short", "past-32", "too-wide", "16-bit-digit"],
+    )
+    def test_rejects_a_schedule_that_does_not_tile_the_key(self, digits):
+        values, counts = fuzz(244, 4, 16)
+        with pytest.raises(ValueError):
+            port_selection.masked_percentile_bisect_from_host(values, counts, 50.0, 8, device="cpu", digits=digits)
 
     @pytest.mark.parametrize("q", QS)
     def test_radix_route_rows(self, q):
@@ -264,55 +325,80 @@ class TestStreamedSelect:
 # ---------------------------------------------------------------- the K5 fold
 
 
-def digit_hist_numpy(values, eff, prefixes, shift, bins):
-    """numpy model of ``radix_digit_hist``: per row, the digit of every
-    valid key whose digits above ``shift`` equal the prefix's, counted."""
+def digit_hist_numpy(values, eff, prefixes, shift, bins, bits=8):
+    """numpy model of ``radix_digit_hist``: per row, the ``bits``-wide digit
+    at ``shift`` of every valid key whose bits above ``shift + bits`` equal
+    the prefix's, counted."""
     out = bins.copy()
     u = port_selection.as_ordered_bits(torch.from_numpy(values)).numpy().view(np.uint32) ^ np.uint32(0x80000000)
-    mask = np.uint32(0 if shift == 24 else (0xFFFFFFFF << (shift + 8)) & 0xFFFFFFFF)
+    mask = np.uint32((0xFFFFFFFF << (shift + bits)) & 0xFFFFFFFF)
     for r in range(values.shape[0]):
         keys = u[r, : max(min(int(eff[r]), values.shape[1]), 0)]
         keys = keys[(keys & mask) == (np.uint32(prefixes[r]) & mask)]
-        np.add.at(out[r], ((keys >> np.uint32(shift)) & np.uint32(0xFF)).astype(np.int64), 1)
+        np.add.at(out[r], ((keys >> np.uint32(shift)) & np.uint32((1 << bits) - 1)).astype(np.int64), 1)
     return out
+
+
+def digit_case(seed: int, n: int, t: int, bits: int):
+    """A fuzzed chunk, prefixes taken from the rows' own keys (so some
+    match) and one at random, and bins that already hold counts."""
+    values, eff = fuzz(seed, n, t)
+    rng = np.random.default_rng(seed + bits)
+    prefixes = values.view(np.int32)[np.arange(n), rng.integers(0, t, n)] ^ np.int32(-(2**31))
+    prefixes[-1] = rng.integers(-(2**31), 2**31)
+    bins = rng.integers(0, 5, size=(n, 1 << bits)).astype(np.int32)
+    return values, eff, prefixes.astype(np.int32), bins
 
 
 class TestDigitHist:
     @pytest.mark.parametrize("shift", port_selection.RADIX_SHIFTS)
     @pytest.mark.parametrize("shape", [(13, 1), (9, 257), (4, 1000)])
     def test_plain_matches_numpy(self, shift, shape):
+        """8-bit digits, K1's schedule."""
         n, t = shape
-        values, eff = fuzz(250 + t, n, t)
-        rng = np.random.default_rng(shift + t)
-        bits = values.view(np.int32)
-        # Prefixes taken from the rows' own keys (so some match), and one random.
-        prefixes = bits[np.arange(n), rng.integers(0, t, n)] ^ np.int32(-(2**31))
-        prefixes[-1] = rng.integers(-(2**31), 2**31)
-        bins = rng.integers(0, 5, size=(n, port_selection.RADIX_BINS)).astype(np.int32)
+        values, eff, prefixes, bins = digit_case(250 + t + shift, n, t, 8)
         want = digit_hist_numpy(values, eff, prefixes.view(np.uint32), shift, bins)
-        got = cuda_select.radix_digit_hist(*port_tensors(values, eff, prefixes.astype(np.int32), bins), shift)
+        got = cuda_select.radix_digit_hist(*port_tensors(values, eff, prefixes, bins), shift, 8)
+        np.testing.assert_array_equal(got.numpy(), want)
+
+    @pytest.mark.parametrize("digit", port_selection.STREAM_DIGITS + ((20, 12), (31, 1), (0, 1), (5, 12)),
+                             ids=lambda d: f"{d[0]}-{d[1]}")
+    @pytest.mark.parametrize("shape", [(13, 1), (9, 257), (4, 1000)])
+    def test_schedule_matches_numpy(self, digit, shape):
+        """Each digit of the streamed 11/11/10 schedule, and the narrowest
+        and widest digits the kernel takes."""
+        (shift, bits), (n, t) = digit, shape
+        values, eff, prefixes, bins = digit_case(270 + t + shift, n, t, bits)
+        want = digit_hist_numpy(values, eff, prefixes.view(np.uint32), shift, bins, bits)
+        got = cuda_select.radix_digit_hist(*port_tensors(values, eff, prefixes, bins), shift, bits)
         np.testing.assert_array_equal(got.numpy(), want)
 
     def test_wrapper_adds_in_place_and_counts_no_launch_on_the_cpu(self):
         values, eff = fuzz(260, 6, 40)
         v, e = port_tensors(values, eff)
-        bins = torch.zeros((6, 256), dtype=torch.int32)
+        bins = torch.zeros((6, 2048), dtype=torch.int32)
         cuda_select.reset_launches()
-        out = cuda_select.radix_digit_hist(v, e, torch.zeros(6, dtype=torch.int32), bins, 24)
+        out = cuda_select.radix_digit_hist(v, e, torch.zeros(6, dtype=torch.int32), bins, 21, 11)
         assert out is bins and int(bins.sum()) == int(np.minimum(eff, 40).sum())
         assert cuda_select.LAUNCHES["radix_digit_hist"] == 0
 
     @pytest.mark.parametrize(
         "bad",
         [
-            lambda v, e, p, b: (v, e, p.long(), b, 24),
-            lambda v, e, p, b: (v, e, p, b.float(), 24),
-            lambda v, e, p, b: (v, e, p, b[:, :128], 24),
-            lambda v, e, p, b: (v, e, p[:-1], b, 24),
-            lambda v, e, p, b: (v, e, p, b, 4),
-            lambda v, e, p, b: (v[:, ::2], e, p, b, 24),
+            lambda v, e, p, b: (v, e, p.long(), b, 24, 8),
+            lambda v, e, p, b: (v, e, p, b.float(), 24, 8),
+            lambda v, e, p, b: (v, e, p, b[:, :128], 24, 8),
+            lambda v, e, p, b: (v, e, p[:-1], b, 24, 8),
+            lambda v, e, p, b: (v, e, p, b, 25, 8),
+            lambda v, e, p, b: (v[:, ::2], e, p, b, 24, 8),
+            lambda v, e, p, b: (v, e, p, b, 24, 0),
+            lambda v, e, p, b: (v, e, p, torch.zeros((6, 8192), dtype=torch.int32), 19, 13),
+            lambda v, e, p, b: (v, e, p, b, -1, 8),
+            lambda v, e, p, b: (v, e, p, b, 21, 11),
+            lambda v, e, p, b: (v, e, p, torch.zeros((6, 2048), dtype=torch.int32), 22, 11),
         ],
-        ids=["int64-prefixes", "float-bins", "narrow-bins", "prefix-rows", "shift", "non-contiguous"],
+        ids=["int64-prefixes", "float-bins", "narrow-bins", "prefix-rows", "shift", "non-contiguous", "bits-0",
+             "bits-13", "negative-shift", "bins-width", "shift-plus-bits"],
     )
     def test_rejects_what_the_kernel_does_not_take(self, bad):
         values, eff = fuzz(261, 6, 40)
@@ -324,9 +410,9 @@ class TestDigitHist:
     @pytest.mark.parametrize("shape", [(0, 8), (5, 0)])
     def test_degenerate_shapes(self, shape):
         values = np.zeros(shape, dtype=np.float32)
-        bins = torch.ones((shape[0], 256), dtype=torch.int32)
+        bins = torch.ones((shape[0], 1024), dtype=torch.int32)
         out = cuda_select.radix_digit_hist(torch.from_numpy(values), torch.full((shape[0],), 3, dtype=torch.int32),
-                                           torch.zeros(shape[0], dtype=torch.int32), bins, 0)
+                                           torch.zeros(shape[0], dtype=torch.int32), bins, 0, 10)
         assert bool((out == 1).all())
 
 
@@ -338,3 +424,13 @@ def test_radix_pick_matches_the_model():
                            ([3, 0, 0], [(3, 0), (0, 0), (255, 0)])):
         digit, rest = port_selection.radix_pick(bins, torch.tensor(residual, dtype=torch.int64))
         assert list(zip(digit.tolist(), rest.tolist())) == want
+
+
+@pytest.mark.parametrize("width", [2, 1024, 2048, 4096])
+def test_radix_pick_takes_any_width(width):
+    """[N, B] bins of any width: the last digit on a row whose count ends
+    in its last bin, and on a row already decided (clamped to B − 1)."""
+    bins = torch.zeros((3, width), dtype=torch.int32)
+    bins[0, -1], bins[1, 0], bins[2, 1] = 4, 2, 3
+    digit, rest = port_selection.radix_pick(bins, torch.tensor([3, 5, 1], dtype=torch.int64))
+    assert digit.tolist() == [width - 1, width - 1, 1] and rest.tolist() == [3, 3, 1]
