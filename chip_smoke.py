@@ -43,7 +43,11 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    rows, odd widths, ``w = 1``, N = 0 and T = 0; and over 3 passes (and 4
    of 8 bits), as the streamed radix select, which must give K1's answer on
    the resident window for odd chunk splits. The streamed max, digest and
-   top-K builds on the card equal the resident kernels' results.
+   top-K builds on the card equal the resident kernels' results. Last,
+   ``DeviceObs.fence`` on ``bisect_select``'s output at the headline shape:
+   under the null tracer it returns its argument with the kernel still
+   running, under a recording tracer it returns once the current stream
+   is idle (``torch.cuda.current_stream().query()``).
 4. ``digest_proof`` — ``digest_hist`` takes a sample's bucket from tables
    (an edge table and a coarse index), exact where the bucket formula is
    monotone in the bit pattern: for each spec of the parity phase, the
@@ -78,7 +82,13 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    ``simple`` scan's byte for byte). Every scan has 10,000 rows and no
    ``?``. A 256-object re-run on the CPU renders the same JSON for
    ``simple`` and ``exact_upgrade``, and for ``tdigest`` the same memory and
-   every CPU value within one bucket of the card's.
+   every CPU value within one bucket of the card's. One more ``simple``
+   scan runs with ``profile_dir`` (``torch.profiler``, CPU and CUDA
+   activities): its JSON equals the unprofiled scan's, the trace holds
+   ``bisect_select_kernel`` and ``row_max_kernel`` as many times as their
+   wrappers counted launches, and the traced device busy share (the union
+   of kernel, copy and set intervals over the traced window, and over the
+   ``Runner.run`` wall) is printed on a ``device_busy`` line.
 
 7. ``stream``  — host streaming (a window past ``--host_stream_mb``) through
    ``Runner.run`` with ``host_stream_mb=1000`` on ``e2e``'s fleet, whose CPU
@@ -126,8 +136,13 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    after (the same kernels as ``e2e``); every scan has 10,000 rows and no
    ``?``, ``exact_upgrade``'s JSON equals ``simple``'s, and the native
    scanner loaded and streamed the stats queries. One ``python3 -m
-   krr_tpu_torch simple`` subprocess and one ``--device cpu`` run render
-   ``simple``'s JSON byte for byte; a ``--device cpu`` run of ``tdigest``
+   krr_tpu_torch simple`` subprocess with ``--trace --profile --statusz
+   --metrics-dump --log-format json`` and one ``--device cpu`` run render
+   ``simple``'s JSON byte for byte; the subprocess's stages are children
+   of ``compute``, its profile partitions its wall, its statusz counts
+   10,000 fetched rows, its dump holds the card's peak memory and a
+   compile-cache hit with no miss, and every stderr line is JSON carrying
+   the trace's scan id (but the greeting, logged before the scan opens); a ``--device cpu`` run of ``tdigest``
    renders the same memory and every CPU value within one bucket of the
    card's warm ``tdigest`` run. ``tdigest --digest_ingest true`` at
    ``--pipeline-depth 4`` and ``0`` (in the order 4, 0, 0, 4) prints the
@@ -563,9 +578,37 @@ def phase_parity(torch, np) -> dict:
     sketch_cases, bucket_moves = sketch_parity(torch, np, errs)
     stream_cases = stream_parity(torch, np, errs)
     torch.cuda.synchronize()
+    fence = fence_check(torch)
     emit("parity", cases=cases + sketch_cases + stream_cases, bit_exact=True, max_abs_err=errs,
-         digest_bucket_moves_card_vs_cpu=bucket_moves)
+         digest_bucket_moves_card_vs_cpu=bucket_moves, fence=fence)
     return errs
+
+
+def fence_check(torch) -> dict:
+    """``DeviceObs.fence`` on ``bisect_select``'s output at the headline
+    shape: under the null tracer it returns its argument and leaves the
+    kernel running (the stream still busy), under a recording tracer it
+    returns its argument once the current stream is idle."""
+    from krr_tpu_torch.obs.device import NULL_DEVICE_OBS, DeviceObs
+    from krr_tpu_torch.obs.metrics import MetricsRegistry
+    from krr_tpu_torch.obs.trace import Tracer
+    from krr_tpu_torch.ops import cuda_select
+
+    generator = torch.Generator(device=DEVICE).manual_seed(11)
+    values = torch.rand((HEADLINE_ROWS, HEADLINE_T), device=DEVICE, generator=generator)
+    counts = torch.full((HEADLINE_ROWS,), HEADLINE_T, dtype=torch.int32, device=DEVICE)
+    stream = torch.cuda.current_stream()
+    out = cuda_select.masked_percentile_bisect_cuda(values, counts, 99.0)
+    check(NULL_DEVICE_OBS.fence(out) is out, "fence: the null fence did not return its argument")
+    busy_after_null_fence = not stream.query()
+    check(busy_after_null_fence, "fence: the stream was idle right after an untraced fence (did it wait?)")
+    out = cuda_select.masked_percentile_bisect_cuda(values, counts, 99.0)
+    busy_after_launch = not stream.query()
+    check(DeviceObs(Tracer(), MetricsRegistry()).fence(out) is out, "fence: it did not return its argument")
+    check(stream.query(), "fence: the current stream is still busy after a recording tracer's fence")
+    del values
+    return {"busy_after_launch": busy_after_launch, "busy_after_null_fence": busy_after_null_fence,
+            "idle_after_fence": True}
 
 
 def stream_parity(torch, np, errs: dict) -> int:
@@ -1206,8 +1249,78 @@ def phase_e2e(torch, fleet: E2EFleet) -> tuple[dict, dict]:
     e2e["paths"]["tdigest"]["cpu_recheck_identical_cpu_values"] = same_within_a_bucket(
         Result(scans=results["tdigest"].scans[head]).format("json"), cpu_result.format("json")
     )
+    e2e["profiled_simple"] = profiled_scan(fleet, rendered["simple"])
     emit("e2e", **e2e)
     return e2e, rendered
+
+
+#: Chrome trace categories of the card's own work in a torch.profiler trace.
+DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def traced_device_work(events: list) -> dict:
+    """From a torch.profiler Chrome trace: each kernel's launches by its
+    function name, the device's busy seconds (the union of kernel, copy and
+    set intervals) and the traced window (the first to the last event)."""
+    import re
+
+    spans = [e for e in events if e.get("ph") == "X" and "dur" in e]
+    device = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in spans
+                    if e.get("cat") in DEVICE_CATEGORIES)
+    busy, end = 0.0, float("-inf")
+    for start, stop in device:  # the union: a copy and a kernel may overlap
+        if stop > end:
+            busy += stop - max(start, end)
+            end = stop
+    kernels: dict = {}
+    for e in spans:
+        if e.get("cat") == "kernel":
+            match = re.search(r"(\w+)\(", e["name"])
+            name = match.group(1) if match else e["name"]
+            kernels[name] = kernels.get(name, 0) + 1
+    window = (max(float(e["ts"]) + float(e["dur"]) for e in spans) - min(float(e["ts"]) for e in spans)
+              if spans else 0.0)
+    by_category = {cat: sum(float(e["dur"]) for e in spans if e.get("cat") == cat) / 1e6
+                   for cat in DEVICE_CATEGORIES}
+    return {"kernels": kernels, "busy_seconds": busy / 1e6, "window_seconds": window / 1e6,
+            "seconds_by_category": by_category}
+
+
+def profiled_scan(fleet: E2EFleet, reference: str) -> dict:
+    """One more ``simple`` scan with ``profile_dir`` set: its JSON equals the
+    unprofiled scan's, the profiler trace holds each launched kernel as
+    many times as its wrapper counted, and the traced device busy share
+    (kernel, copy and set time over the traced window, and over the
+    ``Runner.run`` wall) is printed."""
+    import glob
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="krr-profile-") as tmp:
+        _reset_counts()
+        result, runner, wall = fleet.scan(fleet.objects, DEVICE, "simple", profile_dir=tmp)
+        launches, _generic = _read_counts()
+        traces = glob.glob(os.path.join(tmp, "*.pt.trace.json"))
+        check(len(traces) == 1, f"profile_dir: {len(traces)} trace files, expected 1")
+        with open(traces[0]) as f:
+            events = json.load(f)["traceEvents"]
+        trace_bytes = os.path.getsize(traces[0])
+    check(result.format("json") == reference, "e2e: the profiled simple scan's JSON != the unprofiled scan's")
+    work = traced_device_work(events)
+    for wrapper, kernel in (("bisect_select", "bisect_select_kernel"), ("row_max", "row_max_kernel")):
+        check(launches[wrapper] >= 1 and work["kernels"].get(kernel, 0) == launches[wrapper],
+              f"profile_dir: {kernel} traced {work['kernels'].get(kernel, 0)} times, its wrapper "
+              f"counted {launches[wrapper]} launches")
+    busy = {
+        "busy_share_of_traced_window": work["busy_seconds"] / work["window_seconds"],
+        "busy_share_of_run_wall": work["busy_seconds"] / wall,
+    }
+    legs = runner.session.strategy.leg_seconds
+    # The compute leg beyond the strategy's own legs: the profiler's start,
+    # stop and export.
+    profiler_seconds = runner.stats["compute_seconds"] - sum(legs.values())
+    emit("device_busy", path="simple", run_wall_seconds=wall, profiler_seconds=profiler_seconds, **work, **busy)
+    return {"run_wall_seconds": wall, "runner_stats": runner.stats, "legs_seconds": legs, "launches": launches,
+            "trace_bytes": trace_bytes, "profiler_seconds": profiler_seconds, **work, **busy}
 
 
 def phase_stream(torch, fleet: E2EFleet, rendered: "dict | None") -> dict:
@@ -1620,14 +1733,7 @@ def _phase_cli(fakes: FakeServers, url: str, scan_end: float, fixture_seconds: f
           "cli: no stats query took the native streamed route")
     report["native_library"] = native.SO_PATH
 
-    started = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "krr_tpu_torch", "simple", *common, "--device", DEVICE],
-        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True, timeout=600,
-    )
-    report["subprocess_wall_seconds"] = time.perf_counter() - started
-    check(proc.returncode == 0, f"python3 -m krr_tpu_torch simple exited {proc.returncode}: {proc.stderr[-2000:]}")
-    check(proc.stdout == rendered["simple"], "cli: the subprocess's JSON != the in-process simple JSON")
+    report["subprocess"] = _cli_instrumented_subprocess(common, rendered["simple"], os.path.dirname(kubeconfig))
 
     stdout, stats, wall = invoke(["simple", *common, "--device", "cpu"])
     report["cpu_run"] = {"wall_seconds": wall, "runner_stats": stats}
@@ -1640,6 +1746,89 @@ def _phase_cli(fakes: FakeServers, url: str, scan_end: float, fixture_seconds: f
     report.update(_cli_state(invoke, common, rendered["tdigest"], os.path.dirname(kubeconfig)))
     emit("cli", **report)
     return report
+
+
+def _cli_instrumented_subprocess(common: list, simple_json: str, tmp: str) -> dict:
+    """``python3 -m krr_tpu_torch simple`` in a child process with every
+    observability flag: ``--trace``, ``--profile``, ``--statusz``,
+    ``--metrics-dump`` and ``--log-format json`` (logs on stderr, so not
+    ``-q``). Its stdout equals the in-process JSON; the stage spans are
+    children of ``compute``; the profile's categories partition its wall;
+    statusz counts every fetched row; the dump holds the card's peak
+    allocated memory and a compile-cache hit without a miss (the kernels
+    were built before); every stderr line is a JSON record, and each but
+    the greeting (logged before the scan span opens, as in the JAX
+    package) carries the trace's scan id."""
+    paths = {kind: os.path.join(tmp, name) for kind, name in (
+        ("trace", "trace.json"), ("profile", "profile.json"), ("statusz", "statusz.json"),
+        ("metrics", "metrics.prom"),
+    )}
+    args = [arg for arg in common if arg != "-q"]
+    started = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "krr_tpu_torch", "simple", *args, "--device", DEVICE, "--logtostderr",
+         "--log-format", "json", "--trace", paths["trace"], "--profile", paths["profile"],
+         "--statusz", paths["statusz"], "--metrics-dump", paths["metrics"]],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True, timeout=600,
+    )
+    wall = time.perf_counter() - started
+    check(proc.returncode == 0, f"python3 -m krr_tpu_torch simple exited {proc.returncode}: {proc.stderr[-2000:]}")
+    check(proc.stdout == simple_json, "cli: the subprocess's JSON != the in-process simple JSON")
+
+    with open(paths["trace"]) as f:
+        spans = [e for e in json.load(f)["traceEvents"] if e["ph"] == "X"]
+    (root,) = [e for e in spans if e["name"] == "scan"]
+    (compute,) = [e for e in spans if e["name"] == "compute"]
+    stages = [e["name"] for e in sorted(spans, key=lambda e: e["ts"])
+              if e["args"]["parent_id"] == compute["args"]["span_id"]]
+    check(stages == ["pack", "quantile", "round"], f"cli: the stages under compute are {stages}")
+    scan_id = root["args"]["trace_id"]
+
+    with open(paths["profile"]) as f:
+        (profile,) = json.load(f)["scans"]
+    partition = sum(profile["categories"].values())
+    check(abs(partition - profile["wall_seconds"]) <= 1e-3,
+          f"cli: the profile's categories sum to {partition} s, its wall is {profile['wall_seconds']} s")
+
+    with open(paths["statusz"]) as f:
+        statusz = json.load(f)
+    objectives = {o["name"]: o for o in statusz["objectives"]}
+    check(objectives["fetch_failed_rows"]["events"] == {"bad": 0.0, "total": float(CLI_OBJECTS)},
+          f"cli: statusz fetch events {objectives['fetch_failed_rows']['events']}")
+    check(statusz["firing"] == [], f"cli: statusz alerts firing {statusz['firing']}")
+
+    with open(paths["metrics"]) as f:
+        samples = {}
+        for line in f:
+            if not line.startswith("#"):
+                key, value = line.rsplit(" ", 1)
+                samples[key] = float(value)
+    peak = samples.get('krr_tpu_device_memory_bytes{device="cuda:0",kind="peak_bytes_in_use"}', 0.0)
+    check(peak > 0, "cli: no peak device memory in the metrics dump")
+    hits = samples.get("krr_tpu_compile_cache_hits_total", 0.0)
+    misses = samples.get("krr_tpu_compile_cache_misses_total", 0.0)
+    check(hits >= 1 and misses == 0, f"cli: compile cache hits {hits}, misses {misses} (the kernels were built)")
+
+    lines = proc.stderr.splitlines()
+    records = []
+    for line in lines:
+        try:
+            records.append(json.loads(line))
+        except json.JSONDecodeError:
+            raise SmokeFailure(f"cli: a stderr line is not JSON: {line[:300]!r}") from None
+    greeting = [r["message"] for r in records if "scan_id" not in r]
+    scanned = [r for r in records if "scan_id" in r]
+    check(len(greeting) == 3 and greeting[0].startswith("Running krr-tpu-torch"),
+          f"cli: log lines without a scan id beyond the greeting: {greeting}")
+    check(scanned and all(r["scan_id"] == scan_id for r in scanned),
+          f"cli: log lines whose scan id is not the trace's {scan_id}")
+    return {
+        "wall_seconds": wall, "stages": stages, "profile_wall_seconds": profile["wall_seconds"],
+        "profile_categories": profile["categories"], "statusz_objectives": {
+            name: {"events": o["events"], "firing": o["firing"]} for name, o in objectives.items()},
+        "peak_device_bytes": peak, "compile_cache_hits": hits, "compile_cache_misses": misses,
+        "log_lines": len(records), "log_lines_with_scan_id": len(scanned),
+    }
 
 
 def _cli_ingest(invoke, common: list) -> dict:

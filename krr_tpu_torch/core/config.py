@@ -107,6 +107,10 @@ class Config(pd.BaseModel):
     format: str = "table"
     strategy: str = "simple"
     log_to_stderr: bool = False
+    #: "console" = rich prefixed lines (the reference UX); "json" = one
+    #: structured object per line carrying scan_id/span_id from the active
+    #: trace span, so log lines join back to --trace output.
+    log_format: Literal["console", "json"] = "console"
 
     # Observability (`krr_tpu_torch.obs`)
     #: Write a Chrome trace-event JSON of the scan's spans to this file at
@@ -118,6 +122,43 @@ class Config(pd.BaseModel):
     #: Exit nonzero when any object's fetch failed terminally (rows rendered
     #: UNKNOWN).
     strict: bool = False
+    #: Write a one-shot SLO evaluation (`krr_tpu_torch.obs.health`, the
+    #: objectives the JAX package's serve exposes on GET /statusz,
+    #: evaluated once over this scan's registry) as JSON to this file at
+    #: exit.
+    statusz_path: Optional[str] = None
+    #: Write the scan's critical-path attribution report
+    #: (`krr_tpu_torch.obs.profile`, the JSON `analyze` produces) to this
+    #: file at exit. Implies a recording tracer, like --trace.
+    profile_path: Optional[str] = None
+
+    # SLO engine (`krr_tpu_torch.obs.health`): one-shot scans evaluate once
+    # for --statusz.
+    #: Error budget for the scan-failure objective: the fraction of scans
+    #: allowed to abort before the budget burns.
+    slo_scan_failure_budget: float = pd.Field(0.05, gt=0, le=1)
+    #: Error budget for the fetch failed-row objective: the fraction of
+    #: object fetches allowed to fail terminally (rows rendered UNKNOWN).
+    slo_fetch_failure_budget: float = pd.Field(0.05, gt=0, le=1)
+    #: Scan-latency objective limit in seconds. 0 = auto: one scan cadence
+    #: (``scan_interval_seconds``).
+    slo_scan_latency_seconds: float = pd.Field(0.0, ge=0)
+    #: Freshness objective limit in seconds. 0 = auto: three scan cadences.
+    slo_freshness_seconds: float = pd.Field(0.0, ge=0)
+    #: Burn-rate windows: the FAST window makes detection quick, the SLOW
+    #: window keeps a brief blip from alerting.
+    slo_fast_window_seconds: float = pd.Field(300.0, gt=0)
+    slo_slow_window_seconds: float = pd.Field(3600.0, gt=0)
+    #: Burn-rate thresholds (windowed bad ratio ÷ budget; 1.0 = consuming
+    #: exactly the budget).
+    slo_fast_burn: float = pd.Field(10.0, gt=0)
+    slo_slow_burn: float = pd.Field(5.0, gt=0)
+    #: Read-path latency objective limit in seconds (0 = disabled; its
+    #: samples come from the serve plane).
+    slo_read_p99_seconds: float = pd.Field(0.0, ge=0)
+    #: The scan cadence the 0 = auto SLO limits resolve against (no CLI
+    #: flag on the scan commands, as in the JAX package).
+    scan_interval_seconds: float = pd.Field(900.0, gt=0)
 
     #: Pin the scan window's right edge to an absolute unix timestamp —
     #: reproducible scans (two runs see identical samples). Default: now.
@@ -183,13 +224,15 @@ class Config(pd.BaseModel):
             quiet=self.quiet,
             verbose=self.verbose,
             log_to_stderr=self.log_to_stderr,
+            log_format=self.log_format,
         )
 
     def create_tracer(self):
-        """A recording tracer when ``--trace`` asked for one, else the no-op
-        tracer — the disabled path must stay free (`krr_tpu_torch.obs.trace`)."""
+        """A recording tracer when ``--trace`` or ``--profile`` asked for
+        one (both consume the recorded ring at exit), else the no-op tracer —
+        the disabled path must stay free (`krr_tpu_torch.obs.trace`)."""
         from krr_tpu_torch.obs.trace import NULL_TRACER, Tracer
 
-        if self.trace_path:
+        if self.trace_path or self.profile_path:
             return Tracer()
         return NULL_TRACER

@@ -34,6 +34,7 @@ from krr_tpu_torch.models.allocations import ResourceAllocations, ResourceType
 from krr_tpu_torch.models.objects import K8sObjectData
 from krr_tpu_torch.models.result import ResourceScan, Result
 from krr_tpu_torch.models.series import FleetBatch, RaggedHistory
+from krr_tpu_torch.obs.device import DeviceObs, install_compile_hooks
 from krr_tpu_torch.obs.metrics import MetricsRegistry
 from krr_tpu_torch.obs.trace import NullTracer
 from krr_tpu_torch.strategies.base import RunResult, run_batch_row_chunks
@@ -154,7 +155,11 @@ class ScanSession:
         #: telemetry lands in one place.
         self.tracer = tracer if tracer is not None else config.create_tracer()
         self.metrics = metrics if metrics is not None else MetricsRegistry()
+        # Kernel builds (the port's compile) report into this session's
+        # registry: krr_tpu_compile_* and the stages' compile split.
+        install_compile_hooks(self.metrics)
         self.strategy = config.create_strategy()
+        self._wire_obs()
         self._inventory = inventory
         self._history_factory = history_factory
         self._history_sources: dict[Optional[str], Union[HistorySource, Exception]] = {}
@@ -163,6 +168,12 @@ class ScanSession:
         #: — built lazily alongside the first real loader, so fake-injected
         #: sessions never import the transport stack.
         self._retry_budget = None
+
+    def _wire_obs(self) -> None:
+        """Give the strategy its device-compute instrumentation
+        (`krr_tpu_torch.obs.device`): stage spans into THIS session's
+        tracer, padding/memory gauges into its registry."""
+        self.strategy.obs = DeviceObs(self.tracer, self.metrics)
 
     def begin_scan(self) -> None:
         """Reset the per-scan fetch budgets at each scan's start, so one

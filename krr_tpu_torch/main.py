@@ -8,9 +8,15 @@ strategy/formatter subclass before calling ``krr_tpu_torch.run()`` adds a
 command/option, preserving the plugin contract. A scan runs on the card
 (``--device cuda``, the default) unless the caller passes ``--device cpu``.
 
+The scan commands carry the JAX package's observability options:
+``--trace``, ``--metrics-dump``, ``--statusz`` with the ``--slo-*`` knobs,
+``--profile``, ``--log-format`` and the ``profile_dir`` strategy option; a
+scan installs the SIGUSR2 debug dump. ``analyze`` renders a ``--trace``
+file's critical-path attribution or stitches several traces.
+
 Not ported yet (ROADMAP): the ``serve``, ``shard``, ``replica``, ``diff``,
-``eval``, ``analyze`` and ``fleet-status`` commands, and the ``--statusz``,
-``--profile`` and SLO options of the scan commands.
+``eval`` and ``fleet-status`` commands, and ``analyze --trend/--timeline``
+(they read the serve plane's flight recorder).
 """
 
 from __future__ import annotations
@@ -32,11 +38,12 @@ from krr_tpu_torch.utils.version import get_version
 
 #: Settings fields that tune the device backend rather than the strategy's
 #: recommendation math — rendered in their own help panel.
-DEVICE_BACKEND_FIELDS = {"device", "host_stream_mb", "exact_sketch_budget"}
+DEVICE_BACKEND_FIELDS = {"device", "profile_dir", "host_stream_mb", "exact_sketch_budget"}
 
 #: Help-panel render order (any unlisted panel prints after these).
 PANEL_ORDER = (
     "General Settings",
+    "SLO Settings",
     "Logging Settings",
     "Strategy Settings",
     "Device Backend Settings",
@@ -387,6 +394,26 @@ def _common_options() -> list[click.Option]:
             ),
         ),
         PanelOption(
+            ["--statusz", "statusz_path"],
+            default=None,
+            help=(
+                "Write a one-shot SLO evaluation (scan failures, fetch failed "
+                "rows, latency, freshness — evaluated once over this scan) as "
+                "JSON to this file at exit."
+            ),
+        ),
+        PanelOption(
+            ["--profile", "profile_path"],
+            default=None,
+            help=(
+                "Write the scan's critical-path attribution report (per-category "
+                "wall split incl. fetch transport/decode phases, what-if-fetch-"
+                "were-free estimate, critical path) as JSON to this file at exit. "
+                "Implies recording spans like --trace; `analyze` renders the "
+                "same report from a --trace file."
+            ),
+        ),
+        PanelOption(
             ["--strict"],
             is_flag=True,
             default=False,
@@ -404,6 +431,17 @@ def _common_options() -> list[click.Option]:
             help=(
                 "Log a warning for any Prometheus range query slower than this "
                 "many seconds (retries included); 0 disables the slow-query log."
+            ),
+        ),
+        PanelOption(
+            ["--log-format", "log_format"],
+            type=click.Choice(["console", "json"]),
+            default="console",
+            show_default=True,
+            panel="Logging Settings",
+            help=(
+                "console = rich prefixed lines; json = one structured object "
+                "per line carrying scan_id/span_id from the active trace span."
             ),
         ),
         PanelOption(["--cpu-min-value"], type=int, default=5, show_default=True, help="Minimum CPU recommendation, in millicores."),
@@ -437,15 +475,74 @@ def _common_options() -> list[click.Option]:
         ),
     ]
 
+def _slo_options() -> list[click.Option]:
+    """The SLO engine's knobs (`krr_tpu_torch.obs.health`), read by the
+    ``--statusz`` evaluation of a one-shot scan."""
+    from krr_tpu_torch.core.config import Config
+
+    defaults = {name: Config.model_fields[name].default for name in (
+        "slo_scan_failure_budget", "slo_fetch_failure_budget",
+        "slo_scan_latency_seconds", "slo_freshness_seconds",
+        "slo_fast_window_seconds", "slo_slow_window_seconds",
+        "slo_fast_burn", "slo_slow_burn", "slo_read_p99_seconds",
+    )}
+
+    def option(flags: list, help_text: str) -> PanelOption:
+        return PanelOption(
+            flags, type=float, default=defaults[flags[1]], show_default=True, panel="SLO Settings", help=help_text
+        )
+
+    return [
+        option(["--slo-scan-failure-budget", "slo_scan_failure_budget"],
+               "SLO error budget: the fraction of scans allowed to abort."),
+        option(["--slo-fetch-failure-budget", "slo_fetch_failure_budget"],
+               "SLO error budget: the fraction of object fetches allowed to fail terminally."),
+        option(["--slo-scan-latency", "slo_scan_latency_seconds"],
+               "Scan-latency SLO limit in seconds (0 = auto: one scan cadence)."),
+        option(["--slo-freshness", "slo_freshness_seconds"],
+               "Freshness SLO limit in seconds for the published window's age (0 = auto: three scan cadences)."),
+        option(["--slo-read-p99", "slo_read_p99_seconds"],
+               "Read-path latency SLO limit in seconds for the serve plane's per-tick "
+               "GET /recommendations p99 (0 = objective disabled)."),
+        option(["--slo-fast-window", "slo_fast_window_seconds"],
+               "Fast burn-rate window in seconds (detection speed)."),
+        option(["--slo-slow-window", "slo_slow_window_seconds"],
+               "Slow burn-rate window in seconds (blip damping)."),
+        option(["--slo-fast-burn", "slo_fast_burn"],
+               "Fast-window burn-rate threshold (windowed bad ratio ÷ budget)."),
+        option(["--slo-slow-burn", "slo_slow_burn"],
+               "Slow-window burn-rate threshold — alerts fire only while BOTH windows burn past their thresholds."),
+    ]
+
+
 def _finish_observability(config: Any, session: Any) -> None:
-    """The ``--trace`` / ``--metrics-dump`` exit hooks of a one-shot scan:
-    dump the session tracer's ring as Chrome trace JSON and the shared
-    metrics registry as a Prometheus exposition snapshot (build info and
-    process self-metrics refreshed)."""
+    """The exit hooks of a one-shot scan, in the JAX package's order: the
+    session tracer's ring as Chrome trace JSON (``--trace``), its
+    critical-path attribution (``--profile``), a one-shot SLO evaluation
+    (``--statusz``) and the shared metrics registry as a Prometheus
+    exposition snapshot with build info and process self-metrics refreshed
+    (``--metrics-dump``)."""
     if config.trace_path:
         from krr_tpu_torch.obs.trace import write_chrome_trace
 
         write_chrome_trace(session.tracer, config.trace_path)
+    if config.profile_path:
+        from krr_tpu_torch.obs.profile import write_profile_report
+
+        write_profile_report(session.tracer, config.profile_path)
+    if config.statusz_path:
+        import json
+
+        from krr_tpu_torch.obs.health import engine_from_config
+
+        # One evaluation whose window is the whole scan (the engine seeds a
+        # zero baseline at construction). Evaluated BEFORE the metrics dump
+        # so the krr_tpu_slo_* series it fires land in the same exposition.
+        engine = engine_from_config(session.metrics, config, one_shot=True, logger=session.logger)
+        engine.evaluate()
+        with open(config.statusz_path, "w") as f:
+            json.dump(engine.status(), f, indent=2)
+            f.write("\n")
     if config.metrics_dump_path:
         from krr_tpu_torch.obs.metrics import record_build_info, refresh_process_metrics
 
@@ -453,6 +550,147 @@ def _finish_observability(config: Any, session: Any) -> None:
         refresh_process_metrics(session.metrics)
         with open(config.metrics_dump_path, "w") as f:
             f.write(session.metrics.render())
+
+
+def _make_analyze_command() -> click.Command:
+    """``analyze``: critical-path attribution over a recorded scan trace
+    (`krr_tpu_torch.obs.profile`) — where the wall went (fetch transport vs
+    decode vs fold vs compute vs idle), the what-if-fetch-were-free
+    estimate, and the critical path itself. Input is a ``--trace`` Chrome
+    JSON file, or ``--url`` against a live process's ``/debug/trace`` ring;
+    ``--stitch`` merges several sources into one trace. The JAX command's
+    ``--trend``/``--timeline`` read the serve plane's flight recorder and
+    arrive with it."""
+
+    def _render_out(rendered: str, output: Any) -> None:
+        if output:
+            with open(output, "w") as f:
+                f.write(rendered)
+        else:
+            click.echo(rendered, nl=False)
+
+    def _load_trace_file(path: str) -> dict:
+        import json
+
+        try:
+            with open(path) as f:
+                return json.load(f)
+        except OSError as e:
+            raise click.UsageError(f"cannot read trace file {path}: {e}") from e
+        except json.JSONDecodeError as e:
+            raise click.UsageError(f"{path} is not Chrome trace JSON: {e}") from e
+
+    def _fetch_trace_url(base: str, n: int) -> dict:
+        import json
+        import urllib.error
+        import urllib.request
+
+        target = base.rstrip("/") + "/debug/trace" + (f"?n={n}" if n > 0 else "")
+        try:
+            with urllib.request.urlopen(target, timeout=30) as response:
+                return json.load(response)
+        except (OSError, urllib.error.URLError, json.JSONDecodeError) as e:
+            raise click.UsageError(f"cannot fetch {target}: {e}") from e
+
+    def callback(trace: Any, url: Any, n: int, fmt: str, output: Any, stitch: bool) -> None:
+        import json
+
+        from krr_tpu_torch.obs.profile import profile_chrome_payload, render_text
+
+        traces = list(trace or ())
+        urls = list(url or ())
+        if stitch:
+            from krr_tpu_torch.obs.trace import stitch_chrome
+
+            if not traces and not urls:
+                raise click.UsageError("--stitch needs at least one --trace FILE or --url URL")
+            payloads = [_load_trace_file(p) for p in traces]
+            payloads += [_fetch_trace_url(u, n) for u in urls]
+            stitched = stitch_chrome(payloads)
+            if not stitched.get("traceEvents"):
+                click.echo("no completed spans in any source — nothing to stitch")
+                return
+            _render_out(json.dumps(stitched, indent=2) + "\n", output)
+            return
+        if len(traces) + len(urls) != 1:
+            raise click.UsageError(
+                "pass exactly one of --trace FILE or --url URL "
+                "(repeat sources only with --stitch)"
+            )
+        payload = _load_trace_file(traces[0]) if traces else _fetch_trace_url(urls[0], n)
+        report = profile_chrome_payload(payload, n=n)
+        if urls and not report["scans"]:
+            # A live process whose trace ring is empty is a FRESH one, not a
+            # broken one: say so plainly and exit clean.
+            click.echo(
+                "no completed scans yet — the server's trace ring is empty "
+                "(retry after the first scheduler tick)"
+            )
+            return
+        rendered = json.dumps(report, indent=2) + "\n" if fmt == "json" else render_text(report)
+        _render_out(rendered, output)
+        if not report["scans"]:
+            raise click.ClickException("trace holds no completed scan spans")
+
+    return PanelCommand(
+        "analyze",
+        callback=callback,
+        params=[
+            PanelOption(
+                ["--trace", "trace"],
+                multiple=True,
+                default=(),
+                help=(
+                    "Chrome trace-event JSON file recorded by --trace. Repeat "
+                    "with --stitch to merge several processes."
+                ),
+            ),
+            PanelOption(
+                ["--url", "url"],
+                multiple=True,
+                default=(),
+                help=(
+                    "Base URL of a live process; reads its /debug/trace ring. "
+                    "Repeat with --stitch to merge several processes."
+                ),
+            ),
+            PanelOption(
+                ["--stitch", "stitch"],
+                is_flag=True,
+                default=False,
+                help=(
+                    "Merge the trace rings from every --trace/--url source into "
+                    "ONE Chrome trace: remote links join spans across processes, "
+                    "with one lane block per source."
+                ),
+            ),
+            PanelOption(
+                ["-n", "n"],
+                type=int,
+                default=0,
+                show_default=True,
+                help="Analyze only the newest N scans (0 = all recorded).",
+            ),
+            PanelOption(
+                ["--format", "-f", "fmt"],
+                type=click.Choice(["text", "json"]),
+                default="text",
+                show_default=True,
+                help="Report rendering: human text or JSON.",
+            ),
+            PanelOption(
+                ["--output", "-o", "output"],
+                default=None,
+                help="Write the report to this file instead of stdout.",
+            ),
+        ],
+        help=(
+            "Attribute a recorded scan's wall clock across fetch transport/decode, "
+            "fold, compute, publish, and idle; estimate the wall if fetch were "
+            "free; and print the critical path. Reads a --trace file or a live "
+            "process's /debug/trace ring."
+        ),
+    )
 
 
 def _make_strategy_command(strategy_name: str, strategy_type: Any) -> click.Command:
@@ -486,6 +724,17 @@ def _make_strategy_command(strategy_name: str, strategy_type: Any) -> click.Comm
             # path not ported yet: a clear error and a nonzero exit, never
             # a quiet CPU scan.
             raise click.ClickException(str(e)) from e
+        from krr_tpu_torch.obs.dump import install_signal_dump
+
+        # kill -USR2 <pid> mid-scan dumps the trace ring + metrics snapshot.
+        install_signal_dump(
+            runner.session.tracer,
+            runner.session.metrics,
+            device=str(runner.session.strategy.settings.device),
+            trace_target=config.trace_path,
+            metrics_target=config.metrics_dump_path,
+            logger=runner.logger,
+        )
 
         async def run_and_close() -> None:
             # Close the session INSIDE the loop: the loaders' HTTP clients
@@ -509,7 +758,7 @@ def _make_strategy_command(strategy_name: str, strategy_type: Any) -> click.Comm
     return PanelCommand(
         strategy_name,
         callback=callback,
-        params=_common_options() + _strategy_options(strategy_type),
+        params=_common_options() + _slo_options() + _strategy_options(strategy_type),
         help=f"Run krr-tpu-torch using the `{strategy_name}` strategy",
     )
 
@@ -531,6 +780,8 @@ def load_commands() -> None:
     for strategy_name, strategy_type in BaseStrategy.get_all().items():
         if strategy_name not in app.commands:
             app.add_command(_make_strategy_command(strategy_name, strategy_type))
+    if "analyze" not in app.commands:
+        app.add_command(_make_analyze_command())
 
 
 def run() -> None:

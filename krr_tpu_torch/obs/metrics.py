@@ -11,9 +11,9 @@ assignment (atomic under the GIL).
 
 The metric names keep the ``krr_tpu_`` prefix, so dashboards and recording
 rules read both packages alike. Only the families this package fires are
-declared; the serve, store, federation, ingest and SLO families arrive with
-the slices that fire them (the one-shot ``state_path`` scan passes no
-registry to the durable store, as in the JAX package).
+declared; the serve, store, federation and ingest families arrive with the
+slices that fire them (the one-shot ``state_path`` scan passes no registry
+to the durable store, as in the JAX package).
 """
 
 from __future__ import annotations
@@ -68,11 +68,27 @@ SCAN_METRICS: tuple[tuple, ...] = (
     ("krr_tpu_prom_wire_encoding_total", "counter", "Range-query responses by negotiated Content-Encoding (identity|gzip|zstd) — identity climbing while --fetch-compression is on means something on the path stripped Accept-Encoding."),
     ("krr_tpu_fetch_downsampled_total", "counter", "Stats-route queries rewritten as grid-aligned server-side subquery downsamples (--fetch-downsample), per cluster, counted at issue time."),
     ("krr_tpu_fetch_downsample_fallback_total", "counter", "Downsampled stats queries that fell back to the raw fetch after a non-transient backend rejection (the namespaces are pinned to raw in the plan telemetry)."),
+    # Device-level compute observability (`krr_tpu_torch.obs.device`). The
+    # port has no JIT: its compile is the nvcc build of
+    # `krr_tpu_torch.ops.cuda_build`, so only the backend_compile phase
+    # ever fires (the JAX trace and lower phases have no counterpart).
+    ("krr_tpu_compile_cache_hits_total", "counter", "Kernel libraries loaded from an existing nvcc build (csrc/build/, keyed by a hash of the sources and flags) instead of recompiling."),
+    ("krr_tpu_compile_cache_misses_total", "counter", "Kernel sources nvcc had to compile because no build of them existed."),
+    ("krr_tpu_compile_seconds", "summary", "nvcc build wall time by phase (backend_compile only: the JAX trace and lower phases have no counterpart in the port) — fires when a kernel library is built; loading an existing build skips it."),
+    ("krr_tpu_pad_waste_pct", "gauge", "Padding waste of the last packed batch by resource: percent of the rectangular [rows x capacity] matrix that is padding, not real samples."),
+    ("krr_tpu_packed_elements", "gauge", "Elements of the last packed batch by resource and kind — a partition: real samples plus padding sum to the rectangular [rows x capacity] matrix."),
+    ("krr_tpu_device_memory_bytes", "gauge", "CUDA device memory by device and kind (bytes_in_use = allocated now, peak_bytes_in_use = allocated peak, both from torch.cuda.memory_stats; bytes_limit = the card's total memory); not set when the strategy computes on the CPU."),
+    # SLO engine (`krr_tpu_torch.obs.health`).
+    ("krr_tpu_slo_burn_rate", "gauge", "Error-budget burn rate by objective and window (fast|slow): windowed bad ratio divided by the objective's budget; 1.0 consumes exactly the budget over the window."),
+    ("krr_tpu_slo_error_budget_remaining", "gauge", "Fraction of the objective's error budget left over the slow window (negative = overspent)."),
+    ("krr_tpu_slo_alert_firing", "gauge", "1 while the objective's fast AND slow burn rates exceed their thresholds, else 0."),
+    ("krr_tpu_slo_alert_transitions_total", "counter", "SLO alert state transitions by objective and direction (firing|resolved)."),
     # Process self-metrics (refreshed on dump).
     ("krr_tpu_process_resident_bytes", "gauge", "Resident set size of this process."),
     ("krr_tpu_process_open_fds", "gauge", "Open file descriptors of this process."),
     ("krr_tpu_process_uptime_seconds", "gauge", "Seconds since this process imported the metrics core (≈ process start for the CLI)."),
     ("krr_tpu_process_gc_collections_total", "counter", "Cyclic-GC collections by generation."),
+    ("krr_tpu_debug_dumps_total", "counter", "On-demand debug dumps written (SIGUSR2)."),
 )
 
 

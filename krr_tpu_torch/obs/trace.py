@@ -15,8 +15,18 @@ own current span with zero locking on the hot path. Completed spans buffer
 per trace; when the ROOT completes, the whole trace moves into a bounded
 ring (``ring_scans`` traces, oldest evicted) that ``--trace FILE`` exports
 as Chrome trace-event JSON — loadable in ``chrome://tracing`` and Perfetto.
-Cross-process stitching and propagation wait for the serve and federation
-slices.
+
+:func:`traces_from_chrome` reads such an export back into spans (the
+``analyze`` command's input). Cross-process stitching, as in the JAX
+package: any ROOT span may carry ``remote_trace_id``/``remote_parent``/
+``remote_node`` attributes naming the span in ANOTHER process that caused
+it; :func:`propagation_context` builds the wire form of that link,
+:func:`link_remote_parent` applies it, and :func:`stitch_chrome` merges
+several processes' Chrome exports (``analyze --stitch``) into ONE trace:
+remote links union traces into connected components, every source process
+keeps its own lane block, and timestamps rebase onto the shared
+``wall_start`` wall clock. The port's processes carry no ``node`` identity
+until the serve and federation slices.
 
 Cost discipline: the default for every scan path is :data:`NULL_TRACER`,
 whose ``span()`` returns one shared no-op context manager — no allocation,
@@ -331,3 +341,204 @@ def write_chrome_trace(tracer: NullTracer, path: str) -> None:
     with open(path, "w") as f:
         json.dump(tracer.export_chrome(), f)
         f.write("\n")
+
+
+def traces_from_chrome(payload: dict) -> "list[list[Span]]":
+    """Rebuild per-scan span lists from Chrome trace-event JSON previously
+    produced by :meth:`Tracer.export_chrome` — the inverse the offline
+    analysis path (``analyze --trace FILE``,
+    `krr_tpu_torch.obs.profile`) rides. Only complete (``"X"``) events are
+    considered; ``ts``/``dur`` come back as seconds relative to the
+    exporting tracer's epoch, and the ``args`` ids/attributes are restored
+    onto :class:`Span` objects. Foreign trace JSON without the exporter's
+    ``args`` degrades gracefully: spans still carry name/start/end, grouped
+    by ``pid``."""
+    by_trace: dict[tuple, list[Span]] = {}
+    for event in payload.get("traceEvents", ()):
+        if event.get("ph") != "X":
+            continue
+        args = dict(event.get("args") or {})
+        trace_id = args.pop("trace_id", None) or f"pid-{event.get('pid', 0)}"
+        span_id = args.pop("span_id", None)
+        parent_id = args.pop("parent_id", None)
+        args.pop("wall_start", None)
+        span = Span(str(event.get("name", "")), str(trace_id), None, args)
+        try:
+            span.span_id = int(span_id, 16)
+        except (TypeError, ValueError):
+            pass  # keep the freshly-allocated id
+        try:
+            span.parent_id = int(parent_id, 16) if parent_id else None
+        except (TypeError, ValueError):
+            span.parent_id = None
+        span.start = float(event.get("ts", 0.0)) / 1e6
+        span.end = span.start + float(event.get("dur", 0.0)) / 1e6
+        by_trace.setdefault((event.get("pid", 0), str(trace_id)), []).append(span)
+    return [spans for _key, spans in sorted(by_trace.items(), key=lambda kv: kv[0][0])]
+
+
+# --------------------------------------------------- cross-process stitching
+def propagation_context(span, node: Optional[str] = None) -> "Optional[dict]":
+    """The wire form of a trace link: ``{trace_id, span_id[, node]}`` for a
+    live span, carried in a KRRFED1 record's ``extra`` metadata (DELTA) or
+    the epoch feed's meta JSON (EPOCH) so the receiving process can join its
+    work to this span as a remote child. None for a null span (tracing
+    disabled) — the link simply doesn't ride the wire."""
+    if getattr(span, "trace_id", None) is None:
+        return None
+    ctx = {"trace_id": span.trace_id, "span_id": f"{span.span_id:x}"}
+    if node:
+        ctx["node"] = node
+    return ctx
+
+
+def link_remote_parent(span, ctx: "Optional[dict]") -> None:
+    """Stamp a received propagation context onto a span as remote-parent
+    attributes. The span's LOCAL parentage is untouched (``parent_id`` stays
+    within its own process trace, preserving the root-close ring invariant);
+    the ``remote_*`` attributes are what `stitch_chrome` re-parents by."""
+    if not ctx or not isinstance(ctx, dict) or not ctx.get("trace_id"):
+        return
+    span.set(
+        remote_trace_id=str(ctx["trace_id"]),
+        remote_parent=str(ctx.get("span_id") or ""),
+        remote_node=str(ctx.get("node") or ""),
+    )
+
+
+def stitch_chrome(payloads: "list[dict]") -> dict:
+    """Merge Chrome trace exports from MULTIPLE processes (shards,
+    aggregator, replicas — each payload one ``/debug/trace`` body or
+    ``--trace`` file) into ONE stitched trace:
+
+    * remote links (``remote_trace_id`` on a span joining another process's
+      trace) union traces into connected components — each component
+      becomes one stitched Chrome process, so a shard tick, the aggregator
+      apply it fed, and the replica installs it produced render as one
+      causally-joined trace;
+    * every source process keeps its own block of ``tid`` lanes (offset so
+      lanes from different processes NEVER overlap), labeled with the
+      exporter's ``node`` identity;
+    * timestamps rebase onto the shared wall clock (each event's
+      ``wall_start``) relative to the component's earliest span, so
+      cross-process ordering is honest even though each tracer had its own
+      perf_counter epoch;
+    * a root span carrying ``remote_parent`` is re-parented under the named
+      remote span (``args.parent_id`` gains the stitched id, ``args.remote``
+      marks the hop), so viewers and `traces_from_chrome` see the join.
+    """
+    parent: dict[str, str] = {}
+
+    def find(x: str) -> str:
+        while parent.setdefault(x, x) != x:
+            parent[x] = parent[parent[x]]
+            x = parent[x]
+        return x
+
+    def union(a: str, b: str) -> None:
+        parent[find(a)] = find(b)
+
+    #: (source index, source pid) → one exported process's events + identity.
+    groups: dict[tuple, dict] = {}
+    owner_of_trace: dict[str, tuple] = {}
+    for source, payload in enumerate(payloads):
+        for event in (payload or {}).get("traceEvents", ()):
+            if event.get("ph") != "X":
+                continue
+            args = event.get("args") or {}
+            key = (source, event.get("pid", 0))
+            group = groups.setdefault(
+                key, {"events": [], "trace_ids": set(), "node": None, "min_wall": None}
+            )
+            group["events"].append(event)
+            trace_id = str(args.get("trace_id") or f"src{source}-pid{event.get('pid', 0)}")
+            group["trace_ids"].add(trace_id)
+            owner_of_trace.setdefault(trace_id, key)
+            if group["node"] is None and args.get("node"):
+                group["node"] = str(args["node"])
+            find(trace_id)
+            remote = args.get("remote_trace_id")
+            if remote:
+                union(trace_id, str(remote))
+            wall = args.get("wall_start")
+            if wall is not None:
+                wall = float(wall)
+                if group["min_wall"] is None or wall < group["min_wall"]:
+                    group["min_wall"] = wall
+
+    components: dict[str, list[tuple]] = {}
+    for key, group in groups.items():
+        root = find(next(iter(sorted(group["trace_ids"]))))
+        components.setdefault(root, []).append(key)
+
+    def group_start(key: tuple) -> tuple:
+        group = groups[key]
+        wall = group["min_wall"] if group["min_wall"] is not None else float("inf")
+        return (wall, key)
+
+    events: list[dict] = []
+    stitched_pid = 0
+    for _root, keys in sorted(
+        components.items(), key=lambda kv: min(group_start(k) for k in kv[1])
+    ):
+        stitched_pid += 1
+        keys = sorted(keys, key=group_start)
+        walls = [groups[k]["min_wall"] for k in keys if groups[k]["min_wall"] is not None]
+        base_wall = min(walls) if walls else None
+        nodes = sorted({groups[k]["node"] for k in keys if groups[k]["node"]})
+        label = "+".join(nodes) if nodes else _root
+        events.append(
+            {
+                "ph": "M",
+                "pid": stitched_pid,
+                "name": "process_name",
+                "args": {"name": f"fleet:{label}"},
+            }
+        )
+        tid_base = 0
+        for key in keys:
+            group = groups[key]
+            source, _pid = key
+            lane_label = group["node"] or next(iter(sorted(group["trace_ids"])))
+            events.append(
+                {
+                    "ph": "M",
+                    "pid": stitched_pid,
+                    "tid": tid_base,
+                    "name": "thread_name",
+                    "args": {"name": lane_label},
+                }
+            )
+            max_tid = 0
+            for event in group["events"]:
+                args = dict(event.get("args") or {})
+                tid = int(event.get("tid", 0) or 0)
+                max_tid = max(max_tid, tid)
+                if args.get("span_id"):
+                    args["span_id"] = f"{source}:{args['span_id']}"
+                remote = args.get("remote_trace_id")
+                remote_parent = args.get("remote_parent")
+                if args.get("parent_id"):
+                    args["parent_id"] = f"{source}:{args['parent_id']}"
+                elif remote and remote_parent and str(remote) in owner_of_trace:
+                    remote_source = owner_of_trace[str(remote)][0]
+                    args["parent_id"] = f"{remote_source}:{remote_parent}"
+                    args["remote"] = True
+                wall = args.get("wall_start")
+                ts = event.get("ts", 0.0)
+                if wall is not None and base_wall is not None:
+                    ts = round((float(wall) - base_wall) * 1e6, 3)
+                events.append(
+                    {
+                        "name": event.get("name"),
+                        "cat": "scan",
+                        "ph": "X",
+                        "ts": ts,
+                        "dur": event.get("dur", 0.0),
+                        "pid": stitched_pid,
+                        "tid": tid_base + tid,
+                        "args": args,
+                    }
+                )
+            tid_base += max_tid + 1
+    return {"traceEvents": events, "displayTimeUnit": "ms"}

@@ -11,6 +11,10 @@ atomically, so concurrent builds cannot tear it.
 
 Nothing here runs at import time: the CPU-only test environment has no
 ``nvcc`` and imports every module.
+
+A build is the port's compile: listeners in :data:`BUILD_HOOKS` hear of
+each one (`krr_tpu_torch.obs.device.install_compile_hooks` registers the
+metrics listener there, so this module imports nothing of ``obs``).
 """
 
 from __future__ import annotations
@@ -37,6 +41,17 @@ NVCC_FLAGS = (
 )
 
 _LOADED: dict[str, ctypes.CDLL] = {}
+
+#: Build listeners, each called as ``hook(event, seconds)``: ``"compile"``
+#: with the wall of one :func:`build_all` call that ran nvcc, ``"miss"``
+#: once per source it compiled, ``"hit"`` when :func:`load` finds the
+#: hashed library already built.
+BUILD_HOOKS: list = []
+
+
+def _fire(event: str, seconds: float = 0.0) -> None:
+    for hook in list(BUILD_HOOKS):
+        hook(event, seconds)
 
 
 def sources() -> list[str]:
@@ -107,6 +122,10 @@ def build_all(names: Optional[list[str]] = None) -> dict[str, dict]:
         report[name] = {"path": str(target), "seconds": time.perf_counter() - started, "log": log}
     if failures:
         raise RuntimeError("\n".join(failures))
+    if running:
+        _fire("compile", time.perf_counter() - started)
+        for _ in running:
+            _fire("miss")
     return report
 
 
@@ -115,7 +134,10 @@ def load(name: str, signatures: dict[str, list]) -> ctypes.CDLL:
     ``argtypes`` set from ``signatures`` (every entry point returns an int,
     a launch's CUDA error code) and ``krr_error_string`` declared."""
     if name not in _LOADED:
+        built = library_path(name).exists()
         build_all([name])
+        if built:
+            _fire("hit")
         lib = ctypes.CDLL(str(library_path(name)))
         for fn, argtypes in signatures.items():
             getattr(lib, fn).argtypes = argtypes

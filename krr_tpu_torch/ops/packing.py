@@ -27,6 +27,15 @@ def pad_to_lane(n: int) -> int:
     return max(LANE, ((n + LANE - 1) // LANE) * LANE)
 
 
+def padding_stats(counts: np.ndarray, capacity: int) -> tuple[int, int]:
+    """``(real, padded)`` element counts of a packed batch — the inputs of
+    the ``krr_tpu_pad_waste_pct`` padding-efficiency gauge
+    (`krr_tpu_torch.obs.device`). ``real`` is the genuine samples behind the
+    mask; ``padded`` is the full rectangular ``[rows × capacity]`` the
+    device reads, lane rounding included."""
+    return int(np.sum(counts, dtype=np.int64)), int(len(counts)) * int(capacity)
+
+
 def pack_ragged(
     per_object_series: Sequence[Mapping[str, np.ndarray]] | Sequence[Iterable[np.ndarray]],
     dtype: np.dtype = np.float64,

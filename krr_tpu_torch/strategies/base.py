@@ -14,7 +14,11 @@ never replaces the JAX package's ``simple`` in that package's registry.
 from __future__ import annotations
 
 import abc
+import contextlib
 import datetime
+import itertools
+import os
+import time
 from dataclasses import dataclass
 from decimal import Decimal
 from typing import Generic, Optional, TypeVar, get_args, get_origin
@@ -24,6 +28,7 @@ import pydantic as pd
 from krr_tpu_torch.models.allocations import ResourceType
 from krr_tpu_torch.models.objects import K8sObjectData
 from krr_tpu_torch.models.series import FleetBatch
+from krr_tpu_torch.obs.device import NULL_DEVICE_OBS, DeviceObs
 from krr_tpu_torch.utils.registry import PluginRegistry
 
 
@@ -96,6 +101,13 @@ class BaseStrategy(abc.ABC, Generic[_S]):
         if cls.run is not BaseStrategy.run and cls.__dict__.get("__register__", True):
             _STRATEGY_REGISTRY.register(cls)
 
+    #: Device-compute instrumentation (`krr_tpu_torch.obs.device`): staged
+    #: pack/digest/quantile/round sub-spans, compile attribution, padding
+    #: and memory gauges. The scan session swaps in its own wired instance
+    #: (`ScanSession._wire_obs`); the class default keeps strategies built
+    #: outside a session (plugins, unit tests) inert.
+    obs: DeviceObs = NULL_DEVICE_OBS
+
     def __init__(self, settings: _S):
         self.settings = settings
 
@@ -145,9 +157,48 @@ class BatchedStrategy(BaseStrategy[_S]):
     def run(self, history_data: HistoryData, object_data: K8sObjectData) -> RunResult:
         return self.run_batch(FleetBatch.from_history(history_data, object_data))[0]
 
+    def profile_span(self):
+        """Context manager tracing the device compute with
+        ``torch.profiler`` (CPU and CUDA activities, no shapes, no stacks)
+        when the strategy's settings carry a ``profile_dir``: on exit a
+        Chrome trace of the hand-written kernels as CUPTI saw them, plus the
+        copies and host ops, lands in that directory
+        (:func:`profiled`)."""
+        import contextlib
+
+        profile_dir = getattr(self.settings, "profile_dir", None)
+        if not profile_dir:
+            return contextlib.nullcontext()
+        return profiled(profile_dir, getattr(self, "device", None))
+
     @abc.abstractmethod
     def run_batch(self, batch: FleetBatch) -> list[RunResult]:
         ...
+
+
+_PROFILE_SEQUENCE = itertools.count(1)
+
+
+@contextlib.contextmanager
+def profiled(profile_dir: str, device=None):
+    """Run the body under ``torch.profiler.profile`` and write its Chrome
+    trace to ``<profile_dir>/krr-tpu-torch.<stamp>-<pid>-<n>.pt.trace.json``
+    (a fresh name per call). CUDA activity is recorded when ``device`` is a
+    CUDA device."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device is not None and torch.device(device).type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(profile_dir, exist_ok=True)
+    stamp = time.strftime("%Y%m%dT%H%M%S", time.gmtime())
+    path = os.path.join(
+        profile_dir, f"krr-tpu-torch.{stamp}-{os.getpid()}-{next(_PROFILE_SEQUENCE)}.pt.trace.json"
+    )
+    with profile(activities=activities, record_shapes=False, with_stack=False) as prof:
+        yield
+    prof.export_chrome_trace(path)
 
 
 def run_batch_row_chunks(
@@ -182,5 +233,6 @@ __all__ = [
     "ResourceRecommendation",
     "K8sObjectData",
     "ResourceType",
+    "profiled",
     "run_batch_row_chunks",
 ]

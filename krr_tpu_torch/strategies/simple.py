@@ -14,6 +14,11 @@ when the percentile's rank-from-the-top fits ``exact_sketch_budget``, else
 the streamed radix select, and the streamed max for memory — each selects
 the same sample as the resident path. The multi-device mesh waits for a
 later slice.
+
+The legs are stages of the scan trace (``strategy.obs``,
+`krr_tpu_torch.obs.device`): ``pack``, ``quantile`` (``path=resident`` or
+``host_stream``) and ``round``, each fenced when the tracer records; with
+``profile_dir`` the device compute runs under ``torch.profiler``.
 """
 
 from __future__ import annotations
@@ -148,6 +153,14 @@ class SimpleStrategySettings(StrategySettings):
             "or 'cpu' (the plain PyTorch versions)."
         ),
     )
+    profile_dir: Optional[str] = pd.Field(
+        None,
+        description=(
+            "Write a torch.profiler trace of the fleet compute (CPU and CUDA activities: the "
+            "hand-written kernels as CUPTI sees them, the copies, the host ops) as Chrome trace "
+            "JSON into this directory."
+        ),
+    )
     host_stream_mb: int = pd.Field(
         0,
         ge=-1,
@@ -213,29 +226,23 @@ class SimpleStrategy(BatchedStrategy[SimpleStrategySettings]):
         )
         return cpu_p, mem_max
 
-    def _run_streamed(self, batch: FleetBatch, q: float, pack_seconds: float) -> list[RunResult]:
+    def _run_streamed(self, batch: FleetBatch, q: float, pack_seconds: float) -> tuple:
+        """The streamed quantile stage: (CPU percentile, memory peak) as host
+        arrays; records the streamed legs but finalize."""
         stats = StreamStats()
         t0 = time.perf_counter()
-        cpu_p, mem_max = self._streamed_exact(batch, q, stats)
+        cpu_p, mem_max = self.obs.fence(self._streamed_exact(batch, q, stats))
         t1 = time.perf_counter()
         cpu_p = cpu_p.cpu().numpy() if isinstance(cpu_p, torch.Tensor) else cpu_p
-        t2 = time.perf_counter()
-        results = finalize_fleet(cpu_p, mem_max, self.settings.memory_buffer_percentage)
-        self.leg_seconds = streamed_legs(pack_seconds, t1 - t0, stats, t2 - t1, time.perf_counter() - t2)
+        self.leg_seconds = streamed_legs(pack_seconds, t1 - t0, stats, time.perf_counter() - t1, 0.0)
         self.stream_stats = stats.as_dict()
-        return results
+        return cpu_p, mem_max
 
-    def run_batch(self, batch: FleetBatch) -> list[RunResult]:
-        if not batch.objects:
-            return []
-        q = float(self.settings.cpu_percentile)
-        t0 = time.perf_counter()
-        batch.packed(ResourceType.CPU)
-        batch.packed(ResourceType.Memory)
-        t1 = time.perf_counter()
-        if use_host_stream(batch, self.device, self.settings.host_stream_mb):
-            return self._run_streamed(batch, q, t1 - t0)
+    def _run_resident(self, batch: FleetBatch, q: float, pack_seconds: float) -> tuple:
+        """The resident quantile stage: H2D, one ``fleet_exact`` program and
+        its one readback; records the resident legs but finalize."""
         self.stream_stats = None
+        t1 = time.perf_counter()
         cpu_values, cpu_counts = fleet_device_arrays(batch, ResourceType.CPU, device=self.device)
         mem_values, mem_counts = fleet_device_arrays(
             batch, ResourceType.Memory, scale=MEMORY_SCALE, device=self.device
@@ -243,8 +250,34 @@ class SimpleStrategy(BatchedStrategy[SimpleStrategySettings]):
         t2 = time.perf_counter()
         # One program, one readback (the JAX package's fleet_exact contract).
         stacked = fleet_exact(cpu_values, cpu_counts, mem_values, mem_counts, q).cpu().numpy()
-        t3 = time.perf_counter()
-        results = finalize_fleet(stacked[0], stacked[1], self.settings.memory_buffer_percentage)
-        t4 = time.perf_counter()
-        self.leg_seconds = {"pack": t1 - t0, "h2d": t2 - t1, "fleet_exact": t3 - t2, "finalize": t4 - t3}
+        self.leg_seconds = {"pack": pack_seconds, "h2d": t2 - t1, "fleet_exact": time.perf_counter() - t2}
+        return stacked[0], stacked[1]
+
+    def run_batch(self, batch: FleetBatch) -> list[RunResult]:
+        if not batch.objects:
+            return []
+        q = float(self.settings.cpu_percentile)
+        obs = self.obs
+        with self.profile_span():
+            # The pack stage brackets the ragged→rectangular host pack (the
+            # packed views are cached on the batch, so re-reads below are
+            # free) and fires the padding-efficiency gauges.
+            with obs.stage("pack", rows=len(batch)):
+                t0 = time.perf_counter()
+                cpu = batch.packed(ResourceType.CPU)
+                mem = batch.packed(ResourceType.Memory)
+                pack_seconds = time.perf_counter() - t0
+                obs.record_padding(ResourceType.CPU.value, cpu)
+                obs.record_padding(ResourceType.Memory.value, mem)
+            if use_host_stream(batch, self.device, self.settings.host_stream_mb):
+                with obs.stage("quantile", rows=len(batch), path="host_stream"):
+                    cpu_p, mem_max = self._run_streamed(batch, q, pack_seconds)
+            else:
+                with obs.stage("quantile", rows=len(batch), path="resident"):
+                    cpu_p, mem_max = self._run_resident(batch, q, pack_seconds)
+            obs.record_device_memory(self.device)
+        with obs.stage("round", rows=len(batch)):
+            t4 = time.perf_counter()
+            results = finalize_fleet(cpu_p, mem_max, self.settings.memory_buffer_percentage)
+            self.leg_seconds["finalize"] = time.perf_counter() - t4
         return results

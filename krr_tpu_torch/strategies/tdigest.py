@@ -27,6 +27,14 @@ store always holds the mergeable histogram digest, never the top-K sketch.
 With ``digest_ingest`` the history arrives digested at parse time
 (``run_digested``): the query is host numpy, as in the JAX package, and no
 kernel runs.
+
+The legs are stages of the scan trace (``strategy.obs``,
+`krr_tpu_torch.obs.device`), as in `krr_tpu/strategies/tdigest.py:222-347`:
+``pack``, then ``digest`` (the window's or the sketch's build), ``fold``
+and ``quantile`` (``path=resident``, ``host_stream``, ``store`` or
+``ingest``), then ``round``; device results are fenced inside their stage
+when the tracer records. With ``profile_dir`` the compute runs under
+``torch.profiler``.
 """
 
 from __future__ import annotations
@@ -255,9 +263,11 @@ class TDigestStrategy(BatchedStrategy[TDigestStrategySettings]):
             durable = DurableStore.open(self.settings.state_path, spec, store_format=self.settings.store_format, fs=fs)
             try:
                 t0 = time.perf_counter()
-                store_rows = fold(durable.store)
+                with self.obs.stage("fold", rows=rows):
+                    store_rows = fold(durable.store)
                 t1 = time.perf_counter()
-                cpu_p, mem_max = durable.store.query_recommendation(store_rows, q)
+                with self.obs.stage("quantile", rows=rows, path="store"):
+                    cpu_p, mem_max = durable.store.query_recommendation(store_rows, q)
                 t2 = time.perf_counter()
                 durable.save_delta()
                 t3 = time.perf_counter()
@@ -286,87 +296,108 @@ class TDigestStrategy(BatchedStrategy[TDigestStrategySettings]):
         self.leg_seconds = {}
         self.stream_stats = None
         self.store_stats = None
-        t0 = time.perf_counter()
-        if self.settings.state_path:
-            cpu_p, mem_max = self._store_round(
-                spec, q, len(fleet.objects), lambda store: store.fold_fleet(fleet, mem_scale=MEMORY_SCALE)
-            )
-        else:
-            cpu_p = digest_ops.percentile_host(spec, fleet.cpu_counts, fleet.cpu_total, fleet.cpu_peak, q)
-            mem_peak_mb = np.where(np.isfinite(fleet.mem_peak), fleet.mem_peak / MEMORY_SCALE, -np.inf)
-            mem_max = np.where(fleet.mem_total > 0, mem_peak_mb, np.nan)
-            self.leg_seconds["quantile"] = time.perf_counter() - t0
-        t1 = time.perf_counter()
-        results = finalize_fleet(np.asarray(cpu_p), np.asarray(mem_max), self.settings.memory_buffer_percentage)
-        self.leg_seconds["finalize"] = time.perf_counter() - t1
+        rows = len(fleet.objects)
+        with self.profile_span():
+            if self.settings.state_path:
+                cpu_p, mem_max = self._store_round(
+                    spec, q, rows, lambda store: store.fold_fleet(fleet, mem_scale=MEMORY_SCALE)
+                )
+            else:
+                with self.obs.stage("quantile", rows=rows, path="ingest"):
+                    t0 = time.perf_counter()
+                    cpu_p = digest_ops.percentile_host(spec, fleet.cpu_counts, fleet.cpu_total, fleet.cpu_peak, q)
+                    mem_peak_mb = np.where(np.isfinite(fleet.mem_peak), fleet.mem_peak / MEMORY_SCALE, -np.inf)
+                    mem_max = np.where(fleet.mem_total > 0, mem_peak_mb, np.nan)
+                    self.leg_seconds["quantile"] = time.perf_counter() - t0
+        return self._round(cpu_p, mem_max, rows)
+
+    def _round(self, cpu_p, mem_max, rows: int) -> list[RunResult]:
+        """The ``round`` stage: the host Decimal finalize."""
+        with self.obs.stage("round", rows=rows):
+            t0 = time.perf_counter()
+            results = finalize_fleet(np.asarray(cpu_p), np.asarray(mem_max), self.settings.memory_buffer_percentage)
+            self.leg_seconds["finalize"] = time.perf_counter() - t0
         return results
 
-    def _run_state(self, batch: FleetBatch, spec: DigestSpec, q: float, pack_seconds: float) -> list[RunResult]:
-        """The ``state_path`` run: the window digest on the device, then the
-        store cycle on the host."""
+    def _run_state(self, batch: FleetBatch, spec: DigestSpec, q: float, pack_seconds: float) -> tuple:
+        """The ``state_path`` run: the window digest on the device (the
+        ``digest`` stage), then the store cycle on the host."""
         self.leg_seconds = {"pack": pack_seconds}
-        t0 = time.perf_counter()
-        counts, total, peak, mem_total, mem_peak = self._window_digest(batch, spec)
-        self.leg_seconds["digest"] = time.perf_counter() - t0
+        with self.obs.stage("digest", rows=len(batch)):
+            t0 = time.perf_counter()
+            counts, total, peak, mem_total, mem_peak = self._window_digest(batch, spec)
+            self.leg_seconds["digest"] = time.perf_counter() - t0
         keys = [object_key(obj) for obj in batch.objects]
-        cpu_p, mem_max = self._store_round(
+        return self._store_round(
             spec, q, len(keys),
             lambda store: store.merge_window(keys, counts, total, peak, mem_total, mem_peak),
         )
-        t1 = time.perf_counter()
-        results = finalize_fleet(np.asarray(cpu_p), np.asarray(mem_max), self.settings.memory_buffer_percentage)
-        self.leg_seconds["finalize"] = time.perf_counter() - t1
-        return results
 
-    def _run_streamed(self, batch: FleetBatch, spec: DigestSpec, q: float, pack_seconds: float) -> list[RunResult]:
+    def _run_streamed(self, batch: FleetBatch, spec: DigestSpec, q: float, pack_seconds: float) -> tuple:
+        """The streamed quantile stage: (CPU percentile, memory peak) as host
+        arrays."""
         stats = StreamStats()
         t0 = time.perf_counter()
-        cpu_p, mem_max = self._streamed_sketch(batch, spec, q, stats)
+        cpu_p, mem_max = self.obs.fence(self._streamed_sketch(batch, spec, q, stats))
         t1 = time.perf_counter()
         cpu_p = cpu_p.cpu().numpy()
-        t2 = time.perf_counter()
-        results = finalize_fleet(cpu_p, mem_max, self.settings.memory_buffer_percentage)
-        self.leg_seconds = streamed_legs(pack_seconds, t1 - t0, stats, t2 - t1, time.perf_counter() - t2)
+        self.leg_seconds = streamed_legs(pack_seconds, t1 - t0, stats, time.perf_counter() - t1, 0.0)
         self.stream_stats = stats.as_dict()
-        return results
+        return cpu_p, mem_max
+
+    def _run_resident(self, batch: FleetBatch, spec: DigestSpec, q: float, pack_seconds: float) -> tuple:
+        """The resident build (the ``digest`` stage) and query (the
+        ``quantile`` stage: percentile, memory max, one readback)."""
+        obs = self.obs
+        self.stream_stats = None
+        t1 = time.perf_counter()
+        cpu_values, cpu_counts = fleet_device_arrays(batch, ResourceType.CPU, device=self.device)
+        mem_values, mem_counts = fleet_device_arrays(
+            batch, ResourceType.Memory, scale=MEMORY_SCALE, device=self.device
+        )
+        t2 = time.perf_counter()
+        k = self._exact_topk_k(batch.packed(ResourceType.CPU).capacity, q)
+        with obs.stage("digest", rows=len(batch), sketch="topk" if k is not None else "digest"):
+            if k is not None:
+                sketch = topk_ops.build_from_packed(cpu_values, cpu_counts, k)
+            else:
+                cpu_digest = digest_ops.build_from_packed(spec, cpu_values, cpu_counts)
+            # The build leg (and so the stage) covers the kernel, traced or not.
+            _fence(self.device)
+        t3 = time.perf_counter()
+        with obs.stage("quantile", rows=len(batch), path="resident"):
+            if k is not None:
+                cpu_p = topk_ops.percentile(sketch, q)
+            else:
+                cpu_p = digest_ops.percentile(spec, cpu_digest, q)
+            # One readback for both resources.
+            stacked = torch.stack([cpu_p, masked_max_cuda(mem_values, mem_counts)]).cpu().numpy()
+        self.leg_seconds = {
+            "pack": pack_seconds, "h2d": t2 - t1, "build": t3 - t2, "query": time.perf_counter() - t3,
+        }
+        return stacked[0], stacked[1]
 
     def run_batch(self, batch: FleetBatch) -> list[RunResult]:
         if not batch.objects:
             return []
         spec = self.settings.cpu_spec()
         q = float(self.settings.cpu_percentile)
-        t0 = time.perf_counter()
-        cpu = batch.packed(ResourceType.CPU)
-        batch.packed(ResourceType.Memory)
-        t1 = time.perf_counter()
+        obs = self.obs
         self.store_stats = None
-        if self.settings.state_path:
-            return self._run_state(batch, spec, q, t1 - t0)
-        if self._use_host_stream(batch):
-            return self._run_streamed(batch, spec, q, t1 - t0)
-        self.stream_stats = None
-        cpu_values, cpu_counts = fleet_device_arrays(batch, ResourceType.CPU, device=self.device)
-        mem_values, mem_counts = fleet_device_arrays(
-            batch, ResourceType.Memory, scale=MEMORY_SCALE, device=self.device
-        )
-        t2 = time.perf_counter()
-        k = self._exact_topk_k(cpu.capacity, q)
-        if k is not None:
-            sketch = topk_ops.build_from_packed(cpu_values, cpu_counts, k)
-        else:
-            cpu_digest = digest_ops.build_from_packed(spec, cpu_values, cpu_counts)
-        _fence(self.device)
-        t3 = time.perf_counter()
-        if k is not None:
-            cpu_p = topk_ops.percentile(sketch, q)
-        else:
-            cpu_p = digest_ops.percentile(spec, cpu_digest, q)
-        # One readback for both resources.
-        stacked = torch.stack([cpu_p, masked_max_cuda(mem_values, mem_counts)]).cpu().numpy()
-        t4 = time.perf_counter()
-        results = finalize_fleet(stacked[0], stacked[1], self.settings.memory_buffer_percentage)
-        t5 = time.perf_counter()
-        self.leg_seconds = {
-            "pack": t1 - t0, "h2d": t2 - t1, "build": t3 - t2, "query": t4 - t3, "finalize": t5 - t4,
-        }
-        return results
+        with self.profile_span():
+            with obs.stage("pack", rows=len(batch)):
+                t0 = time.perf_counter()
+                cpu = batch.packed(ResourceType.CPU)
+                mem = batch.packed(ResourceType.Memory)
+                pack_seconds = time.perf_counter() - t0
+                obs.record_padding(ResourceType.CPU.value, cpu)
+                obs.record_padding(ResourceType.Memory.value, mem)
+            if self.settings.state_path:
+                cpu_p, mem_max = self._run_state(batch, spec, q, pack_seconds)
+            elif self._use_host_stream(batch):
+                with obs.stage("quantile", rows=len(batch), path="host_stream"):
+                    cpu_p, mem_max = self._run_streamed(batch, spec, q, pack_seconds)
+            else:
+                cpu_p, mem_max = self._run_resident(batch, spec, q, pack_seconds)
+            obs.record_device_memory(self.device)
+        return self._round(cpu_p, mem_max, len(batch))

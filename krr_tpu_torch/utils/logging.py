@@ -14,16 +14,21 @@ Unlike the reference we don't force every component to inherit a mixin; a
 single :class:`KrrLogger` is constructed from the config and passed (or the
 module default used).
 
-The JAX package's structured ``--log-format json`` channel, which stamps
-each line with the active span's ids (`krr_tpu_torch.obs.trace.current_ids`
-is the hook it reads), waits for the port's observability slice (ROADMAP
-M8).
+``--log-format json`` switches the log channel to STRUCTURED output: one
+JSON object per line (``ts``, ``level``, ``message``, plus ``scan_id`` /
+``span_id`` from the active trace span — `krr_tpu_torch.obs.trace.current_ids`)
+so log lines correlate with ``--trace`` spans and aggregate cleanly. The
+result channel (``print_result``) is untouched either way — machine output
+stays byte-exact on stdout.
 """
 
 from __future__ import annotations
 
 import inspect
+import json
 import sys
+import time
+import traceback
 from typing import Any, Literal
 
 from rich.console import Console
@@ -33,10 +38,17 @@ _LEVEL_COLOR = {"INFO": "green", "WARNING": "yellow", "ERROR": "red", "DEBUG": "
 
 
 class KrrLogger:
-    def __init__(self, quiet: bool = False, verbose: bool = False, log_to_stderr: bool = False) -> None:
+    def __init__(
+        self,
+        quiet: bool = False,
+        verbose: bool = False,
+        log_to_stderr: bool = False,
+        log_format: Literal["console", "json"] = "console",
+    ) -> None:
         self.quiet = quiet
         self.verbose = verbose
         self.log_to_stderr = log_to_stderr
+        self.log_format = log_format
         self.console = Console(stderr=log_to_stderr)
 
     # -- result channel ------------------------------------------------------
@@ -64,6 +76,27 @@ class KrrLogger:
     def debug_active(self) -> bool:
         return self.verbose and not self.quiet
 
+    def _emit_json(self, level: str, message: str, **extra: Any) -> None:
+        """One structured line on the log stream. ``scan_id``/``span_id``
+        come from the active trace span (contextvar — valid on the event
+        loop, in tasks, and in ``to_thread`` hops alike), so every line a
+        scan produces can be joined back to its trace."""
+        from krr_tpu_torch.obs.trace import current_ids
+
+        record: dict[str, Any] = {
+            "ts": round(time.time(), 3),
+            "level": level,
+            "message": message,
+        }
+        scan_id, span_id = current_ids()
+        if scan_id is not None:
+            record["scan_id"] = scan_id
+            record["span_id"] = span_id
+        record.update(extra)
+        stream = sys.stderr if self.log_to_stderr else sys.stdout
+        stream.write(json.dumps(record) + "\n")
+        stream.flush()
+
     def echo(
         self,
         message: str = "",
@@ -77,6 +110,13 @@ class KrrLogger:
         crash) rich markup parsing; pass ``markup=True`` for trusted styled
         text like the banner."""
         if self.quiet:
+            return
+        if self.log_format == "json":
+            # Console chrome is not a log event: blank separators, and
+            # markup=True content (the ASCII banner is the only trusted
+            # styled text).
+            if message.strip() and not markup:
+                self._emit_json(type, message)
             return
         color = _LEVEL_COLOR[type]
         prefix = "" if no_prefix else f"[bold {color}][{type}][/bold {color}] "
@@ -96,13 +136,20 @@ class KrrLogger:
         if not self.debug_active:
             return
         frame = inspect.stack()[1]
+        if self.log_format == "json":
+            self._emit_json("DEBUG", message, caller=f"{frame.filename}:{frame.lineno}")
+            return
         self.console.print(
             f"[bold green][DEBUG][/bold green] {escape(message)}\t\t({frame.filename}:{frame.lineno})"
         )
 
     def debug_exception(self) -> None:
-        if self.debug_active:
-            self.console.print_exception()
+        if not self.debug_active:
+            return
+        if self.log_format == "json":
+            self._emit_json("DEBUG", traceback.format_exc().rstrip())
+            return
+        self.console.print_exception()
 
 
 #: Default logger for components constructed without an explicit one.

@@ -43,28 +43,14 @@ STRATEGY_PATHS = {
     "exact_upgrade": ["tdigest", "--exact_upgrade", "true"],
 }
 
-#: JAX flags with no counterpart in the port, or whose path waits for a
-#: later slice (ROADMAP): the SLO options, --statusz, --profile,
-#: --log-format and the XLA cache; and the JAX strategies' mesh, Pallas and
-#: profiler settings.
+#: JAX flags with no counterpart in the port: the XLA compilation cache (the
+#: port's kernels are nvcc builds) and the JAX strategies' mesh and Pallas
+#: settings (the mesh waits for ROADMAP M7).
 JAX_ONLY_FLAGS = {
-    "--statusz",
-    "--profile",
-    "--log-format",
     "--jax-compilation-cache-dir",
-    "--slo-scan-failure-budget",
-    "--slo-fetch-failure-budget",
-    "--slo-scan-latency",
-    "--slo-freshness",
-    "--slo-read-p99",
-    "--slo-fast-window",
-    "--slo-slow-window",
-    "--slo-fast-burn",
-    "--slo-slow-burn",
     "--use_mesh",
     "--mesh_time_axis",
     "--use_pallas",
-    "--profile_dir",
 }
 #: Port flags the JAX command lacks: the compute device.
 PORT_ONLY_FLAGS = {"--device"}
@@ -381,8 +367,24 @@ def test_help_lists_the_jax_flags(apps, name):
     jax_flags = _flag_names(jax_app.commands[name])
     port_flags = _flag_names(port_app.commands[name])
     assert port_flags - jax_flags == PORT_ONLY_FLAGS
-    assert jax_flags - port_flags == JAX_ONLY_FLAGS & jax_flags
+    assert jax_flags - port_flags == JAX_ONLY_FLAGS
     help_text = _invoke(port_app, [name, "--help"]).output
+    for flag in port_flags:
+        assert flag in help_text
+
+
+#: ``analyze`` flags of the JAX command the port lacks: the flight recorder's
+#: trend view, which reads the serve plane's timeline (ROADMAP M10a).
+ANALYZE_JAX_ONLY_FLAGS = {"--trend", "--timeline"}
+
+
+def test_analyze_lists_the_jax_flags(apps):
+    jax_app, port_app = apps
+    jax_flags = _flag_names(jax_app.commands["analyze"])
+    port_flags = _flag_names(port_app.commands["analyze"])
+    assert port_flags <= jax_flags
+    assert jax_flags - port_flags == ANALYZE_JAX_ONLY_FLAGS
+    help_text = _invoke(port_app, ["analyze", "--help"]).output
     for flag in port_flags:
         assert flag in help_text
 
