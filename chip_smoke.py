@@ -124,7 +124,24 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    the host query). The legs (digest, fold, quantile, persist), the WAL
    bytes and the reopen time are printed. Run alone (``--phases state``) it
    builds the fleet and the resident reference itself.
-9. ``cli``     — the user's entry point, ``krr_tpu_torch``'s click command,
+9. ``mesh``    — the device mesh (`krr_tpu_torch.parallel`) on the one card:
+   each sharded function (percentile, max, digest, top-K) on the headline
+   matrix (every 7th row cut to a seeded count, 8 empty) over (4, 1) and
+   (2, 2) meshes of ``cuda:0`` four times, and over the distinct cards when
+   there are two or more, must equal the resident ``bisect_select``,
+   ``row_max``, ``digest_hist`` and ``topk_select`` results bit for bit with
+   exact launches (K1 once a row block on (4, 1); ``radix_digit_hist`` once
+   a shard in each of 3 passes on (2, 2); the others once a shard); each
+   kernel's CUDA-event time per shard is printed beside the resident
+   kernel's, and the radix route's per shard and pass. Then ``simple``,
+   ``tdigest`` and ``tdigest --exact_upgrade`` through ``Runner.run`` on
+   ``e2e``'s fleet with ``mesh_time_axis=2`` and the strategies' device seam
+   giving the card four times, a (2, 2) mesh: each renders ``e2e``'s JSON
+   byte for byte with exact launches (``radix_digit_hist`` 12 + ``row_max``
+   4; ``digest_hist`` 4 + ``row_max`` 4; ``topk_select`` 4 + ``row_max`` 4),
+   no generic fold, 10,000 rows and no ``?``. Run alone (``--phases
+   mesh``) it builds the fleet and the resident references itself.
+10. ``cli``     — the user's entry point, ``krr_tpu_torch``'s click command,
    against the fake apiserver + fake Prometheus of ``tests/fakes/servers.py``
    served from a child process (started when the phase begins, so its
    fixture build overlaps no timed phase): 10,000 Deployments of one
@@ -1527,6 +1544,225 @@ def phase_state(torch, np, fleet: E2EFleet, rendered: "dict | None") -> dict:
     return report
 
 
+#: The ``mesh`` phase's meshes over the one card, as (data, time): one row
+#: block per shard (K1 per block), and two time shards per block (the K5
+#: radix route).
+MESH_SHAPES = ((4, 1), (2, 2))
+#: The ``mesh`` phase's scans on a (2, 2) mesh of the card: (strategy,
+#: settings, exact launch counts). Four shards: q = 99 takes the radix
+#: route (3 digits × 4 shards of ``radix_digit_hist``), each sketch one
+#: launch a shard, the memory max one ``row_max`` a shard.
+MESH_SCANS = {
+    "simple": ("simple", {}, {"radix_digit_hist": 12, "row_max": 4}),
+    "tdigest": ("tdigest", {}, {"digest_hist": 4, "row_max": 4}),
+    "tdigest_exact": ("tdigest", {"exact_upgrade": True}, {"topk_select": 4, "row_max": 4}),
+}
+
+
+def _counted(label: str, expected: dict, fn):
+    """(fn's result, its launches, its host wall): every count set to 0
+    just before ``fn`` and read just after, and held to ``expected`` with no
+    other kernel and no generic fold."""
+    _reset_counts()
+    started = time.perf_counter()
+    result = fn()
+    wall = time.perf_counter() - started
+    launches, generic_folds = _read_counts()
+    check(launches == {**{name: 0 for name in launches}, **expected},
+          f"mesh {label}: launches {launches}, expected {expected} and no other kernel")
+    check(not any(generic_folds.values()), f"mesh {label}: a fold took the generic path: {generic_folds}")
+    return result, launches, wall
+
+
+def _shard_kernel_ms(torch, mesh, host_values, host_counts, q: float, resident_p) -> dict:
+    """CUDA-event medians of each kernel on each shard of ``mesh`` (the
+    blocks ``transfer_to_mesh`` places), and for a mesh with time shards
+    the ``radix_digit_hist`` time of each shard in each pass of the radix
+    select, whose answer must equal ``bisect_select``'s rows."""
+    from krr_tpu_torch import parallel
+    from krr_tpu_torch.ops import cuda_select, cuda_sketch
+    from krr_tpu_torch.ops.selection import RadixSelect
+
+    values_d, counts_d, _rows = parallel.transfer_to_mesh(host_values, host_counts, mesh)
+    shard_ms: dict = {"row_max": [], "digest_hist": [], "topk_select": [], "bisect_select": [],
+                      "radix_digit_hist": []}
+    passes = []
+    rows = 0
+    for row_values, row_counts in zip(values_d, counts_d):
+        width = row_values[0].shape[1]
+        effs = [torch.clamp(c - j * width, 0, width).to(torch.int32) for j, c in enumerate(row_counts)]
+        for v, eff in zip(row_values, effs):
+            shard_ms["row_max"].append(statistics.median(cuda_ms(torch, lambda: cuda_select.row_max_chunk(v, eff))))
+            shard_ms["digest_hist"].append(statistics.median(cuda_ms(torch, lambda: cuda_sketch.digest_hist(
+                v, eff, DIGEST_BUCKETS, DIGEST_MIN_VALUE, DIGEST_LOG_GAMMA))))
+            shard_ms["topk_select"].append(statistics.median(cuda_ms(
+                torch, lambda: cuda_sketch.topk_select(v, eff, TOPK_K))))
+        block = slice(rows, rows + row_values[0].shape[0])
+        rows = block.stop
+        if len(row_values) == 1:
+            shard_ms["bisect_select"].append(statistics.median(cuda_ms(
+                torch, lambda: cuda_select.masked_percentile_bisect_cuda(row_values[0], row_counts[0], q))))
+            continue
+        home = row_counts[0].device
+        plan = RadixSelect(row_counts[0], q, width * len(row_values))
+        live = [torch.clamp(plan.live.to(v.device) - j * width, 0, width).to(torch.int32)
+                for j, v in enumerate(row_values)]
+
+        def count_pass(prefix32, shift, bits, row_values=row_values, live=live):
+            total, times = None, []
+            for v, eff in zip(row_values, live):
+                prefix = prefix32.to(v.device)
+                scratch = torch.zeros((v.shape[0], 1 << bits), dtype=torch.int32, device=v.device)
+                times.append(statistics.median(cuda_ms(
+                    torch, lambda: cuda_select.radix_digit_hist(v, eff, prefix, scratch, shift, bits))))
+                bins = cuda_select.radix_digit_hist(v, eff, prefix, torch.zeros_like(scratch), shift, bits)
+                total = bins.to(home) if total is None else total + bins.to(home)
+            passes.append({"shift": shift, "bits": bits, "shard_ms": times})
+            shard_ms["radix_digit_hist"].extend(times)
+            return total
+
+        check(same_bits(torch, plan.run(count_pass), resident_p[block]),
+              "mesh: the per-pass radix select != bisect_select's rows")
+    del values_d, counts_d
+    return {"shard_ms": shard_ms, "radix_passes": passes,
+            "sum_ms": {name: sum(times) for name, times in shard_ms.items() if times}}
+
+
+def _mesh_functions(torch, np, mesh, host_values, host_counts, q: float, resident: dict, resident_p) -> dict:
+    """Each sharded function on ``mesh`` against the resident kernels'
+    results, bit for bit, with its exact launches; then the kernels' times
+    per shard."""
+    from krr_tpu_torch import parallel
+    from krr_tpu_torch.ops.digest import DigestSpec
+    from krr_tpu_torch.ops.selection import STREAM_DIGITS
+
+    data, time_shards = mesh.shape["data"], mesh.shape["time"]
+    shards = mesh.size
+    out: dict = {"shape": [data, time_shards], "devices": [str(d) for d in mesh.flat()], "functions": {}}
+    select = {"bisect_select": data} if time_shards == 1 else {"radix_digit_hist": len(STREAM_DIGITS) * shards}
+    spec = DigestSpec(gamma=1.01, min_value=DIGEST_MIN_VALUE, num_buckets=DIGEST_BUCKETS)
+    runs = {
+        "percentile_bisect": (select, lambda: parallel.sharded_percentile_bisect(host_values, host_counts, q, mesh)),
+        "masked_max": ({"row_max": shards}, lambda: parallel.sharded_masked_max(host_values, host_counts, mesh)),
+        "fleet_digest": ({"digest_hist": shards},
+                         lambda: parallel.sharded_fleet_digest(spec, host_values, host_counts, mesh)),
+        "fleet_topk": ({"topk_select": shards},
+                       lambda: parallel.sharded_fleet_topk(host_values, host_counts, TOPK_K, mesh)),
+    }
+    for name, (expected, fn) in runs.items():
+        result, launches, wall = _counted(f"{data}x{time_shards} {name}", expected, fn)
+        if name == "fleet_digest":
+            blocks, rows = result
+            got = {f: parallel.gather_rows(blocks, lambda d, i=i: d[i], rows)
+                   for i, f in enumerate(("counts", "total", "peak"))}
+            same = all(np.array_equal(got[f].view(np.uint32), resident[f].view(np.uint32)) for f in got)
+        elif name == "fleet_topk":
+            blocks, rows = result
+            top = parallel.gather_rows(blocks, lambda s: s.values, rows)
+            total = parallel.gather_rows(blocks, lambda s: s.total, rows)
+            same = (np.array_equal(np.sort(top.view(np.int32), axis=1), resident["topk_sorted"])
+                    and np.array_equal(total, resident["topk_total"]))
+        else:
+            same = np.array_equal(result.view(np.uint32), resident[name].view(np.uint32))
+        check(same, f"mesh {data}x{time_shards}: sharded {name} != the resident kernel's result")
+        out["functions"][name] = {"wall_seconds": wall, "launches": launches}
+    out.update(_shard_kernel_ms(torch, mesh, host_values, host_counts, q, resident_p))
+    return out
+
+
+def phase_mesh(torch, np, fleet: E2EFleet, rendered: "dict | None") -> dict:
+    """The device mesh (`krr_tpu_torch.parallel`) on the card. Functions: on
+    the headline matrix (10,000 × 120,960 CPU-like float32 made on the card
+    from a seed; every 7th row cut to a seeded count, the first 8 empty),
+    each sharded function on (4, 1) and (2, 2) meshes of the card four
+    times, and on the distinct cards when there are two or more, must
+    equal the resident ``bisect_select``, ``row_max``, ``digest_hist`` and
+    ``topk_select`` results bit for bit, with exact launches; each kernel's
+    time per shard (CUDA events) is printed beside the resident kernel's,
+    and the radix route's ``radix_digit_hist`` time per shard and pass.
+    Scans: ``simple``, ``tdigest`` and ``tdigest --exact_upgrade`` through
+    ``Runner.run`` on ``e2e``'s fleet with ``mesh_time_axis=2`` and the
+    strategies' device seam (``mesh_devices``) giving the card four times:
+    a (2, 2) mesh. Each must render ``e2e``'s JSON byte for byte with the
+    exact launches of :data:`MESH_SCANS`, no generic fold, 10,000 rows and
+    no ``?``. ``rendered`` holds the ``e2e`` phase's JSON; None runs the
+    resident references here."""
+    import krr_tpu_torch.strategies.simple as simple_module
+    from krr_tpu_torch import parallel
+    from krr_tpu_torch.ops import cuda_select
+    from krr_tpu_torch.ops import digest as digest_ops
+    from krr_tpu_torch.ops import topk_sketch as topk_ops
+    from krr_tpu_torch.ops.digest import DigestSpec
+
+    dev = torch.device(DEVICE)
+    n, t, q = HEADLINE_ROWS, HEADLINE_T, 99.0
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    values = torch.rand((n, t), generator=gen, device=dev, dtype=torch.float32)
+    values.mul_(values).mul_(0.8).add_(1e-4)
+    cut = torch.randint(0, t + 1, (n,), generator=gen, device=dev, dtype=torch.int32)
+    counts = torch.where(torch.arange(n, device=dev) % 7 == 3, cut, torch.full_like(cut, t))
+    counts[:8] = 0
+    spec = DigestSpec(gamma=1.01, min_value=DIGEST_MIN_VALUE, num_buckets=DIGEST_BUCKETS)
+    kernels = {
+        "bisect_select": lambda: cuda_select.masked_percentile_bisect_cuda(values, counts, q),
+        "row_max": lambda: cuda_select.masked_max_cuda(values, counts),
+        "digest_hist": lambda: digest_ops.build_from_packed(spec, values, counts),
+        "topk_select": lambda: topk_ops.build_from_packed(values, counts, TOPK_K),
+    }
+    resident_ms = {name: statistics.median(cuda_ms(torch, fn)) for name, fn in kernels.items()}
+    resident_p = kernels["bisect_select"]()
+    digest = kernels["digest_hist"]()
+    sketch = kernels["topk_select"]()
+    resident = {
+        "percentile_bisect": resident_p.cpu().numpy(), "masked_max": kernels["row_max"]().cpu().numpy(),
+        "counts": digest.counts.cpu().numpy(), "total": digest.total.cpu().numpy(), "peak": digest.peak.cpu().numpy(),
+        "topk_sorted": np.sort(sketch.values.cpu().numpy().view(np.int32), axis=1),
+        "topk_total": sketch.total.cpu().numpy(),
+    }
+    host_values, host_counts = values.cpu().numpy(), counts.cpu().numpy()
+    del values, digest, sketch
+    torch.cuda.empty_cache()
+    meshes = {f"card_{d}x{s}": parallel.make_mesh(d, s, devices=[dev] * (d * s)) for d, s in MESH_SHAPES}
+    cards = parallel.mesh_devices(DEVICE)
+    if len(cards) >= 2:
+        meshes[f"cards_{len(cards)}x1"] = parallel.make_mesh(devices=cards)
+    report: dict = {"shape": [n, t], "q": q, "resident_ms": resident_ms, "meshes": {}, "scans": {}}
+    for name, mesh in meshes.items():
+        report["meshes"][name] = _mesh_functions(torch, np, mesh, host_values, host_counts, q, resident,
+                                                 resident_p)
+    del host_values, host_counts, resident, resident_p, counts
+    torch.cuda.empty_cache()
+
+    references = dict(rendered or {})
+    for path in MESH_SCANS:
+        if path not in references:
+            strategy, args, _ = E2E_PATHS[path]
+            result, _runner, _wall = fleet.scan(fleet.objects, DEVICE, strategy, **args)
+            references[path] = result.format("json")
+    seam = simple_module.mesh_devices
+    simple_module.mesh_devices = lambda device: [dev] * 4
+    try:
+        for path, (strategy, args, expected) in MESH_SCANS.items():
+            torch.cuda.reset_peak_memory_stats()
+            (result, runner, wall), launches, _wall = _counted(
+                f"scan {path}", expected,
+                lambda: fleet.scan(fleet.objects, DEVICE, strategy, mesh_time_axis=2, **args))
+            scan_json = result.format("json")
+            legs = runner.session.strategy.leg_seconds
+            check("h2d" not in legs and runner.session.strategy.stream_stats is None,
+                  f"mesh scan {path}: the scan did not take the mesh path (legs {sorted(legs)})")
+            check(len(result.scans) == E2E_OBJECTS and '"?"' not in scan_json,
+                  f"mesh scan {path}: {len(result.scans)} scans or an unknown value")
+            check(scan_json == references[path], f"mesh scan {path}: JSON != the e2e {path} scan's")
+            report["scans"][path] = {"run_wall_seconds": wall, "runner_stats": runner.stats, "legs_seconds": legs,
+                                     "launches": launches, "peak_device_bytes": torch.cuda.max_memory_allocated()}
+    finally:
+        simple_module.mesh_devices = seam
+    emit("mesh", **report)
+    return report
+
+
 def same_within_a_bucket(card_json: str, cpu_json: str, cpu_within: bool = True) -> int:
     """Hold a tdigest scan's JSON on the CPU to the card's: the same objects
     and memory, each CPU request within one bucket (``cpu_within=False``:
@@ -1904,9 +2140,9 @@ def _cli_state(invoke, common: list, tdigest_json: str, tmp: str) -> dict:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
-        "--phases", default="build,parity,digest_proof,headline,e2e,stream,state,cli",
-        help="comma-separated subset of build,parity,digest_proof,headline,e2e,stream,state,cli,row_max_main "
-        "(default: the first eight; the kernels line and the ok line need all eight)",
+        "--phases", default="build,parity,digest_proof,headline,e2e,stream,state,mesh,cli",
+        help="comma-separated subset of build,parity,digest_proof,headline,e2e,stream,state,mesh,cli,row_max_main "
+        "(default: the first nine; the kernels line and the ok line need all nine)",
     )
     args = parser.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -1941,14 +2177,15 @@ def main(argv=None) -> int:
     if headline is not None:
         headline.update(timed("headline_sketch", phase_sketch_headline, torch, np))
         headline.update(timed("headline_stream", phase_stream_headline, torch, np))
-    fleet = timed("fleet", E2EFleet, np) if {"e2e", "stream", "state"} & phases else None
+    fleet = timed("fleet", E2EFleet, np) if {"e2e", "stream", "state", "mesh"} & phases else None
     e2e, rendered = timed("e2e", phase_e2e, torch, fleet) if "e2e" in phases else (None, None)
     stream = timed("stream", phase_stream, torch, fleet, rendered) if "stream" in phases else None
     state = timed("state", phase_state, torch, np, fleet, rendered) if "state" in phases else None
+    mesh = timed("mesh", phase_mesh, torch, np, fleet, rendered) if "mesh" in phases else None
     del fleet, rendered  # the fleet's 9.7 GB of samples are not needed past here
     cli = timed("cli", phase_cli) if "cli" in phases else None
     emit("walls", seconds=walls)
-    if None in (headline, e2e, stream, state, cli, parity, proof) or "build" not in phases:
+    if None in (headline, e2e, stream, state, mesh, cli, parity, proof) or "build" not in phases:
         print(smi)
         return 0
     launched = {"cli": lambda path: cli["paths"][path]["warm"]["launches"],

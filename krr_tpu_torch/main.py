@@ -38,7 +38,7 @@ from krr_tpu_torch.utils.version import get_version
 
 #: Settings fields that tune the device backend rather than the strategy's
 #: recommendation math — rendered in their own help panel.
-DEVICE_BACKEND_FIELDS = {"device", "profile_dir", "host_stream_mb", "exact_sketch_budget"}
+DEVICE_BACKEND_FIELDS = {"use_mesh", "mesh_time_axis", "device", "profile_dir", "host_stream_mb", "exact_sketch_budget"}
 
 #: Help-panel render order (any unlisted panel prints after these).
 PANEL_ORDER = (

@@ -17,13 +17,17 @@ Two scans share that contract:
   device memory holds the state plus two chunks. On the card the copies run
   on a side stream from two pinned host buffers into two device buffers, so
   chunk i + 1 is filled and copied while chunk i folds (see the class).
+
+:func:`split_rows` spreads a streamed build's rows over several devices,
+each block streaming on its own: the counterpart of the JAX package's chunk
+sharding, which is collective-free because every fold is row-local.
 """
 
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import Callable, Optional, TypeVar
+from typing import Callable, Optional, Sequence, TypeVar
 
 import numpy as np
 import torch
@@ -302,3 +306,42 @@ def stream_host_chunks(
     return HostChunkStreamer(
         values, counts, chunk_size, time_offset=time_offset, scale=scale, device=device, stats=stats
     ).run(init, fold)
+
+
+def _gather(parts: list, device: torch.device):
+    """Row blocks' results, in order, as one: host arrays concatenated,
+    tensors concatenated on ``device``, tuples (a digest, a sketch) field by
+    field."""
+    first = parts[0]
+    if isinstance(first, np.ndarray):
+        return np.concatenate(parts)
+    if isinstance(first, torch.Tensor):
+        return torch.cat([part.to(device) for part in parts])
+    return type(first)(*(_gather(list(field), device) for field in zip(*parts)))
+
+
+def split_rows(
+    values: np.ndarray,
+    counts: np.ndarray,
+    devices: Sequence["torch.device | str"],
+    run: Callable[[np.ndarray, np.ndarray, torch.device], State],
+) -> State:
+    """``run(values block, counts block, device)`` over row blocks of a host
+    ``[N, T]`` matrix, one block per device, and the results gathered in
+    row order (tensors onto the first device). The JAX package pads the
+    rows to a multiple of the device count and gives each device an equal
+    block (`krr_tpu/ops/chunked.py` ``HostChunkStreamer`` with a
+    ``sharding``); here each device takes ``ceil(N / D)`` rows without the
+    pad, so the last blocks are shorter or empty, and an empty block runs
+    nowhere. One device runs the whole matrix and its result is returned
+    as it is."""
+    devices = [torch.device(d) for d in devices]
+    n = values.shape[0]
+    block = max(-(-n // len(devices)), 1)
+    parts = [
+        run(values[start : start + block], counts[start : start + block], device)
+        for start, device in zip(range(0, n, block), devices)
+    ]
+    if len(parts) <= 1:
+        return parts[0] if parts else run(values, counts, devices[0])
+    return _gather(parts, devices[0])

@@ -26,12 +26,18 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
-from krr_tpu_torch.ops.chunked import StreamStats, dispatch_prefix_kernel, scan_time_chunks, stream_host_chunks
+from krr_tpu_torch.ops.chunked import (
+    StreamStats,
+    dispatch_prefix_kernel,
+    scan_time_chunks,
+    split_rows,
+    stream_host_chunks,
+)
 from krr_tpu_torch.ops.cuda_sketch import bucket_indices, digest_hist, row_histogram
 from krr_tpu_torch.ops.quantile import max_where, peak_max
 
@@ -219,20 +225,28 @@ def build_from_host(
     *,
     device: "torch.device | str" = "cuda",
     stats: Optional[StreamStats] = None,
+    devices: Optional[Sequence["torch.device | str"]] = None,
 ) -> Digest:
     """Build a digest from a **host** ``[N, T]`` matrix, streaming time
     chunks to the device (`krr_tpu_torch.ops.chunked.HostChunkStreamer`):
     bit-identical to :func:`build_from_packed`, while device memory holds
     only the digest plus two chunks. Every chunk is one ``digest_hist`` call
     through :func:`add_prefix_chunk` — the streamer's validity is a prefix
-    by construction, so no fold takes the generic path."""
-    return stream_host_chunks(
-        values,
-        counts,
-        empty(spec, values.shape[0], device=device),
-        lambda digest, chunk, eff: add_prefix_chunk(spec, digest, chunk, eff),
-        chunk_size,
-        time_offset,
-        device=device,
-        stats=stats,
-    )
+    by construction, so no fold takes the generic path. With ``devices``
+    the rows split over those devices, each block streaming on its own, and
+    the digest is gathered onto the first
+    (`krr_tpu_torch.ops.chunked.split_rows`)."""
+
+    def stream(values: np.ndarray, counts: np.ndarray, device: torch.device) -> Digest:
+        return stream_host_chunks(
+            values,
+            counts,
+            empty(spec, values.shape[0], device=device),
+            lambda digest, chunk, eff: add_prefix_chunk(spec, digest, chunk, eff),
+            chunk_size,
+            time_offset,
+            device=device,
+            stats=stats,
+        )
+
+    return split_rows(values, counts, [device] if devices is None else devices, stream)

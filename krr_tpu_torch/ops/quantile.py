@@ -22,12 +22,12 @@ memory (`krr_tpu_torch.ops.chunked`), one ``row_max`` launch per time chunk.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
-from krr_tpu_torch.ops.chunked import StreamStats, stream_host_chunks
+from krr_tpu_torch.ops.chunked import StreamStats, split_rows, stream_host_chunks
 from krr_tpu_torch.ops.selection import (
     EXPONENT_BITS,
     INT32_MIN,
@@ -96,6 +96,7 @@ def masked_max_from_host(
     *,
     device: "torch.device | str" = "cuda",
     stats: Optional[StreamStats] = None,
+    devices: Optional[Sequence["torch.device | str"]] = None,
 ) -> np.ndarray:
     """Per-row max of the valid prefix of a **host** ``[N, T]`` matrix
     (divided by ``scale`` first when it is not 1), streamed to the device in
@@ -106,22 +107,27 @@ def masked_max_from_host(
     Each chunk's max comes from the ``row_max`` kernel on the card (its
     plain version on the CPU) with −inf for a row whose samples all lie in
     other chunks, and :func:`peak_max` folds it into the running max; NaN
-    for ``count == 0`` only at the end."""
+    for ``count == 0`` only at the end. With ``devices`` the rows split
+    over those devices, each block streaming on its own
+    (`krr_tpu_torch.ops.chunked.split_rows`)."""
     from krr_tpu_torch.ops.cuda_select import row_max_chunk  # cuda_select imports this module
 
-    counts = np.asarray(counts)
-    n = values.shape[0]
-    if n == 0:
-        return np.zeros((0,), dtype=np.float32)
-    init = torch.full((n,), float("-inf"), dtype=torch.float32, device=device)
-    peak = stream_host_chunks(
-        values,
-        counts,
-        init,
-        lambda state, chunk, eff: peak_max(state, row_max_chunk(chunk, eff)),
-        chunk_size,
-        scale=scale,
-        device=device,
-        stats=stats,
-    )
-    return np.where(counts > 0, peak.cpu().numpy(), np.float32(np.nan)).astype(np.float32)
+    def stream(values: np.ndarray, counts: np.ndarray, device: torch.device) -> np.ndarray:
+        counts = np.asarray(counts)
+        n = values.shape[0]
+        if n == 0:
+            return np.zeros((0,), dtype=np.float32)
+        init = torch.full((n,), float("-inf"), dtype=torch.float32, device=device)
+        peak = stream_host_chunks(
+            values,
+            counts,
+            init,
+            lambda state, chunk, eff: peak_max(state, row_max_chunk(chunk, eff)),
+            chunk_size,
+            scale=scale,
+            device=device,
+            stats=stats,
+        )
+        return np.where(counts > 0, peak.cpu().numpy(), np.float32(np.nan)).astype(np.float32)
+
+    return split_rows(values, counts, [device] if devices is None else devices, stream)

@@ -27,7 +27,8 @@ CPU backend in the reference tests:
 :func:`masked_percentile_bisect_from_host` selects the same sample from a
 window that stays in host memory, by a radix select streamed over time
 chunks: 3 passes of the host matrix (11-, 11- and 10-bit digits) where the
-JAX package's streamed bisection makes 31.
+JAX package's streamed bisection makes 31. :class:`RadixSelect` holds that
+select's pass loop, which the mesh's time-sharded select shares.
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from krr_tpu_torch.ops.chunked import HostChunkStreamer, StreamStats
+from krr_tpu_torch.ops.chunked import HostChunkStreamer, StreamStats, split_rows
 
 INT32_MAX = 2**31 - 1
 #: Smallest positive normal float32, as bits: patterns below it (as signed
@@ -158,6 +159,53 @@ def check_digits(digits: Sequence[tuple[int, int]]) -> None:
         raise ValueError(f"digits {tuple(digits)} do not reach bit 0")
 
 
+class RadixSelect:
+    """The radix select's plan and pass loop over a window the device never
+    holds whole: what K1 (`krr_tpu_torch/csrc/common.cuh`
+    ``radix_select_ordered``) does in one launch, as one counting pass per
+    digit of ``u = ordered bits ^ 0x80000000`` from the top. Two callers
+    share it: the host-streamed select (:func:`masked_percentile_bisect_from_host`,
+    a pass streams the host chunks) and the mesh's time-sharded select
+    (`krr_tpu_torch.parallel.fleet.sharded_percentile_bisect`, a pass runs
+    every shard and sums their bins onto the row block's device).
+
+    ``counts`` ([N] int32, on the device the loop runs on) and ``width``
+    (the row's columns, padding included) decide, here and only here, the
+    rows no pass serves: ``count == 0`` gives NaN, and a rank at or past
+    the row's valid keys (a count past the width) gives the bits
+    0x7fffffff, where the bisection climbs. Such rows fold nothing: the
+    passes count each row's first :attr:`live` positions."""
+
+    def __init__(self, counts: torch.Tensor, q: float, width: int):
+        self.counts = counts.to(torch.int32)
+        self.rank = selection_rank(self.counts, q).to(torch.int64)
+        self.past = self.rank >= torch.clamp(self.counts, 0, width)
+        #: Per row, the valid positions the passes count: 0 for a decided row.
+        self.live = torch.where(self.past, torch.zeros_like(self.counts), self.counts)
+
+    def run(self, count_pass, digits: Sequence[tuple[int, int]] = STREAM_DIGITS) -> torch.Tensor:
+        """The selected samples, ``[N]`` float32 on the counts' device.
+        ``count_pass(prefix32, shift, bits)`` returns the ``[N, 2^bits]``
+        int32 histogram of digit ``(u >> shift) & (2^bits - 1)`` over each
+        row's first ``live`` keys whose bits above ``shift + bits`` equal
+        those of ``prefix32`` (as int32); between passes :func:`radix_pick`
+        takes the digit where the count passes the residual rank. The
+        answer does not depend on the schedule ``digits``. It is ``max(b,
+        0)`` for ``b`` the selected key read as signed, so a row whose top
+        bit of ``u`` is 0 (a negative key: a NaN with its sign bit set)
+        gives 0."""
+        check_digits(digits)
+        prefix = torch.zeros_like(self.rank)  # the u digits found so far
+        residual = self.rank
+        for shift, bits in digits:
+            prefix32 = torch.where(prefix >= 2**31, prefix - 2**32, prefix).to(torch.int32)
+            digit, residual = radix_pick(count_pass(prefix32, shift, bits), residual)
+            prefix = prefix | (digit << shift)
+        answer = torch.clamp_min(prefix - 2**31, 0).to(torch.int32)  # max(b, 0), b = u ^ 0x80000000 as signed
+        answer = torch.where(self.past, torch.full_like(answer, INT32_MAX), answer).view(torch.float32)
+        return torch.where(self.counts > 0, answer, torch.full_like(answer, float("nan")))
+
+
 def masked_percentile_bisect_from_host(
     values: np.ndarray,
     counts: np.ndarray,
@@ -167,6 +215,7 @@ def masked_percentile_bisect_from_host(
     device: "torch.device | str" = "cuda",
     stats: Optional[StreamStats] = None,
     digits: Sequence[tuple[int, int]] = STREAM_DIGITS,
+    devices: Optional[Sequence["torch.device | str"]] = None,
 ) -> np.ndarray:
     """Exact percentile of a **host** ``[N, T]`` matrix that does not fit
     on the device: the sample :func:`masked_percentile_bisect` selects (31
@@ -174,47 +223,31 @@ def masked_percentile_bisect_from_host(
     empty rows.
 
     The JAX package streams its 31 bisection steps, each a counting pass
-    over the host chunks. This is the answer of K1's radix select
-    (`krr_tpu_torch/csrc/common.cuh` ``radix_select_ordered``) streamed
-    instead, one pass over the host chunks per digit of ``u = ordered bits
-    ^ 0x80000000`` from the top: ``digits`` (shift, bits), by default
-    11, 11 and 10 bits. Pass p adds each chunk's digit histogram over the
-    valid keys that carry the row's prefix into ``[N, 2^bits]`` int32 bins
-    (``radix_digit_hist``, the K5 kernel on the card); between passes
-    :func:`radix_pick` takes the digit where the count passes the residual
-    rank. The answer does not depend on the schedule: the strategies take
-    the default, and ``digits`` takes another (K1's four 8-bit digits, say)
-    only so that the tests and the chip check can show it. It is ``max(b, 0)``
-    for ``b`` the selected key read as signed, so a row whose top bit of
-    ``u`` is 0 (a negative key: a NaN with its sign bit set) gives 0. As in
-    K1, two kinds of row are decided before the first pass: ``count == 0``
-    gives NaN, and a rank at or past the row's valid keys (a count past the
-    width) gives the bits 0x7fffffff, where the bisection climbs; those
-    rows fold no chunk. 3 passes move 3/31 of the host→device bytes of the
-    streamed bisection."""
+    over the host chunks. This streams :class:`RadixSelect`'s passes
+    instead, one over the host chunks per digit: ``digits`` (shift, bits),
+    by default 11, 11 and 10 bits. Pass p adds each chunk's digit histogram
+    into ``[N, 2^bits]`` int32 bins (``radix_digit_hist``, the K5 kernel on
+    the card). The strategies take the default schedule; ``digits`` takes
+    another (K1's four 8-bit digits, say) only so that the tests and the
+    chip check can show that the answer does not depend on it. 3 passes
+    move 3/31 of the host→device bytes of the streamed bisection. With
+    ``devices`` the rows split over those devices, each block streaming on
+    its own (`krr_tpu_torch.ops.chunked.split_rows`)."""
     from krr_tpu_torch.ops.cuda_select import radix_digit_hist  # cuda_select imports this module
 
     check_digits(digits)
-    counts32 = np.ascontiguousarray(counts, dtype=np.int32)
-    n, t = values.shape
-    if n == 0:
-        return np.zeros((0,), dtype=np.float32)
-    host_counts = torch.from_numpy(counts32)
-    rank = selection_rank(host_counts, q).to(torch.int64)
-    # The rank at or past the row's keys (empty rows among them): no digit
-    # passes it, the bisection climbs. These rows fold nothing.
-    past = rank >= torch.clamp(host_counts, 0, t)
-    streamer = HostChunkStreamer(values, np.where(past.numpy(), 0, counts32), chunk_size, device=device, stats=stats)
-    dev = streamer.device
-    prefix = torch.zeros((n,), dtype=torch.int64, device=dev)  # the u digits found so far
-    residual = rank.to(dev)
-    for shift, bits in digits:
-        prefix32 = torch.where(prefix >= 2**31, prefix - 2**32, prefix).to(torch.int32)
-        bins = torch.zeros((n, 1 << bits), dtype=torch.int32, device=dev)
-        bins = streamer.run(bins, lambda b, chunk, eff: radix_digit_hist(chunk, eff, prefix32, b, shift, bits))
-        digit, residual = radix_pick(bins, residual)
-        prefix = prefix | (digit << shift)
-    answer = torch.clamp_min(prefix - 2**31, 0).to(torch.int32)  # max(b, 0), b = u ^ 0x80000000 as signed
-    answer = torch.where(past.to(dev), torch.full_like(answer, INT32_MAX), answer)
-    out = answer.view(torch.float32).cpu().numpy()
-    return np.where(counts32 > 0, out, np.float32(np.nan)).astype(np.float32)
+
+    def select(values: np.ndarray, counts: np.ndarray, device: torch.device) -> np.ndarray:
+        counts32 = np.ascontiguousarray(counts, dtype=np.int32)
+        if values.shape[0] == 0:
+            return np.zeros((0,), dtype=np.float32)
+        plan = RadixSelect(torch.from_numpy(counts32).to(device), q, values.shape[1])
+        streamer = HostChunkStreamer(values, plan.live.cpu().numpy(), chunk_size, device=device, stats=stats)
+
+        def count_pass(prefix32: torch.Tensor, shift: int, bits: int) -> torch.Tensor:
+            bins = torch.zeros((values.shape[0], 1 << bits), dtype=torch.int32, device=device)
+            return streamer.run(bins, lambda b, chunk, eff: radix_digit_hist(chunk, eff, prefix32, b, shift, bits))
+
+        return plan.run(count_pass, digits).cpu().numpy()
+
+    return split_rows(values, counts, [device] if devices is None else devices, select)

@@ -18,12 +18,18 @@ bisection, so slot order never matters.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
-from krr_tpu_torch.ops.chunked import StreamStats, dispatch_prefix_kernel, scan_time_chunks, stream_host_chunks
+from krr_tpu_torch.ops.chunked import (
+    StreamStats,
+    dispatch_prefix_kernel,
+    scan_time_chunks,
+    split_rows,
+    stream_host_chunks,
+)
 from krr_tpu_torch.ops.cuda_sketch import topk_select
 from krr_tpu_torch.ops.quantile import max_where
 from krr_tpu_torch.ops.selection import as_ordered_bits, bisect_loop
@@ -177,19 +183,27 @@ def build_from_host(
     *,
     device: "torch.device | str" = "cuda",
     stats: Optional[StreamStats] = None,
+    devices: Optional[Sequence["torch.device | str"]] = None,
 ) -> TopKSketch:
     """Build the sketch from a **host** ``[N, T]`` matrix, streaming time
     chunks to the device (`krr_tpu_torch.ops.chunked.HostChunkStreamer`):
     the same multiset as :func:`build_from_packed`, with device memory
     bounded by the ``[N, K]`` state plus two chunks. Every chunk is one
-    ``topk_select`` call with the running state (:func:`add_prefix_chunk`)."""
-    return stream_host_chunks(
-        values,
-        counts,
-        empty(values.shape[0], k, device=device),
-        add_prefix_chunk,
-        chunk_size,
-        time_offset,
-        device=device,
-        stats=stats,
-    )
+    ``topk_select`` call with the running state (:func:`add_prefix_chunk`).
+    With ``devices`` the rows split over those devices, each block
+    streaming on its own, and the sketch is gathered onto the first
+    (`krr_tpu_torch.ops.chunked.split_rows`)."""
+
+    def stream(values: np.ndarray, counts: np.ndarray, device: torch.device) -> TopKSketch:
+        return stream_host_chunks(
+            values,
+            counts,
+            empty(values.shape[0], k, device=device),
+            add_prefix_chunk,
+            chunk_size,
+            time_offset,
+            device=device,
+            stats=stats,
+        )
+
+    return split_rows(values, counts, [device] if devices is None else devices, stream)

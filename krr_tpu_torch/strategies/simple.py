@@ -12,12 +12,19 @@ A window past ``host_stream_mb`` stays in host memory and streams to the
 device in time chunks (`krr_tpu_torch.ops.chunked`): the exact top-K sketch
 when the percentile's rank-from-the-top fits ``exact_sketch_budget``, else
 the streamed radix select, and the streamed max for memory — each selects
-the same sample as the resident path. The multi-device mesh waits for a
-later slice.
+the same sample as the resident path.
+
+With more than one device and ``use_mesh`` (`krr_tpu/strategies/simple.py:
+179-192`, :func:`resolve_mesh`), the fleet shards over a ``(data, time)``
+mesh (`krr_tpu_torch.parallel`): ``bisect_select`` per row block, or the
+time-sharded radix select (``radix_digit_hist`` per shard and digit), and
+``row_max`` per shard, merged exactly. A streamed window with a mesh splits
+its rows over every mesh device, each block streaming on its own. One
+device, the CPU or ``use_mesh`` false take the single-device paths.
 
 The legs are stages of the scan trace (``strategy.obs``,
-`krr_tpu_torch.obs.device`): ``pack``, ``quantile`` (``path=resident`` or
-``host_stream``) and ``round``, each fenced when the tracer records; with
+`krr_tpu_torch.obs.device`): ``pack``, ``quantile`` (``path=resident``,
+``host_stream`` or ``mesh``) and ``round``, each fenced when the tracer records; with
 ``profile_dir`` the device compute runs under ``torch.profiler``.
 """
 
@@ -39,6 +46,7 @@ from krr_tpu_torch.ops.chunked import StreamStats
 from krr_tpu_torch.ops.cuda_select import fleet_exact
 from krr_tpu_torch.ops.quantile import masked_max_from_host
 from krr_tpu_torch.ops.selection import masked_percentile_bisect_from_host
+from krr_tpu_torch.parallel import Mesh, make_mesh, mesh_devices, sharded_masked_max, sharded_percentile_bisect
 from krr_tpu_torch.strategies.base import BatchedStrategy, ResourceRecommendation, RunResult, StrategySettings
 from krr_tpu_torch.utils.device import resolve_device
 
@@ -129,14 +137,23 @@ def streamed_legs(pack: float, stream: float, stats: StreamStats, query: float, 
     }
 
 
-def use_host_stream(batch: FleetBatch, device: torch.device, setting_mb: int) -> bool:
-    """Whether the packed window is too large to live on the device."""
+def use_host_stream(batch: FleetBatch, device: torch.device, setting_mb: int, mesh: Optional[Mesh] = None) -> bool:
+    """Whether the packed window is too large to live on the device (on
+    each device of ``mesh``, which shares it out)."""
     threshold = _stream_threshold_bytes(setting_mb, device)
     if threshold is None:
         return False
     cpu = batch.packed(ResourceType.CPU)
     mem = batch.packed(ResourceType.Memory)
-    return 4 * (cpu.values.size + mem.values.size) > threshold
+    num_devices = 1 if mesh is None else mesh.size
+    return 4 * (cpu.values.size + mem.values.size) / num_devices > threshold
+
+
+def stream_devices(mesh: Optional[Mesh]) -> Optional[list]:
+    """The devices a streamed window's rows split over: every mesh device
+    (collective-free: each block folds its own rows), or None for the one
+    device."""
+    return None if mesh is None else mesh.flat()
 
 
 class SimpleStrategySettings(StrategySettings):
@@ -145,6 +162,10 @@ class SimpleStrategySettings(StrategySettings):
     )
     memory_buffer_percentage: Decimal = pd.Field(
         Decimal(5), gt=0, description="The percentage of added buffer to the peak memory usage for memory recommendation."
+    )
+    use_mesh: bool = pd.Field(True, description="Shard the fleet over all devices when more than one is available.")
+    mesh_time_axis: int = pd.Field(
+        1, ge=1, description="Devices on the time (sequence-parallel) mesh axis; the rest shard containers."
     )
     device: str = pd.Field(
         "cuda",
@@ -182,9 +203,22 @@ class SimpleStrategySettings(StrategySettings):
     )
 
 
+def resolve_mesh(settings: SimpleStrategySettings, device: "torch.device | str") -> Optional[Mesh]:
+    """The strategy's device mesh over ``device``'s devices
+    (`krr_tpu_torch.parallel.mesh_devices`), or None for the single-device
+    path: ``use_mesh`` false, the CPU or one card. A ``mesh_time_axis``
+    that does not divide the device count raises, as ``make_mesh`` does,
+    rather than degrade to a data-only mesh."""
+    devices = mesh_devices(device)
+    if not settings.use_mesh or len(devices) <= 1:
+        return None
+    return make_mesh(time=settings.mesh_time_axis, devices=devices)
+
+
 class SimpleStrategy(BatchedStrategy[SimpleStrategySettings]):
     """Exact batched reductions: bit-space bisection for the CPU percentile
-    (bit-identical to a sort-and-index) and the masked max for memory."""
+    (bit-identical to a sort-and-index, on the mesh too) and the masked max
+    for memory."""
 
     __display_name__ = "simple"
     #: Memory is max × 1.05: only each pod's exact max matters, so sources
@@ -196,14 +230,15 @@ class SimpleStrategy(BatchedStrategy[SimpleStrategySettings]):
         super().__init__(settings)
         self.device = resolve_device(settings.device)
         #: Wall seconds of the last ``run_batch``'s legs: resident (pack,
-        #: h2d, fleet_exact incl. its one readback, finalize) or streamed
-        #: (:func:`streamed_legs`).
+        #: h2d, fleet_exact incl. its one readback, finalize), streamed
+        #: (:func:`streamed_legs`) or on the mesh (pack, mesh: transfers,
+        #: kernels, merges and readbacks, finalize).
         self.leg_seconds: dict[str, float] = {}
         #: The last streamed ``run_batch``'s :class:`StreamStats` as a
         #: dict; None after a resident one.
         self.stream_stats: Optional[dict] = None
 
-    def _streamed_exact(self, batch: FleetBatch, q: float, stats: StreamStats) -> tuple:
+    def _streamed_exact(self, batch: FleetBatch, q: float, stats: StreamStats, mesh: Optional[Mesh]) -> tuple:
         """(CPU percentile, memory peak in MB) with the window streamed from
         host: the one-pass exact top-K sketch when the rank-from-the-top
         fits, the three-pass streamed radix select otherwise — both select
@@ -211,31 +246,39 @@ class SimpleStrategy(BatchedStrategy[SimpleStrategySettings]):
         on the device (a tensor); the peak is a host array."""
         cpu = batch.packed(ResourceType.CPU)
         mem = batch.packed(ResourceType.Memory)
+        where = {"device": self.device, "stats": stats, "devices": stream_devices(mesh)}
         k = exact_topk_k(cpu.capacity, q, self.settings.exact_sketch_budget)
         if k is not None:
-            sketch = topk_ops.build_from_host(
-                cpu.values, cpu.counts, k, HOST_STREAM_CHUNK, device=self.device, stats=stats
-            )
+            sketch = topk_ops.build_from_host(cpu.values, cpu.counts, k, HOST_STREAM_CHUNK, **where)
             cpu_p = topk_ops.percentile(sketch, q)
         else:  # mid-range percentile: no bounded exact sketch
-            cpu_p = masked_percentile_bisect_from_host(
-                cpu.values, cpu.counts, q, HOST_STREAM_CHUNK, device=self.device, stats=stats
-            )
-        mem_max = masked_max_from_host(
-            mem.values, mem.counts, HOST_STREAM_CHUNK, scale=MEMORY_SCALE, device=self.device, stats=stats
-        )
+            cpu_p = masked_percentile_bisect_from_host(cpu.values, cpu.counts, q, HOST_STREAM_CHUNK, **where)
+        mem_max = masked_max_from_host(mem.values, mem.counts, HOST_STREAM_CHUNK, scale=MEMORY_SCALE, **where)
         return cpu_p, mem_max
 
-    def _run_streamed(self, batch: FleetBatch, q: float, pack_seconds: float) -> tuple:
+    def _run_streamed(self, batch: FleetBatch, q: float, pack_seconds: float, mesh: Optional[Mesh]) -> tuple:
         """The streamed quantile stage: (CPU percentile, memory peak) as host
         arrays; records the streamed legs but finalize."""
         stats = StreamStats()
         t0 = time.perf_counter()
-        cpu_p, mem_max = self.obs.fence(self._streamed_exact(batch, q, stats))
+        cpu_p, mem_max = self.obs.fence(self._streamed_exact(batch, q, stats, mesh))
         t1 = time.perf_counter()
         cpu_p = cpu_p.cpu().numpy() if isinstance(cpu_p, torch.Tensor) else cpu_p
         self.leg_seconds = streamed_legs(pack_seconds, t1 - t0, stats, time.perf_counter() - t1, 0.0)
         self.stream_stats = stats.as_dict()
+        return cpu_p, mem_max
+
+    def _run_mesh(self, batch: FleetBatch, q: float, pack_seconds: float, mesh: Mesh) -> tuple:
+        """The mesh quantile stage (`krr_tpu/strategies/simple.py:255-262`):
+        the sharded percentile and the sharded memory max, each returned to
+        the host; records the mesh legs but finalize."""
+        self.stream_stats = None
+        cpu = batch.packed(ResourceType.CPU)
+        mem = batch.packed(ResourceType.Memory)
+        t0 = time.perf_counter()
+        cpu_p = sharded_percentile_bisect(cpu.values, cpu.counts, q, mesh)
+        mem_max = sharded_masked_max(mem.values / MEMORY_SCALE, mem.counts, mesh)
+        self.leg_seconds = {"pack": pack_seconds, "mesh": time.perf_counter() - t0}
         return cpu_p, mem_max
 
     def _run_resident(self, batch: FleetBatch, q: float, pack_seconds: float) -> tuple:
@@ -269,9 +312,13 @@ class SimpleStrategy(BatchedStrategy[SimpleStrategySettings]):
                 pack_seconds = time.perf_counter() - t0
                 obs.record_padding(ResourceType.CPU.value, cpu)
                 obs.record_padding(ResourceType.Memory.value, mem)
-            if use_host_stream(batch, self.device, self.settings.host_stream_mb):
+            mesh = resolve_mesh(self.settings, self.device)
+            if use_host_stream(batch, self.device, self.settings.host_stream_mb, mesh):
                 with obs.stage("quantile", rows=len(batch), path="host_stream"):
-                    cpu_p, mem_max = self._run_streamed(batch, q, pack_seconds)
+                    cpu_p, mem_max = self._run_streamed(batch, q, pack_seconds, mesh)
+            elif mesh is not None:
+                with obs.stage("quantile", rows=len(batch), path="mesh"):
+                    cpu_p, mem_max = self._run_mesh(batch, q, pack_seconds, mesh)
             else:
                 with obs.stage("quantile", rows=len(batch), path="resident"):
                     cpu_p, mem_max = self._run_resident(batch, q, pack_seconds)

@@ -17,6 +17,13 @@ A window past ``host_stream_mb`` stays in host memory and streams to the
 device in ``chunk_size`` time chunks (`krr_tpu_torch.ops.chunked`): the same
 sketch built chunk by chunk, bit-identical, and the streamed memory max.
 
+With more than one device and ``use_mesh`` (`krr_tpu_torch.strategies.
+simple.resolve_mesh`) the window shards over a ``(data, time)`` mesh
+(`krr_tpu_torch.parallel`, `krr_tpu/strategies/tdigest.py:173-200`,
+`:294-321`): ``digest_hist`` or ``topk_select`` per shard and ``row_max``
+per shard, merged exactly onto each row block's first device; a streamed
+window splits its rows over every mesh device instead.
+
 With ``state_path`` (`krr_tpu/strategies/tdigest.py:267-293`) each run
 builds the fetched window's digest on the device — ``digest_hist`` plus
 ``row_max`` on the scaled memory window, resident or streamed — reads it
@@ -31,8 +38,8 @@ kernel runs.
 The legs are stages of the scan trace (``strategy.obs``,
 `krr_tpu_torch.obs.device`), as in `krr_tpu/strategies/tdigest.py:222-347`:
 ``pack``, then ``digest`` (the window's or the sketch's build), ``fold``
-and ``quantile`` (``path=resident``, ``host_stream``, ``store`` or
-``ingest``), then ``round``; device results are fenced inside their stage
+and ``quantile`` (``path=resident``, ``host_stream``, ``mesh``, ``store``
+or ``ingest``), then ``round``; device results are fenced inside their stage
 when the tracer records. With ``profile_dir`` the compute runs under
 ``torch.profiler``.
 """
@@ -56,6 +63,14 @@ from krr_tpu_torch.ops.chunked import StreamStats
 from krr_tpu_torch.ops.cuda_select import masked_max_cuda
 from krr_tpu_torch.ops.digest import DigestSpec
 from krr_tpu_torch.ops.quantile import masked_max_from_host
+from krr_tpu_torch.parallel import (
+    Mesh,
+    gather_rows,
+    sharded_fleet_digest,
+    sharded_fleet_topk,
+    sharded_masked_max,
+    sharded_percentile,
+)
 from krr_tpu_torch.strategies.base import BatchedStrategy, RunResult
 from krr_tpu_torch.strategies.simple import (
     MEMORY_SCALE,
@@ -63,6 +78,8 @@ from krr_tpu_torch.strategies.simple import (
     exact_topk_k,
     finalize_fleet,
     fleet_device_arrays,
+    resolve_mesh,
+    stream_devices,
     streamed_legs,
     use_host_stream,
 )
@@ -137,10 +154,11 @@ class _AppendCountingFs(FsOps):
         self.appended_bytes += len(data)
 
 
-def _fence(device: torch.device) -> None:
-    """Wait for the device, so a leg's wall clock covers its kernels."""
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+def _fence(*devices: torch.device) -> None:
+    """Wait for the devices, so a leg's wall clock covers their kernels."""
+    for device in devices:
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
 
 
 class TDigestStrategy(BatchedStrategy[TDigestStrategySettings]):
@@ -154,7 +172,9 @@ class TDigestStrategy(BatchedStrategy[TDigestStrategySettings]):
         #: memory max + the one readback, finalize), a streamed one
         #: (`krr_tpu_torch.strategies.simple.streamed_legs`), a
         #: ``state_path`` one (pack, digest — the window digest built on the
-        #: device and read back, fold, quantile, persist, finalize) or
+        #: device and read back, fold, quantile, persist, finalize), a mesh
+        #: one (pack, build — the transfers and the merged sketch, query —
+        #: percentile, memory max and the readbacks, finalize) or
         #: ``run_digested`` (fold, quantile and persist with a store;
         #: quantile alone without; finalize).
         self.leg_seconds: dict[str, float] = {}
@@ -177,59 +197,68 @@ class TDigestStrategy(BatchedStrategy[TDigestStrategySettings]):
             return None
         return exact_topk_k(capacity, q, self.settings.exact_sketch_budget)
 
-    def _use_host_stream(self, batch: FleetBatch) -> bool:
-        return use_host_stream(batch, self.device, self.settings.host_stream_mb)
+    def _use_host_stream(self, batch: FleetBatch, mesh: Optional[Mesh]) -> bool:
+        return use_host_stream(batch, self.device, self.settings.host_stream_mb, mesh)
 
-    def _streamed_sketch(self, batch: FleetBatch, spec: DigestSpec, q: float, stats: StreamStats) -> tuple:
+    def _streamed_sketch(
+        self, batch: FleetBatch, spec: DigestSpec, q: float, stats: StreamStats, mesh: Optional[Mesh]
+    ) -> tuple:
         """(CPU percentile, memory peak in MB) with the window streamed from
         host in ``chunk_size`` time chunks: the percentile still on the
         device (a tensor), the peak a host array."""
         chunk = self.settings.chunk_size
         cpu = batch.packed(ResourceType.CPU)
         mem = batch.packed(ResourceType.Memory)
+        where = {"device": self.device, "stats": stats, "devices": stream_devices(mesh)}
         k = self._exact_topk_k(cpu.capacity, q)
         if k is not None:
-            sketch = topk_ops.build_from_host(cpu.values, cpu.counts, k, chunk, device=self.device, stats=stats)
+            sketch = topk_ops.build_from_host(cpu.values, cpu.counts, k, chunk, **where)
             cpu_p = topk_ops.percentile(sketch, q)
         else:
-            cpu_digest = digest_ops.build_from_host(
-                spec, cpu.values, cpu.counts, chunk, device=self.device, stats=stats
-            )
+            cpu_digest = digest_ops.build_from_host(spec, cpu.values, cpu.counts, chunk, **where)
             cpu_p = digest_ops.percentile(spec, cpu_digest, q)
-        mem_max = masked_max_from_host(
-            mem.values, mem.counts, chunk, scale=MEMORY_SCALE, device=self.device, stats=stats
-        )
+        mem_max = masked_max_from_host(mem.values, mem.counts, chunk, scale=MEMORY_SCALE, **where)
         return cpu_p, mem_max
 
-    def _streamed_window_digest(self, batch: FleetBatch, spec: DigestSpec, stats: StreamStats) -> tuple:
+    def _streamed_window_digest(
+        self, batch: FleetBatch, spec: DigestSpec, stats: StreamStats, mesh: Optional[Mesh]
+    ) -> tuple:
         """`_window_digest` without device residency: the CPU digest and the
         memory peak streamed from host, one ``digest_hist`` and one
         ``row_max`` launch a chunk (`krr_tpu/strategies/tdigest.py:128-147`)."""
         chunk = self.settings.chunk_size
         cpu = batch.packed(ResourceType.CPU)
         mem = batch.packed(ResourceType.Memory)
-        cpu_digest = digest_ops.build_from_host(
-            spec, cpu.values, cpu.counts, chunk, device=self.device, stats=stats
-        )
+        where = {"device": self.device, "stats": stats, "devices": stream_devices(mesh)}
+        cpu_digest = digest_ops.build_from_host(spec, cpu.values, cpu.counts, chunk, **where)
         n, b = cpu_digest.counts.shape
         host = torch.cat([cpu_digest.counts.reshape(-1), cpu_digest.total, cpu_digest.peak]).cpu().numpy()
-        mem_peak = masked_max_from_host(
-            mem.values, mem.counts, chunk, scale=MEMORY_SCALE, device=self.device, stats=stats
-        )
+        mem_peak = masked_max_from_host(mem.values, mem.counts, chunk, scale=MEMORY_SCALE, **where)
         return host[: n * b].reshape(n, b), host[n * b : n * b + n], host[n * b + n :], mem_peak
 
-    def _window_digest(self, batch: FleetBatch, spec: DigestSpec) -> tuple:
+    def _window_digest(self, batch: FleetBatch, spec: DigestSpec, mesh: Optional[Mesh]) -> tuple:
         """Digest + memory peak of the fetched window as host arrays:
         float32 CPU counts ``[N, B]``, totals and peaks, the memory sample
         counts, and the memory peak in MB (−inf for an empty row, as the
         store wants) — `krr_tpu/strategies/tdigest.py:173-203`. Resident:
         one ``digest_hist`` launch on the CPU window and one ``row_max`` on
-        the scaled memory window, read back in one copy."""
-        mem_total = np.asarray(batch.packed(ResourceType.Memory).counts, dtype=np.float32)
-        if self._use_host_stream(batch):
+        the scaled memory window, read back in one copy. On a mesh: one of
+        each per shard, the digest merged per row block and read back per
+        field."""
+        mem = batch.packed(ResourceType.Memory)
+        mem_total = np.asarray(mem.counts, dtype=np.float32)
+        if self._use_host_stream(batch, mesh):
             stats = StreamStats()
-            counts, total, peak, mem_peak = self._streamed_window_digest(batch, spec, stats)
+            counts, total, peak, mem_peak = self._streamed_window_digest(batch, spec, stats, mesh)
             self.stream_stats = stats.as_dict()
+        elif mesh is not None:
+            self.stream_stats = None
+            cpu = batch.packed(ResourceType.CPU)
+            digests, real_rows = sharded_fleet_digest(spec, cpu.values, cpu.counts, mesh)
+            counts, total, peak = (
+                gather_rows(digests, lambda digest, i=i: digest[i], real_rows) for i in range(3)
+            )
+            mem_peak = sharded_masked_max(mem.values / MEMORY_SCALE, mem.counts, mesh)
         else:
             self.stream_stats = None
             cpu_values, cpu_counts = fleet_device_arrays(batch, ResourceType.CPU, device=self.device)
@@ -319,13 +348,15 @@ class TDigestStrategy(BatchedStrategy[TDigestStrategySettings]):
             self.leg_seconds["finalize"] = time.perf_counter() - t0
         return results
 
-    def _run_state(self, batch: FleetBatch, spec: DigestSpec, q: float, pack_seconds: float) -> tuple:
+    def _run_state(
+        self, batch: FleetBatch, spec: DigestSpec, q: float, pack_seconds: float, mesh: Optional[Mesh]
+    ) -> tuple:
         """The ``state_path`` run: the window digest on the device (the
         ``digest`` stage), then the store cycle on the host."""
         self.leg_seconds = {"pack": pack_seconds}
         with self.obs.stage("digest", rows=len(batch)):
             t0 = time.perf_counter()
-            counts, total, peak, mem_total, mem_peak = self._window_digest(batch, spec)
+            counts, total, peak, mem_total, mem_peak = self._window_digest(batch, spec, mesh)
             self.leg_seconds["digest"] = time.perf_counter() - t0
         keys = [object_key(obj) for obj in batch.objects]
         return self._store_round(
@@ -333,16 +364,46 @@ class TDigestStrategy(BatchedStrategy[TDigestStrategySettings]):
             lambda store: store.merge_window(keys, counts, total, peak, mem_total, mem_peak),
         )
 
-    def _run_streamed(self, batch: FleetBatch, spec: DigestSpec, q: float, pack_seconds: float) -> tuple:
+    def _run_streamed(
+        self, batch: FleetBatch, spec: DigestSpec, q: float, pack_seconds: float, mesh: Optional[Mesh]
+    ) -> tuple:
         """The streamed quantile stage: (CPU percentile, memory peak) as host
         arrays."""
         stats = StreamStats()
         t0 = time.perf_counter()
-        cpu_p, mem_max = self.obs.fence(self._streamed_sketch(batch, spec, q, stats))
+        cpu_p, mem_max = self.obs.fence(self._streamed_sketch(batch, spec, q, stats, mesh))
         t1 = time.perf_counter()
         cpu_p = cpu_p.cpu().numpy()
         self.leg_seconds = streamed_legs(pack_seconds, t1 - t0, stats, time.perf_counter() - t1, 0.0)
         self.stream_stats = stats.as_dict()
+        return cpu_p, mem_max
+
+    def _run_mesh(self, batch: FleetBatch, spec: DigestSpec, q: float, pack_seconds: float, mesh: Mesh) -> tuple:
+        """The mesh build (the ``digest`` stage: the sharded top-K sketch or
+        digest) and query (the ``quantile`` stage: the percentile per row
+        block, the sharded memory max), `krr_tpu/strategies/tdigest.py:
+        294-321`."""
+        obs = self.obs
+        self.stream_stats = None
+        cpu = batch.packed(ResourceType.CPU)
+        mem = batch.packed(ResourceType.Memory)
+        t0 = time.perf_counter()
+        k = self._exact_topk_k(cpu.capacity, q)
+        with obs.stage("digest", rows=len(batch), sketch="topk" if k is not None else "digest"):
+            if k is not None:
+                sketches, real_rows = sharded_fleet_topk(cpu.values, cpu.counts, k, mesh)
+            else:
+                digests, real_rows = sharded_fleet_digest(spec, cpu.values, cpu.counts, mesh)
+            # The build leg (and so the stage) covers the kernels, traced or not.
+            _fence(*set(mesh.flat()))
+        t1 = time.perf_counter()
+        with obs.stage("quantile", rows=len(batch), path="mesh"):
+            if k is not None:
+                cpu_p = gather_rows(sketches, lambda sketch: topk_ops.percentile(sketch, q), real_rows)
+            else:
+                cpu_p = sharded_percentile(spec, digests, q, real_rows)
+            mem_max = sharded_masked_max(mem.values / MEMORY_SCALE, mem.counts, mesh)
+        self.leg_seconds = {"pack": pack_seconds, "build": t1 - t0, "query": time.perf_counter() - t1}
         return cpu_p, mem_max
 
     def _run_resident(self, batch: FleetBatch, spec: DigestSpec, q: float, pack_seconds: float) -> tuple:
@@ -392,11 +453,14 @@ class TDigestStrategy(BatchedStrategy[TDigestStrategySettings]):
                 pack_seconds = time.perf_counter() - t0
                 obs.record_padding(ResourceType.CPU.value, cpu)
                 obs.record_padding(ResourceType.Memory.value, mem)
+            mesh = resolve_mesh(self.settings, self.device)
             if self.settings.state_path:
-                cpu_p, mem_max = self._run_state(batch, spec, q, pack_seconds)
-            elif self._use_host_stream(batch):
+                cpu_p, mem_max = self._run_state(batch, spec, q, pack_seconds, mesh)
+            elif self._use_host_stream(batch, mesh):
                 with obs.stage("quantile", rows=len(batch), path="host_stream"):
-                    cpu_p, mem_max = self._run_streamed(batch, spec, q, pack_seconds)
+                    cpu_p, mem_max = self._run_streamed(batch, spec, q, pack_seconds, mesh)
+            elif mesh is not None:
+                cpu_p, mem_max = self._run_mesh(batch, spec, q, pack_seconds, mesh)
             else:
                 cpu_p, mem_max = self._run_resident(batch, spec, q, pack_seconds)
             obs.record_device_memory(self.device)

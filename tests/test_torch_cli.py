@@ -19,6 +19,7 @@ import sys
 import click
 import numpy as np
 import pytest
+import torch
 import yaml
 from click.testing import CliRunner
 
@@ -44,12 +45,10 @@ STRATEGY_PATHS = {
 }
 
 #: JAX flags with no counterpart in the port: the XLA compilation cache (the
-#: port's kernels are nvcc builds) and the JAX strategies' mesh and Pallas
-#: settings (the mesh waits for ROADMAP M7).
+#: port's kernels are nvcc builds) and the JAX strategies' Pallas switch (the
+#: port always runs its CUDA kernels on the card).
 JAX_ONLY_FLAGS = {
     "--jax-compilation-cache-dir",
-    "--use_mesh",
-    "--mesh_time_axis",
     "--use_pallas",
 }
 #: Port flags the JAX command lacks: the compute device.
@@ -236,6 +235,32 @@ def test_host_stream_equal_jax(apps, long_env, path, monkeypatch):
     assert calls == ["krr_tpu", "krr_tpu_torch"]  # both CLIs took their streamed path
     scans = json.loads(port_result.output)["scans"]
     assert len(scans) == 2 and all(s["recommended"]["requests"]["cpu"]["value"] != "?" for s in scans)
+
+
+@pytest.mark.parametrize("path", sorted(STRATEGY_PATHS))
+def test_mesh_flags_equal_jax(apps, fake_env, path, monkeypatch):  # noqa: F811
+    """``--use_mesh true --mesh_time_axis 2`` on both CLIs: the JAX command
+    meshes its eight virtual CPU devices as (4, 2), the port the CPU eight
+    times (its device seam patched); the port's scan took its mesh path and
+    printed the JAX CLI's bytes."""
+    import krr_tpu_torch.strategies.simple as port_simple
+
+    monkeypatch.setattr(port_simple, "mesh_devices", lambda device: [torch.device("cpu")] * 8)
+    meshed = []
+    strategy = PortBaseStrategy.find(STRATEGY_PATHS[path][0])
+
+    def spy(self, *args, _run_mesh=strategy._run_mesh):
+        meshed.append(args[-1].shape)
+        return _run_mesh(self, *args)
+
+    monkeypatch.setattr(strategy, "_run_mesh", spy)
+    jax_result, port_result = _both(
+        apps, fake_env, [*STRATEGY_PATHS[path], "-f", "json", "--use_mesh", "true", "--mesh_time_axis", "2"]
+    )
+    assert jax_result.exit_code == 0, jax_result.output
+    assert port_result.exit_code == 0, port_result.output
+    assert port_result.output == jax_result.output
+    assert meshed == [{"data": 4, "time": 2}]
 
 
 @pytest.mark.parametrize("depth", ["4", "0"])
