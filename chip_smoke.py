@@ -174,6 +174,26 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    device, finalize; digest, fold, quantile, persist), the store's WAL
    bytes, the fake's CPU seconds, the wire and decoded bytes and the range
    queries' transport phases (summed over queries) are printed.
+11. ``serve``   — the serve plane (`krr_tpu_torch.server`) on the ``cli``
+   phase's fixture (one child process serves both phases): ``KrrServer`` on
+   the default device, driven by ``run_once`` under an injected clock, a
+   fresh sharded state each. With ``--no-hysteresis``: a full 10-day tick at
+   ``origin + 10 d`` then a delta tick 2 days later must serve the
+   ``/recommendations`` bytes and hold the store arrays of a cold server
+   whose first tick covers the 12-day union window, having fetched a delta
+   of 2 days less one step; the same ticks on ``device="cpu"`` serve the same
+   bytes. With the default flags (hysteresis, sentinel, savings, timeline):
+   the tick walls and legs (discover, fetch, fold, compute; the timeline's
+   publish seconds, persist seconds and appended WAL bytes), the journal's
+   records and bytes, the read path at 10,000 workloads (the pre-rendered
+   body, a filtered render on its cache miss and hits, a gzip variant, a
+   304 revalidation, ``/metrics`` and ``/statusz``, host-clock ms); then a
+   restart on the state directory inside one step: the reopen seconds, a
+   first tick that fetches nothing and returns False, the pre-restart
+   bytes, ``/healthz`` ``ok``, ``/statusz`` with ``trend`` and ``savings``,
+   and one ``/debug/timeline`` record per completed tick. Every kernel's
+   launch count stays 0 across the phase: the serve path is host numpy, as
+   in the JAX package.
 
 ``row_max_main`` — ``row_max`` at the memory shape of the ``simple`` scan,
 per wrapper call (host-bound at that size) and per launch replayed from a
@@ -182,7 +202,8 @@ CUDA graph (the kernel's device time). Part of ``headline``; run alone
 beside the script, so a copy of the script placed in an unpacked older
 commit times that commit's kernel the same way.
 
-The last three lines are the card's ``nvidia-smi`` name and power limit, one
+The last three lines (printed when all ten default phases ran) are the
+card's ``nvidia-smi`` name and power limit, one
 ``{"kernels": [...]}`` JSON object (launch counts from the ``cli`` phase's
 warm runs; ``radix_digit_hist``'s from the ``stream`` phase's q = 50 scan),
 and ``{"ok": true, "device": {...}}``. The script must run as a
@@ -1855,26 +1876,241 @@ class FakeServers:
             self.proc.join(timeout=15)
 
 
-def phase_cli() -> dict:
+def _write_kubeconfig(path: str, url: str) -> None:
+    import yaml
+
+    with open(path, "w") as f:
+        yaml.safe_dump({
+            "current-context": "fake",
+            "contexts": [{"name": "fake", "context": {"cluster": "fake", "user": "u"}}],
+            "clusters": [{"name": "fake", "cluster": {"server": url}}],
+            "users": [{"name": "u", "user": {"token": "t"}}],
+        }, f)
+
+
+def phase_cli(fakes: FakeServers) -> dict:
     import tempfile
 
     from krr_tpu_torch import main as cli
 
-    # Started here, after the timed phases: the fixture build (tens of
-    # seconds of one host core) must not overlap the kernel timings.
-    fakes = FakeServers(CLI_OBJECTS, CLI_SAMPLES)
+    url, origin, fixture_seconds = fakes.ready()
+    cli.load_commands()
+    scan_end = origin + (CLI_SAMPLES - 1) * CLI_STEP_SECONDS
+    with tempfile.TemporaryDirectory(prefix="krr-cli-smoke-") as tmp:
+        return _phase_cli(fakes, url, scan_end, fixture_seconds, os.path.join(tmp, "kubeconfig"))
+
+#: The ``serve`` phase's windows on the ``cli`` fixture's 14 days of 15-minute
+#: samples: a full 10-day tick at ``origin + 10 d``, then a delta tick 2 days
+#: later; the cold control covers the 12-day union window in one tick.
+SERVE_HISTORY_HOURS = 240
+SERVE_DELTA_SECONDS = 2 * 86_400.0
+#: Requests per read-path measurement (the median is printed with the list).
+SERVE_READS = 5
+
+
+async def _http(port: int, target: str, headers: "dict | None" = None) -> tuple[int, dict, bytes, float]:
+    """One HTTP/1.1 GET over a fresh socket: status, headers, body and the
+    request's wall in ms on the host clock."""
+    started = time.perf_counter()
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    lines = [f"GET {target} HTTP/1.1", "Host: localhost", "Connection: close"]
+    lines += [f"{name}: {value}" for name, value in (headers or {}).items()]
+    writer.write(("\r\n".join(lines) + "\r\n\r\n").encode("latin-1"))
+    await writer.drain()
+    data = await reader.read()
+    ms = (time.perf_counter() - started) * 1e3
+    writer.close()
+    await writer.wait_closed()
+    head, _, body = data.partition(b"\r\n\r\n")
+    head_lines = head.decode("latin-1").split("\r\n")
+    headers_out = dict(line.split(": ", 1) for line in head_lines[1:])
+    return int(head_lines[0].split()[1]), headers_out, body, ms
+
+
+def phase_serve(fakes: "FakeServers", smi: str) -> dict:
+    """``serve`` (`krr_tpu_torch.server`) on the ``cli`` fixture: see the
+    module docstring. Host code end to end — the phase holds every kernel's
+    launch count at 0."""
+    import tempfile
+
+    url, origin, _fixture_seconds = fakes.ready()
+    _reset_counts()
+    with tempfile.TemporaryDirectory(prefix="krr-serve-smoke-") as tmp:
+        kubeconfig = os.path.join(tmp, "kubeconfig")
+        _write_kubeconfig(kubeconfig, url)
+        report = asyncio.run(_phase_serve(url, origin, kubeconfig, tmp, fakes.proc.pid))
+    launches, generic = _read_counts()
+    check(not any(launches.values()) and not any(generic.values()),
+          f"serve: a kernel launched during the phase: {launches} {generic}")
+    report["launches"] = launches
+    emit("serve", nvidia_smi=smi, **report)
+    return report
+
+
+async def _phase_serve(url: str, origin: float, kubeconfig: str, tmp: str, fake_pid: int) -> dict:
+    import numpy as np
+
+    from krr_tpu_torch.core.config import Config
+    from krr_tpu_torch.server.app import KrrServer
+
+    t1 = origin + SERVE_HISTORY_HOURS * 3600.0
+    t2 = t1 + SERVE_DELTA_SECONDS
+    # The default device is the card: only a rehearsal without one names
+    # the CPU.
+    device_args = {} if DEVICE == "cuda" else {"device": DEVICE}
+
+    def server(name: str, clock: list, *, hours: int = SERVE_HISTORY_HOURS, device: dict = device_args, **overrides):
+        other_args = {"history_duration": hours, "timeframe_duration": int(CLI_STEP_SECONDS // 60),
+                      "state_path": os.path.join(tmp, name), **device}
+        config = Config(kubeconfig=kubeconfig, prometheus_url=url, strategy="tdigest", quiet=True,
+                        server_port=0, other_args=other_args, **overrides)
+        return KrrServer(config, clock=lambda: clock[0])
+
+    async def ticks(ks, clock: list, at: "list[float]") -> list:
+        """``run_once`` at each clock reading: each tick's wall and legs, and
+        the fake server's CPU seconds over the tick (its first answer for a
+        window renders the bodies; later answers come from its cache)."""
+        out = []
+        for now in at:
+            clock[0] = now
+            server_cpu = _proc_cpu_seconds(fake_pid)
+            started = time.perf_counter()
+            did_scan = await ks.scheduler.run_once()
+            wall = time.perf_counter() - started
+            server_cpu = _proc_cpu_seconds(fake_pid) - server_cpu
+            check(did_scan is True, f"serve: the tick at {now} did not scan ({did_scan}): {ks.state.last_scan_error}")
+            metrics = ks.state.metrics
+            legs = {phase: metrics.value("krr_tpu_scan_duration_seconds", phase=phase)
+                    for phase in ("discover", "fetch", "fold", "compute")}
+            # A persist past the store's 16 MB compaction floor folds the WAL
+            # into base shards: the timeline then records 0 appended bytes.
+            out.append({"wall_seconds": wall, "legs_seconds": legs, "fake_server_cpu_seconds": server_cpu,
+                        "wal_bytes": metrics.value("krr_tpu_store_wal_bytes"),
+                        "compactions": metrics.value("krr_tpu_store_compactions_total")})
+        return out
+
+    def store_of(ks) -> dict:
+        store = ks.state.store
+        return {"keys": list(store.keys), **{f: getattr(store, f) for f in STORE_FIELDS}}
+
+    report: dict = {"objects": CLI_OBJECTS, "history_hours": SERVE_HISTORY_HOURS,
+                    "delta_seconds": SERVE_DELTA_SECONDS}
+
+    # --- the equality run: --no-hysteresis, incremental == cold union window
+    bodies, stores = {}, {}
+    for name, device, hours, at in (
+        ("incremental", device_args, SERVE_HISTORY_HOURS, [t1, t2]),
+        ("cold", device_args, SERVE_HISTORY_HOURS + int(SERVE_DELTA_SECONDS // 3600), [t2]),
+        ("incremental_cpu", {"device": "cpu"}, SERVE_HISTORY_HOURS, [t1, t2]),
+    ):
+        clock = [at[0]]
+        ks = server(name, clock, hours=hours, device=device, hysteresis_enabled=False)
+        check(ks.session.strategy.device.type == device.get("device", "cuda"),
+              f"serve {name}: the strategy is bound to {ks.session.strategy.device}")
+        await ks.start(run_scheduler=False)
+        try:
+            report[f"{name}_ticks"] = await ticks(ks, clock, at)
+            status, _headers, body, _ms = await _http(ks.port, "/recommendations")
+            check(status == 200, f"serve {name}: /recommendations answered {status}")
+            bodies[name], stores[name] = body, store_of(ks)
+            if name == "incremental":
+                delta = ks.state.metrics.value("krr_tpu_fetch_window_seconds_total", kind="delta")
+                check(delta == t2 - t1 - CLI_STEP_SECONDS,
+                      f"serve: fetched a delta window of {delta} s, expected {t2 - t1 - CLI_STEP_SECONDS}")
+        finally:
+            await ks.shutdown()
+    scans = json.loads(bodies["incremental"])["scans"]
+    check(len(scans) == CLI_OBJECTS and b'"?"' not in bodies["incremental"],
+          f"serve: {len(scans)} scans or an unknown value in the incremental server's body")
+    check(bodies["incremental"] == bodies["cold"], "serve: incremental /recommendations != the cold union window's")
+    check(same_store_bits(np, stores["incremental"], stores["cold"]),
+          "serve: the incremental store arrays != the cold union window's")
+    check(bodies["incremental_cpu"] == bodies["incremental"], "serve: the --device cpu server's bytes != the card's")
+    report["body_bytes"] = len(bodies["incremental"])
+
+    # --- the default-config run: hysteresis, sentinel, savings, timeline
+    clock = [t1]
+    ks = server("default", clock)
+    await ks.start(run_scheduler=False)
     try:
-        url, origin, fixture_seconds = fakes.ready()
-        cli.load_commands()
-        scan_end = origin + (CLI_SAMPLES - 1) * CLI_STEP_SECONDS
-        with tempfile.TemporaryDirectory(prefix="krr-cli-smoke-") as tmp:
-            return _phase_cli(fakes, url, scan_end, fixture_seconds, os.path.join(tmp, "kubeconfig"))
+        report["default_ticks"] = await ticks(ks, clock, [t1, t2])
+        records = ks.state.timeline.records()
+        check(len(records) == 2, f"serve: {len(records)} timeline records after two ticks")
+        for tick, record in zip(report["default_ticks"], records):
+            tick["kind"] = record["kind"]
+            tick["persist"] = record["persist"]
+            tick["publish_seconds"] = record["categories"].get("publish")
+        journal = ks.state.journal
+        report["journal"] = {"records": journal.record_count, "bytes": journal.nbytes,
+                             "file_bytes": os.path.getsize(journal.path)}
+        port = ks.port
+        reads: dict = {}
+
+        async def timed_reads(name: str, target: str, headers=None, first_alone: bool = False) -> bytes:
+            samples, body = [], b""
+            for _ in range(SERVE_READS + int(first_alone)):
+                status, got, body, ms = await _http(port, target, headers)
+                check(status in (200, 304), f"serve: {target} answered {status}")
+                samples.append(ms)
+            if first_alone:
+                reads[f"{name}_first_ms"] = samples.pop(0)
+            reads[f"{name}_ms"] = samples
+            reads[f"{name}_median_ms"] = statistics.median(samples)
+            return body
+
+        identity = await timed_reads("fast_path", "/recommendations")
+        reads["body_bytes"] = len(identity)
+        # A filtered json read renders on its first request (a cache miss)
+        # and hits the response cache after.
+        await timed_reads("filtered", "/recommendations?namespace=default", first_alone=True)
+        gz = await timed_reads("gzip", "/recommendations", {"Accept-Encoding": "gzip"}, first_alone=True)
+        reads["gzip_body_bytes"] = len(gz)
+        import gzip as gzip_module
+
+        check(gzip_module.decompress(gz) == identity, "serve: the gzip variant != the identity body")
+        _status, headers, _body, _ms = await _http(port, "/recommendations")
+        await timed_reads("revalidation_304", "/recommendations", {"If-None-Match": headers["ETag"]})
+        await timed_reads("metrics", "/metrics")
+        await timed_reads("statusz", "/statusz")
+        report["reads"] = reads
+        status, _headers, body, _ms = await _http(port, "/statusz")
+        statusz = json.loads(body)
+        check(status == 200 and "trend" in statusz and "savings" in statusz,
+              f"serve: /statusz lacks trend or savings: {sorted(statusz)}")
+        report["savings"] = statusz["savings"]
+        before = identity
     finally:
-        fakes.close()
+        await ks.shutdown()
+
+    # --- a restart inside one step: no fetch, the pre-restart bytes
+    clock = [t2 + 60.0]
+    started = time.perf_counter()
+    ks = server("default", clock)
+    report["reopen_seconds"] = time.perf_counter() - started
+    await ks.start(run_scheduler=False)
+    try:
+        did_scan = await ks.scheduler.run_once()
+        check(did_scan is False, f"serve: the restart's first tick returned {did_scan}, expected False")
+        queries = ks.state.metrics.value("krr_tpu_prom_query_seconds_count", route="streamed") or 0.0
+        queries += ks.state.metrics.value("krr_tpu_prom_query_seconds_count", route="buffered") or 0.0
+        check(queries == 0, f"serve: the restart's first tick ran {queries} range queries")
+        status, _headers, body, _ms = await _http(ks.port, "/recommendations")
+        check(status == 200 and body == before, "serve: the restarted server's bytes != the pre-restart bytes")
+        status, _headers, body, _ms = await _http(ks.port, "/healthz")
+        check(status == 200 and json.loads(body)["status"] == "ok", f"serve: /healthz after restart: {body[:300]!r}")
+        status, _headers, body, _ms = await _http(ks.port, "/debug/timeline")
+        timeline = json.loads(body)
+        check(status == 200 and len(timeline["records"]) == 2,
+              f"serve: /debug/timeline holds {len(timeline.get('records', []))} records, expected 2")
+        report["recovery_seconds"] = ks.state.metrics.value("krr_tpu_store_recovery_seconds")
+    finally:
+        await ks.shutdown()
+    return report
+
+
 
 
 def _phase_cli(fakes: FakeServers, url: str, scan_end: float, fixture_seconds: float, kubeconfig: str) -> dict:
-    import yaml
     from click.testing import CliRunner
 
     from krr_tpu_torch import main as cli
@@ -1882,13 +2118,7 @@ def _phase_cli(fakes: FakeServers, url: str, scan_end: float, fixture_seconds: f
     from krr_tpu_torch.integrations import native
     from krr_tpu_torch.integrations.prometheus import TRANSPORT_PHASES
 
-    with open(kubeconfig, "w") as f:
-        yaml.safe_dump({
-            "current-context": "fake",
-            "contexts": [{"name": "fake", "context": {"cluster": "fake", "user": "u"}}],
-            "clusters": [{"name": "fake", "cluster": {"server": url}}],
-            "users": [{"name": "u", "user": {"token": "t"}}],
-        }, f)
+    _write_kubeconfig(kubeconfig, url)
     common = ["--kubeconfig", kubeconfig, "-p", url, "-q", "-f", "json", "--scan-end-timestamp", repr(scan_end)]
 
     captured: list = []
@@ -2140,9 +2370,9 @@ def _cli_state(invoke, common: list, tdigest_json: str, tmp: str) -> dict:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
-        "--phases", default="build,parity,digest_proof,headline,e2e,stream,state,mesh,cli",
-        help="comma-separated subset of build,parity,digest_proof,headline,e2e,stream,state,mesh,cli,row_max_main "
-        "(default: the first nine; the kernels line and the ok line need all nine)",
+        "--phases", default="build,parity,digest_proof,headline,e2e,stream,state,mesh,cli,serve",
+        help="comma-separated subset of build,parity,digest_proof,headline,e2e,stream,state,mesh,cli,serve,"
+        "row_max_main (default: the first ten; the kernels line and the ok line need all ten)",
     )
     args = parser.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -2183,9 +2413,18 @@ def main(argv=None) -> int:
     state = timed("state", phase_state, torch, np, fleet, rendered) if "state" in phases else None
     mesh = timed("mesh", phase_mesh, torch, np, fleet, rendered) if "mesh" in phases else None
     del fleet, rendered  # the fleet's 9.7 GB of samples are not needed past here
-    cli = timed("cli", phase_cli) if "cli" in phases else None
+    # Started here, after the timed phases: the fixture build (tens of
+    # seconds of one host core) must not overlap the kernel timings. One
+    # fixture serves both the ``cli`` and the ``serve`` phase.
+    fakes = FakeServers(CLI_OBJECTS, CLI_SAMPLES) if {"cli", "serve"} & phases else None
+    try:
+        cli = timed("cli", phase_cli, fakes) if "cli" in phases else None
+        serve = timed("serve", phase_serve, fakes, smi) if "serve" in phases else None
+    finally:
+        if fakes is not None:
+            fakes.close()
     emit("walls", seconds=walls)
-    if None in (headline, e2e, stream, state, mesh, cli, parity, proof) or "build" not in phases:
+    if None in (headline, e2e, stream, state, mesh, cli, serve, parity, proof) or "build" not in phases:
         print(smi)
         return 0
     launched = {"cli": lambda path: cli["paths"][path]["warm"]["launches"],

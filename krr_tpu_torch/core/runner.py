@@ -168,18 +168,61 @@ class ScanSession:
         #: — built lazily alongside the first real loader, so fake-injected
         #: sessions never import the transport stack.
         self._retry_budget = None
+        #: Adaptive fetch-plan telemetry to seed per-cluster loaders with
+        #: (`seed_fetch_plans`): the serve scheduler persists the previous
+        #: scan's per-namespace series/bytes observations beside the window
+        #: cursor and restores them here on restart, so the first tick plans
+        #: from real telemetry instead of cold routed counts.
+        self._plan_seeds: dict[str, dict] = {}
+
+    @property
+    def tracer(self) -> NullTracer:
+        return self._tracer
+
+    @tracer.setter
+    def tracer(self, value: NullTracer) -> None:
+        # Swapping the tracer mid-lifecycle (serve installs its recording
+        # ring after session construction) must re-wire the strategy's
+        # device instrumentation, or compute sub-spans would keep feeding
+        # the old tracer.
+        self._tracer = value
+        if getattr(self, "strategy", None) is not None:
+            self._wire_obs()
 
     def _wire_obs(self) -> None:
         """Give the strategy its device-compute instrumentation
         (`krr_tpu_torch.obs.device`): stage spans into THIS session's
         tracer, padding/memory gauges into its registry."""
-        self.strategy.obs = DeviceObs(self.tracer, self.metrics)
+        self.strategy.obs = DeviceObs(self._tracer, self.metrics)
 
     def begin_scan(self) -> None:
-        """Reset the per-scan fetch budgets at each scan's start, so one
-        scan's retry spending can't starve the next."""
+        """Reset the per-scan fetch budgets — called by the scan owners
+        (the one-shot Runner, the serve scheduler tick) at each scan's
+        start, so one scan's retry spending can't starve the next."""
         if self._retry_budget is not None:
             self._retry_budget.reset()
+
+    def seed_fetch_plans(self, seeds: Optional[dict]) -> None:
+        """Install persisted fetch-plan telemetry (cluster key → planner
+        snapshot, as returned by :meth:`fetch_plan_states`) for loaders
+        built later. Must run before the first fetch — loaders are cached,
+        and an already-built loader keeps its live telemetry."""
+        if seeds:
+            self._plan_seeds = {
+                str(k): v for k, v in seeds.items() if isinstance(v, dict)
+            }
+
+    def fetch_plan_states(self) -> dict:
+        """Snapshot every built loader's fetch-plan telemetry (cluster key →
+        planner state), for persistence beside the serve window cursor.
+        Sources without a planner (fakes, third-party backends) contribute
+        nothing."""
+        states: dict[str, dict] = {}
+        for cluster, source in self._history_sources.items():
+            planner = getattr(source, "planner", None)
+            if planner is not None and getattr(planner, "telemetry", None):
+                states[cluster or "default"] = planner.state()
+        return states
 
     def get_inventory(self) -> InventorySource:
         if self._inventory is None:
@@ -205,6 +248,7 @@ class ScanSession:
                         tracer=self.tracer,
                         metrics=self.metrics,
                         retry_budget=self._retry_budget,
+                        plan_seed=self._plan_seeds.get(cluster or "default"),
                     )
             except Exception as e:  # cache the failure: fail fast per cluster
                 self._history_sources[cluster] = e

@@ -12,11 +12,15 @@ The scan commands carry the JAX package's observability options:
 ``--trace``, ``--metrics-dump``, ``--statusz`` with the ``--slo-*`` knobs,
 ``--profile``, ``--log-format`` and the ``profile_dir`` strategy option; a
 scan installs the SIGUSR2 debug dump. ``analyze`` renders a ``--trace``
-file's critical-path attribution or stitches several traces.
+file's critical-path attribution, stitches several traces, or (``--trend``)
+replays a serve flight recorder's timeline through the regression sentinel.
+``serve`` runs the long-lived service (`krr_tpu_torch.server`) and ``diff``
+renders the delta between two journal points or a journal point and a live
+scan (`krr_tpu_torch.history.diff`); both ride the ``tdigest`` strategy.
 
-Not ported yet (ROADMAP): the ``serve``, ``shard``, ``replica``, ``diff``,
-``eval`` and ``fleet-status`` commands, and ``analyze --trend/--timeline``
-(they read the serve plane's flight recorder).
+Not ported yet (ROADMAP): the ``shard``, ``replica``, ``eval`` and
+``fleet-status`` commands; ``serve``'s federation, push-ingest and lineage
+flags (M10b), and its ``--discovery-mode watch`` (M10a.3), which raises.
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ DEVICE_BACKEND_FIELDS = {"use_mesh", "mesh_time_axis", "device", "profile_dir", 
 #: Help-panel render order (any unlisted panel prints after these).
 PANEL_ORDER = (
     "General Settings",
+    "Server Settings",
     "SLO Settings",
     "Logging Settings",
     "Strategy Settings",
@@ -475,6 +480,407 @@ def _common_options() -> list[click.Option]:
         ),
     ]
 
+def _server_options() -> list[click.Option]:
+    """The serve plane's options: the JAX command's, minus the federation,
+    push-ingest and lineage flags (ROADMAP M10b). ``--discovery-mode watch``
+    (M10a.3) and ``--metrics-mode push`` (M10b) parse but refuse to run."""
+    from krr_tpu_torch.core.config import Config
+
+    defaults = {name: Config.model_fields[name].default for name in (
+        "server_host", "server_port", "scan_interval_seconds", "discovery_interval_seconds",
+        "history_retention_seconds", "hysteresis_dead_band_pct", "hysteresis_confirm_ticks",
+        "trace_ring_scans", "store_shard_rows", "store_compact_wal_ratio",
+        "store_compact_min_wal_mb", "response_cache_max_entries",
+        "response_cache_max_mb", "server_render_concurrency", "server_render_queue",
+    )}
+    return [
+        PanelOption(
+            ["--trace-ring-scans"],
+            type=int,
+            default=defaults["trace_ring_scans"],
+            show_default=True,
+            panel="Server Settings",
+            help=(
+                "Completed scan ticks the in-memory trace ring retains — "
+                "the window GET /debug/trace exports."
+            ),
+        ),
+        PanelOption(
+            ["--host", "server_host"],
+            default=defaults["server_host"],
+            show_default=True,
+            panel="Server Settings",
+            help="Address to bind the HTTP server to.",
+        ),
+        PanelOption(
+            ["--port", "server_port"],
+            type=int,
+            default=defaults["server_port"],
+            show_default=True,
+            panel="Server Settings",
+            help="Port to bind the HTTP server to (0 = ephemeral).",
+        ),
+        PanelOption(
+            ["--scan-interval", "scan_interval_seconds"],
+            type=float,
+            default=defaults["scan_interval_seconds"],
+            show_default=True,
+            panel="Server Settings",
+            help="Seconds between incremental delta scans (each fetches only the window since the last fold).",
+        ),
+        PanelOption(
+            ["--discovery-interval", "discovery_interval_seconds"],
+            type=float,
+            default=defaults["discovery_interval_seconds"],
+            show_default=True,
+            panel="Server Settings",
+            help="Seconds between fleet re-discoveries (workload churn pickup + digest store compaction).",
+        ),
+        PanelOption(
+            ["--discovery-mode", "discovery_mode"],
+            type=click.Choice(["relist", "watch"]),
+            default="relist",
+            show_default=True,
+            panel="Server Settings",
+            help=(
+                "Inventory maintenance: 'relist' re-fetches the whole fleet "
+                "per discovery round (the classic shape); 'watch' keeps a "
+                "resident inventory fed by Kubernetes watch streams so each "
+                "discovery tick is an in-memory O(churn) reconcile, with "
+                "the relist kept as the cold-start seed and the 410/desync "
+                "resync path. Not ported yet: 'watch' exits naming ROADMAP "
+                "M10a.3."
+            ),
+        ),
+        PanelOption(
+            ["--discovery-verify-interval", "discovery_verify_interval_seconds"],
+            type=float,
+            default=0.0,
+            show_default=True,
+            panel="Server Settings",
+            help=(
+                "Watch-mode ground-truth audit cadence: every this many "
+                "seconds a full relist diffs the watched inventory against "
+                "the apiserver, counting + repairing any divergence. "
+                "0 = auto (four discovery intervals)."
+            ),
+        ),
+        PanelOption(
+            ["--metrics-mode", "metrics_mode"],
+            type=click.Choice(["pull", "push"]),
+            default="pull",
+            show_default=True,
+            panel="Server Settings",
+            help=(
+                "Metric acquisition: 'pull' range-queries Prometheus each "
+                "tick (the classic shape); 'push' runs a remote-write "
+                "listener that buffers samples as they arrive so a "
+                "steady-state tick folds the buffered window with zero "
+                "range queries, keeping the range path as the cold-start "
+                "seed and the gap-backfill ladder. Not ported yet: 'push' "
+                "exits naming ROADMAP M10b."
+            ),
+        ),
+        PanelOption(
+            ["--min-fetch-success-pct", "min_fetch_success_pct"],
+            type=float,
+            default=50.0,
+            show_default=True,
+            panel="Server Settings",
+            help=(
+                "Degraded-tick floor: abort a serve tick (refetch next tick) "
+                "when fewer than this percentage of workload fetches succeed; "
+                "at or above it, failed workloads quarantine with stale marks "
+                "while the rest publish. 100 = all-or-nothing."
+            ),
+        ),
+        PanelOption(
+            ["--max-staleness", "max_staleness_seconds"],
+            type=float,
+            default=0.0,
+            show_default=True,
+            panel="Server Settings",
+            help=(
+                "Freshness budget for quarantined workloads' carried-forward "
+                "recommendations: past this age their accumulated digests drop "
+                "and they re-enter with a full-window backfill. 0 = auto "
+                "(ten scan cadences)."
+            ),
+        ),
+        PanelOption(
+            ["--store-shard-rows", "store_shard_rows"],
+            type=int,
+            default=defaults["store_shard_rows"],
+            show_default=True,
+            panel="Server Settings",
+            help=(
+                "Rows per base-snapshot shard file in the sharded digest "
+                "state directory (compaction slices the store into "
+                "contiguous row ranges of this size)."
+            ),
+        ),
+        PanelOption(
+            ["--store-compact-wal-ratio", "store_compact_wal_ratio"],
+            type=float,
+            default=defaults["store_compact_wal_ratio"],
+            show_default=True,
+            panel="Server Settings",
+            help=(
+                "Fold the digest store's delta WAL back into base shards "
+                "once it exceeds this fraction of the base snapshots' bytes "
+                "(bounds recovery replay time; per-tick persists stay one "
+                "small append)."
+            ),
+        ),
+        PanelOption(
+            ["--store-compact-min-wal-mb", "store_compact_min_wal_mb"],
+            type=float,
+            default=defaults["store_compact_min_wal_mb"],
+            show_default=True,
+            panel="Server Settings",
+            help=(
+                "Never compact the digest store's WAL below this many MiB — "
+                "tiny stores must not pay a base rewrite per handful of ticks."
+            ),
+        ),
+        PanelOption(
+            ["--response-cache/--no-response-cache", "response_cache_enabled"],
+            default=True,
+            panel="Server Settings",
+            help=(
+                "--no-response-cache disables the epoch-keyed rendered-"
+                "response cache on GET /recommendations: every non-fast-path "
+                "read renders per request (the uncached control / escape "
+                "hatch)."
+            ),
+        ),
+        PanelOption(
+            ["--response-cache-entries", "response_cache_max_entries"],
+            type=int,
+            default=defaults["response_cache_max_entries"],
+            show_default=True,
+            panel="Server Settings",
+            help=(
+                "Entry bound on the response cache (one entry per format + "
+                "canonicalized filters + page + encoding, evicted LRU)."
+            ),
+        ),
+        PanelOption(
+            ["--response-cache-mb", "response_cache_max_mb"],
+            type=float,
+            default=defaults["response_cache_max_mb"],
+            show_default=True,
+            panel="Server Settings",
+            help=(
+                "Byte budget (MiB) on cached response bodies — adversarial "
+                "filter cardinality must not OOM the server."
+            ),
+        ),
+        PanelOption(
+            ["--render-pool", "server_render_concurrency"],
+            type=int,
+            default=defaults["server_render_concurrency"],
+            show_default=True,
+            panel="Server Settings",
+            help=(
+                "Concurrent cache-miss renders (worker threads) the read "
+                "path allows."
+            ),
+        ),
+        PanelOption(
+            ["--render-queue", "server_render_queue"],
+            type=int,
+            default=defaults["server_render_queue"],
+            show_default=True,
+            panel="Server Settings",
+            help=(
+                "Requests allowed to wait behind a saturated render pool "
+                "before the rest shed with 503/Retry-After."
+            ),
+        ),
+        PanelOption(
+            ["--history-path", "history_path"],
+            default=None,
+            panel="Server Settings",
+            help=(
+                "Journal file recording every recompute's raw recommendations "
+                "(GET /history, GET /drift, diff). Default: "
+                "<state_path>.journal when --state_path is set; pass an empty "
+                "string to keep the journal memory-only."
+            ),
+        ),
+        PanelOption(
+            ["--history-retention", "history_retention_seconds"],
+            type=float,
+            default=defaults["history_retention_seconds"],
+            show_default=True,
+            panel="Server Settings",
+            help="Seconds of recommendation history the journal retains (older records are compacted away).",
+        ),
+        PanelOption(
+            ["--dead-band-pct", "hysteresis_dead_band_pct"],
+            type=float,
+            default=defaults["hysteresis_dead_band_pct"],
+            show_default=True,
+            panel="Server Settings",
+            help=(
+                "Hysteresis dead band: a workload's published recommendation "
+                "holds until the raw recommendation drifts more than this "
+                "percentage from it..."
+            ),
+        ),
+        PanelOption(
+            ["--confirm-ticks", "hysteresis_confirm_ticks"],
+            type=int,
+            default=defaults["hysteresis_confirm_ticks"],
+            show_default=True,
+            panel="Server Settings",
+            help="...for this many consecutive scan ticks (then it jumps to the current raw value).",
+        ),
+        # Dual-name boolean: a single inverted flag (is_flag + flag_value=
+        # False) silently loses its default=True under click 8.3 — the serve
+        # CLI was running every deployment with hysteresis OFF. The
+        # documented --no-hysteresis switch is unchanged.
+        PanelOption(
+            ["--hysteresis/--no-hysteresis", "hysteresis_enabled"],
+            default=True,
+            panel="Server Settings",
+            help=(
+                "--no-hysteresis publishes every recompute verbatim (no "
+                "dead-band gate) — bit-exact legacy behavior; the journal "
+                "still records every tick."
+            ),
+        ),
+        PanelOption(
+            ["--savings/--no-savings", "savings_enabled"],
+            default=True,
+            panel="Server Settings",
+            help=(
+                "--no-savings drops the journal-derived fleet savings block "
+                "from GET /statusz (and stops refreshing the krr_tpu_eval_* "
+                "window gauges on scrape)."
+            ),
+        ),
+        PanelOption(
+            ["--realign-window-grid", "realign_window_grid"],
+            is_flag=True,
+            default=False,
+            panel="Server Settings",
+            help=(
+                "One-shot recovery for --fetch-downsample over a persisted "
+                "window cursor that predates the flag (unaligned grid): drop "
+                "the cursor and accumulated digest rows at startup so the "
+                "next tick runs a grid-aligned full backfill and downsampling "
+                "engages."
+            ),
+        ),
+        PanelOption(
+            ["--timeline-path", "timeline_path"],
+            default=None,
+            panel="Server Settings",
+            help=(
+                "Scan flight-recorder file (one durable record per completed "
+                "tick; GET /debug/timeline, analyze --trend). Default: "
+                "derived from --state_path (timeline.log inside the state "
+                "directory); pass an empty string to keep the recorder "
+                "memory-only."
+            ),
+        ),
+        PanelOption(
+            ["--timeline-retain", "timeline_retain_records"],
+            type=int,
+            default=Config.model_fields["timeline_retain_records"].default,
+            show_default=True,
+            panel="Server Settings",
+            help=(
+                "Scan records the flight recorder retains (retention "
+                "compaction bounds the file for arbitrarily long serves)."
+            ),
+        ),
+        PanelOption(
+            ["--sentinel/--no-sentinel", "sentinel_enabled"],
+            default=True,
+            panel="Server Settings",
+            help=(
+                "--no-sentinel records the scan timeline without classifying "
+                "it: no regression verdicts, metrics, or /statusz trend section."
+            ),
+        ),
+        PanelOption(
+            ["--sentinel-warmup", "sentinel_warmup_scans"],
+            type=int,
+            default=Config.model_fields["sentinel_warmup_scans"].default,
+            show_default=True,
+            panel="Server Settings",
+            help=(
+                "Nominal scans per kind (full|delta) the sentinel observes "
+                "before issuing regression verdicts for that kind."
+            ),
+        ),
+        PanelOption(
+            ["--sentinel-baseline", "sentinel_baseline_scans"],
+            type=int,
+            default=Config.model_fields["sentinel_baseline_scans"].default,
+            show_default=True,
+            panel="Server Settings",
+            help=(
+                "Rolling baseline window: nominal values per category the "
+                "median/MAD bands cover (also the consecutive-regression "
+                "count after which a sustained level shift rebases)."
+            ),
+        ),
+        PanelOption(
+            ["--sentinel-sigma", "sentinel_sigma"],
+            type=float,
+            default=Config.model_fields["sentinel_sigma"].default,
+            show_default=True,
+            panel="Server Settings",
+            help=(
+                "Deviation threshold in band units: a category regresses "
+                "past median + sigma x max(1.4826*MAD, floors)."
+            ),
+        ),
+        PanelOption(
+            ["--sentinel-rel-floor", "sentinel_rel_floor"],
+            type=float,
+            default=Config.model_fields["sentinel_rel_floor"].default,
+            show_default=True,
+            panel="Server Settings",
+            help=(
+                "Relative band floor (fraction of the median): keeps a "
+                "near-constant category from flagging noise as regression."
+            ),
+        ),
+        PanelOption(
+            ["--sentinel-abs-floor", "sentinel_abs_floor_seconds"],
+            type=float,
+            default=Config.model_fields["sentinel_abs_floor_seconds"].default,
+            show_default=True,
+            panel="Server Settings",
+            help="Absolute band floor in seconds (the same guard for tiny medians).",
+        ),
+        PanelOption(
+            ["--sentinel-slo", "sentinel_slo_enabled"],
+            is_flag=True,
+            default=False,
+            panel="SLO Settings",
+            help=(
+                "Register the scan_regressions SLO objective: sentinel-"
+                "regressed scans burn its error budget like aborted scans "
+                "burn scan_failures'."
+            ),
+        ),
+        PanelOption(
+            ["--sentinel-slo-budget", "sentinel_slo_budget"],
+            type=float,
+            default=Config.model_fields["sentinel_slo_budget"].default,
+            show_default=True,
+            panel="SLO Settings",
+            help="Error budget for --sentinel-slo: the fraction of classified scans allowed to regress.",
+        ),
+    ]
+
+
 def _slo_options() -> list[click.Option]:
     """The SLO engine's knobs (`krr_tpu_torch.obs.health`), read by the
     ``--statusz`` evaluation of a one-shot scan."""
@@ -513,6 +919,233 @@ def _slo_options() -> list[click.Option]:
         option(["--slo-slow-burn", "slo_slow_burn"],
                "Slow-window burn-rate threshold — alerts fire only while BOTH windows burn past their thresholds."),
     ]
+
+
+def _settings_error(error: Any) -> click.UsageError:
+    """A pydantic validation error as a usage error naming each flag."""
+    details = "; ".join(
+        f"--{'.'.join(str(p) for p in err['loc']) or 'config'}: {err['msg']}" for err in error.errors()
+    )
+    return click.UsageError(f"Invalid settings — {details}")
+
+
+def _config_from_kwargs(strategy_name: str, settings_fields: list, kwargs: dict, **extra: Any):
+    """The ``Config`` of a strategy-backed command from its parsed flags;
+    bad settings become a usage error naming the flag."""
+    import pydantic
+
+    from krr_tpu_torch.core.config import Config
+
+    clusters = list(kwargs.pop("clusters") or [])
+    namespaces = list(kwargs.pop("namespaces") or [])
+    other_args = {name: kwargs.pop(name) for name in settings_fields}
+    try:
+        return Config(
+            clusters="*" if "*" in clusters else (clusters or None),
+            namespaces="*" if ("*" in namespaces or not namespaces) else namespaces,
+            strategy=strategy_name,
+            other_args=other_args,
+            **extra,
+            **kwargs,
+        )
+    except pydantic.ValidationError as e:
+        raise _settings_error(e) from e
+
+
+def _make_serve_command(strategy_name: str, strategy_type: Any) -> click.Command:
+    """``serve``: the long-running service (`krr_tpu_torch.server`).
+
+    Rides the digest-backed strategy (tdigest) — incremental delta scans
+    fold into resident per-container digests, whose integer-count
+    mergeability is what makes a delta fold equal a cold full-window scan.
+    The strategy's settings surface as flags exactly like a scan command's,
+    ``--device`` among them: the service binds the strategy to ``cuda``
+    unless it is asked for the CPU, and without a card it exits 1.
+    """
+    settings_fields = list(strategy_type.get_settings_type().model_fields)
+
+    def callback(**kwargs: Any) -> None:
+        import pydantic
+
+        from krr_tpu_torch.server.app import run_server
+        from krr_tpu_torch.server.scheduler import check_ported
+
+        config = _config_from_kwargs(strategy_name, settings_fields, kwargs, format="json")
+        try:
+            check_ported(config)
+            config.create_strategy()  # validate settings and the device up front
+        except pydantic.ValidationError as e:
+            raise _settings_error(e) from e
+        except (RuntimeError, NotImplementedError) as e:
+            # A `cuda` device without a card, or a mode of a later slice:
+            # a clear error and a nonzero exit, never a quiet CPU service.
+            raise click.ClickException(str(e)) from e
+        asyncio.run(run_server(config))
+
+    # The serve command takes the scan commands' common options MINUS the
+    # one-shot-only flags: the formatter (responses pick a format per
+    # request) and --statusz (serve exposes the live GET /statusz route;
+    # nothing would read a statusz_path at exit).
+    common = [o for o in _common_options() if o.name not in ("format", "statusz_path")]
+    return PanelCommand(
+        "serve",
+        callback=callback,
+        params=common + _server_options() + _slo_options() + _strategy_options(strategy_type),
+        help=(
+            "Run krr-tpu-torch as a long-running HTTP service: a background scheduler "
+            "keeps per-container digests fresh with incremental delta scans, and "
+            "GET /recommendations answers from the resident state "
+            "(also: GET /healthz, GET /metrics)."
+        ),
+    )
+
+
+def _make_diff_command(strategy_name: str, strategy_type: Any) -> click.Command:
+    """``diff``: render the delta between two recommendation points.
+
+    Points come from a serve journal (two tick timestamps; defaults are the
+    newest two) or, with ``--live``, the newest journal tick vs a fresh
+    one-shot scan. The delta renders through the formatter registry
+    (`krr_tpu_torch.history.diff` — a diff IS a scan result whose "current"
+    allocations are the baseline point). Only ``--live`` scans, so only
+    ``--live`` needs the card (or ``--device cpu``).
+    """
+    settings_fields = list(strategy_type.get_settings_type().model_fields)
+    settings_type = strategy_type.get_settings_type()
+
+    def callback(**kwargs: Any) -> None:
+        import pydantic
+
+        journal_path = kwargs.pop("journal_path")
+        at = kwargs.pop("at")
+        baseline = kwargs.pop("baseline")
+        live = kwargs.pop("live")
+        config = _config_from_kwargs(strategy_name, settings_fields, kwargs)
+        try:
+            # The settings alone: a journal diff never touches the device.
+            settings = settings_type(**config.other_args)
+        except pydantic.ValidationError as e:
+            raise _settings_error(e) from e
+
+        if journal_path is None:
+            state_path = config.other_args.get("state_path")
+            if state_path:
+                journal_path = f"{state_path}.journal"
+            else:
+                raise click.UsageError("pass --journal (or --state_path to derive <state_path>.journal)")
+
+        from krr_tpu_torch.history.diff import (
+            build_diff_result,
+            live_values,
+            newest_at_or_before,
+            resolve_ticks,
+            tick_values,
+        )
+        from krr_tpu_torch.history.journal import RecommendationJournal
+
+        logger = config.create_logger()
+        try:
+            # readonly: a diff must never create, repair, or truncate a
+            # journal — including one a running server is mid-append on.
+            journal = RecommendationJournal(
+                journal_path,
+                retention_seconds=config.history_retention_seconds,
+                logger=logger,
+                readonly=True,
+            )
+        except ValueError as e:
+            raise click.UsageError(str(e)) from e
+        if journal.record_count == 0:
+            raise click.UsageError(f"journal at {journal_path} holds no ticks")
+        if live and baseline is not None:
+            raise click.UsageError(
+                "--baseline picks a second JOURNAL point and --live replaces that "
+                "point with a fresh scan — pass one or the other (use --at to pick "
+                "the journal tick a live diff compares against)"
+            )
+
+        def scoped(values: dict) -> dict:
+            # The server journals the WHOLE fleet; honor -n/-c on the
+            # journal side too, or a filtered --live scan renders everything
+            # outside the filter as spuriously vanished (and in
+            # journal-vs-journal mode the flags would be silently ignored).
+            from krr_tpu_torch.core.streaming import split_object_key
+
+            if config.namespaces == "*" and not isinstance(config.clusters, list):
+                return values
+            out = {}
+            for key, point in values.items():
+                cluster, namespace, _name, _container, _kind = split_object_key(key)
+                if config.namespaces != "*" and namespace not in config.namespaces:
+                    continue
+                if isinstance(config.clusters, list) and (cluster or "") not in config.clusters:
+                    continue
+                out[key] = point
+            return out
+
+        try:
+            if live:
+                base_ts = newest_at_or_before(journal, at)
+                baseline_values = scoped(tick_values(journal, base_ts))
+                try:
+                    target_values = scoped(asyncio.run(live_values(config)))
+                except (RuntimeError, NotImplementedError) as e:
+                    # A `cuda` device without a card: the live scan refuses.
+                    raise click.ClickException(str(e)) from e
+                logger.info(f"diff: journal tick {base_ts:.0f} vs live scan")
+            else:
+                base_ts, at_ts = resolve_ticks(journal, at=at, baseline=baseline)
+                baseline_values = scoped(tick_values(journal, base_ts))
+                target_values = scoped(tick_values(journal, at_ts))
+                logger.info(f"diff: journal tick {base_ts:.0f} vs {at_ts:.0f}")
+        except ValueError as e:
+            raise click.UsageError(str(e)) from e
+        result = build_diff_result(
+            baseline_values,
+            target_values,
+            cpu_min_value=config.cpu_min_value,
+            memory_min_value=config.memory_min_value,
+            # The journal stores PRE-buffer raw memory; re-apply the
+            # strategy's buffer so diff memory matches served values.
+            memory_buffer_percentage=settings.memory_buffer_percentage,
+        )
+        logger.print_result(result.format(config.format))
+
+    diff_options = [
+        PanelOption(
+            ["--journal", "journal_path"],
+            default=None,
+            help="Path to the serve journal file (default: <state_path>.journal when --state_path is set).",
+        ),
+        PanelOption(
+            ["--at"],
+            type=float,
+            default=None,
+            help="Target point: the newest journal tick at or before this unix timestamp (default: the newest tick).",
+        ),
+        PanelOption(
+            ["--baseline"],
+            type=float,
+            default=None,
+            help="Baseline point: the newest journal tick at or before this unix timestamp (default: the tick before the target).",
+        ),
+        PanelOption(
+            ["--live"],
+            is_flag=True,
+            default=False,
+            help="Diff the newest journal tick against a fresh one-shot scan instead of a second journal point.",
+        ),
+    ]
+    return PanelCommand(
+        "diff",
+        callback=callback,
+        params=diff_options + _common_options() + _strategy_options(strategy_type),
+        help=(
+            "Render the delta between two recommendation points — two serve "
+            "journal ticks, or (--live) the newest tick vs a fresh scan — "
+            "through any registered formatter."
+        ),
+    )
 
 
 def _finish_observability(config: Any, session: Any) -> None:
@@ -558,9 +1191,11 @@ def _make_analyze_command() -> click.Command:
     decode vs fold vs compute vs idle), the what-if-fetch-were-free
     estimate, and the critical path itself. Input is a ``--trace`` Chrome
     JSON file, or ``--url`` against a live process's ``/debug/trace`` ring;
-    ``--stitch`` merges several sources into one trace. The JAX command's
-    ``--trend``/``--timeline`` read the serve plane's flight recorder and
-    arrive with it."""
+    ``--stitch`` merges several sources into one trace. ``--trend`` switches
+    to the scan TIMELINE instead (`krr_tpu_torch.obs.sentinel` over the
+    flight recorder's records): per-scan regression verdicts with baseline
+    bands, from a ``--timeline`` file or a live server's
+    ``/debug/timeline``."""
 
     def _render_out(rendered: str, output: Any) -> None:
         if output:
@@ -568,6 +1203,58 @@ def _make_analyze_command() -> click.Command:
                 f.write(rendered)
         else:
             click.echo(rendered, nl=False)
+
+    def _trend(timeline: Any, url: Any, n: int, fmt: str, output: Any) -> None:
+        import json
+
+        from krr_tpu_torch.obs.sentinel import render_trend_text, trend_report
+        from krr_tpu_torch.obs.timeline import ScanTimeline
+
+        if (timeline is None) == (url is None):
+            raise click.UsageError(
+                "pass exactly one of --timeline FILE or --url URL with --trend"
+            )
+        live_report = None
+        if timeline is not None:
+            try:
+                # Read EVERYTHING: warm-up and baselines are honest only
+                # over the full timeline (the HTTP route does the same);
+                # -n limits the rendered records below, never the replay.
+                records = ScanTimeline.read_records(timeline)
+            except OSError as e:
+                raise click.UsageError(f"cannot read timeline file {timeline}: {e}") from e
+            except ValueError as e:
+                raise click.UsageError(str(e)) from e
+        else:
+            import urllib.error
+            import urllib.request
+
+            target = url.rstrip("/") + "/debug/timeline?format=json" + (
+                f"&n={n}" if n > 0 else ""
+            )
+            try:
+                with urllib.request.urlopen(target, timeout=30) as response:
+                    payload = json.load(response)
+            except (OSError, urllib.error.URLError, json.JSONDecodeError) as e:
+                raise click.UsageError(f"cannot fetch {target}: {e}") from e
+            records = payload.get("records", [])
+            # The server already replayed the FULL retained timeline with
+            # the live sentinel's configured band knobs — prefer its trend
+            # over a default-knob recompute, so offline verdicts can't
+            # contradict /statusz on a server running custom --sentinel-*.
+            live_report = payload.get("trend")
+        if not records:
+            # A fresh server (or empty file) is a benign state, not an error.
+            click.echo("no completed scans recorded yet — the timeline is empty")
+            return
+        report = live_report or trend_report(records)
+        shown = records[-n:] if n > 0 else records
+        rendered = (
+            json.dumps({"records": shown, "trend": report}, indent=2) + "\n"
+            if fmt == "json"
+            else render_trend_text(report, shown)
+        )
+        _render_out(rendered, output)
 
     def _load_trace_file(path: str) -> dict:
         import json
@@ -592,13 +1279,30 @@ def _make_analyze_command() -> click.Command:
         except (OSError, urllib.error.URLError, json.JSONDecodeError) as e:
             raise click.UsageError(f"cannot fetch {target}: {e}") from e
 
-    def callback(trace: Any, url: Any, n: int, fmt: str, output: Any, stitch: bool) -> None:
+    def callback(
+        trace: Any,
+        url: Any,
+        n: int,
+        fmt: str,
+        output: Any,
+        trend: bool,
+        timeline: Any,
+        stitch: bool,
+    ) -> None:
         import json
 
         from krr_tpu_torch.obs.profile import profile_chrome_payload, render_text
 
         traces = list(trace or ())
         urls = list(url or ())
+        if trend or timeline is not None:
+            if traces or stitch:
+                raise click.UsageError(
+                    "--trend reads a --timeline file (or --url), not --trace/--stitch"
+                )
+            if len(urls) > 1:
+                raise click.UsageError("--trend takes a single --url")
+            return _trend(timeline, urls[0] if urls else None, n, fmt, output)
         if stitch:
             from krr_tpu_torch.obs.trace import stitch_chrome
 
@@ -650,8 +1354,9 @@ def _make_analyze_command() -> click.Command:
                 multiple=True,
                 default=(),
                 help=(
-                    "Base URL of a live process; reads its /debug/trace ring. "
-                    "Repeat with --stitch to merge several processes."
+                    "Base URL of a live process; reads its /debug/trace ring "
+                    "(or /debug/timeline with --trend). Repeat with --stitch "
+                    "to merge several processes."
                 ),
             ),
             PanelOption(
@@ -662,6 +1367,24 @@ def _make_analyze_command() -> click.Command:
                     "Merge the trace rings from every --trace/--url source into "
                     "ONE Chrome trace: remote links join spans across processes, "
                     "with one lane block per source."
+                ),
+            ),
+            PanelOption(
+                ["--trend", "trend"],
+                is_flag=True,
+                default=False,
+                help=(
+                    "Analyze the scan TIMELINE instead of a trace: replay the "
+                    "flight recorder's records through the regression sentinel "
+                    "(baseline bands, per-scan verdicts, suspect layers)."
+                ),
+            ),
+            PanelOption(
+                ["--timeline", "timeline"],
+                default=None,
+                help=(
+                    "Scan timeline file (timeline.log in the serve state "
+                    "directory); implies --trend."
                 ),
             ),
             PanelOption(
@@ -688,7 +1411,8 @@ def _make_analyze_command() -> click.Command:
             "Attribute a recorded scan's wall clock across fetch transport/decode, "
             "fold, compute, publish, and idle; estimate the wall if fetch were "
             "free; and print the critical path. Reads a --trace file or a live "
-            "process's /debug/trace ring."
+            "process's /debug/trace ring. With --trend: replay the scan timeline "
+            "through the regression sentinel instead."
         ),
     )
 
@@ -699,26 +1423,13 @@ def _make_strategy_command(strategy_name: str, strategy_type: Any) -> click.Comm
     def callback(**kwargs: Any) -> None:
         import pydantic
 
-        from krr_tpu_torch.core.config import Config
         from krr_tpu_torch.core.runner import Runner
 
-        clusters = list(kwargs.pop("clusters") or [])
-        namespaces = list(kwargs.pop("namespaces") or [])
-        other_args = {name: kwargs.pop(name) for name in settings_fields}
+        config = _config_from_kwargs(strategy_name, settings_fields, kwargs)
         try:
-            config = Config(
-                clusters="*" if "*" in clusters else (clusters or None),
-                namespaces="*" if ("*" in namespaces or not namespaces) else namespaces,
-                strategy=strategy_name,
-                other_args=other_args,
-                **kwargs,
-            )
             runner = Runner(config)  # validates strategy settings (other_args)
         except pydantic.ValidationError as e:
-            details = "; ".join(
-                f"--{'.'.join(str(p) for p in err['loc']) or 'config'}: {err['msg']}" for err in e.errors()
-            )
-            raise click.UsageError(f"Invalid settings — {details}") from e
+            raise _settings_error(e) from e
         except (RuntimeError, NotImplementedError) as e:
             # A `cuda` device without a card, or a setting that reaches a
             # path not ported yet: a clear error and a nonzero exit, never
@@ -777,9 +1488,14 @@ def version() -> None:
 def load_commands() -> None:
     from krr_tpu_torch.strategies.base import BaseStrategy
 
-    for strategy_name, strategy_type in BaseStrategy.get_all().items():
+    strategies = BaseStrategy.get_all()
+    for strategy_name, strategy_type in strategies.items():
         if strategy_name not in app.commands:
             app.add_command(_make_strategy_command(strategy_name, strategy_type))
+    if "tdigest" in strategies and "serve" not in app.commands:
+        # The serve + history subsystems ride the digest strategy.
+        app.add_command(_make_serve_command("tdigest", strategies["tdigest"]))
+        app.add_command(_make_diff_command("tdigest", strategies["tdigest"]))
     if "analyze" not in app.commands:
         app.add_command(_make_analyze_command())
 

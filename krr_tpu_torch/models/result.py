@@ -96,6 +96,20 @@ class ResourceScan(pd.BaseModel):
     object: K8sObjectData
     recommended: ResourceRecommendation
     severity: Severity
+    #: Set by the serve scheduler on quarantined workloads (degraded ticks):
+    #: unix time of the last usage window actually folded for this object —
+    #: the recommendation is carried forward from digests that old. None
+    #: (the overwhelmingly common case, and always for one-shot scans)
+    #: means fresh; the key is OMITTED from dumps then, so the fleet-scale
+    #: JSON renders pay nothing for a feature that is idle almost always.
+    stale_since: "float | None" = None
+
+    @pd.model_serializer(mode="wrap")
+    def _omit_fresh_stale_mark(self, handler):
+        out = handler(self)
+        if isinstance(out, dict) and out.get("stale_since") is None:
+            out.pop("stale_since", None)
+        return out
 
     @classmethod
     def calculate(cls, object: K8sObjectData, recommendation: ResourceAllocations) -> "ResourceScan":

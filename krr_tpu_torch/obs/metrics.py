@@ -1,8 +1,9 @@
 """Dependency-free Prometheus text-format metrics — the scan's shared registry.
 
-A trimmed copy of `krr_tpu/obs/metrics.py`: the one-shot scan, the
-Kubernetes loader and the Prometheus loader record into one registry, and
-``--metrics-dump FILE`` snapshots it. The exposition format (version 0.0.4)
+A trimmed copy of `krr_tpu/obs/metrics.py`: the one-shot scan, the serve
+plane, the Kubernetes loader and the Prometheus loader record into one
+registry; ``--metrics-dump FILE`` snapshots it and serve's ``GET /metrics``
+exposes it. The exposition format (version 0.0.4)
 is simple enough that a registry is ~150 lines: counters, gauges, summaries
 (sum + count), and native histograms (cumulative ``le`` buckets +
 ``_sum``/``_count``), with labels. Values live in plain dicts mutated from
@@ -11,9 +12,8 @@ assignment (atomic under the GIL).
 
 The metric names keep the ``krr_tpu_`` prefix, so dashboards and recording
 rules read both packages alike. Only the families this package fires are
-declared; the serve, store, federation and ingest families arrive with the
-slices that fire them (the one-shot ``state_path`` scan passes no registry
-to the durable store, as in the JAX package).
+declared; the watch-discovery, federation and ingest families arrive with
+the slices that fire them.
 """
 
 from __future__ import annotations
@@ -33,16 +33,44 @@ DEFAULT_SECONDS_BUCKETS: tuple[float, ...] = (
 #: (name, kind, help[, buckets]) for every metric this package emits —
 #: declared up front so an exposition carries complete HELP/TYPE headers
 #: from the first dump, not only for series that happen to have fired.
-SCAN_METRICS: tuple[tuple, ...] = (
+SERVER_METRICS: tuple[tuple, ...] = (
     ("krr_tpu_build_info", "gauge", "Constant 1 labeled with the running build: krr-tpu-torch version, torch version, compute device."),
-    ("krr_tpu_scans_total", "counter", "Completed scans by kind (cli for one-shot scans)."),
+    ("krr_tpu_scans_total", "counter", "Completed scans by kind (full|delta for serve ticks, cli for one-shot scans)."),
+    ("krr_tpu_scans_skipped_total", "counter", "Scheduler ticks skipped because no new window had elapsed."),
     ("krr_tpu_scan_failures_total", "counter", "Scans aborted by an unexpected error."),
-    ("krr_tpu_discovery_cluster_failures_total", "counter", "Per-cluster discovery listing failures that fail-soft degraded that cluster to an empty inventory (the fleet silently scans smaller until it recovers)."),
-    ("krr_tpu_scan_duration_seconds", "gauge", "Last scan's wall seconds by leg (discover|fetch|compute)."),
-    ("krr_tpu_scan_failed_rows", "gauge", "Object fetches that failed terminally in the last scan (rows rendered UNKNOWN)."),
-    ("krr_tpu_fetch_rows_total", "counter", "Cumulative object fetches attempted by completed scans."),
-    ("krr_tpu_fetch_failed_rows_total", "counter", "Cumulative object fetches that failed terminally."),
-    ("krr_tpu_last_scan_timestamp_seconds", "gauge", "Unix time of the last scan's window end."),
+    ("krr_tpu_discovery_failures_total", "counter", "Discoveries that returned no objects while the store held rows — treated as transient inventory failures (no compaction)."),
+    ("krr_tpu_discovery_cluster_failures_total", "counter", "Per-cluster discovery listing failures that fail-soft degraded that cluster to an empty inventory (the fleet silently scans smaller until it recovers; /healthz names the failing clusters)."),
+    ("krr_tpu_scan_duration_seconds", "gauge", "Last scan's wall seconds by leg (discover|fetch|fold|compute)."),
+    ("krr_tpu_scan_pipeline_seconds", "gauge", "Last scan's streamed-pipeline stage busy seconds (fetch = producer span, fold = consumer busy)."),
+    ("krr_tpu_scan_overlap_pct", "gauge", "Fetch/fold overlap of the last scan's streamed pipeline as a percentage of the shorter stage (100 = fully hidden)."),
+    ("krr_tpu_scan_window_seconds", "gauge", "Width of the last scan's fetched time window."),
+    ("krr_tpu_scan_failed_rows", "gauge", "Object fetches that failed terminally in the last scan (rows rendered UNKNOWN; on serve ticks, quarantined)."),
+    ("krr_tpu_scans_degraded_total", "counter", "Serve ticks that published with quarantined workloads: partial fetch failure above the --min-fetch-success-pct abort floor."),
+    ("krr_tpu_scan_failed_batches", "gauge", "Pipeline fetch batches that failed terminally in the last streamed serve tick (the batch-granular view between failed rows and the degraded-tick counter)."),
+    ("krr_tpu_stale_workloads", "gauge", "Workloads currently quarantined by degraded ticks — their published recommendations carry forward last-good digests with stale_since marks."),
+    ("krr_tpu_quarantine_expired_total", "counter", "Quarantined workloads whose staleness exceeded --max-staleness: their accumulated store rows were dropped and they re-enter with a full-window backfill."),
+    ("krr_tpu_fetch_rows_total", "counter", "Cumulative object fetches attempted by completed scans (the denominator of the fetch failed-row SLO)."),
+    ("krr_tpu_fetch_failed_rows_total", "counter", "Cumulative object fetches that failed terminally (the numerator of the fetch failed-row SLO)."),
+    ("krr_tpu_fetch_window_seconds_total", "counter", "Cumulative fetched window seconds by kind — a delta-scan server grows this by the delta width per tick, a re-fetching one by the full history width."),
+    ("krr_tpu_backfilled_objects_total", "counter", "Late-discovered workloads given a full-window backfill fetch."),
+    ("krr_tpu_last_scan_timestamp_seconds", "gauge", "Unix time of the last published scan's window end."),
+    ("krr_tpu_fleet_objects", "gauge", "Scannable objects in the last discovery."),
+    ("krr_tpu_digest_store_rows", "gauge", "Rows (containers) resident in the digest store."),
+    ("krr_tpu_digest_store_bytes", "gauge", "Resident bytes of the digest store's row arrays."),
+    ("krr_tpu_store_compacted_rows_total", "counter", "Store rows dropped by churn compaction."),
+    # Durable sharded digest store (`krr_tpu_torch.core.durastore`).
+    ("krr_tpu_persist_failures_total", "counter", "Digest state persist attempts that failed on a disk fault (ENOSPC/EIO) — serve keeps publishing from memory and retries with the backlog next tick."),
+    ("krr_tpu_store_wal_bytes", "gauge", "Bytes in the durable store's delta WAL since the last compaction (framing header included)."),
+    ("krr_tpu_store_wal_records", "gauge", "Delta records appended to the durable store's WAL since the last compaction."),
+    ("krr_tpu_store_compactions_total", "counter", "Durable-store compactions: the delta WAL folded back into fresh base shards and the manifest flipped."),
+    ("krr_tpu_store_recovery_seconds", "gauge", "Wall seconds the last durable-store open spent reconstructing state (base shard loads + checksum verification + WAL replay)."),
+    # Recommendation history + hysteresis (`krr_tpu_torch.history`).
+    ("krr_tpu_recommendation_churn_total", "counter", "Published recommendation changes: workloads whose published values moved this tick (first-time publishes excluded)."),
+    ("krr_tpu_hysteresis_suppressed_total", "counter", "Workload-ticks where an out-of-dead-band recommendation change was withheld by the hysteresis gate."),
+    ("krr_tpu_journal_records", "gauge", "Recommendation-tick records resident in the history journal."),
+    ("krr_tpu_journal_bytes", "gauge", "Resident bytes of the history journal's record array."),
+    ("krr_tpu_journal_span_seconds", "gauge", "Time between the journal's oldest and newest records (retention coverage)."),
+    ("krr_tpu_journal_compacted_records_total", "counter", "Journal records dropped by retention compaction."),
     # The streamed scan pipeline of digest-ingest scans
     # (`krr_tpu_torch.core.pipeline`).
     ("krr_tpu_scan_pipeline_wait_seconds", "gauge", "Last scan's streamed-pipeline wait time by side: producer_blocked = producers stalled in put() (fold-bound), consumer_starved = the consumer parked in get() (fetch-bound)."),
@@ -68,6 +96,18 @@ SCAN_METRICS: tuple[tuple, ...] = (
     ("krr_tpu_prom_wire_encoding_total", "counter", "Range-query responses by negotiated Content-Encoding (identity|gzip|zstd) — identity climbing while --fetch-compression is on means something on the path stripped Accept-Encoding."),
     ("krr_tpu_fetch_downsampled_total", "counter", "Stats-route queries rewritten as grid-aligned server-side subquery downsamples (--fetch-downsample), per cluster, counted at issue time."),
     ("krr_tpu_fetch_downsample_fallback_total", "counter", "Downsampled stats queries that fell back to the raw fetch after a non-transient backend rejection (the namespaces are pinned to raw in the plan telemetry)."),
+    ("krr_tpu_http_requests_total", "counter", "HTTP requests by route and status code."),
+    ("krr_tpu_http_request_seconds", "histogram", "HTTP request latency by route.", DEFAULT_SECONDS_BUCKETS),
+    # High-QPS read path (`krr_tpu_torch.server.state.ResponseCache` + the
+    # app's conditional-GET / bounded-render machinery).
+    ("krr_tpu_http_response_bytes_total", "counter", "HTTP response body bytes written to the wire by route and negotiated content encoding (identity|gzip|zstd); HEAD responses and 304 revalidations write none."),
+    ("krr_tpu_http_cache_hits_total", "counter", "Read-path response-cache lookups served from the epoch-keyed rendered-body cache (no render, no encode)."),
+    ("krr_tpu_http_cache_misses_total", "counter", "Read-path response-cache lookups that had to render (counted before the bounded render pool admits or sheds them)."),
+    ("krr_tpu_http_renders_shed_total", "counter", "Cache-miss renders shed with 503/Retry-After because the bounded render pool (width + wait queue) was saturated."),
+    ("krr_tpu_http_response_cache_entries", "gauge", "Entries resident in the epoch-keyed response cache (bounded by --response-cache-entries)."),
+    ("krr_tpu_http_response_cache_bytes", "gauge", "Body bytes resident in the epoch-keyed response cache (bounded by --response-cache-mb)."),
+    ("krr_tpu_http_read_requests", "gauge", "GET /recommendations requests served during the last completed scheduler tick's window (0 = a quiet tick; gates the read-p99 SLO sample)."),
+    ("krr_tpu_http_read_p99_seconds", "gauge", "Estimated p99 GET /recommendations request latency over the last completed tick's window (histogram-bucket interpolation; stale while krr_tpu_http_read_requests is 0)."),
     # Device-level compute observability (`krr_tpu_torch.obs.device`). The
     # port has no JIT: its compile is the nvcc build of
     # `krr_tpu_torch.ops.cuda_build`, so only the backend_compile phase
@@ -78,15 +118,33 @@ SCAN_METRICS: tuple[tuple, ...] = (
     ("krr_tpu_pad_waste_pct", "gauge", "Padding waste of the last packed batch by resource: percent of the rectangular [rows x capacity] matrix that is padding, not real samples."),
     ("krr_tpu_packed_elements", "gauge", "Elements of the last packed batch by resource and kind — a partition: real samples plus padding sum to the rectangular [rows x capacity] matrix."),
     ("krr_tpu_device_memory_bytes", "gauge", "CUDA device memory by device and kind (bytes_in_use = allocated now, peak_bytes_in_use = allocated peak, both from torch.cuda.memory_stats; bytes_limit = the card's total memory); not set when the strategy computes on the CPU."),
+    # Scan flight recorder + regression sentinel (`krr_tpu_torch.obs.timeline`,
+    # `krr_tpu_torch.obs.sentinel`).
+    ("krr_tpu_timeline_records", "gauge", "Scan records retained by the flight recorder's in-memory ring (the durable timeline file may hold up to 2x before retention compaction)."),
+    ("krr_tpu_timeline_bytes", "gauge", "Bytes of the durable scan-timeline file (magic header + CRC-framed records); 0 for the memory-only recorder."),
+    ("krr_tpu_timeline_compactions_total", "counter", "Scan-timeline retention compactions: the file atomically rewritten down to the newest retain_records records."),
+    ("krr_tpu_timeline_append_failures_total", "counter", "Scan-timeline appends that failed on a disk fault (ENOSPC/EIO) — the record survives in memory only and the next append truncates the torn tail first."),
+    ("krr_tpu_scan_regression", "gauge", "Regression sentinel deviation by category: the last classified scan's sigmas above its median/MAD baseline band while that category is regressed, 0 while nominal."),
+    ("krr_tpu_scan_regressions_total", "counter", "Scans the regression sentinel classified as regressed, by the dominant deviating category."),
     # SLO engine (`krr_tpu_torch.obs.health`).
     ("krr_tpu_slo_burn_rate", "gauge", "Error-budget burn rate by objective and window (fast|slow): windowed bad ratio divided by the objective's budget; 1.0 consumes exactly the budget over the window."),
     ("krr_tpu_slo_error_budget_remaining", "gauge", "Fraction of the objective's error budget left over the slow window (negative = overspent)."),
     ("krr_tpu_slo_alert_firing", "gauge", "1 while the objective's fast AND slow burn rates exceed their thresholds, else 0."),
     ("krr_tpu_slo_alert_transitions_total", "counter", "SLO alert state transitions by objective and direction (firing|resolved)."),
-    # Process self-metrics (refreshed on dump).
+    # The journal-derived fleet savings posture (`krr_tpu_torch.eval.score`)
+    # refreshed on /statusz scrape, plus the scheduler's instantaneous
+    # gate-vs-raw over-provision snapshot each publish tick.
+    ("krr_tpu_eval_oom_incidents", "gauge", "Would-have-been OOM incidents over the journal window: rising edges where recorded raw memory demand exceeded the published recommendation."),
+    ("krr_tpu_eval_throttle_incidents", "gauge", "Would-have-been CPU throttle incidents over the journal window: rising edges where recorded raw CPU demand exceeded the published recommendation."),
+    ("krr_tpu_eval_overprovision_core_hours", "gauge", "Core-hours of published-above-demand CPU slack integrated over the journal window (the reclaimable CPU savings)."),
+    ("krr_tpu_eval_overprovision_gb_hours", "gauge", "GB-hours of published-above-demand memory slack integrated over the journal window (the reclaimable memory savings)."),
+    ("krr_tpu_eval_overprovision_cores", "gauge", "Instantaneous gate-held CPU above raw demand summed over the fleet at the last publish tick."),
+    ("krr_tpu_eval_overprovision_gb", "gauge", "Instantaneous gate-held memory above raw demand (GB) summed over the fleet at the last publish tick."),
+    ("krr_tpu_eval_replay_seconds", "gauge", "Wall seconds the last /statusz savings computation spent replaying the journal."),
+    # Process self-metrics (refreshed on scrape and dump).
     ("krr_tpu_process_resident_bytes", "gauge", "Resident set size of this process."),
     ("krr_tpu_process_open_fds", "gauge", "Open file descriptors of this process."),
-    ("krr_tpu_process_uptime_seconds", "gauge", "Seconds since this process imported the metrics core (≈ process start for the CLI)."),
+    ("krr_tpu_process_uptime_seconds", "gauge", "Seconds since this process imported the metrics core (≈ process start for the CLI and serve)."),
     ("krr_tpu_process_gc_collections_total", "counter", "Cyclic-GC collections by generation."),
     ("krr_tpu_debug_dumps_total", "counter", "On-demand debug dumps written (SIGUSR2)."),
 )
@@ -112,7 +170,7 @@ class MetricsRegistry:
     """Declared-up-front counters/gauges/summaries/histograms with labeled
     series."""
 
-    def __init__(self, declarations: Iterable[tuple] = SCAN_METRICS):
+    def __init__(self, declarations: Iterable[tuple] = SERVER_METRICS):
         self._meta: dict[str, tuple[str, str]] = {}
         #: name -> {sorted-label-tuple -> value}; summaries keep two inner
         #: maps under name+"_sum" / name+"_count" (histograms too, plus the
@@ -173,13 +231,36 @@ class MetricsRegistry:
             counts[bisect.bisect_left(bounds, float(value))] += 1.0
 
     def value(self, name: str, **labels: str) -> Optional[float]:
-        """Read one series back (tests and the scan summary)."""
+        """Read one series back (tests, the scan summary, the health route)."""
         return self._values.get(name, {}).get(self._series(name, labels))
 
     def total(self, name: str) -> float:
         """Sum of a metric's series across ALL label values. Summaries and
         histograms: pass the explicit ``_sum``/``_count`` name."""
         return float(sum(self._values.get(name, {}).values()))
+
+    def series(self, name: str) -> "dict[tuple[tuple[str, str], ...], float]":
+        """Every labeled series of one metric (label tuple → value) — for
+        readers that need per-series values where a sum would lie (the
+        timeline recorder snapshots the per-target in-flight LIMIT gauge,
+        where summing across targets is meaningless)."""
+        return dict(self._values.get(name, {}))
+
+    def histogram_buckets(
+        self, name: str, **labels: str
+    ) -> "Optional[list[tuple[float, float]]]":
+        """One histogram series as cumulative ``(le, count)`` pairs ending in
+        ``(+Inf, total)`` — the representation the SLO engine and Prometheus
+        quantile rules share. None when the series never fired."""
+        bounds = self._bounds.get(name)
+        counts = self._buckets.get(name, {}).get(self._series(name, labels))
+        if bounds is None or counts is None:
+            return None
+        out, running = [], 0.0
+        for bound, count in zip((*bounds, float("inf")), counts):
+            running += count
+            out.append((bound, running))
+        return out
 
     def render(self) -> str:
         """Prometheus exposition format 0.0.4."""
@@ -207,6 +288,35 @@ class MetricsRegistry:
                     else:
                         out.append(f"{name}{suffix} {_format_value(value)}")
         return "\n".join(out) + "\n"
+
+
+def histogram_quantile(
+    pairs: "list[tuple[float, float]]", q: float
+) -> Optional[float]:
+    """Quantile estimate from cumulative ``(le, count)`` pairs (the
+    :meth:`MetricsRegistry.histogram_buckets` representation, or a delta of
+    two such snapshots — cumulative minus cumulative stays cumulative).
+    Linear interpolation inside the winning bucket, Prometheus
+    ``histogram_quantile`` style; a quantile landing in the +Inf bucket
+    clamps to the last finite bound. None when the histogram holds no
+    observations."""
+    if not pairs:
+        return None
+    total = pairs[-1][1]
+    if total <= 0:
+        return None
+    rank = q * total
+    prev_bound, prev_count = 0.0, 0.0
+    for bound, count in pairs:
+        if count >= rank:
+            if bound == float("inf"):
+                return prev_bound
+            span = count - prev_count
+            if span <= 0:
+                return bound
+            return prev_bound + (bound - prev_bound) * (rank - prev_count) / span
+        prev_bound, prev_count = bound, count
+    return prev_bound
 
 
 def record_build_info(registry: MetricsRegistry, device: str) -> None:

@@ -25,8 +25,8 @@ it; :func:`propagation_context` builds the wire form of that link,
 several processes' Chrome exports (``analyze --stitch``) into ONE trace:
 remote links union traces into connected components, every source process
 keeps its own lane block, and timestamps rebase onto the shared
-``wall_start`` wall clock. The port's processes carry no ``node`` identity
-until the serve and federation slices.
+``wall_start`` wall clock. A tracer may carry a ``node`` identity (serve
+stamps ``"serve"``) that names its lanes in the export.
 
 Cost discipline: the default for every scan path is :data:`NULL_TRACER`,
 whose ``span()`` returns one shared no-op context manager — no allocation,
@@ -170,6 +170,9 @@ class NullTracer:
     def export_chrome(self, n: Optional[int] = None) -> dict:
         return {"traceEvents": [], "displayTimeUnit": "ms"}
 
+    def discard(self, trace_id: Optional[str]) -> None:
+        pass
+
 
 NULL_TRACER = NullTracer()
 
@@ -183,15 +186,19 @@ class Tracer(NullTracer):
         self,
         ring_scans: int = 16,
         max_spans_per_trace: int = 4096,
+        node: Optional[str] = None,
     ):
         #: perf_counter↔wall anchors taken together, so exported timestamps
         #: can be mapped to wall time.
         self.epoch_perf = time.perf_counter()
         self.epoch_wall = time.time()
+        #: Process identity stamped onto exported events ("serve") — what
+        #: `stitch_chrome` names lanes by.
+        self.node = node
         self._ring: "deque[list[Span]]" = deque(maxlen=max(1, ring_scans))
         self._open: dict[str, list[Span]] = {}
         self._dropped: dict[str, int] = {}
-        #: Trace ids already flushed to the ring → count of spans
+        #: Trace ids already flushed (ringed or discarded) → count of spans
         #: that arrived AFTER the flush. An aborted scan can leave orphaned
         #: fetch tasks whose spans complete after the root closed; without
         #: this ledger `_record` would resurrect the trace as a permanently
@@ -257,6 +264,21 @@ class Tracer(NullTracer):
         while len(self._flushed) > 4 * (self._ring.maxlen or 1):
             self._flushed.pop(next(iter(self._flushed)))
 
+    def discard(self, trace_id: Optional[str]) -> None:
+        """Drop a trace — open OR already ringed — by id (a scheduler tick
+        that turned out to be a no-op shouldn't evict a real scan from the
+        ring)."""
+        if trace_id is None:
+            return
+        with self._lock:
+            self._open.pop(trace_id, None)
+            self._dropped.pop(trace_id, None)
+            self._mark_flushed(trace_id)
+            for i in range(len(self._ring) - 1, -1, -1):
+                if self._ring[i] and self._ring[i][0].trace_id == trace_id:
+                    del self._ring[i]
+                    break
+
     # -------------------------------------------------------------- reading
     def traces(self, n: Optional[int] = None) -> "list[list[Span]]":
         """The newest ``n`` completed traces (all, when n is None), oldest
@@ -282,7 +304,9 @@ class Tracer(NullTracer):
         for pid, spans in enumerate(self.traces(n), start=1):
             if not spans:
                 continue
-            process_name = f"{spans[0].trace_id}"
+            process_name = (
+                f"{self.node}:{spans[0].trace_id}" if self.node else f"{spans[0].trace_id}"
+            )
             events.append(
                 {
                     "ph": "M",
@@ -317,6 +341,8 @@ class Tracer(NullTracer):
                     "parent_id": f"{span.parent_id:x}" if span.parent_id else None,
                     "wall_start": round(self.wall_of(span), 6),
                 }
+                if self.node:
+                    args["node"] = self.node
                 args.update(span.attributes)
                 events.append(
                     {

@@ -5,12 +5,15 @@ apiserver + fake Prometheus of ``tests/test_integrations.py`` (the port with
 ``--device cpu``: its plain PyTorch versions). Machine formats and the table
 are compared byte for byte on stdout with ``-q`` (the greetings differ), for
 every strategy path and fetch option; flag names and boolean defaults are
-held to the JAX command's. The last test proves that without ``--device
-cpu`` the port asks for the card and refuses to scan here.
+held to the JAX command's. ``serve`` and ``diff`` are held to the JAX
+commands' flags and defaults; ``diff`` and ``analyze --trend`` print the JAX
+commands' stdout. The last tests prove that without ``--device cpu`` the
+port asks for the card and refuses to scan or serve here.
 """
 
 from __future__ import annotations
 
+import asyncio
 import json
 import os
 import subprocess
@@ -398,9 +401,9 @@ def test_help_lists_the_jax_flags(apps, name):
         assert flag in help_text
 
 
-#: ``analyze`` flags of the JAX command the port lacks: the flight recorder's
-#: trend view, which reads the serve plane's timeline (ROADMAP M10a).
-ANALYZE_JAX_ONLY_FLAGS = {"--trend", "--timeline"}
+#: ``analyze`` flags of the JAX command the port lacks: none since the
+#: flight recorder's trend view (``--trend``, ``--timeline``) was ported.
+ANALYZE_JAX_ONLY_FLAGS: "set[str]" = set()
 
 
 def test_analyze_lists_the_jax_flags(apps):
@@ -456,3 +459,182 @@ def test_without_device_cpu_the_scan_asks_for_cuda(fake_env):  # noqa: F811
     assert proc.returncode != 0
     assert "cuda" in (proc.stdout + proc.stderr).lower()
     assert '"scans"' not in proc.stdout
+
+
+#: ``serve`` flags of the JAX command the port lacks beyond
+#: ``JAX_ONLY_FLAGS``: federation and push ingest (ROADMAP M10b) and the
+#: freshness lineage that rides federation.
+SERVE_JAX_ONLY_FLAGS = {
+    "--ingest-port", "--ingest-verify-interval", "--ingest-max-body-bytes",
+    "--ingest-lookback", "--ingest-max-samples-per-series", "--ingest-max-series",
+    "--federation-listen", "--federation-staleness", "--federation-queue-records",
+    "--federation-uplink", "--lineage",
+}
+
+
+@pytest.mark.parametrize("name,jax_only", [
+    ("serve", JAX_ONLY_FLAGS | SERVE_JAX_ONLY_FLAGS),
+    ("diff", JAX_ONLY_FLAGS),
+])
+def test_serve_and_diff_list_the_jax_flags(apps, name, jax_only):
+    jax_app, port_app = apps
+    jax_flags = _flag_names(jax_app.commands[name])
+    port_flags = _flag_names(port_app.commands[name])
+    assert port_flags - jax_flags == PORT_ONLY_FLAGS
+    assert jax_flags - port_flags == jax_only
+    help_text = _invoke(port_app, [name, "--help"]).output
+    for flag in port_flags:
+        assert flag in help_text
+
+
+@pytest.mark.parametrize("name", ["serve", "diff"])
+def test_serve_and_diff_boolean_defaults_match_jax(apps, name):
+    """The real parser with no flags lands every boolean (the dual-name
+    ``--hysteresis/--no-hysteresis``, ``--sentinel``, ``--savings``,
+    ``--response-cache`` included) on the JAX command's default and on the
+    Config or settings field it feeds."""
+    jax_app, port_app = apps
+    port_command = port_app.commands[name]
+    jax_defaults = {opt.name: opt.default for opt in _boolean_options(jax_app.commands[name])}
+    ctx = port_command.make_context(name, [], resilient_parsing=True)
+    fields = {
+        **PortConfig.model_fields,
+        **PortBaseStrategy.find("tdigest").get_settings_type().model_fields,
+    }
+    options = _boolean_options(port_command)
+    assert options
+    for opt in options:
+        assert ctx.params[opt.name] == opt.default == jax_defaults[opt.name], opt.name
+        if opt.name in fields:
+            assert fields[opt.name].default == opt.default, opt.name
+    if name == "serve":
+        for flag in ("hysteresis_enabled", "sentinel_enabled", "savings_enabled", "response_cache_enabled"):
+            assert ctx.params[flag] is True
+
+
+@pytest.mark.parametrize("args,item", [
+    (["--discovery-mode", "watch"], "M10a.3"),
+    (["--metrics-mode", "push"], "M10b"),
+])
+def test_serve_modes_of_later_slices_exit_naming_their_item(apps, args, item):
+    _, port_app = apps
+    result = CliRunner().invoke(port_app, ["serve", *args, "--device", "cpu", "-p", "http://127.0.0.1:9"])
+    assert result.exit_code == 1
+    assert "not ported yet" in result.output and item in result.output
+
+
+def _timeline_file(path: str, ticks: int = 24) -> None:
+    from krr_tpu_torch.obs.timeline import ScanTimeline
+
+    from .test_torch_history import synthetic_records
+
+    timeline = ScanTimeline.open(path)
+    for record in synthetic_records(ticks, inject=ticks > 0):
+        timeline.append(record)
+    timeline.close()
+
+
+@pytest.mark.parametrize("args", [
+    ["--trend", "--timeline", "{F}"],
+    ["--timeline", "{F}", "-f", "json"],
+    ["--trend", "--timeline", "{F}", "-n", "5"],
+    ["--trend", "--timeline", "{E}"],
+    ["--trend", "--timeline", "{F}", "--trace", "x.json"],
+], ids=["text", "json", "newest5", "empty", "with-trace"])
+def test_analyze_trend_equal_jax(apps, tmp_path, args):
+    full, empty = str(tmp_path / "timeline.log"), str(tmp_path / "empty.log")
+    _timeline_file(full)
+    _timeline_file(empty, ticks=0)
+    argv = ["analyze", *(a.format(F=full, E=empty) for a in args)]
+    jax_app, port_app = apps
+    jax_result, port_result = CliRunner().invoke(jax_app, argv), CliRunner().invoke(port_app, argv)
+    assert port_result.exit_code == jax_result.exit_code
+    assert port_result.output == jax_result.output
+    if "{F}" in args and "--trace" not in args:
+        assert port_result.exit_code == 0 and "regress" in port_result.output
+
+
+@pytest.fixture(scope="module")
+def journal_env(apps, fake_env, tmp_path_factory):  # noqa: F811
+    """A serve journal over the fake fleet's real object keys: three ticks of
+    the live raw recommendations, moved between ticks, one workload missing
+    from the first tick."""
+    from krr_tpu.core.config import Config as JaxConfig
+    from krr_tpu.history.diff import live_values
+    from krr_tpu.history.journal import RecommendationJournal
+
+    config = JaxConfig(
+        kubeconfig=fake_env["kubeconfig"], prometheus_url=fake_env["server"].url,
+        strategy="tdigest", quiet=True,
+    )
+    values = asyncio.run(live_values(config))
+    keys = sorted(values)
+    cpu = np.asarray([values[k][0] for k in keys], np.float32)
+    mem = np.asarray([values[k][1] for k in keys], np.float32)
+    path = str(tmp_path_factory.mktemp("journal") / "serve.journal")
+    journal = RecommendationJournal(path)
+    t0 = 1_700_000_000.0
+    journal.append_tick(t0, keys[1:], cpu[1:] * 0.5, mem[1:] * 2.0, np.ones(len(keys) - 1, bool))
+    journal.append_tick(t0 + 900.0, keys, cpu * 1.25, mem, np.ones(len(keys), bool))
+    journal.append_tick(t0 + 1800.0, keys, cpu, mem * 0.75, np.ones(len(keys), bool))
+    journal.close()
+    return {"path": path, "t0": t0}
+
+
+@pytest.mark.parametrize("fmt", ["json", "yaml", "pprint", "table"])
+@pytest.mark.parametrize("points", ["newest_two", "at", "baseline", "live", "live_at", "namespace"])
+def test_diff_stdout_equal_jax(apps, fake_env, journal_env, points, fmt):  # noqa: F811
+    t0 = journal_env["t0"]
+    extra = {
+        "newest_two": [],
+        "at": ["--at", str(t0 + 900.0)],
+        "baseline": ["--baseline", str(t0), "--at", str(t0 + 1800.0)],
+        "live": ["--live"],
+        "live_at": ["--live", "--at", str(t0 + 900.0)],
+        "namespace": ["-n", "prod"],
+    }[points]
+    jax_result, port_result = _both(
+        apps, fake_env, ["diff", "--journal", journal_env["path"], "-f", fmt, *extra],
+    )
+    assert jax_result.exit_code == 0, jax_result.output
+    assert port_result.exit_code == 0, port_result.output
+    assert port_result.output == jax_result.output
+
+
+def test_diff_errors_equal_jax(apps, tmp_path, journal_env):
+    jax_app, port_app = apps
+    for argv in (
+        ["diff", "--journal", str(tmp_path / "missing")],
+        ["diff"],
+        ["diff", "--journal", journal_env["path"], "--live", "--baseline", "1"],
+        ["diff", "--journal", journal_env["path"], "--at", "5"],
+    ):
+        jax_result, port_result = CliRunner().invoke(jax_app, argv), CliRunner().invoke(port_app, argv)
+        assert port_result.exit_code == jax_result.exit_code == 2, argv
+        assert port_result.output == jax_result.output
+
+
+@pytest.mark.parametrize("argv", [
+    ["serve"],
+    ["diff", "--live", "--journal", "{J}"],
+], ids=["serve", "diff-live"])
+def test_without_device_cpu_serve_and_live_diff_ask_for_cuda(fake_env, journal_env, argv):  # noqa: F811
+    """``serve`` and ``diff --live`` default to the card: with no card they
+    exit 1 naming CUDA. A journal-vs-journal diff needs no card."""
+    base = [sys.executable, "-m", "krr_tpu_torch"]
+    common = ["-q", "--kubeconfig", fake_env["kubeconfig"], "-p", fake_env["server"].url]
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+    proc = subprocess.run(
+        [*base, *(a.format(J=journal_env["path"]) for a in argv), *common, "--port", "0"]
+        if argv[0] == "serve" else [*base, *(a.format(J=journal_env["path"]) for a in argv), *common],
+        cwd=REPO_ROOT, capture_output=True, text=True, timeout=120, env=env,
+    )
+    assert proc.returncode == 1, proc.stderr
+    assert "cuda" in (proc.stdout + proc.stderr).lower()
+    if argv[0] == "diff":
+        journal_diff = subprocess.run(
+            [*base, "diff", "--journal", journal_env["path"], "-f", "json", "-q"],
+            cwd=REPO_ROOT, capture_output=True, text=True, timeout=120, env=env,
+        )
+        assert journal_diff.returncode == 0, journal_diff.stderr
+        assert json.loads(journal_diff.stdout)["scans"]
