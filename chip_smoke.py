@@ -191,9 +191,32 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    restart on the state directory inside one step: the reopen seconds, a
    first tick that fetches nothing and returns False, the pre-restart
    bytes, ``/healthz`` ``ok``, ``/statusz`` with ``trend`` and ``savings``,
-   and one ``/debug/timeline`` record per completed tick. Every kernel's
-   launch count stays 0 across the phase: the serve path is host numpy, as
-   in the JAX package.
+   and one ``/debug/timeline`` record per completed tick. The watch leg:
+   a ``discovery_mode="watch"`` server on the same two ``--no-hysteresis``
+   ticks serves the relist server's bytes (the seed's and the delta tick's
+   discover legs and the fake apiserver's LIST, pod LIST and watch requests
+   are printed); a restart on its state directory inside one step
+   warm-starts the inventory from the derived
+   ``discovery-inventory.json`` with no LIST and serves the same bytes.
+   Every kernel's launch count stays 0 across the phase: the serve path and
+   watch discovery are host code, as in the JAX package. The default
+   server's journal is kept for ``eval``.
+12. ``eval``    — the replay scoreboard through the port's click command
+   (``eval --usage``) on the default device: the ``cli`` fixture's usage
+   regenerated at its own shape (10,000 workloads × 1,344 samples, the same
+   generator and seed) and written with ``ReplayInput.save_npz``, ``simple``
+   and ``tdigest`` replayed over 16 ticks (16 distinct ``tick_ends``).
+   Launches counted from 0: ``bisect_select`` 16, ``row_max`` 32,
+   ``digest_hist`` 16, ``topk_select`` and ``radix_digit_hist`` 0, no
+   generic fold. A second run renders the same bytes; a numpy oracle of the
+   scoring over the card's replayed series gives the same incidents and
+   slacks within rtol 1e-9; ``--device cpu`` gives the same incidents,
+   flaps, ticks, ``samples_scored`` and order with slacks within rtol 1e-9
+   (the differing bytes are counted). Printed: each strategy's replay wall
+   split into batch builds, ``run_batch``, gate and scoring, rows replayed
+   per second, the peak allocated device memory, the scoring reduce alone
+   by CUDA events, and ``eval --journal`` on the ``serve`` phase's journal
+   (10,000 workloads): its wall and rows.
 
 ``row_max_main`` — ``row_max`` at the memory shape of the ``simple`` scan,
 per wrapper call (host-bound at that size) and per launch replayed from a
@@ -202,7 +225,7 @@ CUDA graph (the kernel's device time). Part of ``headline``; run alone
 beside the script, so a copy of the script placed in an unpacked older
 commit times that commit's kernel the same way.
 
-The last three lines (printed when all ten default phases ran) are the
+The last three lines (printed when all eleven default phases ran) are the
 card's ``nvidia-smi`` name and power limit, one
 ``{"kernels": [...]}`` JSON object (launch counts from the ``cli`` phase's
 warm runs; ``radix_digit_hist``'s from the ``stream`` phase's q = 50 scan),
@@ -1833,9 +1856,15 @@ def _serve_fixture(n_objects: int, samples: int, conn) -> None:
             cpu=np.round(rng.gamma(2.0, 0.05, samples), 4),
             memory=np.floor(rng.uniform(5e7, 4e8, samples) / 4096) * 4096,
         )
-    server = ServerThread(FakeBackend(cluster, metrics)).start()
+    backend = FakeBackend(cluster, metrics)
+    server = ServerThread(backend).start()
     conn.send((server.port, FakeBackend.SERIES_ORIGIN, time.perf_counter() - started))
-    conn.recv()  # the parent signals completion
+    # "counts" asks for the apiserver request counters; anything else (the
+    # parent's "done", or a closed pipe) stops the fixture.
+    with contextlib.suppress(EOFError, OSError):
+        while conn.recv() == "counts":
+            conn.send({"lists": backend.list_request_count, "pod_lists": backend.pod_request_count,
+                       "watches": backend.watch_request_count})
     server.stop()
 
 
@@ -1866,6 +1895,14 @@ class FakeServers:
             port, origin, build_seconds = self._conn.recv()
             self._ready = (f"http://127.0.0.1:{port}", origin, build_seconds)
         return self._ready
+
+    def counts(self) -> dict:
+        """The fake apiserver's request counters: workload LISTs, pod LISTs
+        and watch requests served so far."""
+        self.ready()
+        self._conn.send("counts")
+        check(self._conn.poll(timeout=60), "the fake-server child did not report its counts")
+        return self._conn.recv()
 
     def close(self) -> None:
         with contextlib.suppress(OSError):
@@ -1927,10 +1964,12 @@ async def _http(port: int, target: str, headers: "dict | None" = None) -> tuple[
     return int(head_lines[0].split()[1]), headers_out, body, ms
 
 
-def phase_serve(fakes: "FakeServers", smi: str) -> dict:
+def phase_serve(fakes: "FakeServers", smi: str, keep_dir: str) -> dict:
     """``serve`` (`krr_tpu_torch.server`) on the ``cli`` fixture: see the
     module docstring. Host code end to end — the phase holds every kernel's
-    launch count at 0."""
+    launch count at 0. The default server's journal is copied into
+    ``keep_dir`` for the ``eval`` phase."""
+    import shutil
     import tempfile
 
     url, origin, _fixture_seconds = fakes.ready()
@@ -1938,7 +1977,9 @@ def phase_serve(fakes: "FakeServers", smi: str) -> dict:
     with tempfile.TemporaryDirectory(prefix="krr-serve-smoke-") as tmp:
         kubeconfig = os.path.join(tmp, "kubeconfig")
         _write_kubeconfig(kubeconfig, url)
-        report = asyncio.run(_phase_serve(url, origin, kubeconfig, tmp, fakes.proc.pid))
+        report = asyncio.run(_phase_serve(url, origin, kubeconfig, tmp, fakes))
+        report["journal_copy"] = shutil.copy(os.path.join(tmp, "default.journal"),
+                                             os.path.join(keep_dir, "serve.journal"))
     launches, generic = _read_counts()
     check(not any(launches.values()) and not any(generic.values()),
           f"serve: a kernel launched during the phase: {launches} {generic}")
@@ -1947,7 +1988,7 @@ def phase_serve(fakes: "FakeServers", smi: str) -> dict:
     return report
 
 
-async def _phase_serve(url: str, origin: float, kubeconfig: str, tmp: str, fake_pid: int) -> dict:
+async def _phase_serve(url: str, origin: float, kubeconfig: str, tmp: str, fakes: "FakeServers") -> dict:
     import numpy as np
 
     from krr_tpu_torch.core.config import Config
@@ -1973,11 +2014,11 @@ async def _phase_serve(url: str, origin: float, kubeconfig: str, tmp: str, fake_
         out = []
         for now in at:
             clock[0] = now
-            server_cpu = _proc_cpu_seconds(fake_pid)
+            server_cpu = _proc_cpu_seconds(fakes.proc.pid)
             started = time.perf_counter()
             did_scan = await ks.scheduler.run_once()
             wall = time.perf_counter() - started
-            server_cpu = _proc_cpu_seconds(fake_pid) - server_cpu
+            server_cpu = _proc_cpu_seconds(fakes.proc.pid) - server_cpu
             check(did_scan is True, f"serve: the tick at {now} did not scan ({did_scan}): {ks.state.last_scan_error}")
             metrics = ks.state.metrics
             legs = {phase: metrics.value("krr_tpu_scan_duration_seconds", phase=phase)
@@ -2027,6 +2068,7 @@ async def _phase_serve(url: str, origin: float, kubeconfig: str, tmp: str, fake_
           "serve: the incremental store arrays != the cold union window's")
     check(bodies["incremental_cpu"] == bodies["incremental"], "serve: the --device cpu server's bytes != the card's")
     report["body_bytes"] = len(bodies["incremental"])
+    report["watch"] = await _serve_watch_leg(server, ticks, fakes, tmp, t1, t2, bodies["incremental"])
 
     # --- the default-config run: hysteresis, sentinel, savings, timeline
     clock = [t1]
@@ -2108,6 +2150,282 @@ async def _phase_serve(url: str, origin: float, kubeconfig: str, tmp: str, fake_
     return report
 
 
+async def _serve_watch_leg(server, ticks, fakes: "FakeServers", tmp: str, t1: float, t2: float,
+                           relist_body: bytes) -> dict:
+    """``--discovery-mode watch`` on the same ticks as the relist servers
+    (``--no-hysteresis``): the watch server's bytes equal the relist
+    server's; then a restart inside one step warm-starts the inventory from
+    the derived snapshot with no LIST and serves the same bytes."""
+    def discovery(metrics) -> dict:
+        return {"relists": {reason: metrics.value("krr_tpu_discovery_relists_total", reason=reason)
+                            for reason in ("seed", "410", "watch_error", "verify")},
+                "watch_events": metrics.total("krr_tpu_discovery_watch_events_total"),
+                "watch_restarts": metrics.total("krr_tpu_discovery_watch_restarts_total")}
+
+    leg: dict = {}
+    clock = [t1]
+    ks = server("watch", clock, hysteresis_enabled=False, discovery_mode="watch")
+    check(ks.config.discovery_snapshot_path == os.path.join(tmp, "watch", "discovery-inventory.json"),
+          f"serve watch: the derived snapshot path is {ks.config.discovery_snapshot_path}")
+    await ks.start(run_scheduler=False)
+    try:
+        before = fakes.counts()
+        leg["ticks"] = await ticks(ks, clock, [t1, t2])
+        after = fakes.counts()
+        status, _headers, body, _ms = await _http(ks.port, "/recommendations")
+        check(status == 200 and body == relist_body, "serve watch: /recommendations != the relist server's bytes")
+        check(ks.state.discovery.get("mode") == "watch", f"serve watch: discovery {ks.state.discovery}")
+        leg["seed_discover_seconds"] = leg["ticks"][0]["legs_seconds"]["discover"]
+        leg["delta_discover_seconds"] = leg["ticks"][1]["legs_seconds"]["discover"]
+        leg["requests"] = {k: after[k] - before[k] for k in after}
+        leg["discovery"] = discovery(ks.state.metrics)
+        check(leg["discovery"]["relists"]["seed"] == 1, f"serve watch: {leg['discovery']}")
+    finally:
+        await ks.shutdown()
+    check(os.path.exists(ks.config.discovery_snapshot_path), "serve watch: no discovery snapshot after shutdown")
+    leg["snapshot_bytes"] = os.path.getsize(ks.config.discovery_snapshot_path)
+
+    clock = [t2 + 60.0]
+    before = fakes.counts()
+    ks = server("watch", clock, hysteresis_enabled=False, discovery_mode="watch")
+    await ks.start(run_scheduler=False)
+    try:
+        started = time.perf_counter()
+        did_scan = await ks.scheduler.run_once()
+        leg["restart_tick_seconds"] = time.perf_counter() - started
+        check(did_scan is False, f"serve watch: the restart's first tick returned {did_scan}")
+        status, _headers, body, _ms = await _http(ks.port, "/recommendations")
+        check(status == 200 and body == relist_body, "serve watch: the restarted server's bytes != the relist server's")
+        leg["restart_discovery"] = discovery(ks.state.metrics)
+    finally:
+        await ks.shutdown()
+    after = fakes.counts()
+    leg["restart_requests"] = {k: after[k] - before[k] for k in after}
+    check(leg["restart_requests"]["lists"] == 0 and leg["restart_requests"]["pod_lists"] == 0
+          and not leg["restart_discovery"]["relists"]["seed"],
+          f"serve watch: the restart relisted: {leg['restart_requests']} {leg['restart_discovery']}")
+    return leg
+
+
+#: The ``eval`` phase: replay ticks, the launches each strategy's replay must
+#: make (one ``run_batch`` a tick: ``simple`` K1 + K2, ``tdigest`` K3 + K2),
+#: and the rtol of the ``--device cpu`` run's and the numpy oracle's slacks.
+EVAL_TICKS = 16
+EVAL_LAUNCHES = {"bisect_select": EVAL_TICKS, "row_max": 2 * EVAL_TICKS, "digest_hist": EVAL_TICKS,
+                 "topk_select": 0, "radix_digit_hist": 0}
+EVAL_RTOL = 1e-9
+EVAL_SLACKS = ("overprovisioned_core_hours", "overprovisioned_gb_hours")
+
+
+def eval_grid(np, origin: float):
+    """The ``cli`` fixture's usage grid at its own shape (10,000 × 1,344 at
+    15 minutes): the same generator, seed and draw order as
+    ``_serve_fixture``, one row per Deployment under its object key."""
+    from krr_tpu_torch.eval import ReplayInput
+
+    rng = np.random.default_rng(5)
+    cpu = np.empty((CLI_OBJECTS, CLI_SAMPLES))
+    mem = np.empty((CLI_OBJECTS, CLI_SAMPLES))
+    for i in range(CLI_OBJECTS):
+        cpu[i] = np.round(rng.gamma(2.0, 0.05, CLI_SAMPLES), 4)
+        mem[i] = np.floor(rng.uniform(5e7, 4e8, CLI_SAMPLES) / 4096) * 4096
+    keys = [f"fake/default/wl-{i}/main/Deployment" for i in range(CLI_OBJECTS)]
+    return ReplayInput.from_series({k: (cpu[i], mem[i]) for i, k in enumerate(keys)},
+                                   origin + CLI_STEP_SECONDS * np.arange(CLI_SAMPLES))
+
+
+def oracle_scores(np, inputs, replayed) -> dict:
+    """``score_grids`` in numpy: float32 comparisons and terms as the JAX
+    package computes them, the terms summed in float64."""
+    from krr_tpu_torch.eval import expand_ticks
+
+    step_hours = inputs.step_seconds / 3600.0
+    out = {}
+    for usage, rec, incidents, slack, scale in (
+        (inputs.cpu, replayed.rec_cpu, "throttle_incidents", "overprovisioned_core_hours", 1.0),
+        (inputs.mem, replayed.rec_mem, "oom_incidents", "overprovisioned_gb_hours", 1e9),
+    ):
+        full, mask_ticks = expand_ticks(replayed.tick_indices, rec, usage.shape[1])
+        mask = mask_ticks[None, :] & np.isfinite(usage) & np.isfinite(full)
+        u = np.nan_to_num(usage).astype(np.float32)
+        r = np.nan_to_num(full).astype(np.float32)
+        exceed = (u > r) & mask
+        edges = exceed.copy()
+        edges[:, 1:] &= ~exceed[:, :-1]
+        out[incidents] = int(np.count_nonzero(edges))
+        covered = mask & ~exceed
+        out[slack] = float(np.sum((r - u)[covered], dtype=np.float64)) * step_hours / scale
+    return out
+
+
+def phase_eval(torch, np, smi: str, journal: "str | None") -> dict:
+    """``eval`` (`krr_tpu_torch.eval`) through the port's click command: see
+    the module docstring."""
+    import tempfile
+
+    from click.testing import CliRunner
+
+    import krr_tpu_torch.eval as eval_module
+    from krr_tpu_torch import main as cli
+    from krr_tpu_torch.eval import score as score_module
+    from tests.fakes.servers import FakeBackend
+
+    ends = eval_module.tick_ends(CLI_SAMPLES, EVAL_TICKS)
+    check(len(ends) == EVAL_TICKS and len(set(ends.tolist())) == EVAL_TICKS,
+          f"eval: tick_ends({CLI_SAMPLES}, {EVAL_TICKS}) = {ends.tolist()}")
+    cli.load_commands()
+    report: dict = {"workloads": CLI_OBJECTS, "samples": CLI_SAMPLES, "ticks": EVAL_TICKS, "tick_ends": ends.tolist()}
+    started = time.perf_counter()
+    inputs = eval_grid(np, FakeBackend.SERIES_ORIGIN)
+    report["grid_seconds"] = time.perf_counter() - started
+
+    replays: dict = {}
+    scoring: dict = {}
+    replay, score_replay, reduce = eval_module.replay, eval_module.score_replay, score_module._reduce
+
+    def recording_replay(inputs_, strategy, **kwargs):
+        """``replay``, keeping its series and wall, and the sum of the
+        strategy's own legs (``leg_seconds``, set by each ``run_batch``)."""
+        legs: dict = {}
+        run_batch = strategy.run_batch
+
+        def summed_run_batch(batch):
+            out = run_batch(batch)
+            for leg, seconds in getattr(strategy, "leg_seconds", {}).items():
+                legs[leg] = legs.get(leg, 0.0) + seconds
+            return out
+
+        strategy.run_batch = summed_run_batch
+        started = time.perf_counter()
+        out = replay(inputs_, strategy, **kwargs)
+        replays[out.strategy] = {"series": out, "wall_seconds": time.perf_counter() - started, "legs": legs}
+        return out
+
+    def timed_score_replay(inputs_, replayed, **kwargs):
+        """``score_replay``'s wall, and its two device reduces' (the float32
+        casts, the copies to the device and the reduce, synchronised by the
+        readback); the rest is the host prelude."""
+        reduce_seconds = []
+
+        def timed_reduce(*args):
+            started = time.perf_counter()
+            out = reduce(*args)
+            reduce_seconds.append(time.perf_counter() - started)
+            return out
+
+        score_module._reduce = timed_reduce
+        try:
+            started = time.perf_counter()
+            row = score_replay(inputs_, replayed, **kwargs)
+            scoring[replayed.strategy] = (time.perf_counter() - started, sum(reduce_seconds))
+        finally:
+            score_module._reduce = reduce
+        return row
+
+    def invoke(args: list, device: "str | None" = None) -> tuple[str, float]:
+        replays.clear()
+        scoring.clear()
+        # The default device is the card: only a rehearsal without one
+        # names the CPU.
+        device = device or (None if DEVICE == "cuda" else DEVICE)
+        argv = ["eval", *args, "-f", "json", "-q", *(["--device", device] if device else [])]
+        eval_module.replay, eval_module.score_replay = recording_replay, timed_score_replay
+        try:
+            started = time.perf_counter()
+            result = CliRunner().invoke(cli.app, argv, catch_exceptions=False)
+            wall = time.perf_counter() - started
+        finally:
+            eval_module.replay, eval_module.score_replay = replay, score_replay
+        check(result.exit_code == 0, f"eval {args} exited {result.exit_code}: {result.output[-2000:]}")
+        return result.output, wall
+
+    with tempfile.TemporaryDirectory(prefix="krr-eval-smoke-") as tmp:
+        npz = os.path.join(tmp, "usage.npz")
+        inputs.save_npz(npz)
+        usage = ["--usage", npz, "--strategy", "simple", "--strategy", "tdigest"]
+
+        # --- the card: the default device, launches counted
+        if DEVICE == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        card_json, wall = invoke(usage)
+        launches, generic = _read_counts()
+        # The plain versions launch nothing: a rehearsal on the CPU counts 0.
+        expected = EVAL_LAUNCHES if DEVICE == "cuda" else dict.fromkeys(EVAL_LAUNCHES, 0)
+        check(launches == expected and not any(generic.values()),
+              f"eval: launches {launches} (expected {expected}), generic folds {generic}")
+        report["launches"] = launches
+        report["wall_seconds"] = wall
+        report["peak_device_bytes"] = torch.cuda.max_memory_allocated() if DEVICE == "cuda" else None
+        card_series = {name: r["series"] for name, r in replays.items()}
+        legs = {}
+        for name, r in replays.items():
+            seconds = r["series"].extra["seconds"]
+            legs[name] = {"replay_seconds": r["wall_seconds"], **{f"{k}_seconds": v for k, v in seconds.items()},
+                          "run_batch_legs_seconds": r["legs"],
+                          "score_seconds": scoring[name][0], "score_reduce_seconds": scoring[name][1],
+                          "rows_per_second": CLI_OBJECTS * EVAL_TICKS / r["wall_seconds"]}
+        report["strategies"] = legs
+        board = json.loads(card_json)
+        check(board["workloads"] == CLI_OBJECTS and len(board["scores"]) == 2,
+              f"eval: the board has {board['workloads']} workloads, {len(board['scores'])} rows")
+        for row in board["scores"]:
+            check(row["ticks"] == EVAL_TICKS and row["samples_scored"] == CLI_SAMPLES - int(ends[0]),
+                  f"eval: {row['strategy']} scored {row['ticks']} ticks, {row['samples_scored']} samples")
+        report["board"] = board["scores"]
+
+        # --- the same replay again on the card: byte-identical
+        again, report["repeat_wall_seconds"] = invoke(usage)
+        check(again == card_json, "eval: two replays on the card rendered different bytes")
+
+        # --- the numpy oracle over the card's replayed series
+        for row in board["scores"]:
+            oracle = oracle_scores(np, inputs, card_series[row["strategy"]])
+            for field in ("oom_incidents", "throttle_incidents"):
+                check(row[field] == oracle[field], f"eval {row['strategy']}: {field} {row[field]} vs the oracle's {oracle[field]}")
+            for field in EVAL_SLACKS:
+                check(abs(row[field] - oracle[field]) <= max(EVAL_RTOL * abs(oracle[field]), 1e-6),
+                      f"eval {row['strategy']}: {field} {row[field]} vs the oracle's {oracle[field]}")
+            report.setdefault("oracle", {})[row["strategy"]] = oracle
+
+        # --- the plain versions on the CPU
+        cpu_json, report["cpu_wall_seconds"] = invoke(usage, device="cpu")
+        cpu_board = json.loads(cpu_json)
+        check([r["strategy"] for r in cpu_board["scores"]] == [r["strategy"] for r in board["scores"]],
+              "eval: the --device cpu board's order differs from the card's")
+        for card_row, cpu_row in zip(board["scores"], cpu_board["scores"]):
+            for field in ("oom_incidents", "throttle_incidents", "flaps", "ticks", "samples_scored", "workloads"):
+                check(card_row[field] == cpu_row[field],
+                      f"eval {card_row['strategy']}: {field} {card_row[field]} on the card, {cpu_row[field]} on the CPU")
+            for field in EVAL_SLACKS:
+                check(abs(card_row[field] - cpu_row[field]) <= max(EVAL_RTOL * abs(cpu_row[field]), 1e-6),
+                      f"eval {card_row['strategy']}: {field} {card_row[field]} on the card, {cpu_row[field]} on the CPU")
+        report["cpu_differing_bytes"] = sum(a != b for a, b in zip(card_json, cpu_json)) + abs(len(card_json) - len(cpu_json))
+        report["cpu_series_equal"] = {
+            name: bool(np.array_equal(card_series[name].rec_cpu, replays[name]["series"].rec_cpu)
+                       and np.array_equal(card_series[name].rec_mem, replays[name]["series"].rec_mem))
+            for name in card_series
+        }
+
+        # --- the scoring reduce alone on the card at the grid's shape
+        full, mask_ticks = score_module.expand_ticks(ends, card_series["simple"].rec_mem, CLI_SAMPLES)
+        mask = mask_ticks[None, :] & np.isfinite(inputs.mem) & np.isfinite(full)
+        device_args = [torch.from_numpy(np.ascontiguousarray(a, t)).to(DEVICE) for a, t in
+                       ((np.nan_to_num(inputs.mem), np.float32), (np.nan_to_num(full), np.float32), (mask, bool))]
+        report["reduce_ms"] = cuda_ms(torch, lambda: score_module.reduce_grid(*device_args), warmup=2, runs=5)
+
+    # --- the serve phase's journal
+    if journal is not None:
+        _reset_counts()
+        journal_json, wall = invoke(["--journal", journal])
+        journal_board = json.loads(journal_json)
+        check(journal_board["workloads"] == CLI_OBJECTS, f"eval --journal: {journal_board['workloads']} workloads")
+        report["journal"] = {"wall_seconds": wall, "workloads": journal_board["workloads"],
+                             "samples": journal_board["samples"],
+                             "rows": {r["strategy"]: r["workloads"] * r["ticks"] for r in journal_board["scores"]},
+                             "launches": _read_counts()[0]}
+    emit("eval", nvidia_smi=smi, **report)
+    return report
 
 
 def _phase_cli(fakes: FakeServers, url: str, scan_end: float, fixture_seconds: float, kubeconfig: str) -> dict:
@@ -2370,9 +2688,9 @@ def _cli_state(invoke, common: list, tdigest_json: str, tmp: str) -> dict:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
-        "--phases", default="build,parity,digest_proof,headline,e2e,stream,state,mesh,cli,serve",
+        "--phases", default="build,parity,digest_proof,headline,e2e,stream,state,mesh,cli,serve,eval",
         help="comma-separated subset of build,parity,digest_proof,headline,e2e,stream,state,mesh,cli,serve,"
-        "row_max_main (default: the first ten; the kernels line and the ok line need all ten)",
+        "eval,row_max_main (default: the first eleven; the kernels line and the ok line need all eleven)",
     )
     args = parser.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -2417,14 +2735,19 @@ def main(argv=None) -> int:
     # seconds of one host core) must not overlap the kernel timings. One
     # fixture serves both the ``cli`` and the ``serve`` phase.
     fakes = FakeServers(CLI_OBJECTS, CLI_SAMPLES) if {"cli", "serve"} & phases else None
-    try:
-        cli = timed("cli", phase_cli, fakes) if "cli" in phases else None
-        serve = timed("serve", phase_serve, fakes, smi) if "serve" in phases else None
-    finally:
-        if fakes is not None:
-            fakes.close()
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="krr-smoke-") as keep_dir:
+        try:
+            cli = timed("cli", phase_cli, fakes) if "cli" in phases else None
+            serve = timed("serve", phase_serve, fakes, smi, keep_dir) if "serve" in phases else None
+        finally:
+            if fakes is not None:
+                fakes.close()
+        journal = serve["journal_copy"] if serve is not None else None
+        evaluated = timed("eval", phase_eval, torch, np, smi, journal) if "eval" in phases else None
     emit("walls", seconds=walls)
-    if None in (headline, e2e, stream, state, mesh, cli, serve, parity, proof) or "build" not in phases:
+    if None in (headline, e2e, stream, state, mesh, cli, serve, evaluated, parity, proof) or "build" not in phases:
         print(smi)
         return 0
     launched = {"cli": lambda path: cli["paths"][path]["warm"]["launches"],

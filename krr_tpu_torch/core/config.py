@@ -121,6 +121,13 @@ class Config(pd.BaseModel):
     #: (``krr_tpu_discovery_verify_divergences_total``), and repaired by
     #: adopting the relist. 0 = auto: four discovery intervals.
     discovery_verify_interval_seconds: float = pd.Field(0.0, ge=0)
+    #: Where the watch-mode inventory snapshot (+ resourceVersions) persists
+    #: so a warm restart skips the cold relist. None = serve derives
+    #: ``discovery-inventory.json`` inside the sharded state directory
+    #: (``<state_path>.discovery-inventory.json`` beside a legacy file);
+    #: standalone loaders without a state path keep the inventory
+    #: memory-only.
+    discovery_snapshot_path: Optional[str] = None
     # Push-based metrics ingest (the JAX package's `krr_tpu/ingest`; the
     # port's ingest plane is ROADMAP M10b, and "push" raises until then).
     #: How serve ticks get their samples. "pull" issues Prometheus range
@@ -330,6 +337,10 @@ class Config(pd.BaseModel):
     hysteresis_enabled: bool = True
 
     # Quality evaluation (`krr_tpu_torch.eval`)
+    #: Replay ticks the ``eval`` command walks the recorded grid in: each
+    #: tick the strategy sees the history so far and its raw recommendation
+    #: routes through the real hysteresis gate before scoring.
+    eval_replay_ticks: int = pd.Field(16, ge=1)
     #: Serve the journal-derived fleet savings block on GET /statusz (and
     #: the krr_tpu_eval_* gauges it refreshes); False skips the computation
     #: entirely on scrape.

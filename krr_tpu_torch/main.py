@@ -17,10 +17,12 @@ replays a serve flight recorder's timeline through the regression sentinel.
 ``serve`` runs the long-lived service (`krr_tpu_torch.server`) and ``diff``
 renders the delta between two journal points or a journal point and a live
 scan (`krr_tpu_torch.history.diff`); both ride the ``tdigest`` strategy.
+``eval`` replays registered strategies over recorded usage and ranks them
+(`krr_tpu_torch.eval`), on ``--device``.
 
-Not ported yet (ROADMAP): the ``shard``, ``replica``, ``eval`` and
-``fleet-status`` commands; ``serve``'s federation, push-ingest and lineage
-flags (M10b), and its ``--discovery-mode watch`` (M10a.3), which raises.
+Not ported yet (ROADMAP): the ``shard``, ``replica`` and ``fleet-status``
+commands, and ``serve``'s federation, push-ingest and lineage flags (M10b);
+``--metrics-mode push`` raises.
 """
 
 from __future__ import annotations
@@ -482,8 +484,8 @@ def _common_options() -> list[click.Option]:
 
 def _server_options() -> list[click.Option]:
     """The serve plane's options: the JAX command's, minus the federation,
-    push-ingest and lineage flags (ROADMAP M10b). ``--discovery-mode watch``
-    (M10a.3) and ``--metrics-mode push`` (M10b) parse but refuse to run."""
+    push-ingest and lineage flags (ROADMAP M10b). ``--metrics-mode push``
+    (M10b) parses but refuses to run."""
     from krr_tpu_torch.core.config import Config
 
     defaults = {name: Config.model_fields[name].default for name in (
@@ -548,8 +550,7 @@ def _server_options() -> list[click.Option]:
                 "resident inventory fed by Kubernetes watch streams so each "
                 "discovery tick is an in-memory O(churn) reconcile, with "
                 "the relist kept as the cold-start seed and the 410/desync "
-                "resync path. Not ported yet: 'watch' exits naming ROADMAP "
-                "M10a.3."
+                "resync path."
             ),
         ),
         PanelOption(
@@ -1148,6 +1149,199 @@ def _make_diff_command(strategy_name: str, strategy_type: Any) -> click.Command:
     )
 
 
+def _make_eval_command() -> click.Command:
+    """``eval``: the what-if replay scoreboard.
+
+    Replays registered strategies tick-by-tick over recorded usage — a serve
+    journal (read-only, the diff open path) or an ``.npz`` usage grid — each
+    raw recommendation routed through a REAL hysteresis gate, then scores
+    would-have-been OOM/throttle incidents, over-provisioned core-/GB-hours,
+    and gate flaps (`krr_tpu_torch.eval`), rendering the ranked board through
+    the formatter registry. The strategies and the scoring reduce run on
+    ``--device`` (``cuda`` unless asked for ``cpu``); without a card it exits
+    1.
+    """
+
+    def callback(**kwargs: Any) -> None:
+        import pydantic
+
+        from krr_tpu_torch.core.config import Config
+
+        journal_path = kwargs.pop("journal_path")
+        usage_path = kwargs.pop("usage_path")
+        state_path = kwargs.pop("state_path")
+        device = kwargs.pop("device")
+        strategy_names = list(kwargs.pop("strategies") or [])
+        clusters = list(kwargs.pop("clusters") or [])
+        namespaces = list(kwargs.pop("namespaces") or [])
+        try:
+            config = Config(
+                clusters="*" if "*" in clusters else (clusters or None),
+                namespaces="*" if ("*" in namespaces or not namespaces) else namespaces,
+                **kwargs,
+            )
+        except pydantic.ValidationError as e:
+            raise _settings_error(e) from e
+
+        from krr_tpu_torch.eval import (
+            ReplayInput,
+            build_scoreboard,
+            render_scoreboard,
+            replay,
+            score_replay,
+        )
+        from krr_tpu_torch.strategies.base import BaseStrategy
+        from krr_tpu_torch.utils.device import resolve_device
+
+        logger = config.create_logger()
+        if usage_path is not None and journal_path is not None:
+            raise click.UsageError("--usage and --journal are two sources for ONE grid; pass one")
+        if usage_path is not None:
+            inputs = ReplayInput.load_npz(usage_path)
+        else:
+            if journal_path is None:
+                if state_path:
+                    journal_path = f"{state_path}.journal"
+                else:
+                    raise click.UsageError(
+                        "pass --journal (or --state_path to derive <state_path>.journal), "
+                        "or --usage for an .npz grid"
+                    )
+            try:
+                # readonly: like diff, an eval must never create, repair, or
+                # truncate a journal — including one a running server owns.
+                inputs = ReplayInput.from_journal(
+                    journal_path,
+                    retention_seconds=config.history_retention_seconds,
+                    logger=logger,
+                )
+            except ValueError as e:
+                raise click.UsageError(str(e)) from e
+        inputs = inputs.scoped(
+            namespaces=None if config.namespaces == "*" else tuple(config.namespaces),
+            clusters=tuple(config.clusters) if isinstance(config.clusters, list) else None,
+        )
+        if not inputs.keys:
+            raise click.UsageError("no workloads left to replay after -n/-c scoping")
+
+        available = BaseStrategy.get_all()
+        names = strategy_names or sorted(available)
+        unknown = [n for n in names if n not in available]
+        if unknown:
+            raise click.UsageError(
+                f"unknown strategy {', '.join(unknown)} (available: {', '.join(sorted(available))})"
+            )
+        try:
+            # A `cuda` device without a card: a clear error and a nonzero
+            # exit, never a quiet CPU replay.
+            resolve_device(device)
+        except (RuntimeError, ValueError) as e:
+            raise click.ClickException(str(e)) from e
+        rows = []
+        for name in names:
+            strategy_type = available[name]
+            settings_type = strategy_type.get_settings_type()
+            # Every replayed strategy that computes on a device takes
+            # --device; a plugin without the setting runs as it is.
+            settings = settings_type(**({"device": device} if "device" in settings_type.model_fields else {}))
+            strategy = strategy_type(settings)
+            replayed = replay(
+                inputs,
+                strategy,
+                name=name,
+                ticks=config.eval_replay_ticks,
+                dead_band_pct=config.hysteresis_dead_band_pct,
+                confirm_ticks=config.hysteresis_confirm_ticks,
+                hysteresis=config.hysteresis_enabled,
+            )
+            rows.append(score_replay(inputs, replayed, device=device))
+            logger.info(
+                f"eval: replayed {name} over {len(inputs.keys)} workload(s) x "
+                f"{len(inputs.timestamps)} samples in {len(replayed.tick_indices)} tick(s)"
+            )
+        window = (
+            float(inputs.timestamps[-1] - inputs.timestamps[0]) if len(inputs.timestamps) else 0.0
+        )
+        board = build_scoreboard(rows, samples=len(inputs.timestamps), window_seconds=window)
+        logger.print_result(render_scoreboard(board, config.format))
+
+    from krr_tpu_torch.core.config import Config
+
+    eval_options = [
+        PanelOption(
+            ["--journal", "journal_path"],
+            default=None,
+            help="Path to the serve journal to replay (default: <state_path>.journal when --state_path is set).",
+        ),
+        PanelOption(
+            ["--usage", "usage_path"],
+            default=None,
+            help="Path to an .npz usage grid (keys/timestamps/cpu/mem arrays) to replay instead of a journal.",
+        ),
+        PanelOption(
+            ["--state_path"],
+            default=None,
+            help="Digest state path whose <state_path>.journal sibling holds the recorded history.",
+        ),
+        PanelOption(
+            ["--strategy", "strategies"],
+            multiple=True,
+            help="Strategy to replay (repeatable; default: every registered strategy, with default settings).",
+        ),
+        PanelOption(
+            ["--replay-ticks", "eval_replay_ticks"],
+            type=int,
+            default=Config.model_fields["eval_replay_ticks"].default,
+            show_default=True,
+            help="Replay ticks to walk the recorded grid in (each re-runs the strategy on the history so far).",
+        ),
+        PanelOption(
+            ["--dead-band-pct", "hysteresis_dead_band_pct"],
+            type=float,
+            default=Config.model_fields["hysteresis_dead_band_pct"].default,
+            show_default=True,
+            help="Hysteresis dead band the replayed recommendations gate through.",
+        ),
+        PanelOption(
+            ["--confirm-ticks", "hysteresis_confirm_ticks"],
+            type=int,
+            default=Config.model_fields["hysteresis_confirm_ticks"].default,
+            show_default=True,
+            help="Consecutive out-of-band replay ticks before the gate republishes.",
+        ),
+        PanelOption(
+            ["--hysteresis/--no-hysteresis", "hysteresis_enabled"],
+            default=True,
+            help="--no-hysteresis replays every raw recommendation verbatim (gate pass-through).",
+        ),
+        PanelOption(
+            ["--device"],
+            default="cuda",
+            show_default=True,
+            panel="Device Backend Settings",
+            help="Compute device of the replayed strategies and the scoring reduce: 'cuda' or 'cpu'.",
+        ),
+    ]
+    return PanelCommand(
+        "eval",
+        callback=callback,
+        params=eval_options + _common_options(),
+        help=(
+            "Score registered strategies against recorded usage: replay a "
+            "serve journal (read-only) or an .npz grid tick-by-tick through "
+            "the real hysteresis gate and rank the would-have-been "
+            "OOM/throttle incidents, over-provisioned core/GB-hours, and "
+            "flap counts per strategy."
+        ),
+    )
+
+
+def _strategy_device(strategy: Any) -> str:
+    """The device a strategy computes on: its ``device`` setting, or the
+    CPU for a plugin strategy without one (it runs host code)."""
+    return str(getattr(strategy.settings, "device", "cpu"))
+
+
 def _finish_observability(config: Any, session: Any) -> None:
     """The exit hooks of a one-shot scan, in the JAX package's order: the
     session tracer's ring as Chrome trace JSON (``--trace``), its
@@ -1179,7 +1373,7 @@ def _finish_observability(config: Any, session: Any) -> None:
     if config.metrics_dump_path:
         from krr_tpu_torch.obs.metrics import record_build_info, refresh_process_metrics
 
-        record_build_info(session.metrics, str(session.strategy.settings.device))
+        record_build_info(session.metrics, _strategy_device(session.strategy))
         refresh_process_metrics(session.metrics)
         with open(config.metrics_dump_path, "w") as f:
             f.write(session.metrics.render())
@@ -1441,7 +1635,7 @@ def _make_strategy_command(strategy_name: str, strategy_type: Any) -> click.Comm
         install_signal_dump(
             runner.session.tracer,
             runner.session.metrics,
-            device=str(runner.session.strategy.settings.device),
+            device=_strategy_device(runner.session.strategy),
             trace_target=config.trace_path,
             metrics_target=config.metrics_dump_path,
             logger=runner.logger,
@@ -1498,6 +1692,8 @@ def load_commands() -> None:
         app.add_command(_make_diff_command("tdigest", strategies["tdigest"]))
     if "analyze" not in app.commands:
         app.add_command(_make_analyze_command())
+    if "eval" not in app.commands:
+        app.add_command(_make_eval_command())
 
 
 def run() -> None:

@@ -12,8 +12,8 @@ assignment (atomic under the GIL).
 
 The metric names keep the ``krr_tpu_`` prefix, so dashboards and recording
 rules read both packages alike. Only the families this package fires are
-declared; the watch-discovery, federation and ingest families arrive with
-the slices that fire them.
+declared; the federation and ingest families arrive with the slice that
+fires them.
 """
 
 from __future__ import annotations
@@ -40,6 +40,13 @@ SERVER_METRICS: tuple[tuple, ...] = (
     ("krr_tpu_scan_failures_total", "counter", "Scans aborted by an unexpected error."),
     ("krr_tpu_discovery_failures_total", "counter", "Discoveries that returned no objects while the store held rows — treated as transient inventory failures (no compaction)."),
     ("krr_tpu_discovery_cluster_failures_total", "counter", "Per-cluster discovery listing failures that fail-soft degraded that cluster to an empty inventory (the fleet silently scans smaller until it recovers; /healthz names the failing clusters)."),
+    # Watch-driven incremental discovery (`--discovery-mode watch`).
+    ("krr_tpu_discovery_watch_events_total", "counter", "Watch events applied to the resident inventory, by kind (Deployment|StatefulSet|DaemonSet|Job|Pod) and type (added|modified|deleted|bookmark)."),
+    ("krr_tpu_discovery_relists_total", "counter", "Full relists by reason: seed (cold start), 410 (compacted watch history), watch_error (repeated stream failures), verify (the periodic ground-truth audit)."),
+    ("krr_tpu_discovery_watch_restarts_total", "counter", "Watch stream reconnects (clean server-side timeouts, disconnects, and transport errors — resumed from the last seen resourceVersion, no relist)."),
+    ("krr_tpu_discovery_verify_divergences_total", "counter", "Streams whose watched inventory diverged from the verify relist's ground truth (logged and repaired by adopting the relist)."),
+    ("krr_tpu_discovery_inventory_age_seconds", "gauge", "Seconds since the watch-maintained inventory last reconciled into an object list."),
+    ("krr_tpu_discovery_watch_lag_seconds", "gauge", "Seconds since the stalest watch stream last made progress (event, bookmark, or relist)."),
     ("krr_tpu_scan_duration_seconds", "gauge", "Last scan's wall seconds by leg (discover|fetch|fold|compute)."),
     ("krr_tpu_scan_pipeline_seconds", "gauge", "Last scan's streamed-pipeline stage busy seconds (fetch = producer span, fold = consumer busy)."),
     ("krr_tpu_scan_overlap_pct", "gauge", "Fetch/fold overlap of the last scan's streamed pipeline as a percentage of the shorter stage (100 = fully hidden)."),

@@ -3,7 +3,7 @@
 A port of `krr_tpu/server/app.py`: the same routes, bodies, headers and
 status codes. ``GET /fleet`` (the federation census) answers 404 here, as
 on a JAX serve that is not an aggregator; the aggregator, the region uplink
-and the push ingest listener are ROADMAP M10b, watch discovery M10a.3.
+and the push ingest listener are ROADMAP M10b.
 
 Deliberately framework-free: the API is a handful of GET routes serving
 pre-rendered or worker-thread-rendered bodies, and the stdlib's
@@ -60,6 +60,7 @@ from __future__ import annotations
 import asyncio
 import contextlib
 import json
+import os
 import time
 import urllib.parse
 from typing import Optional
@@ -1167,6 +1168,16 @@ class KrrServer:
         else:
             self.durable = None
             store = DigestStore(spec=settings.cpu_spec())
+        # Watch-mode discovery persists its inventory snapshot (+ watch
+        # resourceVersions) beside the window cursor, so a warm restart
+        # skips the cold relist entirely. The store's layout (sharded or
+        # legacy) decides the sidecar's name.
+        if config.discovery_mode == "watch" and state_path and not config.discovery_snapshot_path:
+            config.discovery_snapshot_path = (
+                os.path.join(state_path, "discovery-inventory.json")
+                if self.durable is not None and self.durable.fmt == "sharded"
+                else f"{state_path}.discovery-inventory.json"
+            )
         self.state = ServerState(
             store,
             journal=RecommendationJournal(
@@ -1222,15 +1233,13 @@ class KrrServer:
         # directory, a ``.timeline`` sidecar beside a legacy single file);
         # without a state path the recorder is memory-only — /debug/timeline
         # and the sentinel still work, they just don't survive a restart.
-        import os as _os
-
         from krr_tpu_torch.obs.sentinel import RegressionSentinel
         from krr_tpu_torch.obs.timeline import ScanTimeline
 
         timeline_path = config.timeline_path
         if timeline_path is None and state_path:
             timeline_path = (
-                _os.path.join(state_path, "timeline.log")
+                os.path.join(state_path, "timeline.log")
                 if self.durable is not None and self.durable.fmt == "sharded"
                 else f"{state_path}.timeline"
             )

@@ -1,10 +1,11 @@
 """The background scan scheduler: incremental delta folds + slow re-discovery.
 
 A port of `krr_tpu/server/scheduler.py` for the single-process serve plane.
-The JAX scheduler's federation (aggregate ticks, the region uplink), push
-ingest and watch-discovery seams belong to later slices of the port
-(ROADMAP M10b and M10a.3): asking for one raises ``NotImplementedError``
-naming its item, here and in the composition root.
+The JAX scheduler's federation (aggregate ticks, the region uplink) and
+push-ingest seams belong to a later slice of the port (ROADMAP M10b):
+asking for one raises ``NotImplementedError`` naming its item, here and in
+the composition root. Watch discovery (``--discovery-mode watch``) is
+ported: its reconcile runs every tick.
 
 Tick semantics (the amortization contract):
 
@@ -81,11 +82,6 @@ def check_ported(config) -> None:
     """Refuse the serve modes whose modules belong to later slices of the
     port, naming the ROADMAP item — never a silent fallback to the default
     mode."""
-    if getattr(config, "discovery_mode", "relist") == "watch":
-        raise NotImplementedError(
-            "--discovery-mode watch is not ported yet (ROADMAP M10a.3: watch "
-            "discovery); use the default --discovery-mode relist"
-        )
     if getattr(config, "metrics_mode", "pull") == "push":
         raise NotImplementedError(
             "--metrics-mode push is not ported yet (ROADMAP M10b: federation "
@@ -180,9 +176,13 @@ class ScanScheduler:
         #: per-tick p99, the same delta discipline as the plan counters.
         self._read_totals: "dict[str, float]" = {}
         self._read_buckets: "Optional[dict[float, float]]" = None
-        #: The discovery mode the timeline and /healthz report ("relist";
-        #: watch discovery is ROADMAP M10a.3).
+        #: Watch-driven discovery (``--discovery-mode watch``): the
+        #: reconcile runs EVERY tick (it is O(churn) in-memory work), and
+        #: churn compaction only runs when the inventory generation moved —
+        #: watch deletes feed the existing store drop ops, and a quiet
+        #: fleet's ticks skip the fleet-sized masked copy entirely.
         self.discovery_mode = str(getattr(config, "discovery_mode", "relist"))
+        self._compacted_generation: "Optional[int]" = None
         #: Cumulative discovery counter totals at the last recorded tick —
         #: the timeline's ``discovery`` block carries per-TICK event/relist
         #: deltas, the same delta discipline as the plan counters.
@@ -297,10 +297,17 @@ class ScanScheduler:
         # every discovery (including a state_path-resumed first one, whose
         # store may carry rows for long-gone workloads). Off the loop: at
         # fleet scale the masked copy of the [N x B] matrix is enough numpy
-        # work to stall every in-flight query.
+        # work to stall every in-flight query. In watch mode discovery runs
+        # EVERY tick, so the compaction is gated on the inventory
+        # generation: only churn (watch deletes included) pays it.
+        generation_fn = getattr(inventory, "inventory_generation", None)
+        generation = generation_fn() if callable(generation_fn) else None
+        if generation is not None and generation == self._compacted_generation:
+            return
         dropped = await asyncio.to_thread(
             self.state.store.compact, {object_key(obj) for obj in objects}
         )
+        self._compacted_generation = generation
         if dropped:
             metrics.inc("krr_tpu_store_compacted_rows_total", dropped)
             self.logger.info(f"Compacted {dropped} stale rows out of the digest store")
@@ -619,7 +626,15 @@ class ScanScheduler:
         self.session.begin_scan()
 
         t0 = time.perf_counter()
-        if self._objects is None or now - self._discovered_at >= self.discovery_interval:
+        # Watch mode reconciles EVERY tick — the whole point of the resident
+        # inventory is that re-discovery became O(churn) in-memory work, so
+        # workload churn lands on the next scan instead of the next
+        # discovery interval.
+        if (
+            self._objects is None
+            or now - self._discovered_at >= self.discovery_interval
+            or self.discovery_mode == "watch"
+        ):
             await self._discover(now)
         objects = self._objects or []
         t1 = time.perf_counter()

@@ -475,6 +475,8 @@ SERVE_JAX_ONLY_FLAGS = {
 @pytest.mark.parametrize("name,jax_only", [
     ("serve", JAX_ONLY_FLAGS | SERVE_JAX_ONLY_FLAGS),
     ("diff", JAX_ONLY_FLAGS),
+    # eval takes no strategy settings, so no --use_pallas to lack.
+    ("eval", JAX_ONLY_FLAGS - {"--use_pallas"}),
 ])
 def test_serve_and_diff_list_the_jax_flags(apps, name, jax_only):
     jax_app, port_app = apps
@@ -487,7 +489,7 @@ def test_serve_and_diff_list_the_jax_flags(apps, name, jax_only):
         assert flag in help_text
 
 
-@pytest.mark.parametrize("name", ["serve", "diff"])
+@pytest.mark.parametrize("name", ["serve", "diff", "eval"])
 def test_serve_and_diff_boolean_defaults_match_jax(apps, name):
     """The real parser with no flags lands every boolean (the dual-name
     ``--hysteresis/--no-hysteresis``, ``--sentinel``, ``--savings``,
@@ -513,7 +515,8 @@ def test_serve_and_diff_boolean_defaults_match_jax(apps, name):
 
 
 @pytest.mark.parametrize("args,item", [
-    (["--discovery-mode", "watch"], "M10a.3"),
+    # Watch discovery is ported; beside it, push ingest still refuses.
+    (["--discovery-mode", "watch", "--metrics-mode", "push"], "M10b"),
     (["--metrics-mode", "push"], "M10b"),
 ])
 def test_serve_modes_of_later_slices_exit_naming_their_item(apps, args, item):
