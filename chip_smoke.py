@@ -201,7 +201,32 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    Every kernel's launch count stays 0 across the phase: the serve path and
    watch discovery are host code, as in the JAX package. The default
    server's journal is kept for ``eval``.
-12. ``eval``    — the replay scoreboard through the port's click command
+12. ``federation`` — federation (`krr_tpu_torch.federation`) on its own
+   fixture, built in a second child process started beside the ``cli``
+   one: 10,000 one-pod Deployments at the ``cli`` shape (1,344 samples at
+   15 minutes) in four namespaces of 2,500. On the default device, under one
+   injected clock that also pins the scheduler's ``time.time()`` (the
+   snapshot's ``published_at``, the ETag's stamp), with ``--no-hysteresis``:
+   a control (one single-process ``KrrServer`` over the whole fleet) ticks
+   the default 14-day window at ``origin + 12 d``, then the delta to the
+   fixture's last sample; an aggregator (``KrrServer`` with
+   ``federation_listen`` and a state directory) takes the same two rounds
+   from four ``FederatedShard``s, one a namespace (``shard -n ns-k``),
+   driven in-process. After round one a ``ReplicaServer`` subscribes; in
+   round two one shard's uplink is cut after the aggregator enqueued its
+   record and restored before the aggregate tick, so its re-send must be
+   discarded as one counted duplicate. Checked: the aggregator's store is
+   bit-exact by key to the control's, its ``/recommendations`` bytes, ETag,
+   epoch and ``Last-Modified`` equal the control's, the replica serves the
+   source's identity and gzip bytes and validators and answers the source's
+   ETag with 304, ``fleet-status -f json`` (the port's click command)
+   lists the four shards and the replica, and every kernel's launch count
+   stays 0 (federation is host code, as in the JAX package). Printed: each
+   shard's tick wall split into discover, fetch + fold, encode and send,
+   its wire bytes a tick; each aggregate tick's wall, apply and publish
+   seconds, persist and applied records; the replica's install latency
+   from the broadcast, its read ms (identity, gzip, 304); the phase's wall.
+13. ``eval``    — the replay scoreboard through the port's click command
    (``eval --usage``) on the default device: the ``cli`` fixture's usage
    regenerated at its own shape (10,000 workloads × 1,344 samples, the same
    generator and seed) and written with ``ReplayInput.save_npz``, ``simple``
@@ -225,7 +250,7 @@ CUDA graph (the kernel's device time). Part of ``headline``; run alone
 beside the script, so a copy of the script placed in an unpacked older
 commit times that commit's kernel the same way.
 
-The last three lines (printed when all eleven default phases ran) are the
+The last three lines (printed when all twelve default phases ran) are the
 card's ``nvidia-smi`` name and power limit, one
 ``{"kernels": [...]}`` JSON object (launch counts from the ``cli`` phase's
 warm runs; ``radix_digit_hist``'s from the ``stream`` phase's q = 50 scan),
@@ -1832,10 +1857,11 @@ def same_within_a_bucket(card_json: str, cpu_json: str, cpu_within: bool = True)
     return same
 
 
-def _serve_fixture(n_objects: int, samples: int, conn) -> None:
+def _serve_fixture(n_objects: int, samples: int, conn, namespaces: int = 1) -> None:
     """Child-process entry (multiprocessing ``spawn``): build the fake
     cluster and Prometheus, serve them on localhost, report the port and the
-    series origin, and hold until the parent is done."""
+    series origin, and hold until the parent is done. One namespace is
+    ``default``; more are ``ns-0`` … in equal consecutive blocks."""
     import numpy as np
 
     from tests.fakes.servers import FakeBackend, FakeCluster, FakeMetrics, ServerThread
@@ -1846,13 +1872,15 @@ def _serve_fixture(n_objects: int, samples: int, conn) -> None:
     # Range-accurate serving: each split window gets exactly its slice.
     metrics.enforce_range = True
     rng = np.random.default_rng(5)
+    per_namespace = -(-n_objects // namespaces)
     for i in range(n_objects):
-        (pod,) = cluster.add_workload_with_pods("Deployment", f"wl-{i}", "default", pod_count=1)
+        namespace = "default" if namespaces == 1 else f"ns-{i // per_namespace}"
+        (pod,) = cluster.add_workload_with_pods("Deployment", f"wl-{i}", namespace, pod_count=1)
         # Realistic precision (irates ~0.1 millicore, page-granular working
         # sets), as bench_e2e.py quantises them: iid full-precision
         # mantissas would benchmark the RNG's entropy on the wire.
         metrics.set_series(
-            "default", "main", pod,
+            namespace, "main", pod,
             cpu=np.round(rng.gamma(2.0, 0.05, samples), 4),
             memory=np.floor(rng.uniform(5e7, 4e8, samples) / 4096) * 4096,
         )
@@ -1879,12 +1907,13 @@ class FakeServers:
     """The ``cli`` phase's fake apiserver + Prometheus in a child process,
     stopped in ``close`` whatever happened."""
 
-    def __init__(self, n_objects: int, samples: int):
+    def __init__(self, n_objects: int, samples: int, namespaces: int = 1):
         import multiprocessing
 
         ctx = multiprocessing.get_context("spawn")
         self._conn, child_conn = ctx.Pipe()
-        self.proc = ctx.Process(target=_serve_fixture, args=(n_objects, samples, child_conn), daemon=True)
+        self.proc = ctx.Process(target=_serve_fixture, args=(n_objects, samples, child_conn, namespaces),
+                                daemon=True)
         self.proc.start()
         self._ready = None
 
@@ -2215,6 +2244,308 @@ EVAL_LAUNCHES = {"bisect_select": EVAL_TICKS, "row_max": 2 * EVAL_TICKS, "digest
                  "topk_select": 0, "radix_digit_hist": 0}
 EVAL_RTOL = 1e-9
 EVAL_SLACKS = ("overprovisioned_core_hours", "overprovisioned_gb_hours")
+
+
+#: The ``federation`` phase's fleet: the ``cli`` shape (10,000 one-pod
+#: Deployments, 1,344 samples at 15 minutes) over four namespaces, one
+#: scanner shard each. Its first round covers the default 14-day window at
+#: ``origin + 12 d``; the second is the delta to the fixture's last sample.
+FED_OBJECTS = 10_000
+FED_NAMESPACES = 4
+FED_FIRST_DAYS = 12
+#: Replica reads per measurement (the median is printed with the list).
+FED_READS = 5
+
+
+def _stores_equal_by_key(np, a, b) -> bool:
+    """Two digest stores hold the same keys and, row for row by key, the
+    same bits in every array (the aggregator grows rows in shard-arrival
+    order, a single-process scan in discovery order)."""
+    if sorted(a.keys) != sorted(b.keys):
+        return False
+    index = {key: i for i, key in enumerate(b.keys)}
+    order = np.asarray([index[key] for key in a.keys], dtype=np.int64)
+    return all(
+        np.array_equal(getattr(a, f).view(np.uint32), getattr(b, f)[order].view(np.uint32))
+        for f in STORE_FIELDS
+    )
+
+
+def phase_federation(fakes: "FakeServers", smi: str) -> dict:
+    """Federation (`krr_tpu_torch.federation`) on its own fixture: see the
+    module docstring. Host code end to end — the phase holds every kernel's
+    launch count at 0."""
+    import tempfile
+
+    import krr_tpu_torch.server.scheduler as scheduler_module
+
+    url, origin, fixture_seconds = fakes.ready()
+    _reset_counts()
+    # The snapshot's ``published_at`` (the ETag's millisecond stamp) reads
+    # ``time.time()`` in the scheduler: pinned to the phase's clock, so the
+    # aggregator's and the control's validators compare exactly.
+    clock = [origin]
+    real_time = scheduler_module.time
+    scheduler_module.time = type("PinnedTime", (), {
+        "time": staticmethod(lambda: clock[0]), "perf_counter": staticmethod(time.perf_counter),
+        "monotonic": staticmethod(time.monotonic)})
+    try:
+        with tempfile.TemporaryDirectory(prefix="krr-federation-smoke-") as tmp:
+            kubeconfig = os.path.join(tmp, "kubeconfig")
+            _write_kubeconfig(kubeconfig, url)
+            report = asyncio.run(_phase_federation(url, origin, kubeconfig, tmp, clock))
+    finally:
+        scheduler_module.time = real_time
+    report["fixture_seconds"] = fixture_seconds
+    launches, generic = _read_counts()
+    check(not any(launches.values()) and not any(generic.values()),
+          f"federation: a kernel launched during the phase: {launches} {generic}")
+    report["launches"] = launches
+    emit("federation", nvidia_smi=smi, **report)
+    return report
+
+
+async def _phase_federation(url: str, origin: float, kubeconfig: str, tmp: str, clock: list) -> dict:
+    import numpy as np
+    from click.testing import CliRunner
+
+    from krr_tpu_torch import main as cli
+    from krr_tpu_torch.core.config import Config
+    from krr_tpu_torch.federation.replica import ReplicaServer
+    from krr_tpu_torch.federation.shard import FederatedShard
+    from krr_tpu_torch.server.app import KrrServer
+
+    started = time.perf_counter()
+    t1 = origin + FED_FIRST_DAYS * 86_400.0
+    t2 = origin + (CLI_SAMPLES - 1) * CLI_STEP_SECONDS
+    namespaces = [f"ns-{k}" for k in range(FED_NAMESPACES)]
+    device = {} if DEVICE == "cuda" else {"device": DEVICE}
+    other_args = {"timeframe_duration": int(CLI_STEP_SECONDS // 60), **device}
+
+    def config(**overrides) -> "Config":
+        extra = overrides.pop("other_args", {})
+        # --no-hysteresis: every recompute publishes, so the delta round
+        # moves the epoch and the replica's broadcast install is measured.
+        return Config(kubeconfig=kubeconfig, prometheus_url=url, strategy="tdigest", quiet=True,
+                      server_port=0, hysteresis_enabled=False, other_args={**other_args, **extra}, **overrides)
+
+    report: dict = {"objects": FED_OBJECTS, "namespaces": FED_NAMESPACES,
+                    "window_seconds": [t1 - origin, t2 - t1]}
+
+    # --- the control: one single-process serve over the whole fleet
+    control = KrrServer(config(other_args={"state_path": os.path.join(tmp, "control")}), clock=lambda: clock[0])
+    check(control.session.strategy.device.type == device.get("device", "cuda"),
+          f"federation: the control is bound to {control.session.strategy.device}")
+    await control.start(run_scheduler=False)
+    aggregator = shards = replica = None
+    try:
+        control_ticks = []
+        for now in (t1, t2):
+            clock[0] = now
+            tick_started = time.perf_counter()
+            check(await control.scheduler.run_once() is True,
+                  f"federation: the control's tick at {now} did not scan: {control.state.last_scan_error}")
+            control_ticks.append(time.perf_counter() - tick_started)
+        report["control_tick_seconds"] = control_ticks
+        _status, control_headers, control_body, _ms = await _http(control.port, "/recommendations")
+
+        # --- the aggregator and one shard a namespace
+        clock[0] = t1
+        aggregator = KrrServer(
+            config(federation_listen="127.0.0.1:0", other_args={"state_path": os.path.join(tmp, "aggregator")}),
+            clock=lambda: clock[0])
+        await aggregator.start(run_scheduler=False)
+        agg = aggregator.aggregator
+        shards = [
+            FederatedShard(config(namespaces=[ns], federation_aggregator=f"127.0.0.1:{agg.port}"),
+                           clock=lambda: clock[0], shard_id=ns)
+            for ns in namespaces
+        ]
+        for shard in shards:
+            check(shard.session.strategy.device.type == device.get("device", "cuda"),
+                  f"federation: shard {shard.shard_id} is bound to {shard.session.strategy.device}")
+        legs: dict = {}
+
+        def timed_method(shard, name: str) -> None:
+            inner = getattr(shard, name)
+
+            async def wrapper(*args, **kwargs):
+                leg_started = time.perf_counter()
+                try:
+                    return await inner(*args, **kwargs)
+                finally:
+                    key = (shard.shard_id, name)
+                    legs[key] = legs.get(key, 0.0) + time.perf_counter() - leg_started
+            setattr(shard, name, wrapper)
+
+        for shard in shards:
+            for name in ("_discover", "_encode_tick", "_pump"):
+                timed_method(shard, name)
+        # The replica's install latency: from the aggregator's broadcast of
+        # a published epoch to the end of the replica's install of it.
+        marks: dict = {}
+        broadcast = agg.broadcast_epoch
+
+        async def marked_broadcast():
+            marks["broadcast"] = time.perf_counter()
+            return await broadcast()
+        agg.broadcast_epoch = marked_broadcast
+
+        async def round_(now: float, cut: "FederatedShard | None" = None) -> dict:
+            """Every shard ticks (timed and split), the aggregator enqueues,
+            optionally one shard's uplink is cut and restored before the
+            aggregate tick (its re-send is a duplicate), one aggregate tick
+            applies and publishes, the acks flow back."""
+            clock[0] = now
+            legs.clear()
+            sent_before = {s.shard_id: s.metrics.total("krr_tpu_federation_sent_bytes_total") or 0.0
+                           for s in shards}
+            ticks = {}
+            for shard in shards:
+                tick_started = time.perf_counter()
+                check(await shard.tick(now) is True, f"federation: shard {shard.shard_id} did not scan at {now}")
+                wall = time.perf_counter() - tick_started
+                discover = legs.get((shard.shard_id, "_discover"), 0.0)
+                encode = legs.get((shard.shard_id, "_encode_tick"), 0.0)
+                send = legs.get((shard.shard_id, "_pump"), 0.0)
+                ticks[shard.shard_id] = {
+                    "wall_seconds": wall, "discover_seconds": discover, "encode_seconds": encode,
+                    "send_seconds": send, "fetch_fold_seconds": wall - discover - encode - send,
+                    "wire_bytes": (shard.metrics.total("krr_tpu_federation_sent_bytes_total") or 0.0)
+                    - sent_before[shard.shard_id],
+                }
+            deadline = time.monotonic() + 120.0
+            while not all(s.shard_id in agg._shards and agg._shards[s.shard_id].enqueued >= s.epoch
+                          for s in shards):
+                check(time.monotonic() < deadline, "federation: the aggregator did not enqueue every shard's tick")
+                await asyncio.sleep(0.005)
+            out: dict = {"shards": ticks}
+            if cut is not None:
+                duplicates = agg._shards[cut.shard_id].duplicates
+                cut._disconnect()
+                await cut._pump()  # reconnect: WELCOME acks the applied epoch, the tick re-sends
+                while agg._shards[cut.shard_id].duplicates == duplicates:
+                    check(time.monotonic() < deadline, "federation: the re-sent record was not discarded")
+                    await asyncio.sleep(0.005)
+                out["cut"] = {"shard": cut.shard_id,
+                              "duplicates": agg._shards[cut.shard_id].duplicates - duplicates,
+                              "duplicate_metric": aggregator.state.metrics.value(
+                                  "krr_tpu_federation_duplicate_records_total", shard=cut.shard_id)}
+            installed = replica.client.installed if replica is not None else None
+            if installed is not None:
+                installed.clear()
+            epoch_before = aggregator.state.publish_epoch
+            tick_started = time.perf_counter()
+            check(await aggregator.scheduler.run_once() is True, "federation: the aggregate tick did not publish")
+            published = time.perf_counter()
+            metrics = aggregator.state.metrics
+            record = aggregator.state.timeline.records()[-1]
+            check(record["kind"] == "aggregate", f"federation: the newest timeline record is {record['kind']}")
+            out["aggregate"] = {
+                "wall_seconds": published - tick_started,
+                "apply_seconds": metrics.value("krr_tpu_scan_duration_seconds", phase="fold"),
+                "publish_seconds": metrics.value("krr_tpu_scan_duration_seconds", phase="compute"),
+                "persist": record.get("persist"),
+                "applied_records": record["federation"]["applied_records"],
+                "wire_bytes": record["federation"]["wire_bytes"],
+            }
+            if installed is not None:
+                check(aggregator.state.publish_epoch > epoch_before,
+                      "federation: the delta round did not move the published epoch")
+                await asyncio.wait_for(installed.wait(), timeout=60.0)
+                out["replica_install_ms"] = (marks["installed"] - marks["broadcast"]) * 1e3
+            for shard in shards:
+                check(await shard.wait_acked(shard.epoch, timeout=60.0),
+                      f"federation: shard {shard.shard_id} was not acked past {shard.acked}")
+            return out
+
+        report["round_full"] = await round_(t1)
+        # --- a replica subscribed after the first publish: its catch-up frame
+        replica = ReplicaServer(Config(federation_aggregator=f"127.0.0.1:{agg.port}",
+                                       federation_shard_id="replica-0", server_port=0, quiet=True),
+                                clock=lambda: clock[0])
+        await replica.start()
+        install = replica.client._install
+
+        async def marked_install(*args, **kwargs):
+            try:
+                return await install(*args, **kwargs)
+            finally:
+                marks["installed"] = time.perf_counter()
+        replica.client._install = marked_install
+        deadline = time.monotonic() + 60.0
+        while replica.state.publish_epoch != aggregator.state.publish_epoch:
+            check(time.monotonic() < deadline, "federation: the replica did not install the catch-up epoch")
+            await asyncio.sleep(0.005)
+        report["round_delta"] = await round_(t2, cut=shards[0])
+        cut = report["round_delta"]["cut"]
+        check(cut["duplicates"] == 1 and cut["duplicate_metric"] == 1.0,
+              f"federation: the cut uplink's re-send counted {cut}")
+
+        # --- the merged view against the control
+        check(len(aggregator.state.store.keys) == FED_OBJECTS,
+              f"federation: the aggregator holds {len(aggregator.state.store.keys)} rows")
+        check(_stores_equal_by_key(np, aggregator.state.store, control.state.store),
+              "federation: the aggregator's store != the control's, by key")
+        _status, agg_headers, agg_body, _ms = await _http(aggregator.port, "/recommendations")
+        check(agg_body == control_body, "federation: the aggregator's /recommendations != the control's")
+        for name in ("ETag", "X-KRR-Epoch", "Last-Modified"):
+            check(agg_headers.get(name) == control_headers.get(name),
+                  f"federation: {name} {agg_headers.get(name)} != the control's {control_headers.get(name)}")
+        scans = json.loads(agg_body)["scans"]
+        check(len(scans) == FED_OBJECTS and b'"?"' not in agg_body,
+              f"federation: {len(scans)} scans or an unknown value in the aggregator's body")
+        report["body_bytes"] = len(agg_body)
+
+        # --- the replica: the source's bytes and validators
+        deadline = time.monotonic() + 60.0
+        while replica.state.publish_epoch != aggregator.state.publish_epoch:
+            check(time.monotonic() < deadline, "federation: the replica did not follow the broadcast")
+            await asyncio.sleep(0.005)
+        reads: dict = {}
+        for name, headers in (("identity", None), ("gzip", {"Accept-Encoding": "gzip"})):
+            src = await _http(aggregator.port, "/recommendations", headers)
+            samples = []
+            for _ in range(FED_READS):
+                status, got_headers, body, ms = await _http(replica.port, "/recommendations", headers)
+                check(status == 200 and body == src[2], f"federation: the replica's {name} body != the source's")
+                for header in ("ETag", "X-KRR-Epoch", "Last-Modified", "Content-Encoding", "Content-Length"):
+                    check(got_headers.get(header) == src[1].get(header),
+                          f"federation: the replica's {header} != the source's")
+                samples.append(ms)
+            reads[f"{name}_ms"] = samples
+            reads[f"{name}_median_ms"] = statistics.median(samples)
+        samples = []
+        for _ in range(FED_READS):
+            status, _h, body, ms = await _http(replica.port, "/recommendations", {"If-None-Match": agg_headers["ETag"]})
+            check(status == 304 and body == b"", f"federation: the replica answered {status} to the source's ETag")
+            samples.append(ms)
+        reads["conditional_304_ms"] = samples
+        reads["conditional_304_median_ms"] = statistics.median(samples)
+        report["replica_reads"] = reads
+
+        # --- fleet-status: the census lists the four shards and the replica
+        cli.load_commands()
+        result = await asyncio.to_thread(
+            CliRunner().invoke, cli.app, ["fleet-status", "--url", f"http://127.0.0.1:{aggregator.port}", "-f", "json"])
+        check(result.exit_code == 0, f"federation: fleet-status exited {result.exit_code}: {result.output[-500:]}")
+        census = json.loads(result.output)
+        roles: dict = {}
+        for node in census["nodes"]:
+            roles.setdefault(node["role"], []).append(node["node"])
+        check(sorted(roles.get("shard", [])) == namespaces and roles.get("replica") == ["replica-0"],
+              f"federation: fleet-status lists {roles}")
+        report["census"] = {role: len(nodes) for role, nodes in roles.items()}
+    finally:
+        if replica is not None:
+            await replica.shutdown()
+        for shard in shards or []:
+            await shard.close()
+        if aggregator is not None:
+            await aggregator.shutdown()
+        await control.shutdown()
+    report["wall_seconds"] = time.perf_counter() - started
+    return report
 
 
 def eval_grid(np, origin: float):
@@ -2688,9 +3019,10 @@ def _cli_state(invoke, common: list, tdigest_json: str, tmp: str) -> dict:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
-        "--phases", default="build,parity,digest_proof,headline,e2e,stream,state,mesh,cli,serve,eval",
+        "--phases", default="build,parity,digest_proof,headline,e2e,stream,state,mesh,cli,serve,federation,eval",
         help="comma-separated subset of build,parity,digest_proof,headline,e2e,stream,state,mesh,cli,serve,"
-        "eval,row_max_main (default: the first eleven; the kernels line and the ok line need all eleven)",
+        "federation,eval,row_max_main (default: the first twelve; the kernels line and the ok line need all "
+        "twelve)",
     )
     args = parser.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -2731,23 +3063,30 @@ def main(argv=None) -> int:
     state = timed("state", phase_state, torch, np, fleet, rendered) if "state" in phases else None
     mesh = timed("mesh", phase_mesh, torch, np, fleet, rendered) if "mesh" in phases else None
     del fleet, rendered  # the fleet's 9.7 GB of samples are not needed past here
-    # Started here, after the timed phases: the fixture build (tens of
-    # seconds of one host core) must not overlap the kernel timings. One
-    # fixture serves both the ``cli`` and the ``serve`` phase.
+    # Started here, after the timed phases: the fixture builds (tens of
+    # seconds of one host core each, in two child processes started
+    # together) must not overlap the kernel timings. One fixture serves both
+    # the ``cli`` and the ``serve`` phase; ``federation`` has its own.
     fakes = FakeServers(CLI_OBJECTS, CLI_SAMPLES) if {"cli", "serve"} & phases else None
+    fed_fakes = FakeServers(FED_OBJECTS, CLI_SAMPLES, FED_NAMESPACES) if "federation" in phases else None
     import tempfile
 
     with tempfile.TemporaryDirectory(prefix="krr-smoke-") as keep_dir:
         try:
             cli = timed("cli", phase_cli, fakes) if "cli" in phases else None
             serve = timed("serve", phase_serve, fakes, smi, keep_dir) if "serve" in phases else None
-        finally:
             if fakes is not None:
                 fakes.close()
+            federation = timed("federation", phase_federation, fed_fakes, smi) if "federation" in phases else None
+        finally:
+            for fixture in (fakes, fed_fakes):
+                if fixture is not None:
+                    fixture.close()
         journal = serve["journal_copy"] if serve is not None else None
         evaluated = timed("eval", phase_eval, torch, np, smi, journal) if "eval" in phases else None
     emit("walls", seconds=walls)
-    if None in (headline, e2e, stream, state, mesh, cli, serve, evaluated, parity, proof) or "build" not in phases:
+    if None in (headline, e2e, stream, state, mesh, cli, serve, federation, evaluated, parity, proof) \
+            or "build" not in phases:
         print(smi)
         return 0
     launched = {"cli": lambda path: cli["paths"][path]["warm"]["launches"],

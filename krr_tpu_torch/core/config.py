@@ -7,8 +7,9 @@ pinned scan end, the serve plane (scheduler, read path, durable store,
 history journal and hysteresis gate, flight recorder and sentinel, SLO
 engine), fleet-axis row chunking and the compute device. Level 2 — the
 per-strategy ``StrategySettings`` — rides in ``other_args`` and is reflected
-into CLI flags by `krr_tpu_torch.main`. The federation and push-ingest
-fields arrive with the slices that read them.
+into CLI flags by `krr_tpu_torch.main`. The federation fields (the shard,
+aggregator, ring, replica and lineage knobs) are the JAX package's; the
+push-ingest fields arrive with ROADMAP M10b.2.
 
 Cluster detection is lazy and lives in the integrations layer: nothing
 authenticates at import time.
@@ -129,7 +130,7 @@ class Config(pd.BaseModel):
     #: memory-only.
     discovery_snapshot_path: Optional[str] = None
     # Push-based metrics ingest (the JAX package's `krr_tpu/ingest`; the
-    # port's ingest plane is ROADMAP M10b, and "push" raises until then).
+    # port's ingest plane is ROADMAP M10b.2, and "push" raises until then).
     #: How serve ticks get their samples. "pull" issues Prometheus range
     #: queries every tick (the classic shape). "push" runs a remote-write
     #: listener and folds buffered samples at tick time — a steady-state
@@ -313,6 +314,58 @@ class Config(pd.BaseModel):
     #: what the operator is willing to serve as "last known good".
     #: 0 = auto: ten scan cadences.
     max_staleness_seconds: float = pd.Field(0.0, ge=0)
+
+    # Multi-cluster federation (`krr_tpu_torch.federation`)
+    #: ``host:port`` the serve process accepts scanner-shard delta streams
+    #: on — setting it turns serve into the federation AGGREGATOR: the
+    #: scheduler stops scanning and each tick replays queued shard records
+    #: into the fleet store instead, publishing the merged view through the
+    #: unchanged read path. None = classic single-process serve.
+    federation_listen: Optional[str] = None
+    #: ``host:port`` of the aggregator a ``shard`` process streams
+    #: its delta records to.
+    federation_aggregator: Optional[str] = None
+    #: Shard identity in the federation (epoch watermarks key on it).
+    #: Default: the shard's configured cluster list joined with '/'.
+    federation_shard_id: Optional[str] = None
+    #: Shard staleness budget at the aggregator: a shard whose newest
+    #: delivered window is older than this serves carried-forward rows with
+    #: ``stale_since`` marks (the federation twin of the quarantine marks).
+    #: 0 = auto: three scan cadences.
+    federation_staleness_seconds: float = pd.Field(0.0, ge=0)
+    #: Record-count bound on BOTH sides of the federation stream: the
+    #: aggregator queues at most this many decoded-but-unapplied records
+    #: per shard before back-pressuring that shard's connection, and a
+    #: shard whose unacked buffer exceeds it collapses the backlog into
+    #: one snapshot record (bounded memory through an aggregator outage
+    #: of any length).
+    federation_queue_records: int = pd.Field(4096, ge=1)
+    #: Key-range partitioned aggregation plane
+    #: (`krr_tpu_torch.federation.ring`): ``name=host:port[|host:port...],...``
+    #: names each aggregator and its endpoint(s) — a shard splits every
+    #: tick's delta record by consistent-hash key owner and streams each
+    #: partition to its owning aggregator; a node listing extra endpoints
+    #: replicates its stream to standbys (HA failover with zero lost
+    #: epochs). Mutually exclusive with ``federation_aggregator`` on a
+    #: shard (the ring subsumes the single-aggregator case).
+    federation_ring: Optional[str] = None
+    #: Ceiling on the federation reconnect backoff ladder (uplinks AND
+    #: replica feeds): waits grow 0.25·2^(n−1) seconds, capped here before
+    #: ±50% jitter — the same retry semantics as
+    #: ``prometheus_backoff_cap_seconds``.
+    federation_backoff_cap_seconds: float = pd.Field(5.0, gt=0)
+    #: ``host:port`` of a HIGHER-tier aggregator this serve process
+    #: uplinks its OWN store's deltas to (requires ``federation_listen``):
+    #: region aggregators uplink to a global one over the same shard
+    #: protocol, so the tiers compose without a second wire format.
+    federation_uplink: Optional[str] = None
+    #: End-to-end freshness lineage: when on, every shard tick stamps its
+    #: delta records with a lineage block (newest-sample → fold → apply →
+    #: publish → install timestamps accumulate hop by hop) and the
+    #: aggregator fires ``krr_tpu_e2e_freshness_seconds{stage}`` per epoch.
+    #: Metadata-only — stores and served bytes are bit-identical either
+    #: way. Off = the no-lineage control (bench overhead gate).
+    federation_lineage_enabled: bool = True
 
     # Recommendation history + hysteresis (`krr_tpu_torch.history`, serve publish path)
     #: Journal file recording every recompute's raw recommendations (the

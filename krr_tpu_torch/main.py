@@ -18,11 +18,15 @@ replays a serve flight recorder's timeline through the regression sentinel.
 renders the delta between two journal points or a journal point and a live
 scan (`krr_tpu_torch.history.diff`); both ride the ``tdigest`` strategy.
 ``eval`` replays registered strategies over recorded usage and ranks them
-(`krr_tpu_torch.eval`), on ``--device``.
+(`krr_tpu_torch.eval`), on ``--device``. Federation
+(`krr_tpu_torch.federation`): ``shard`` streams one partition's delta ops
+to a ``serve --federation-listen`` aggregator, ``replica`` serves an
+aggregator's epoch feed, and ``fleet-status`` prints its ``GET /fleet``
+census; ``shard`` takes ``--device`` like ``serve``, ``replica`` and
+``fleet-status`` run no strategy and take none.
 
-Not ported yet (ROADMAP): the ``shard``, ``replica`` and ``fleet-status``
-commands, and ``serve``'s federation, push-ingest and lineage flags (M10b);
-``--metrics-mode push`` raises.
+Not ported yet (ROADMAP M10b.2): ``serve``'s push-ingest flags
+(``--ingest-*``); ``--metrics-mode push`` raises.
 """
 
 from __future__ import annotations
@@ -483,9 +487,9 @@ def _common_options() -> list[click.Option]:
     ]
 
 def _server_options() -> list[click.Option]:
-    """The serve plane's options: the JAX command's, minus the federation,
-    push-ingest and lineage flags (ROADMAP M10b). ``--metrics-mode push``
-    (M10b) parses but refuses to run."""
+    """The serve plane's options: the JAX command's, minus the push-ingest
+    flags (ROADMAP M10b.2). ``--metrics-mode push`` parses but refuses to
+    run."""
     from krr_tpu_torch.core.config import Config
 
     defaults = {name: Config.model_fields[name].default for name in (
@@ -579,7 +583,7 @@ def _server_options() -> list[click.Option]:
                 "steady-state tick folds the buffered window with zero "
                 "range queries, keeping the range path as the cold-start "
                 "seed and the gap-backfill ladder. Not ported yet: 'push' "
-                "exits naming ROADMAP M10b."
+                "exits naming ROADMAP M10b.2."
             ),
         ),
         PanelOption(
@@ -760,6 +764,66 @@ def _server_options() -> list[click.Option]:
                 "--no-savings drops the journal-derived fleet savings block "
                 "from GET /statusz (and stops refreshing the krr_tpu_eval_* "
                 "window gauges on scrape)."
+            ),
+        ),
+        PanelOption(
+            ["--federation-listen", "federation_listen"],
+            default=None,
+            panel="Server Settings",
+            help=(
+                "host:port to accept federation scanner-shard delta streams "
+                "on — turns this serve into the central AGGREGATOR: scanner "
+                "shards (krr-tpu shard) own discover+fetch+fold and stream "
+                "their ticks' delta ops here; the scheduler replays them "
+                "into the fleet store and publishes the merged view through "
+                "the unchanged read path."
+            ),
+        ),
+        PanelOption(
+            ["--federation-staleness", "federation_staleness_seconds"],
+            type=float,
+            default=0.0,
+            show_default=True,
+            panel="Server Settings",
+            help=(
+                "Shard staleness budget: a shard whose newest delivered "
+                "window is older than this serves carried-forward rows with "
+                "stale_since marks. 0 = auto (three scan cadences)."
+            ),
+        ),
+        PanelOption(
+            ["--federation-queue-records", "federation_queue_records"],
+            type=int,
+            default=4096,
+            show_default=True,
+            panel="Server Settings",
+            help=(
+                "Most decoded-but-unapplied delta records the aggregator "
+                "queues per shard before back-pressuring that shard's stream."
+            ),
+        ),
+        PanelOption(
+            ["--federation-uplink", "federation_uplink"],
+            default=None,
+            panel="Server Settings",
+            help=(
+                "host:port of a HIGHER-tier aggregator this serve uplinks "
+                "its own merged store's deltas to (requires "
+                "--federation-listen): region aggregators uplink to a "
+                "global one over the same shard protocol, so tiers compose "
+                "without a second wire format."
+            ),
+        ),
+        PanelOption(
+            ["--lineage/--no-lineage", "federation_lineage_enabled"],
+            default=True,
+            panel="Server Settings",
+            help=(
+                "End-to-end freshness lineage: stamp every epoch with the "
+                "newest-sample → fold → apply → publish → install timestamp "
+                "chain (krr_tpu_e2e_freshness_seconds, /statusz lineage "
+                "block, per-hop sentinel bands). Metadata-only — stores and "
+                "served bytes are bit-identical either way."
             ),
         ),
         PanelOption(
@@ -997,6 +1061,350 @@ def _make_serve_command(strategy_name: str, strategy_type: Any) -> click.Command
             "keeps per-container digests fresh with incremental delta scans, and "
             "GET /recommendations answers from the resident state "
             "(also: GET /healthz, GET /metrics)."
+        ),
+    )
+
+
+def _make_shard_command(strategy_name: str, strategy_type: Any) -> click.Command:
+    """``shard``: one federation scanner shard (`krr_tpu_torch.federation`).
+
+    Runs the discover→fetch→fold half of serve over ITS clusters (pick them
+    with ``-c``, or partition one big cluster by namespace with ``-n``) and
+    streams each tick's delta ops — the durable store's WAL records, on the
+    wire — to a central ``serve --federation-listen`` aggregator. The
+    strategy binds ``--device`` like ``serve``'s: ``cuda`` unless asked for
+    the CPU, and without a card the command exits 1.
+    """
+    settings_fields = list(strategy_type.get_settings_type().model_fields)
+
+    def callback(**kwargs: Any) -> None:
+        import pydantic
+
+        from krr_tpu_torch.federation.shard import run_shard
+
+        config = _config_from_kwargs(strategy_name, settings_fields, kwargs, format="json")
+        if not (config.federation_aggregator or config.federation_ring):
+            raise click.UsageError(
+                "--aggregator host:port (or --federation-ring "
+                "name=host:port[,name=...]) is required"
+            )
+        try:
+            config.create_strategy()  # validate settings and the device up front
+        except pydantic.ValidationError as e:
+            raise _settings_error(e) from e
+        except (RuntimeError, NotImplementedError) as e:
+            # A `cuda` device without a card: a clear error and a nonzero
+            # exit, never a quiet CPU shard.
+            raise click.ClickException(str(e)) from e
+        asyncio.run(run_shard(config, logger=config.create_logger()))
+
+    shard_options = [
+        PanelOption(
+            ["--aggregator", "federation_aggregator"],
+            default=None,
+            panel="Server Settings",
+            help="host:port of the krr-tpu serve --federation-listen aggregator (required).",
+        ),
+        PanelOption(
+            ["--federation-ring", "federation_ring"],
+            default=None,
+            panel="Server Settings",
+            help=(
+                "Key-range partitioned aggregation plane: "
+                "name=host:port[|host:port...],name2=... names each "
+                "aggregator and its endpoint(s). The shard splits every "
+                "tick's delta record by consistent-hash key owner and "
+                "streams each partition to its owner; extra endpoints on a "
+                "node replicate its stream to standbys (HA failover with "
+                "zero lost epochs). Subsumes --aggregator."
+            ),
+        ),
+        PanelOption(
+            ["--shard-id", "federation_shard_id"],
+            default=None,
+            panel="Server Settings",
+            help=(
+                "Shard identity in the federation (epoch watermarks key on "
+                "it). Default: the configured cluster list."
+            ),
+        ),
+        PanelOption(
+            ["--uplink-backoff-cap-seconds", "federation_backoff_cap_seconds"],
+            type=float,
+            default=5.0,
+            show_default=True,
+            panel="Server Settings",
+            help=(
+                "Ceiling on the uplink reconnect backoff ladder: waits grow "
+                "0.25*2^(n-1) seconds, capped here before +/-50% jitter — "
+                "the same retry semantics as the Prometheus "
+                "--backoff-cap-seconds."
+            ),
+        ),
+        PanelOption(
+            ["--host", "server_host"],
+            default="127.0.0.1",
+            show_default=True,
+            panel="Server Settings",
+            help="Address to bind the shard's status HTTP server to.",
+        ),
+        PanelOption(
+            ["--port", "server_port"],
+            type=int,
+            default=0,
+            show_default=True,
+            panel="Server Settings",
+            help=(
+                "Shard status HTTP port (GET /healthz: scan + uplink "
+                "posture; GET /metrics: the shard-side krr_tpu_federation_* "
+                "family). 0 = ephemeral (logged at startup)."
+            ),
+        ),
+        PanelOption(
+            ["--federation-queue-records", "federation_queue_records"],
+            type=int,
+            default=4096,
+            show_default=True,
+            panel="Server Settings",
+            help=(
+                "Unacked-record buffer bound: past it the backlog collapses "
+                "into one snapshot record (bounded memory through an "
+                "aggregator outage of any length)."
+            ),
+        ),
+        PanelOption(
+            ["--scan-interval", "scan_interval_seconds"],
+            type=float,
+            default=900.0,
+            show_default=True,
+            panel="Server Settings",
+            help="Seconds between incremental delta scans on this shard.",
+        ),
+        PanelOption(
+            ["--discovery-interval", "discovery_interval_seconds"],
+            type=float,
+            default=3600.0,
+            show_default=True,
+            panel="Server Settings",
+            help="Seconds between fleet re-discoveries on this shard.",
+        ),
+        PanelOption(
+            ["--discovery-mode", "discovery_mode"],
+            type=click.Choice(["relist", "watch"]),
+            default="relist",
+            show_default=True,
+            panel="Server Settings",
+            help=(
+                "Shard inventory maintenance: 'watch' reconciles a resident "
+                "watch-fed inventory per tick (O(churn)); 'relist' re-fetches "
+                "per discovery interval."
+            ),
+        ),
+        PanelOption(
+            ["--discovery-verify-interval", "discovery_verify_interval_seconds"],
+            type=float,
+            default=0.0,
+            show_default=True,
+            panel="Server Settings",
+            help=(
+                "Watch-mode verify-relist cadence on this shard "
+                "(0 = auto: four discovery intervals)."
+            ),
+        ),
+        PanelOption(
+            ["--lineage/--no-lineage", "federation_lineage_enabled"],
+            default=True,
+            panel="Server Settings",
+            help=(
+                "Stamp this shard's delta records with the freshness lineage "
+                "fragment (newest-sample + fold timestamps) the aggregator "
+                "folds into the per-epoch krr_tpu_e2e_freshness_seconds "
+                "chain. Metadata-only."
+            ),
+        ),
+    ]
+    # Shards take the scan commands' common options minus the one-shot-only
+    # flags (no formatter — output is the delta stream; no --statusz dump).
+    common = [o for o in _common_options() if o.name not in ("format", "statusz_path")]
+    return PanelCommand(
+        "shard",
+        callback=callback,
+        params=shard_options + common + _strategy_options(strategy_type),
+        help=(
+            "Run one federation scanner shard: discover+fetch+fold its "
+            "clusters locally and stream each tick's delta ops to a central "
+            "`serve --federation-listen` aggregator."
+        ),
+    )
+
+
+def _make_replica_command() -> click.Command:
+    """``replica``: a stateless read replica (`krr_tpu_torch.federation.replica`).
+
+    Subscribes to a serve/aggregator's published-epoch feed and serves the
+    full HTTP read path (response cache, conditional GETs, pushdown,
+    pre-compressed variants) from the installed snapshots — byte-identical
+    bodies and validators, no scheduler, no store, no metric backend. N
+    replicas behind a load balancer multiply read RPS horizontally.
+    """
+
+    def callback(**kwargs: Any) -> None:
+        import pydantic
+
+        from krr_tpu_torch.core.config import Config
+        from krr_tpu_torch.federation.replica import run_replica
+
+        try:
+            config = Config(format="json", **kwargs)
+            if not config.federation_aggregator:
+                raise click.UsageError("--source host:port is required")
+        except pydantic.ValidationError as e:
+            details = "; ".join(
+                f"--{'.'.join(str(p) for p in err['loc']) or 'config'}: {err['msg']}" for err in e.errors()
+            )
+            raise click.UsageError(f"Invalid settings — {details}") from e
+        asyncio.run(run_replica(config, logger=config.create_logger()))
+
+    replica_options = [
+        PanelOption(
+            ["--source", "federation_aggregator"],
+            default=None,
+            panel="Server Settings",
+            help=(
+                "host:port of the serve/aggregator federation listener "
+                "publishing the epoch feed (required)."
+            ),
+        ),
+        PanelOption(
+            ["--replica-id", "federation_shard_id"],
+            default=None,
+            panel="Server Settings",
+            help="Replica identity in the feed handshake. Default: a random id.",
+        ),
+        PanelOption(
+            ["--host", "server_host"],
+            default="127.0.0.1",
+            show_default=True,
+            panel="Server Settings",
+            help="Address to bind the replica's HTTP server to.",
+        ),
+        PanelOption(
+            ["--port", "server_port"],
+            type=int,
+            default=8080,
+            show_default=True,
+            panel="Server Settings",
+            help="Replica HTTP port (0 = ephemeral, logged at startup).",
+        ),
+        PanelOption(
+            ["--scan-interval", "scan_interval_seconds"],
+            type=float,
+            default=900.0,
+            show_default=True,
+            panel="Server Settings",
+            help=(
+                "The SOURCE's publish cadence — three missed cadences "
+                "without an installed epoch marks /healthz stale."
+            ),
+        ),
+        PanelOption(
+            ["--backoff-cap-seconds", "federation_backoff_cap_seconds"],
+            type=float,
+            default=5.0,
+            show_default=True,
+            panel="Server Settings",
+            help="Ceiling on the feed reconnect backoff ladder (pre-jitter).",
+        ),
+        PanelOption(
+            ["--response-cache/--no-response-cache", "response_cache_enabled"],
+            default=True,
+            panel="Server Settings",
+            help=(
+                "The epoch-keyed rendered-response cache (the feed pre-warms "
+                "it with the source's rendered variants)."
+            ),
+        ),
+        PanelOption(
+            ["--response-cache-entries", "response_cache_max_entries"],
+            type=int,
+            default=256,
+            show_default=True,
+            panel="Server Settings",
+            help="Entry bound on the response cache.",
+        ),
+        PanelOption(
+            ["--response-cache-mb", "response_cache_max_mb"],
+            type=float,
+            default=64.0,
+            show_default=True,
+            panel="Server Settings",
+            help="Body-byte bound on the response cache (MB).",
+        ),
+        PanelOption(
+            ["--render-concurrency", "server_render_concurrency"],
+            type=int,
+            default=4,
+            show_default=True,
+            panel="Server Settings",
+            help="Bounded render pool width for cache-miss renders.",
+        ),
+        PanelOption(
+            ["--render-queue", "server_render_queue"],
+            type=int,
+            default=16,
+            show_default=True,
+            panel="Server Settings",
+            help="Renders allowed to QUEUE behind the pool before shedding 503s.",
+        ),
+        PanelOption(
+            ["--trace", "trace_path"],
+            default=None,
+            panel="Observability",
+            help=(
+                "Write the replica's install spans (feed frame → decode → "
+                "install, remote-linked to the publishing aggregator) as "
+                "Chrome trace-event JSON to this file at exit. SIGUSR2 dumps "
+                "the same ring mid-run."
+            ),
+        ),
+        PanelOption(
+            ["--profile", "profile_path"],
+            default=None,
+            panel="Observability",
+            help=(
+                "Write the install-path critical-path attribution report as "
+                "JSON to this file at exit; `krr-tpu analyze` renders it."
+            ),
+        ),
+        PanelOption(
+            ["--metrics-dump", "metrics_dump_path"],
+            default=None,
+            panel="Observability",
+            help=(
+                "Write a Prometheus text-exposition snapshot of the replica's "
+                "metrics to this file at exit — the offline twin of /metrics."
+            ),
+        ),
+        PanelOption(["-q", "--quiet", "quiet"], is_flag=True, default=False, panel="Logging"),
+        PanelOption(["-v", "--verbose", "verbose"], is_flag=True, default=False, panel="Logging"),
+        PanelOption(
+            ["--log-format", "log_format"],
+            type=click.Choice(["console", "json"]),
+            default="console",
+            show_default=True,
+            panel="Logging",
+            help="Structured log output format.",
+        ),
+    ]
+    return PanelCommand(
+        "replica",
+        callback=callback,
+        params=replica_options,
+        help=(
+            "Run a stateless read replica: subscribe to a serve/aggregator's "
+            "published-epoch feed and serve GET /recommendations (and the "
+            "whole read path) byte-identically — N replicas behind a load "
+            "balancer scale reads horizontally."
         ),
     )
 
@@ -1611,6 +2019,64 @@ def _make_analyze_command() -> click.Command:
     )
 
 
+def _make_fleet_status_command() -> click.Command:
+    """``fleet-status``: the aggregator's fleet topology census —
+    every node it has heard from (shard HELLOs, replica subscribes) with
+    health, acked-vs-current epoch lag, end-to-end freshness, and the
+    fleet_health SLO burn — fetched from a live aggregator's ``GET /fleet``."""
+
+    def callback(url: Any, fmt: str, output: Any) -> None:
+        import json
+        import urllib.error
+        import urllib.request
+
+        target = url.rstrip("/") + f"/fleet?format={fmt}"
+        try:
+            with urllib.request.urlopen(target, timeout=30) as response:
+                body = response.read().decode()
+        except (OSError, urllib.error.URLError) as e:
+            raise click.UsageError(f"cannot fetch {target}: {e}") from e
+        if fmt == "json":
+            try:
+                body = json.dumps(json.loads(body), indent=2) + "\n"
+            except json.JSONDecodeError as e:
+                raise click.UsageError(f"{target} returned non-JSON: {e}") from e
+        if output:
+            with open(output, "w") as f:
+                f.write(body)
+        else:
+            click.echo(body, nl=False)
+
+    return PanelCommand(
+        "fleet-status",
+        callback=callback,
+        params=[
+            PanelOption(
+                ["--url", "url"],
+                required=True,
+                help="Base URL of the aggregator (the serve with --federation-listen).",
+            ),
+            PanelOption(
+                ["--format", "-f", "fmt"],
+                type=click.Choice(["text", "json"]),
+                default="text",
+                show_default=True,
+                help="Census rendering: the human table or the JSON /fleet serves.",
+            ),
+            PanelOption(
+                ["--output", "-o", "output"],
+                default=None,
+                help="Write the census to this file instead of stdout.",
+            ),
+        ],
+        help=(
+            "Show the fleet topology census from a live aggregator's GET "
+            "/fleet: per-node health, acked-vs-current epoch lag, end-to-end "
+            "freshness, and the fleet_health SLO burn."
+        ),
+    )
+
+
 def _make_strategy_command(strategy_name: str, strategy_type: Any) -> click.Command:
     settings_fields = list(strategy_type.get_settings_type().model_fields)
 
@@ -1689,9 +2155,13 @@ def load_commands() -> None:
     if "tdigest" in strategies and "serve" not in app.commands:
         # The serve + history subsystems ride the digest strategy.
         app.add_command(_make_serve_command("tdigest", strategies["tdigest"]))
+        app.add_command(_make_shard_command("tdigest", strategies["tdigest"]))
+        app.add_command(_make_replica_command())
         app.add_command(_make_diff_command("tdigest", strategies["tdigest"]))
     if "analyze" not in app.commands:
         app.add_command(_make_analyze_command())
+    if "fleet-status" not in app.commands:
+        app.add_command(_make_fleet_status_command())
     if "eval" not in app.commands:
         app.add_command(_make_eval_command())
 

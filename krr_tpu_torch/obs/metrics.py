@@ -12,8 +12,8 @@ assignment (atomic under the GIL).
 
 The metric names keep the ``krr_tpu_`` prefix, so dashboards and recording
 rules read both packages alike. Only the families this package fires are
-declared; the federation and ingest families arrive with the slice that
-fires them.
+declared: the federation, replica and fleet families with the federation
+slice; the ingest families arrive with ROADMAP M10b.2.
 """
 
 from __future__ import annotations
@@ -133,6 +133,42 @@ SERVER_METRICS: tuple[tuple, ...] = (
     ("krr_tpu_timeline_append_failures_total", "counter", "Scan-timeline appends that failed on a disk fault (ENOSPC/EIO) — the record survives in memory only and the next append truncates the torn tail first."),
     ("krr_tpu_scan_regression", "gauge", "Regression sentinel deviation by category: the last classified scan's sigmas above its median/MAD baseline band while that category is regressed, 0 while nominal."),
     ("krr_tpu_scan_regressions_total", "counter", "Scans the regression sentinel classified as regressed, by the dominant deviating category."),
+    # Multi-cluster federation (`krr_tpu_torch.federation`): the aggregator's
+    # shard census + wire accounting, and the shard side's uplink state.
+    ("krr_tpu_federation_shards", "gauge", "Scanner shards known to the federation aggregator (connected or not; persisted watermarks count)."),
+    ("krr_tpu_federation_connected_shards", "gauge", "Scanner shards with a live connection to the federation aggregator."),
+    ("krr_tpu_federation_stale_shards", "gauge", "Shards whose newest applied window is older than the federation staleness budget — their workloads serve carried-forward values with stale_since marks."),
+    ("krr_tpu_federation_records_total", "counter", "Delta records accepted (decoded + queued) by the federation aggregator, by shard."),
+    ("krr_tpu_federation_duplicate_records_total", "counter", "Delta records discarded as duplicates by the aggregator's epoch watermark (exactly-once replay across shard re-sends), by shard."),
+    ("krr_tpu_federation_bytes_total", "counter", "Delta-record payload bytes received by the federation aggregator, by shard — the federation wire cost."),
+    ("krr_tpu_federation_queue_records", "gauge", "Decoded delta records queued at the aggregator awaiting the next aggregate tick (per-shard streams back-pressure past --federation-queue-records)."),
+    ("krr_tpu_federation_apply_seconds", "histogram", "Wall seconds an aggregate tick spent replaying queued shard delta records into the fleet store.", DEFAULT_SECONDS_BUCKETS),
+    ("krr_tpu_federation_shard_epoch", "gauge", "Newest delta epoch applied into the fleet store, by shard."),
+    ("krr_tpu_federation_shard_lag_seconds", "gauge", "Age of each shard's newest applied window at the last aggregate tick, by shard."),
+    ("krr_tpu_federation_disconnects_total", "counter", "Shard connections the aggregator lost (clean closes, torn frames, and protocol errors alike), by shard."),
+    ("krr_tpu_federation_unacked_records", "gauge", "Delta records a shard holds buffered awaiting the aggregator's epoch ack (re-sent on reconnect)."),
+    ("krr_tpu_federation_sent_bytes_total", "counter", "Delta-record bytes a shard has streamed to its aggregator (re-sends included)."),
+    ("krr_tpu_federation_reconnects_total", "counter", "Aggregator connections (re-)established by a shard."),
+    ("krr_tpu_federation_uplink_retries_total", "counter", "Failed federation connect attempts retried through the capped jittered backoff ladder (shard uplinks and the region tier's global uplink alike)."),
+    # Key-range partitioned aggregation (`krr_tpu_torch.federation.ring`).
+    ("krr_tpu_federation_ring_nodes", "gauge", "Aggregator nodes on the shard's consistent-hash ring (--federation-ring)."),
+    ("krr_tpu_federation_ring_keys", "gauge", "Object keys of this shard's store owned by each ring node — the shard-side view of the key-range partition, by node."),
+    # Read replicas (`krr_tpu_torch.federation.replica` + the aggregator's
+    # epoch-feed broadcast).
+    ("krr_tpu_replica_subscribers", "gauge", "Read replicas currently subscribed to this aggregator's epoch feed."),
+    ("krr_tpu_replica_feed_bytes_total", "counter", "Epoch-feed payload bytes: sent to subscribed replicas (on the aggregator) or received from the source (on a replica)."),
+    ("krr_tpu_replica_epoch", "gauge", "Newest epoch this replica installed from its feed (its X-KRR-Epoch matches the source's at this value)."),
+    ("krr_tpu_replica_epochs_applied_total", "counter", "Epoch-feed frames installed by this replica (stale replays drop idempotently and don't count)."),
+    ("krr_tpu_replica_feed_lag_seconds", "gauge", "Age of the replica's newest installed epoch against its own clock at install time (wall-vs-wall: clock skew shows up honestly)."),
+    ("krr_tpu_replica_reconnects_total", "counter", "Feed connections (re-)established by a replica."),
+    # Fleet observability: end-to-end freshness lineage + topology census
+    # (the /fleet surface). Freshness buckets run far wider than request
+    # latencies — an epoch's age spans scan cadences, not milliseconds.
+    ("krr_tpu_e2e_freshness_seconds", "histogram", "Recommendation age (stage timestamp minus the epoch's newest sample timestamp) when each lineage stage finished, by stage (fold|apply|publish|install) — the end-to-end freshness chain of every published epoch.", (0.1, 1.0, 5.0, 15.0, 60.0, 300.0, 900.0, 1800.0, 3600.0, 7200.0, 21600.0, 86400.0)),
+    ("krr_tpu_fleet_nodes", "gauge", "Nodes in the aggregator's fleet census, by role (aggregator|shard|replica) — everything a HELLO or feed subscription ever introduced."),
+    ("krr_tpu_fleet_epoch_lag", "gauge", "Acked-vs-current epoch lag per fleet node: how many epochs the node trails what it should hold (0 = fully caught up), by node."),
+    ("krr_tpu_fleet_node_checks_total", "counter", "Fleet census health checks: one per known node per aggregate tick — the denominator of the fleet_health SLO rollup."),
+    ("krr_tpu_fleet_node_unhealthy_total", "counter", "Fleet census health checks that found the node disconnected or stale — the fleet_health SLO rollup's error-budget burn."),
     # SLO engine (`krr_tpu_torch.obs.health`).
     ("krr_tpu_slo_burn_rate", "gauge", "Error-budget burn rate by objective and window (fast|slow): windowed bad ratio divided by the objective's budget; 1.0 consumes exactly the budget over the window."),
     ("krr_tpu_slo_error_budget_remaining", "gauge", "Fraction of the objective's error budget left over the slow window (negative = overspent)."),

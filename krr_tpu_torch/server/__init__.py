@@ -17,8 +17,9 @@ requests:
   queries keep serving the previous result while a scan is in flight;
 * `app`        — the asyncio HTTP surface: ``GET /recommendations``,
   ``GET /healthz``, ``GET /metrics`` (Prometheus text format),
-  ``GET /statusz``, ``GET /history``, ``GET /drift`` and the
-  ``/debug/trace``, ``/debug/profile`` and ``/debug/timeline`` routes;
+  ``GET /statusz``, ``GET /history``, ``GET /drift``, ``GET /fleet`` (on
+  a federation aggregator) and the ``/debug/trace``, ``/debug/profile`` and
+  ``/debug/timeline`` routes;
 * `metrics`    — re-export of the shared registry, which lives in
   `krr_tpu_torch.obs.metrics` (CLI scans record into the same
   declarations).

@@ -1,9 +1,10 @@
 """The asyncio HTTP surface of `serve`.
 
 A port of `krr_tpu/server/app.py`: the same routes, bodies, headers and
-status codes. ``GET /fleet`` (the federation census) answers 404 here, as
-on a JAX serve that is not an aggregator; the aggregator, the region uplink
-and the push ingest listener are ROADMAP M10b.
+status codes, the federation aggregator and region uplink behind
+``--federation-listen`` / ``--federation-uplink``, and ``GET /fleet`` (the
+federation census, 404 on a serve that is not an aggregator). The push
+ingest listener is ROADMAP M10b.2.
 
 Deliberately framework-free: the API is a handful of GET routes serving
 pre-rendered or worker-thread-rendered bodies, and the stdlib's
@@ -470,11 +471,60 @@ class HttpApp:
         return 200, content_type, await asyncio.to_thread(render)
 
     async def _fleet(self, query: dict[str, list[str]]) -> tuple[int, str, bytes]:
-        """The fleet topology census lives on a federation aggregator
-        (ROADMAP M10b): this server answers the JAX non-aggregator's 404."""
-        return 404, "application/json", _json_body(
-            {"error": "no fleet census on this server (not an aggregator)"}
-        )
+        """The fleet topology census: every node the aggregator has heard
+        from (shard HELLOs, replica subscribes) with health, acked-vs-current
+        epoch lag, and end-to-end freshness, plus the ``fleet_health`` SLO
+        burn riding along. 404 on non-aggregator processes — the census
+        lives where the feed terminates."""
+        federation = self.state.federation
+        if federation is None or not hasattr(federation, "fleet_census"):
+            return 404, "application/json", _json_body(
+                {"error": "no fleet census on this server (not an aggregator)"}
+            )
+        fmt = (query.get("format") or ["json"])[-1]
+        if fmt not in ("json", "text"):
+            return 400, "application/json", _json_body(
+                {"error": f"unknown format {fmt!r}; one of ['json', 'text']"}
+            )
+        census = federation.fleet_census(float(self.clock()))
+        engine = self.state.slo
+        if engine is not None:
+            for objective in engine.status().get("objectives", []):
+                if objective.get("name") == "fleet_health":
+                    census["slo"] = objective
+                    break
+        if fmt == "text":
+            return 200, "text/plain; charset=utf-8", self._fleet_text(census).encode()
+        return 200, "application/json", _json_body(census)
+
+    @staticmethod
+    def _fleet_text(census: dict) -> str:
+        """The human rendering of the fleet census (``/fleet?format=text``)."""
+        lines = [
+            f"krr-tpu fleet (feed epoch {census.get('feed_epoch', 0)}, "
+            f"staleness {census.get('staleness_seconds', 0.0):g}s)"
+        ]
+        slo = census.get("slo")
+        if slo is not None:
+            burn = slo.get("burn_rate", {})
+            flag = "FIRING" if slo.get("firing") else "ok"
+            lines.append(
+                f"fleet_health SLO [{flag}]: burn fast={burn.get('fast', 0.0):g} "
+                f"slow={burn.get('slow', 0.0):g}, budget remaining "
+                f"{slo.get('error_budget_remaining', 0.0):g}"
+            )
+        lines.append("")
+        header = f"{'NODE':<24} {'ROLE':<11} {'HEALTH':<13} {'EPOCH':>7} {'LAG':>5} {'FRESH':>9}"
+        lines.append(header)
+        for node in census.get("nodes", []):
+            fresh = node.get("freshness_seconds")
+            fresh_text = "n/a" if fresh is None else f"{fresh:.1f}s"
+            lines.append(
+                f"{str(node.get('node', '?')):<24} {str(node.get('role', '?')):<11} "
+                f"{str(node.get('health', '?')):<13} {node.get('epoch', 0):>7} "
+                f"{node.get('epoch_lag', 0):>5} {fresh_text:>9}"
+            )
+        return "\n".join(lines) + "\n"
 
     async def _statusz(self, query: dict[str, list[str]]) -> tuple[int, str, bytes]:
         """The SLO engine's posture. READ-ONLY: burn rates recompute at the
@@ -523,6 +573,10 @@ class HttpApp:
         savings = await asyncio.to_thread(self._savings_block)
         if savings is not None:
             payload["savings"] = savings
+        if self.state.federation is not None:
+            payload["federation"] = self.state.federation.status(float(self.clock()))
+        if self.state.replica is not None:
+            payload["replica"] = self.state.replica.status(float(self.clock()))
         return 200, "application/json", _json_body(payload)
 
     def _savings_block(self) -> "Optional[dict]":
@@ -596,6 +650,17 @@ class HttpApp:
         return "\n".join(lines) + "\n"
 
     def _snapshot_stale(self, snapshot) -> bool:
+        replica = self.state.replica
+        if replica is not None:
+            # A replica's snapshot legitimately freezes while its source is
+            # idle (the feed broadcasts only CHANGED epochs), so age of the
+            # data says nothing — staleness means the FEED has been down
+            # past the budget.
+            down_since = replica.disconnected_at
+            return (
+                down_since is not None
+                and float(self.clock()) - down_since > self.stale_after_seconds
+            )
         return float(self.clock()) - snapshot.window_end > self.stale_after_seconds
 
     async def _healthz(self) -> tuple[int, str, bytes]:
@@ -661,6 +726,15 @@ class HttpApp:
             "last_persist_error": self.state.last_persist_error,
             "slo_firing": firing,
         }
+        if self.state.federation is not None:
+            # Federation mode: per-shard connected/epoch/lag — the failure
+            # domain IS the shard, so liveness must name the silent one.
+            body["federation"] = self.state.federation.status(float(self.clock()))
+        if self.state.replica is not None:
+            # Replica mode: the feed subscription IS the data plane —
+            # liveness must show where epochs come from and how far behind
+            # the subscription runs.
+            body["replica"] = self.state.replica.status(float(self.clock()))
         extra = (
             {"X-KRR-Epoch": str(snapshot.epoch)} if snapshot is not None else {}
         )
@@ -1145,7 +1219,9 @@ class KrrServer:
         # respected.
         # Node identity stamps every exported span so stitched fleet traces
         # (`analyze --stitch`) can label this process's lane.
-        node_id = "serve"
+        node_id = getattr(config, "federation_shard_id", None) or (
+            "aggregator" if getattr(config, "federation_listen", None) else "serve"
+        )
         if not self.session.tracer.enabled:
             self.session.tracer = Tracer(ring_scans=config.trace_ring_scans, node=node_id)
         elif getattr(self.session.tracer, "node", None) is None:
@@ -1280,6 +1356,119 @@ class KrrServer:
                         ),
                     )
                 )
+        # Federation mode (`krr_tpu_torch.federation`): --federation-listen turns
+        # this serve into the central AGGREGATOR — scanner shards stream
+        # their tick's delta ops here, the scheduler's aggregate tick
+        # replays them into the fleet store (the WAL recovery path), and
+        # the read path serves the merged view unchanged. Per-shard epoch
+        # watermarks recover from the store's extra_meta, so shard re-sends
+        # stay exactly-once across aggregator restarts.
+        self.aggregator = None
+        if config.federation_listen:
+            from krr_tpu_torch.federation.aggregator import Aggregator
+            from krr_tpu_torch.federation.shard import parse_endpoint
+
+            self._federation_endpoint = parse_endpoint(
+                config.federation_listen, "--federation-listen"
+            )
+            # Shard inventories persist in a sidecar beside the durable
+            # store (rendering metadata at discovery cadence): a restarted
+            # aggregator must keep RENDERING a dead shard's recovered rows
+            # (stale-marked) even though that shard never reconnects to
+            # re-send its inventory.
+            inventory_path = None
+            if state_path:
+                inventory_path = (
+                    os.path.join(state_path, "federation-inventory.json")
+                    if self.durable is not None and self.durable.fmt == "sharded"
+                    else f"{state_path}.federation-inventory.json"
+                )
+            self.aggregator = Aggregator(
+                self.state,
+                settings.cpu_spec(),
+                scan_interval=config.scan_interval_seconds,
+                staleness_seconds=config.federation_staleness_seconds,
+                queue_cap=config.federation_queue_records,
+                inventory_path=inventory_path,
+                metrics=self.session.metrics,
+                logger=self.logger,
+                clock=clock,
+            )
+            self.aggregator.seed(store.extra_meta.get("federation"))
+            # The aggregator's apply/ack spans land in the SERVE trace ring
+            # (one ring per process), stamped with this node's identity so
+            # stitched fleet traces keep the lanes apart.
+            self.aggregator.tracer = self.session.tracer
+            self.aggregator.node = node_id
+            self.aggregator.lineage_enabled = bool(
+                getattr(config, "federation_lineage_enabled", True)
+            )
+            self.state.federation = self.aggregator
+            # Fleet-level SLO rollup: every census tick samples each node
+            # once (checks_total), unhealthy nodes burn the budget — the
+            # fleet twin of scan_regressions.
+            if self.state.slo is not None:
+                from krr_tpu_torch.obs.health import Objective
+
+                fleet_metrics = self.session.metrics
+                self.state.slo.add_objective(
+                    Objective(
+                        name="fleet_health",
+                        description=(
+                            "Fleet nodes must stay connected and fresh: "
+                            "stale or disconnected census entries burn this budget."
+                        ),
+                        budget=0.10,
+                        sample=lambda: (
+                            float(fleet_metrics.total("krr_tpu_fleet_node_unhealthy_total")),
+                            float(fleet_metrics.total("krr_tpu_fleet_node_checks_total")),
+                        ),
+                    )
+                )
+        # Tiered aggregation (`--federation-uplink`): this REGION
+        # aggregator streams its own merged store's deltas to a higher-tier
+        # (global) aggregator over the same shard protocol — an aggregator
+        # IS a shard one tier up. The store runs with delta capture on
+        # (the same queue the durable persist drains; the scheduler's
+        # cursor keeps them from double-consuming it).
+        self.uplink = None
+        if getattr(config, "federation_uplink", None):
+            if self.aggregator is None:
+                raise ValueError(
+                    "--federation-uplink requires --federation-listen: the "
+                    "region tier is an aggregator whose merged store uplinks"
+                )
+            from krr_tpu_torch.federation.shard import Uplink, parse_endpoint as _parse_ep
+
+            up_host, up_port = _parse_ep(
+                config.federation_uplink, "--federation-uplink"
+            )
+            store.track_deltas = True
+            store.capture_full_keys = True
+            spec = settings.cpu_spec()
+            self.uplink = Uplink(
+                stream_id=config.federation_shard_id
+                or f"region-{os.urandom(4).hex()}",
+                host=up_host,
+                port=up_port,
+                generation=os.urandom(8).hex(),
+                hello_spec={
+                    "gamma": spec.gamma,
+                    "min_value": spec.min_value,
+                    "num_buckets": spec.num_buckets,
+                },
+                # Late-bound: the scheduler (constructed below) owns the
+                # uplink epoch; snapshot_fn only fires during pump.
+                snapshot_fn=lambda: self.scheduler._uplink_snapshot(),
+                clusters_fn=lambda: sorted(
+                    {obj.cluster or "" for obj in self.aggregator.fleet_objects()}
+                ),
+                inventory_fn=lambda: (self.aggregator.fleet_objects() or None),
+                metrics=self.session.metrics,
+                logger=self.logger,
+                buffer_cap=config.federation_queue_records,
+                backoff_cap=float(config.federation_backoff_cap_seconds),
+            )
         # The metrics-acquisition posture is visible from the first /healthz
         # on.
         self.state.ingest = {"mode": config.metrics_mode}
@@ -1291,6 +1480,8 @@ class KrrServer:
             clock=clock,
             logger=self.logger,
             durable=self.durable,
+            aggregator=self.aggregator,
+            uplink=self.uplink,
         )
         self.app = HttpApp(
             self.state,
@@ -1320,6 +1511,13 @@ class KrrServer:
         self._server = await asyncio.start_server(
             self.app.handle_connection, self.config.server_host, self.config.server_port
         )
+        if self.aggregator is not None:
+            host, port = self._federation_endpoint
+            await self.aggregator.serve(host, port)
+            self.logger.info(
+                f"Federation aggregator listening on {host}:{self.aggregator.port} "
+                f"(shard staleness budget {self.aggregator.staleness:.0f}s)"
+            )
         if run_scheduler:
             self.scheduler.start()
         self.logger.info(
@@ -1341,6 +1539,17 @@ class KrrServer:
             self.app.abort_connections()
             await self._server.wait_closed()
             self._server = None
+        if self.uplink is not None:
+            # Best-effort drain: give the global tier a moment to ack the
+            # tail so a rolling restart doesn't force a full re-sync.
+            if self.scheduler.uplink_epoch > self.uplink.acked:
+                with contextlib.suppress(Exception):
+                    await self.uplink.wait_acked(
+                        self.scheduler.uplink_epoch, timeout=5.0
+                    )
+            await self.uplink.close()
+        if self.aggregator is not None:
+            await self.aggregator.close()
         if self.state.journal is not None:
             self.state.journal.close()
         if self.state.timeline is not None:

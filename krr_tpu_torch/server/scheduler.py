@@ -1,11 +1,11 @@
 """The background scan scheduler: incremental delta folds + slow re-discovery.
 
-A port of `krr_tpu/server/scheduler.py` for the single-process serve plane.
-The JAX scheduler's federation (aggregate ticks, the region uplink) and
-push-ingest seams belong to a later slice of the port (ROADMAP M10b):
-asking for one raises ``NotImplementedError`` naming its item, here and in
-the composition root. Watch discovery (``--discovery-mode watch``) is
-ported: its reconcile runs every tick.
+A port of `krr_tpu/server/scheduler.py`: the single-process serve plane,
+watch discovery (its reconcile runs every tick), and federation — the
+AGGREGATE tick that replaces the scan tick when an aggregator is set, and
+the region uplink. The push-ingest seam belongs to a later slice of the
+port (ROADMAP M10b.2): asking for it raises ``NotImplementedError`` naming
+its item, here and in the composition root.
 
 Tick semantics (the amortization contract):
 
@@ -84,8 +84,8 @@ def check_ported(config) -> None:
     mode."""
     if getattr(config, "metrics_mode", "pull") == "push":
         raise NotImplementedError(
-            "--metrics-mode push is not ported yet (ROADMAP M10b: federation "
-            "and push ingest); use the default --metrics-mode pull"
+            "--metrics-mode push is not ported yet (ROADMAP M10b.2: push "
+            "ingest); use the default --metrics-mode pull"
         )
 
 
@@ -106,14 +106,37 @@ class ScanScheduler:
         ingest=None,
         uplink=None,
     ) -> None:
-        if aggregator is not None or ingest is not None or uplink is not None:
+        if ingest is not None:
             raise NotImplementedError(
-                "the federation aggregator, the region uplink and the push "
-                "ingest plane are not ported yet (ROADMAP M10b)"
+                "the push ingest plane is not ported yet (ROADMAP M10b.2)"
             )
         check_ported(session.config)
         self.session = session
         self.state = state
+        #: Federation mode (`krr_tpu_torch.federation.aggregator`): when set, the
+        #: scheduler stops scanning — scanner shards own discover+fetch+fold
+        #: — and each tick becomes an AGGREGATE tick instead: replay queued
+        #: shard delta records into the fleet store (the WAL recovery path)
+        #: and publish the merged view through the unchanged pipeline.
+        self.aggregator = aggregator
+        #: Tiered aggregation (`--federation-uplink`): a standalone shard
+        #: Uplink (`krr_tpu_torch.federation.shard.Uplink`) this REGION
+        #: aggregator streams its own store's captured ops through, to a
+        #: higher-tier (global) aggregator — the shard protocol verbatim,
+        #: so the tiers compose without a second wire format. The region's
+        #: store runs with delta capture on; each aggregate tick encodes
+        #: the newly captured ops as one record at ``uplink_epoch + 1``.
+        self.uplink = uplink
+        self.uplink_epoch = 0
+        #: How many of the store's queued pending ops are already encoded
+        #: into uplink records (the uplink consumes the SAME capture the
+        #: durable persist drains; a failed persist keeps ops queued, and
+        #: this cursor keeps the uplink from re-encoding them).
+        self._uplink_consumed = 0
+        #: First uplink record flags ``reset`` — the global tier may hold
+        #: a previous incarnation's rows for this region.
+        self._uplink_needs_reset = True
+        self._uplink_inventory_keys: "Optional[tuple]" = None
         #: The durable persistence engine (`krr_tpu_torch.core.durastore`) when
         #: the serve composition opened one for state_path — per-tick delta
         #: WAL appends, threshold compaction, and the publish epoch the
@@ -330,6 +353,12 @@ class ScanScheduler:
             self.state.store.extra_meta["serve_fetch_plan"] = plan_states
         else:
             self.state.store.extra_meta.pop("serve_fetch_plan", None)
+        if self.aggregator is not None:
+            # Per-shard epoch watermarks ride the SAME record as the applied
+            # ops: recovery can never see ops without the watermark that
+            # acks them, which is what makes shard re-sends exactly-once
+            # across aggregator restarts.
+            self.state.store.extra_meta["federation"] = self.aggregator.export_meta()
         with DigestStore.locked(self.state_path):
             if self.durable is not None:
                 # Sharded: one appended delta record carrying this tick's
@@ -369,6 +398,87 @@ class ScanScheduler:
                     f"Digest state persistence to {self.state_path} recovered"
                 )
             self.state.persist_failing = False
+
+    # ---------------------------------------------------- tiered aggregation
+    async def _uplink_tick(self, objects, window_end: float) -> None:
+        """Encode this tick's newly captured store ops as one uplink record
+        (epoch ``uplink_epoch + 1``) and buffer it for the global tier —
+        the shard's ``_encode_tick`` with the region aggregator's merged
+        store as the source. The pending-op cursor (``_uplink_consumed``)
+        lets the uplink and the durable persist share one capture queue:
+        under a persist failure the ops stay queued (and
+        ``compact_pending`` re-encodes them in place, count preserved), so
+        the cursor stays valid until the fault-free persist drains them."""
+        from krr_tpu_torch.core.durastore import encode_ops
+        from krr_tpu_torch.federation.protocol import MSG_DELTA, encode_message
+        from krr_tpu_torch.core.streaming import object_key as _object_key
+
+        store = self.state.store
+        ops = store.pending_ops()
+        new = ops[self._uplink_consumed :]
+        extra = {"window_end": window_end, "kind": "region"}
+        if self._uplink_needs_reset:
+            extra["reset"] = True
+            self._uplink_needs_reset = False
+        epoch = self.uplink_epoch + 1
+        payload = await asyncio.to_thread(
+            encode_ops,
+            new,
+            epoch=epoch,
+            extra=extra,
+            num_buckets=store.spec.num_buckets,
+        )
+        await self.uplink.offer(epoch, encode_message(MSG_DELTA, payload))
+        self.uplink_epoch = epoch
+        self._uplink_consumed = len(ops)
+        if not self.state_path:
+            # Memory-only region: nothing else drains the capture.
+            store.clear_pending(len(ops))
+            self._uplink_consumed = 0
+        fingerprint = tuple(_object_key(obj) for obj in objects)
+        if fingerprint != self._uplink_inventory_keys:
+            self._uplink_inventory_keys = fingerprint
+            self.uplink.mark_inventory_dirty()
+
+    def _uplink_snapshot(self) -> "Optional[tuple[int, bytes]]":
+        """The region's whole merged store as ONE reset record at the
+        current uplink epoch — the re-sync path when the global tier never
+        met this incarnation (or regressed behind the pruned buffer).
+        Same contract as ``FederatedShard._snapshot_record``. Runs in a
+        worker thread (Uplink calls it via ``asyncio.to_thread``)."""
+        from krr_tpu_torch.core.durastore import encode_ops
+        from krr_tpu_torch.federation.protocol import MSG_DELTA, encode_message
+
+        store = self.state.store
+        keys = list(store.keys)
+        ops = (
+            [
+                (
+                    "fold",
+                    keys,
+                    store.cpu_counts,
+                    store.cpu_total,
+                    store.cpu_peak,
+                    store.mem_total,
+                    store.mem_peak,
+                )
+            ]
+            if keys
+            else []
+        )
+        if not ops and self.uplink_epoch <= 0:
+            return None
+        payload = encode_ops(
+            ops,
+            epoch=self.uplink_epoch,
+            extra={
+                "reset": True,
+                "window_end": self.state.last_end,
+                "kind": "snapshot",
+            },
+            num_buckets=store.spec.num_buckets,
+        )
+        return self.uplink_epoch, encode_message(MSG_DELTA, payload)
 
     # ------------------------------------------------- degraded-tick helpers
     def _step(self) -> float:
@@ -615,8 +725,177 @@ class ScanScheduler:
                 tracer.discard(scan_span.trace_id)
             return did_scan
 
+    async def _federation_tick(self, scan_span) -> bool:
+        """The AGGREGATE tick (federation mode): replay queued shard delta
+        records into the fleet store — the WAL recovery path on the wire —
+        then publish the merged view through the unchanged pipeline (store
+        query → hysteresis → journal → render → snapshot swap → durable
+        persist). Acks flush only after the persist proves the applied ops
+        durable (memory-only serves ack right after apply)."""
+        agg = self.aggregator
+        now = float(self.clock())
+        metrics = self.state.metrics
+        tracer = self.session.tracer
+
+        t0 = time.perf_counter()
+        stale = agg.stale_marks(now)
+        pending = agg.pending_records()
+        if (
+            not pending
+            and not agg.dirty
+            and stale == self.state.stale_workloads
+            and self.state.peek() is not None
+        ):
+            metrics.inc("krr_tpu_scans_skipped_total")
+            scan_span.set(kind="skipped")
+            return False
+        agg.dirty = False
+        with tracer.span("apply", records=pending):
+            applied, applied_bytes = await agg.apply_queued()
+        # Lineage stage 3, stamped with THIS process's clock (each hop's
+        # own clock keeps the chain monotone under pinned test clocks).
+        apply_ts = float(self.clock())
+        t1 = time.perf_counter()
+
+        objects = agg.fleet_objects()
+        # Re-read AFTER the apply: freshly applied windows un-stale shards.
+        stale = agg.stale_marks(now)
+        self.state.stale_workloads = stale
+        metrics.set("krr_tpu_stale_workloads", len(stale))
+        end = agg.newest_window_end() or self.state.last_end or now
+        if objects:
+            keys = [object_key(obj) for obj in objects]
+            rows = await asyncio.to_thread(self.state.store.rows_for, keys)
+            await self._recompute_and_publish(objects, rows, end)
+        elif not applied:
+            # Nothing applied AND nothing to render (no shard has
+            # delivered an inventory yet): a pure no-op round.
+            metrics.inc("krr_tpu_scans_skipped_total")
+            scan_span.set(kind="skipped")
+            return False
+        # else: ops applied before any inventory arrived (e.g. an
+        # aggregator restart mid-reconnect wave) — keep serving whatever is
+        # published, but still persist + ack the applied records below.
+        # The window cursor advances whenever records applied, published or
+        # not, so freshness accounting tracks the applied windows.
+        self.state.last_end = end
+        t2 = time.perf_counter()
+
+        if self.uplink is not None:
+            # Capture BEFORE the persist: save_delta drains the same
+            # pending-op queue this encodes from.
+            await self._uplink_tick(objects, end)
+        persist_seconds = 0.0
+        persist_bytes = 0
+        if self.state_path:
+            wal_before = self.durable.wal_size if self.durable is not None else 0
+            await self._persist()
+            persist_seconds = time.perf_counter() - t2
+            wal_after = self.durable.wal_size if self.durable is not None else 0
+            persist_bytes = max(0, wal_after - wal_before)
+            if not self.state.persist_failing:
+                self._uplink_consumed = 0  # the persist drained the capture
+        if not self.state.persist_failing:
+            # The applied ops are durable (or serve is memory-only, where
+            # apply IS the commit point): release the shards' buffers. A
+            # failing persist withholds acks — shards keep their records
+            # and the next fault-free tick's persist carries the backlog.
+            await agg.flush_acks()
+        # Stamp the published epoch's lineage + trace context BEFORE the
+        # broadcast, so the feed frame carries both and the replicas'
+        # install spans/acks can join this tick. `note_epoch` is the
+        # lineage commit point: it fires the fold/apply/publish freshness
+        # histograms exactly once per epoch.
+        from krr_tpu_torch.obs.trace import propagation_context
+
+        snapshot = self.state.peek()
+        publish_ts = float(self.clock())
+        lineage = agg.note_epoch(
+            snapshot.epoch if snapshot is not None else 0,
+            apply_ts=apply_ts,
+            publish_ts=publish_ts,
+            trace_ctx=propagation_context(scan_span, node=agg.node),
+        )
+        # Push this tick's published epoch to subscribed read replicas
+        # (no-op when the epoch didn't move or nothing is published yet —
+        # the frame still refreshes so late subscribers catch up warm).
+        await agg.broadcast_epoch()
+        if self.uplink is not None:
+            await self.uplink.pump()
+
+        metrics.inc("krr_tpu_scans_total", kind="aggregate")
+        metrics.set("krr_tpu_last_scan_timestamp_seconds", end)
+        metrics.set("krr_tpu_scan_duration_seconds", 0.0, phase="discover")
+        metrics.set("krr_tpu_scan_duration_seconds", 0.0, phase="fetch")
+        metrics.set("krr_tpu_scan_duration_seconds", t1 - t0, phase="fold")
+        metrics.set("krr_tpu_scan_duration_seconds", t2 - t1, phase="compute")
+        metrics.set("krr_tpu_digest_store_rows", len(self.state.store.keys))
+        metrics.set("krr_tpu_digest_store_bytes", self.state.store.nbytes)
+        agg.tick_gauges(now)
+        agg.fleet_gauges(now)
+        federation_stats = agg.tick_stats(now, applied)
+        # The timeline's lineage block: this epoch's hops, plus the newest
+        # REPLICA-ACKED epoch's install hop (acks land after the tick that
+        # published, so the install stage intentionally trails — the
+        # sentinel bands it against its own epoch's publish_ts).
+        timeline_lineage = dict(lineage) if lineage is not None else None
+        if timeline_lineage is not None:
+            timeline_lineage.pop("installs", None)
+            installed_record = agg.newest_installed_lineage()
+            if installed_record is not None:
+                timeline_lineage["install"] = {
+                    "epoch": installed_record.get("epoch"),
+                    "install_ts": installed_record.get("install_ts"),
+                    "publish_ts": installed_record.get("publish_ts"),
+                    "replicas": len(installed_record.get("installs") or {}),
+                }
+        scan_span.set(
+            kind="aggregate",
+            window_end=end,
+            objects=len(objects),
+            applied_records=applied,
+            shards=federation_stats["shards"],
+            stale_shards=federation_stats["stale_shards"],
+        )
+        self.state.last_scan_id = scan_span.trace_id
+        self.last_tick_stats = {
+            "scan_id": scan_span.trace_id,
+            "kind": "aggregate",
+            "window_start": end,
+            "window_end": end,
+            "objects": len(objects),
+            "failed_rows": 0,
+            "backfilled": 0,
+            "stale": len(stale),
+            "publish_changed": self.state.last_publish_changed,
+            "publish_suppressed": self.state.last_publish_suppressed,
+            "persist_seconds": persist_seconds,
+            "persist_bytes": persist_bytes,
+            "persist_failing": self.state.persist_failing,
+            "epoch": (
+                self.durable.epoch
+                if self.durable is not None and self.durable.fmt == "sharded"
+                else None
+            ),
+            "federation": federation_stats,
+        }
+        if timeline_lineage is not None:
+            self.last_tick_stats["lineage"] = timeline_lineage
+        self.logger.info(
+            f"aggregate tick {scan_span.trace_id or ''} applied {applied} shard "
+            f"record(s) ({applied_bytes} B) from "
+            f"{federation_stats['connected']}/{federation_stats['shards']} connected "
+            f"shard(s) ({len(self.state.store.keys)} store rows, "
+            f"{len(stale)} stale workload(s)): apply {t1 - t0:.2f}s, "
+            f"compute {t2 - t1:.2f}s"
+        )
+        return True
+
     async def _tick_traced(self, scan_span) -> bool:
         from krr_tpu_torch.strategies.simple import MEMORY_SCALE
+
+        if self.aggregator is not None:
+            return await self._federation_tick(scan_span)
 
         now = float(self.clock())
         metrics = self.state.metrics

@@ -306,8 +306,17 @@ class ServerState:
         #: and /statusz so "is the watch inventory fresh?" never needs a
         #: log grep. Empty until the first tick.
         self.discovery: dict = {}
+        #: The federation aggregator (`krr_tpu_torch.federation.aggregator`)
+        #: when serve runs with ``--federation-listen``: /healthz and
+        #: /statusz render its per-shard connected/epoch/lag state. None
+        #: otherwise.
+        self.federation = None
+        #: The epoch-feed client (`krr_tpu_torch.federation.replica`) when
+        #: this process is a ``replica``: /healthz and /statusz render its
+        #: subscription posture (source, feed epoch, lag). None otherwise.
+        self.replica = None
         #: Metrics-acquisition posture rendered on /healthz and /statusz:
-        #: ``{"mode": "pull"}`` (push ingest is ROADMAP M10b).
+        #: ``{"mode": "pull"}`` (push ingest is ROADMAP M10b.2).
         self.ingest: dict = {}
         #: The publish epoch — the read path's cache key and the ETag's
         #: leading component. Advances ONLY when a publish changes the
@@ -368,3 +377,30 @@ class ServerState:
     def peek(self) -> Optional[Snapshot]:
         """Lock-free read for logging/tests (reference reads are atomic)."""
         return self._snapshot
+
+    async def install_snapshot(
+        self, snapshot: Snapshot, *, variants: "Optional[dict[str, bytes]]" = None
+    ) -> bool:
+        """Install a snapshot whose epoch/changed_at were decided ELSEWHERE
+        — the replica feed path. Unlike :meth:`publish` (which allocates
+        the next local epoch), the caller's values install verbatim so the
+        replica's validators are byte-identical to its source's; stale
+        feeds (epoch at or below the installed one) are dropped, making
+        reconnect replays idempotent. ``variants`` pre-warms the response
+        cache with the source's rendered encodings under the unfiltered/
+        unpaged json key — the replica never re-renders what the feed
+        already carries. Returns whether the snapshot installed."""
+        async with self.rwlock.write():
+            previous = self._snapshot
+            if previous is not None and snapshot.epoch <= previous.epoch:
+                return False
+            self.publish_epoch = max(self.publish_epoch, int(snapshot.epoch))
+            self._snapshot = snapshot
+            if self.response_cache is not None:
+                self.response_cache.invalidate(snapshot.epoch)
+                base_key = ("json", (), (), (), None, 0)
+                for encoding, body in (variants or {}).items():
+                    self.response_cache.put(
+                        snapshot.epoch, (*base_key, encoding), body
+                    )
+            return True

@@ -5,10 +5,12 @@ apiserver + fake Prometheus of ``tests/test_integrations.py`` (the port with
 ``--device cpu``: its plain PyTorch versions). Machine formats and the table
 are compared byte for byte on stdout with ``-q`` (the greetings differ), for
 every strategy path and fetch option; flag names and boolean defaults are
-held to the JAX command's. ``serve`` and ``diff`` are held to the JAX
-commands' flags and defaults; ``diff`` and ``analyze --trend`` print the JAX
-commands' stdout. The last tests prove that without ``--device cpu`` the
-port asks for the card and refuses to scan or serve here.
+held to the JAX command's. ``serve``, ``shard``, ``replica``,
+``fleet-status`` and ``diff`` are held to the JAX commands' flags and
+defaults (the port has the JAX package's ten commands); ``diff`` and
+``analyze --trend`` print the JAX commands' stdout. The last tests prove
+that without ``--device cpu`` the port asks for the card and refuses to
+scan, serve or run a shard here.
 """
 
 from __future__ import annotations
@@ -462,18 +464,33 @@ def test_without_device_cpu_the_scan_asks_for_cuda(fake_env):  # noqa: F811
 
 
 #: ``serve`` flags of the JAX command the port lacks beyond
-#: ``JAX_ONLY_FLAGS``: federation and push ingest (ROADMAP M10b) and the
-#: freshness lineage that rides federation.
+#: ``JAX_ONLY_FLAGS``: push ingest (ROADMAP M10b.2).
 SERVE_JAX_ONLY_FLAGS = {
     "--ingest-port", "--ingest-verify-interval", "--ingest-max-body-bytes",
     "--ingest-lookback", "--ingest-max-samples-per-series", "--ingest-max-series",
-    "--federation-listen", "--federation-staleness", "--federation-queue-records",
-    "--federation-uplink", "--lineage",
 }
+
+
+def test_the_cli_has_the_jax_commands(apps):
+    jax_app, port_app = apps
+    assert set(port_app.commands) == set(jax_app.commands)
+    assert len(port_app.commands) == 10
+    assert {"shard", "replica", "fleet-status"} <= set(port_app.commands)
+
+
+@pytest.mark.parametrize("name", ["replica", "fleet-status"])
+def test_replica_and_fleet_status_list_exactly_the_jax_flags(apps, name):
+    """Neither runs a strategy, so neither takes ``--device``."""
+    jax_app, port_app = apps
+    assert _flag_names(port_app.commands[name]) == _flag_names(jax_app.commands[name])
+    port_params = [(p.name, p.opts, p.default, p.required) for p in port_app.commands[name].params]
+    jax_params = [(p.name, p.opts, p.default, p.required) for p in jax_app.commands[name].params]
+    assert port_params == jax_params
 
 
 @pytest.mark.parametrize("name,jax_only", [
     ("serve", JAX_ONLY_FLAGS | SERVE_JAX_ONLY_FLAGS),
+    ("shard", JAX_ONLY_FLAGS),
     ("diff", JAX_ONLY_FLAGS),
     # eval takes no strategy settings, so no --use_pallas to lack.
     ("eval", JAX_ONLY_FLAGS - {"--use_pallas"}),
@@ -489,7 +506,7 @@ def test_serve_and_diff_list_the_jax_flags(apps, name, jax_only):
         assert flag in help_text
 
 
-@pytest.mark.parametrize("name", ["serve", "diff", "eval"])
+@pytest.mark.parametrize("name", ["serve", "diff", "eval", "shard", "replica"])
 def test_serve_and_diff_boolean_defaults_match_jax(apps, name):
     """The real parser with no flags lands every boolean (the dual-name
     ``--hysteresis/--no-hysteresis``, ``--sentinel``, ``--savings``,
@@ -510,15 +527,19 @@ def test_serve_and_diff_boolean_defaults_match_jax(apps, name):
         if opt.name in fields:
             assert fields[opt.name].default == opt.default, opt.name
     if name == "serve":
-        for flag in ("hysteresis_enabled", "sentinel_enabled", "savings_enabled", "response_cache_enabled"):
+        for flag in ("hysteresis_enabled", "sentinel_enabled", "savings_enabled",
+                     "response_cache_enabled", "federation_lineage_enabled"):
             assert ctx.params[flag] is True
+    if name == "shard":
+        assert ctx.params["federation_lineage_enabled"] is True
 
 
 @pytest.mark.parametrize("args,item", [
-    # Watch discovery is ported; beside it, push ingest still refuses.
-    (["--discovery-mode", "watch", "--metrics-mode", "push"], "M10b"),
-    (["--metrics-mode", "push"], "M10b"),
-])
+    # Watch discovery and federation are ported; beside them, push ingest
+    # still refuses.
+    (["--discovery-mode", "watch", "--metrics-mode", "push"], "M10b.2"),
+    (["--metrics-mode", "push"], "M10b.2"),
+], ids=["args0-M10b", "args1-M10b"])
 def test_serve_modes_of_later_slices_exit_naming_their_item(apps, args, item):
     _, port_app = apps
     result = CliRunner().invoke(port_app, ["serve", *args, "--device", "cpu", "-p", "http://127.0.0.1:9"])
@@ -620,7 +641,8 @@ def test_diff_errors_equal_jax(apps, tmp_path, journal_env):
 @pytest.mark.parametrize("argv", [
     ["serve"],
     ["diff", "--live", "--journal", "{J}"],
-], ids=["serve", "diff-live"])
+    ["shard", "--aggregator", "127.0.0.1:9", "-n", "default"],
+], ids=["serve", "diff-live", "shard"])
 def test_without_device_cpu_serve_and_live_diff_ask_for_cuda(fake_env, journal_env, argv):  # noqa: F811
     """``serve`` and ``diff --live`` default to the card: with no card they
     exit 1 naming CUDA. A journal-vs-journal diff needs no card."""

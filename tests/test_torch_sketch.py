@@ -118,12 +118,21 @@ class TestBucketize:
         )
 
     @pytest.mark.parametrize(
-        "gamma, buckets, edge_misses", [(1.01, 2560, 16), (1.02, 512, 30), (1.01, 200, 13)]
+        "gamma, buckets, max_edge_misses", [(1.01, 2560, 16), (1.02, 512, 30), (1.01, 200, 13)]
     )
-    def test_matches_jax_but_at_edges(self, gamma, buckets, edge_misses):
+    def test_matches_jax_but_at_edges(self, gamma, buckets, max_edge_misses):
         """Seeded values agree everywhere; values placed on and one ulp
-        around every bucket edge agree except ``edge_misses`` of them, each
-        one bucket over and each within 4 float32 ulps of the edge."""
+        around every bucket edge agree except at most ``max_edge_misses`` of
+        them, each one bucket over and each within 4 float32 ulps of the
+        edge.
+
+        How many edge values land one bucket over depends on the host: it is
+        the gap between PyTorch's CPU ``log`` and XLA's, and both pick a
+        SIMD code path by the CPU they run on. The bound is the count of the
+        host the test was first written on (16, 30, 13; its CPU was not
+        recorded); an AMD EPYC with AVX-512 (torch 2.13.0+cpu, jax 0.9.0)
+        gives 7, 20, 4. A bound still catches a change that moves many
+        values; the per-value contract is exact."""
         jax_spec, port_spec = specs(gamma, buckets)
         rng = np.random.default_rng(5)
         seeded = np.concatenate([rng.gamma(2.0, 0.05, 100_000), 10 ** rng.uniform(-8, 4, 100_000)])
@@ -138,7 +147,7 @@ class TestBucketize:
         ref = np.asarray(jax_digest.bucketize(jax_spec, values))
         got = port_digest.bucketize(port_spec, torch.from_numpy(values)).numpy()
         miss = np.nonzero(got != ref)[0]
-        assert miss.size == edge_misses
+        assert miss.size <= max_edge_misses
         np.testing.assert_array_equal(np.abs(got[miss] - ref[miss]), 1)
         q = quotient(jax_spec, values[miss])
         ulp = np.spacing(np.abs(q).astype(np.float32)).astype(np.float64)
@@ -459,12 +468,20 @@ class TestDigestOps:
         apart = np.abs(port[known].view(np.int32).astype(np.int64) - ref[known].view(np.int32))
         assert apart.max() <= 2
 
-    @pytest.mark.parametrize("gamma, buckets, one_ulp, two_ulps", [(1.01, 2560, 205, 19), (1.02, 512, 41, 1)])
-    def test_every_bucket_estimate_within_two_ulps(self, gamma, buckets, one_ulp, two_ulps):
+    @pytest.mark.parametrize(
+        "gamma, buckets, max_one_ulp, max_two_ulps", [(1.01, 2560, 205, 19), (1.02, 512, 41, 1)]
+    )
+    def test_every_bucket_estimate_within_two_ulps(self, gamma, buckets, max_one_ulp, max_two_ulps):
         """Row k holds one sample in bucket k: the port's estimate for every
         bucket equals the JAX package's, or lies one or two float32 ulps
-        away (PyTorch's ``exp`` against XLA's CPU ``exp``) — on exactly
-        ``one_ulp`` and ``two_ulps`` buckets."""
+        away (PyTorch's ``exp`` against XLA's CPU ``exp``) — on at most
+        ``max_one_ulp`` and ``max_two_ulps`` buckets; the rest are equal.
+
+        The counts depend on the host (both libraries pick a SIMD ``exp``
+        by the CPU): the bounds are the first host's counts (2,336 / 205 /
+        19 and 470 / 41 / 1 at 0 / 1 / 2 ulps); an AMD EPYC with AVX-512
+        (torch 2.13.0+cpu, jax 0.9.0) gives 2,345 / 200 / 15 and
+        471 / 41 / 0."""
         jax_spec, port_spec = specs(gamma, buckets)
         counts = np.eye(buckets, dtype=np.float32)
         total = np.ones(buckets, dtype=np.float32)
@@ -472,7 +489,10 @@ class TestDigestOps:
         ref = np.asarray(jax_digest.percentile(jax_spec, jax_digest.Digest(counts, total, peak), 50.0))
         port = port_digest.percentile(port_spec, digest_from_arrays(counts, total, peak, device="cpu"), 50.0).numpy()
         apart = np.abs(port.view(np.int32).astype(np.int64) - ref.view(np.int32))
-        np.testing.assert_array_equal(np.bincount(apart, minlength=3), [buckets - one_ulp - two_ulps, one_ulp, two_ulps])
+        assert apart.max() <= 2
+        equal, one_ulp, two_ulps = np.bincount(apart, minlength=3)
+        assert one_ulp <= max_one_ulp and two_ulps <= max_two_ulps
+        assert equal == buckets - one_ulp - two_ulps
         assert port[0] == 0.0
         np.testing.assert_array_equal(port, port_digest.bucket_estimates(port_spec).numpy())
 
