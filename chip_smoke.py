@@ -175,9 +175,9 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    bytes, the fake's CPU seconds, the wire and decoded bytes and the range
    queries' transport phases (summed over queries) are printed.
 11. ``serve``   — the serve plane (`krr_tpu_torch.server`) on the ``cli``
-   phase's fixture (one child process serves both phases): ``KrrServer`` on
-   the default device, driven by ``run_once`` under an injected clock, a
-   fresh sharded state each. With ``--no-hysteresis``: a full 10-day tick at
+   phase's fixture (one child process serves ``cli``, ``serve`` and
+   ``push``): ``KrrServer`` on the default device, driven by ``run_once``
+   under an injected clock, a fresh sharded state each. With ``--no-hysteresis``: a full 10-day tick at
    ``origin + 10 d`` then a delta tick 2 days later must serve the
    ``/recommendations`` bytes and hold the store arrays of a cold server
    whose first tick covers the 12-day union window, having fetched a delta
@@ -201,7 +201,30 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    Every kernel's launch count stays 0 across the phase: the serve path and
    watch discovery are host code, as in the JAX package. The default
    server's journal is kept for ``eval``.
-12. ``federation`` — federation (`krr_tpu_torch.federation`) on its own
+12. ``push``    — push ingest (`krr_tpu_torch.ingest`, ``serve --metrics-mode
+   push``) on the ``cli`` fixture: a push server (``metrics_mode="push"``,
+   ``ingest_port=0``) and a pull control, both ``KrrServer``s on the default
+   device with ``--no-hysteresis``, under one injected clock that also pins
+   the scheduler's ``time.time()``. A seed tick over 10 days at ``origin +
+   10 d`` on both; the fixture's child then remote-writes the next 2 days of
+   every series (grid indices 961 … 1,152: 3.84 M samples in bodies of at
+   most 2,000 samples, ``tests/fakes/remote_write.py``'s encoding, POSTed in
+   order over one kept-alive connection) and both servers tick — the push
+   server folds every workload from its plane and audits it against one
+   range round; then the last 2 days (indices 1,153 … 1,343) and a steady
+   tick. Checked: both push ticks fold 10,000 objects, the audit reads
+   10,000 audited and 0 divergent, the steady tick adds 0 to the fake
+   Prometheus's request count, every body answers 204 and no sample is
+   rejected, the push server's store equals the control's bit for bit and
+   its ``/recommendations`` bytes, ETag and epoch equal the control's after
+   each tick, and every kernel's launch count stays 0 (push ingest is host
+   code, as in the JAX package). Printed: each window's bodies, samples,
+   wire bytes, the child's encode and send seconds, the listener's accepted
+   samples and bodies a second; each tick's wall and Prometheus requests on
+   both servers; the scheduler's ``_ingest_fold`` and the plane's
+   ``fold_fleet`` seconds; the samples buffered after the prune; the
+   process's RSS growth over the phase.
+13. ``federation`` — federation (`krr_tpu_torch.federation`) on its own
    fixture, built in a second child process started beside the ``cli``
    one: 10,000 one-pod Deployments at the ``cli`` shape (1,344 samples at
    15 minutes) in four namespaces of 2,500. On the default device, under one
@@ -226,7 +249,7 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    its wire bytes a tick; each aggregate tick's wall, apply and publish
    seconds, persist and applied records; the replica's install latency
    from the broadcast, its read ms (identity, gzip, 304); the phase's wall.
-13. ``eval``    — the replay scoreboard through the port's click command
+14. ``eval``    — the replay scoreboard through the port's click command
    (``eval --usage``) on the default device: the ``cli`` fixture's usage
    regenerated at its own shape (10,000 workloads × 1,344 samples, the same
    generator and seed) and written with ``ReplayInput.save_npz``, ``simple``
@@ -250,7 +273,7 @@ CUDA graph (the kernel's device time). Part of ``headline``; run alone
 beside the script, so a copy of the script placed in an unpacked older
 commit times that commit's kernel the same way.
 
-The last three lines (printed when all twelve default phases ran) are the
+The last three lines (printed when all thirteen default phases ran) are the
 card's ``nvidia-smi`` name and power limit, one
 ``{"kernels": [...]}`` JSON object (launch counts from the ``cli`` phase's
 warm runs; ``radix_digit_hist``'s from the ``stream`` phase's q = 50 scan),
@@ -263,6 +286,7 @@ from __future__ import annotations
 import argparse
 import asyncio
 import contextlib
+import inspect
 import json
 import os
 import statistics
@@ -1887,13 +1911,76 @@ def _serve_fixture(n_objects: int, samples: int, conn, namespaces: int = 1) -> N
     backend = FakeBackend(cluster, metrics)
     server = ServerThread(backend).start()
     conn.send((server.port, FakeBackend.SERIES_ORIGIN, time.perf_counter() - started))
-    # "counts" asks for the apiserver request counters; anything else (the
+    # "counts" asks for the apiserver request counters and the Prometheus
+    # request count; ("push", port, i0, i1) remote-writes grid indices
+    # [i0, i1] of every series to an ingest listener; anything else (the
     # parent's "done", or a closed pipe) stops the fixture.
     with contextlib.suppress(EOFError, OSError):
-        while conn.recv() == "counts":
-            conn.send({"lists": backend.list_request_count, "pod_lists": backend.pod_request_count,
-                       "watches": backend.watch_request_count})
+        while True:
+            message = conn.recv()
+            if message == "counts":
+                conn.send({"lists": backend.list_request_count, "pod_lists": backend.pod_request_count,
+                           "watches": backend.watch_request_count, "prom_requests": metrics.request_count})
+            elif isinstance(message, tuple) and message[0] == "push":
+                conn.send(_remote_write(metrics, *message[1:]))
+            else:
+                break
     server.stop()
+
+
+#: Prometheus's default ``queue_config.max_samples_per_send``: the most
+#: samples one remote-write body carries.
+PUSH_SAMPLES_PER_BODY = 2_000
+
+
+def _remote_write(metrics, port: int, i0: int, i1: int) -> dict:
+    """Remote-write grid indices [i0, i1] of every series the fake serves,
+    as a Prometheus sender would: bodies of at most
+    ``PUSH_SAMPLES_PER_BODY`` samples (a series split across bodies in time
+    order), POSTed in order over one kept-alive connection. Returns the
+    bodies, samples and bytes sent, the encode and send seconds and the
+    status codes."""
+    import http.client
+    from collections import Counter
+
+    from tests.fakes.remote_write import build_body, cpu_labels, mem_labels
+    from tests.fakes.servers import FakeBackend
+
+    started = time.perf_counter()
+    bodies, batch, room, samples_total = [], [], PUSH_SAMPLES_PER_BODY, 0
+    for (namespace, container, pod), (cpu, mem) in sorted(metrics.series.items()):
+        for labels, values in ((cpu_labels(namespace, pod, container), cpu),
+                               (mem_labels(namespace, pod, container), mem)):
+            hi = min(i1, len(values) - 1)
+            samples = [(float(values[i]), int(round((FakeBackend.SERIES_ORIGIN + i * CLI_STEP_SECONDS) * 1000.0)))
+                       for i in range(max(i0, 0), hi + 1)]
+            samples_total += len(samples)
+            while samples:
+                take, samples = samples[:room], samples[room:]
+                batch.append((labels, take))
+                room -= len(take)
+                if room == 0:
+                    bodies.append(build_body(batch))
+                    batch, room = [], PUSH_SAMPLES_PER_BODY
+    if batch:
+        bodies.append(build_body(batch))
+    encode_seconds = time.perf_counter() - started
+    statuses: Counter = Counter()
+    connection = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    started = time.perf_counter()
+    try:
+        for body in bodies:
+            connection.request("POST", "/api/v1/write", body=body, headers={
+                "Content-Type": "application/x-protobuf", "Content-Encoding": "snappy",
+                "X-Prometheus-Remote-Write-Version": "0.1.0"})
+            response = connection.getresponse()
+            response.read()
+            statuses[response.status] += 1
+    finally:
+        connection.close()
+    return {"bodies": len(bodies), "samples": samples_total, "bytes": sum(map(len, bodies)),
+            "encode_seconds": encode_seconds, "send_seconds": time.perf_counter() - started,
+            "statuses": {str(code): n for code, n in sorted(statuses.items())}}
 
 
 def _proc_cpu_seconds(pid: int) -> float:
@@ -1926,11 +2013,22 @@ class FakeServers:
         return self._ready
 
     def counts(self) -> dict:
-        """The fake apiserver's request counters: workload LISTs, pod LISTs
-        and watch requests served so far."""
+        """The fake apiserver's request counters (workload LISTs, pod LISTs
+        and watch requests) and the fake Prometheus's request count, served
+        so far."""
         self.ready()
         self._conn.send("counts")
         check(self._conn.poll(timeout=60), "the fake-server child did not report its counts")
+        return self._conn.recv()
+
+    def push(self, port: int, i0: int, i1: int) -> dict:
+        """Have the child remote-write grid indices [i0, i1] of every series
+        to the listener on ``port`` (`_remote_write`), and wait for its
+        report. Blocking: an event loop serving the listener calls it
+        through ``asyncio.to_thread``."""
+        self.ready()
+        self._conn.send(("push", port, i0, i1))
+        check(self._conn.poll(timeout=600), "the fake-server child did not finish its remote-write")
         return self._conn.recv()
 
     def close(self) -> None:
@@ -2234,6 +2332,197 @@ async def _serve_watch_leg(server, ticks, fakes: "FakeServers", tmp: str, t1: fl
           and not leg["restart_discovery"]["relists"]["seed"],
           f"serve watch: the restart relisted: {leg['restart_requests']} {leg['restart_discovery']}")
     return leg
+
+
+#: The ``push`` phase's windows on the ``cli`` fixture's grid (900 s steps,
+#: indices 0 … 1,343): the seed tick covers 10 days to index 960, the audit
+#: tick the next 2 days (indices 961 … 1,152, pushed first), the steady tick
+#: the rest (1,153 … 1,343). The audit runs on the first push-fed tick only.
+PUSH_SEED_INDEX = SERVE_HISTORY_HOURS * 3600 // int(CLI_STEP_SECONDS)
+PUSH_AUDIT_INDEX = PUSH_SEED_INDEX + int(SERVE_DELTA_SECONDS // CLI_STEP_SECONDS)
+PUSH_VERIFY_SECONDS = 7 * 86_400.0
+
+
+def _rss_bytes() -> int:
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024
+    return 0
+
+
+def phase_push(fakes: "FakeServers", smi: str) -> dict:
+    """Push ingest (`krr_tpu_torch.ingest`, ``serve --metrics-mode push``)
+    on the ``cli`` fixture: see the module docstring. Host code end to end,
+    as in the JAX package — the phase holds every kernel's launch count
+    at 0."""
+    import tempfile
+
+    import krr_tpu_torch.server.scheduler as scheduler_module
+
+    url, origin, _fixture_seconds = fakes.ready()
+    _reset_counts()
+    # The snapshot's ``published_at`` (the ETag's millisecond stamp) reads
+    # ``time.time()`` in the scheduler: pinned to the phase's clock, so the
+    # push server's and the control's validators compare exactly.
+    clock = [origin]
+    real_time = scheduler_module.time
+    scheduler_module.time = type("PinnedTime", (), {
+        "time": staticmethod(lambda: clock[0]), "perf_counter": staticmethod(time.perf_counter),
+        "monotonic": staticmethod(time.monotonic)})
+    try:
+        with tempfile.TemporaryDirectory(prefix="krr-push-smoke-") as tmp:
+            kubeconfig = os.path.join(tmp, "kubeconfig")
+            _write_kubeconfig(kubeconfig, url)
+            report = asyncio.run(_phase_push(url, origin, kubeconfig, clock, fakes))
+    finally:
+        scheduler_module.time = real_time
+    launches, generic = _read_counts()
+    check(not any(launches.values()) and not any(generic.values()),
+          f"push: a kernel launched during the phase: {launches} {generic}")
+    report["launches"] = launches
+    emit("push", nvidia_smi=smi, **report)
+    return report
+
+
+def _timed(store: list, fn):
+    """``fn`` (a coroutine function or a plain one) appending each call's
+    wall seconds to ``store``."""
+    if inspect.iscoroutinefunction(fn):
+        async def run_async(*args, **kwargs):
+            started = time.perf_counter()
+            try:
+                return await fn(*args, **kwargs)
+            finally:
+                store.append(time.perf_counter() - started)
+
+        return run_async
+
+    def run(*args, **kwargs):
+        started = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            store.append(time.perf_counter() - started)
+
+    return run
+
+
+async def _phase_push(url: str, origin: float, kubeconfig: str, clock: list, fakes: "FakeServers") -> dict:
+    import numpy as np
+
+    from krr_tpu_torch.core.config import Config
+    from krr_tpu_torch.server.app import KrrServer
+
+    started_phase = time.perf_counter()
+    device_args = {} if DEVICE == "cuda" else {"device": DEVICE}
+    ends = [origin + i * CLI_STEP_SECONDS for i in (PUSH_SEED_INDEX, PUSH_AUDIT_INDEX, CLI_SAMPLES - 1)]
+
+    def server(**overrides):
+        other_args = {"history_duration": SERVE_HISTORY_HOURS, "timeframe_duration": int(CLI_STEP_SECONDS // 60),
+                      **device_args}
+        config = Config(kubeconfig=kubeconfig, prometheus_url=url, strategy="tdigest", quiet=True,
+                        server_port=0, hysteresis_enabled=False, other_args=other_args, **overrides)
+        return KrrServer(config, clock=lambda: clock[0])
+
+    rss_before = _rss_bytes()
+    push = server(metrics_mode="push", ingest_port=0, ingest_verify_interval_seconds=PUSH_VERIFY_SECONDS)
+    control = server()
+    check(push.session.strategy.device.type == control.session.strategy.device.type == DEVICE,
+          f"push: the strategies are bound to {push.session.strategy.device}, {control.session.strategy.device}")
+    check(push.ingest is not None and control.ingest is None, "push: the servers' ingest planes are not as asked")
+    plane = push.ingest
+    # The push leg inside each push tick: the scheduler's fold (the plane's
+    # fold, the audit when due, the prune) and the plane's fold alone.
+    legs: dict = {"ingest_fold": [], "fold_fleet": []}
+    push.scheduler._ingest_fold = _timed(legs["ingest_fold"], push.scheduler._ingest_fold)
+    plane.fold_fleet = _timed(legs["fold_fleet"], plane.fold_fleet)
+
+    def store_of(ks) -> dict:
+        store = ks.state.store
+        return {"keys": list(store.keys), **{f: getattr(store, f) for f in STORE_FIELDS}}
+
+    async def tick(ks, at: float) -> dict:
+        clock[0] = at
+        before = fakes.counts()["prom_requests"]
+        started = time.perf_counter()
+        did_scan = await ks.scheduler.run_once()
+        wall = time.perf_counter() - started
+        check(did_scan is True, f"push: the tick at {at} did not scan ({did_scan}): {ks.state.last_scan_error}")
+        records = ks.state.timeline.records() if ks.state.timeline is not None else []
+        return {"wall_seconds": wall, "prom_requests": fakes.counts()["prom_requests"] - before,
+                "ingest": dict(records[-1].get("ingest") or {}) if records else None}
+
+    async def served(ks) -> tuple:
+        status, headers, body, _ms = await _http(ks.port, "/recommendations")
+        check(status == 200, f"push: /recommendations answered {status}")
+        return body, headers["ETag"], headers["X-KRR-Epoch"]
+
+    async def compare(label: str) -> None:
+        check(same_store_bits(np, store_of(push), store_of(control)),
+              f"push {label}: the push server's store != the pull control's")
+        mine, theirs = await served(push), await served(control)
+        check(mine[0] == theirs[0], f"push {label}: /recommendations bytes != the pull control's")
+        check(mine[1:] == theirs[1:], f"push {label}: ETag/epoch {mine[1:]} != the pull control's {theirs[1:]}")
+
+    async def remote_write(i0: int, i1: int) -> dict:
+        samples_before = push.state.metrics.value("krr_tpu_ingest_samples_total") or 0.0
+        # The child POSTs while this loop serves the listener: a blocking
+        # recv here would deadlock.
+        sent = await asyncio.to_thread(fakes.push, push.ingest_listener.port, i0, i1)
+        accepted = (push.state.metrics.value("krr_tpu_ingest_samples_total") or 0.0) - samples_before
+        check(sent["statuses"] == {"204": sent["bodies"]}, f"push: the listener answered {sent['statuses']}")
+        check(accepted == sent["samples"], f"push: {accepted} samples accepted of {sent['samples']} sent")
+        sent["accepted_samples"] = accepted
+        sent["accepted_samples_per_second"] = accepted / sent["send_seconds"]
+        sent["bodies_per_second"] = sent["bodies"] / sent["send_seconds"]
+        sent["wire_bytes_per_sample"] = sent["bytes"] / sent["samples"]
+        return sent
+
+    report: dict = {"objects": CLI_OBJECTS, "series": 2 * CLI_OBJECTS, "history_hours": SERVE_HISTORY_HOURS,
+                    "samples_per_body": PUSH_SAMPLES_PER_BODY}
+    await push.start(run_scheduler=False)
+    await control.start(run_scheduler=False)
+    try:
+        seed = {"push": await tick(push, ends[0]), "control": await tick(control, ends[0])}
+        check((seed["push"]["ingest"] or {}).get("push_objects") == 0, f"push seed: {seed['push']['ingest']}")
+        await compare("seed")
+        report["rss_after_seed_bytes"] = _rss_bytes()
+
+        report["audit_window"] = await remote_write(PUSH_SEED_INDEX + 1, PUSH_AUDIT_INDEX)
+        audit = {"push": await tick(push, ends[1]), "control": await tick(control, ends[1])}
+        ingest = audit["push"]["ingest"] or {}
+        check(ingest.get("push_objects") == CLI_OBJECTS, f"push audit tick: {ingest.get('push_objects')} push objects")
+        check(ingest.get("verify") == {"audited": CLI_OBJECTS, "divergent": 0}, f"push audit: {ingest.get('verify')}")
+        await compare("audit")
+
+        report["steady_window"] = await remote_write(PUSH_AUDIT_INDEX + 1, CLI_SAMPLES - 1)
+        steady = {"push": await tick(push, ends[2]), "control": await tick(control, ends[2])}
+        ingest = steady["push"]["ingest"] or {}
+        check(ingest.get("push_objects") == CLI_OBJECTS, f"push steady tick: {ingest.get('push_objects')} push objects")
+        check(ingest.get("verify") is None, f"push steady tick audited: {ingest.get('verify')}")
+        check(steady["push"]["prom_requests"] == 0,
+              f"push: the steady tick sent Prometheus {steady['push']['prom_requests']} requests")
+        await compare("steady")
+        stats = plane.stats()
+        check(stats["rejected"] == {} and stats["decode_errors_total"] == 0 and stats["tombstones_total"] == 0,
+              f"push: samples rejected or bodies refused: {stats}")
+        report["rss_after_steady_bytes"] = _rss_bytes()
+        report["rss_growth_bytes"] = report["rss_after_steady_bytes"] - rss_before
+        report["ticks"] = {"seed": seed, "audit": audit, "steady": steady}
+        report["ingest_fold_seconds"] = legs["ingest_fold"]
+        report["fold_fleet_seconds"] = legs["fold_fleet"]
+        report["plane"] = {k: stats[k] for k in ("series", "buffered_samples", "samples_total", "bodies_total",
+                                                  "bytes_total")}
+        report["buffered_samples_after_prune"] = ingest["buffered_samples"]
+        report["freshness_seconds"] = ingest["freshness_seconds"]
+        report["verify_total"] = push.state.metrics.value("krr_tpu_ingest_verify_total")
+        report["push_objects_total"] = push.state.metrics.value("krr_tpu_ingest_push_objects_total")
+    finally:
+        await push.shutdown()
+        await control.shutdown()
+    report["wall_seconds"] = time.perf_counter() - started_phase
+    return report
 
 
 #: The ``eval`` phase: replay ticks, the launches each strategy's replay must
@@ -3019,10 +3308,11 @@ def _cli_state(invoke, common: list, tdigest_json: str, tmp: str) -> dict:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
-        "--phases", default="build,parity,digest_proof,headline,e2e,stream,state,mesh,cli,serve,federation,eval",
+        "--phases",
+        default="build,parity,digest_proof,headline,e2e,stream,state,mesh,cli,serve,push,federation,eval",
         help="comma-separated subset of build,parity,digest_proof,headline,e2e,stream,state,mesh,cli,serve,"
-        "federation,eval,row_max_main (default: the first twelve; the kernels line and the ok line need all "
-        "twelve)",
+        "push,federation,eval,row_max_main (default: the first thirteen; the kernels line and the ok line "
+        "need all thirteen)",
     )
     args = parser.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -3065,9 +3355,9 @@ def main(argv=None) -> int:
     del fleet, rendered  # the fleet's 9.7 GB of samples are not needed past here
     # Started here, after the timed phases: the fixture builds (tens of
     # seconds of one host core each, in two child processes started
-    # together) must not overlap the kernel timings. One fixture serves both
-    # the ``cli`` and the ``serve`` phase; ``federation`` has its own.
-    fakes = FakeServers(CLI_OBJECTS, CLI_SAMPLES) if {"cli", "serve"} & phases else None
+    # together) must not overlap the kernel timings. One fixture serves the
+    # ``cli``, ``serve`` and ``push`` phases; ``federation`` has its own.
+    fakes = FakeServers(CLI_OBJECTS, CLI_SAMPLES) if {"cli", "serve", "push"} & phases else None
     fed_fakes = FakeServers(FED_OBJECTS, CLI_SAMPLES, FED_NAMESPACES) if "federation" in phases else None
     import tempfile
 
@@ -3075,6 +3365,7 @@ def main(argv=None) -> int:
         try:
             cli = timed("cli", phase_cli, fakes) if "cli" in phases else None
             serve = timed("serve", phase_serve, fakes, smi, keep_dir) if "serve" in phases else None
+            pushed = timed("push", phase_push, fakes, smi) if "push" in phases else None
             if fakes is not None:
                 fakes.close()
             federation = timed("federation", phase_federation, fed_fakes, smi) if "federation" in phases else None
@@ -3085,7 +3376,7 @@ def main(argv=None) -> int:
         journal = serve["journal_copy"] if serve is not None else None
         evaluated = timed("eval", phase_eval, torch, np, smi, journal) if "eval" in phases else None
     emit("walls", seconds=walls)
-    if None in (headline, e2e, stream, state, mesh, cli, serve, federation, evaluated, parity, proof) \
+    if None in (headline, e2e, stream, state, mesh, cli, serve, pushed, federation, evaluated, parity, proof) \
             or "build" not in phases:
         print(smi)
         return 0

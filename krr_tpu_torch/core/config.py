@@ -8,8 +8,9 @@ history journal and hysteresis gate, flight recorder and sentinel, SLO
 engine), fleet-axis row chunking and the compute device. Level 2 — the
 per-strategy ``StrategySettings`` — rides in ``other_args`` and is reflected
 into CLI flags by `krr_tpu_torch.main`. The federation fields (the shard,
-aggregator, ring, replica and lineage knobs) are the JAX package's; the
-push-ingest fields arrive with ROADMAP M10b.2.
+aggregator, ring, replica and lineage knobs) and the push-ingest fields
+(the remote-write listener, the plane's buffers and the audit cadence) are
+the JAX package's.
 
 Cluster detection is lazy and lives in the integrations layer: nothing
 authenticates at import time.
@@ -129,8 +130,7 @@ class Config(pd.BaseModel):
     #: standalone loaders without a state path keep the inventory
     #: memory-only.
     discovery_snapshot_path: Optional[str] = None
-    # Push-based metrics ingest (the JAX package's `krr_tpu/ingest`; the
-    # port's ingest plane is ROADMAP M10b.2, and "push" raises until then).
+    # Push-based metrics ingest (`krr_tpu_torch.ingest`).
     #: How serve ticks get their samples. "pull" issues Prometheus range
     #: queries every tick (the classic shape). "push" runs a remote-write
     #: listener and folds buffered samples at tick time — a steady-state
@@ -138,6 +138,30 @@ class Config(pd.BaseModel):
     #: seed, the per-series-watermark gap backfill, and the periodic
     #: divergence audit's ground truth.
     metrics_mode: Literal["pull", "push"] = "pull"
+    #: Remote-write listener bind port (push mode). 0 = ephemeral (tests;
+    #: the chosen port is logged and shown on /statusz).
+    ingest_port: int = pd.Field(9201, ge=0, le=65535)
+    #: Push-mode ground-truth audit cadence: every this many seconds the
+    #: tick's push-fed windows are ALSO range-fetched and compared row for
+    #: row — divergence is logged, counted
+    #: (``krr_tpu_ingest_verify_divergences_total``), and repaired by
+    #: adopting the range rows and invalidating the diverged series buffers.
+    #: 0 = auto: four scan intervals. Mirrors the discovery audit's ladder.
+    ingest_verify_interval_seconds: float = pd.Field(0.0, ge=0)
+    #: Largest accepted remote-write POST body (compressed bytes); larger
+    #: declarations are refused with 413 before the body is read.
+    ingest_max_body_bytes: int = pd.Field(16 << 20, gt=0)
+    #: Staleness horizon for grid evaluation: a grid point takes the newest
+    #: buffered sample no older than this (the Prometheus staleness default,
+    #: so push folds see what a range query would have returned).
+    ingest_lookback_seconds: float = pd.Field(300.0, gt=0)
+    #: Per-series buffer cap; overflow sheds the oldest samples (counted)
+    #: and pulls the series' completeness watermark forward so affected
+    #: windows fall back to the range path instead of folding short.
+    ingest_max_samples_per_series: int = pd.Field(8192, gt=0)
+    #: Resident series cap: new series beyond it are rejected (counted) —
+    #: a mislabeled fleet can't balloon the plane.
+    ingest_max_series: int = pd.Field(500_000, gt=0)
 
     # Logging settings
     format: str = "table"

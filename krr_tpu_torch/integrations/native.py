@@ -18,8 +18,11 @@ omits that label), ``parse_matrix_stats`` (per-series count + exact max),
 the fused parse+digest ``parse_matrix_digest`` (digest ingest), and the
 streamed sink (:class:`StreamIngest`, stats or digest mode). Digest ingest
 bucketizes with the same C++ code as the JAX package, so both packages'
-ingest digests agree bit for bit. The remote-write decoder of
-`krr_tpu/integrations/native.py` waits for the push-ingest slice.
+ingest digests agree bit for bit. Push ingest reads the remote-write decoder
+(:func:`decode_remote_write`: snappy block + protobuf ``WriteRequest`` →
+label records, samples, timestamps, per-series counts; native scanner with a
+pure-Python twin) and :func:`digest_samples`, the same bucketizer the range
+fetch uses.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from __future__ import annotations
 import ctypes
 import json
 import os
+import struct
 import subprocess
 import threading
 from typing import Optional
@@ -154,6 +158,23 @@ def _load_library() -> Optional[ctypes.CDLL]:
                 ctypes.c_long,
                 ctypes.POINTER(ctypes.c_double),
                 ctypes.c_long,
+            ]
+            lib.krr_rw_uncompressed_len.restype = ctypes.c_longlong
+            lib.krr_rw_uncompressed_len.argtypes = [ctypes.c_char_p, ctypes.c_longlong]
+            lib.krr_rw_decode.restype = ctypes.c_longlong
+            lib.krr_rw_decode.argtypes = [
+                ctypes.c_char_p,
+                ctypes.c_longlong,
+                ctypes.c_longlong,
+                ctypes.c_char_p,
+                ctypes.c_longlong,
+                ctypes.POINTER(ctypes.c_double),
+                ctypes.POINTER(ctypes.c_longlong),
+                ctypes.c_longlong,
+                ctypes.POINTER(ctypes.c_longlong),
+                ctypes.c_longlong,
+                ctypes.POINTER(ctypes.c_longlong),
+                ctypes.POINTER(ctypes.c_longlong),
             ]
             lib.krr_digest_array.restype = ctypes.c_longlong
             lib.krr_digest_array.argtypes = [
@@ -636,6 +657,298 @@ def parse_matrix_stats(body: bytes) -> SeriesStats:
         (key, float(samples.size), float(samples.max()) if samples.size else float("-inf"))
         for key, samples in parse_matrix(body)
     ]
+
+
+# --------------------------------------------------------------- remote-write
+class RemoteWriteError(ValueError):
+    """Malformed remote-write body (snappy framing or protobuf bytes) — the
+    listener answers 400 and counts it; nothing was partially ingested."""
+
+
+class RemoteWriteTooLarge(RemoteWriteError):
+    """The snappy preamble promises more than the decode cap — rejected
+    before allocating (decompression-bomb guard); the listener answers 413."""
+
+
+#: Decoded remote-write body: '\n'-joined per-series records of '\t'-joined
+#: label name/value fields (wire order), flat series-major float64 samples,
+#: parallel int64 millisecond timestamps, and per-series sample counts. The
+#: native and Python decoders produce bit-identical tuples — the decoder
+#: parity test's contract.
+DecodedWrite = tuple[bytes, np.ndarray, np.ndarray, np.ndarray]
+
+
+#: Varints wrap at 64 bits and field numbers at 32, as in the native
+#: scanner's ``unsigned long long`` / ``unsigned int`` reads: the JAX
+#: package's twin keeps the unbounded Python integer, so a 10-byte varint
+#: with high bits set decodes there to a different field, or to a timestamp
+#: numpy cannot hold (``OverflowError``), where the native scanner decodes it.
+_U64 = (1 << 64) - 1
+_U32 = (1 << 32) - 1
+
+
+def _snappy_decompress_python(body: bytes, max_decoded: int) -> bytes:
+    """Snappy BLOCK format (the remote-write framing), pure Python: uvarint
+    uncompressed-length preamble, then literal and 1/2/4-byte-offset copy
+    tags. Same malformed-input rules as the native twin."""
+    pos = 0
+    expect = 0
+    shift = 0
+    while True:
+        if pos >= len(body) or shift >= 64:
+            raise RemoteWriteError("truncated snappy length preamble")
+        b = body[pos]
+        pos += 1
+        expect |= (b & 0x7F) << shift
+        if not b & 0x80:
+            break
+        shift += 7
+    expect &= _U64
+    if expect > 1 << 62:  # the native preamble read's bound
+        raise RemoteWriteError("truncated snappy length preamble")
+    if expect > max_decoded:
+        raise RemoteWriteTooLarge(
+            f"snappy preamble promises {expect} bytes (cap {max_decoded})"
+        )
+    out = bytearray()
+    n = len(body)
+    while pos < n:
+        tag = body[pos]
+        pos += 1
+        kind = tag & 3
+        if kind == 0:  # literal
+            length = (tag >> 2) + 1
+            if length > 60:
+                extra = length - 60
+                if pos + extra > n:
+                    raise RemoteWriteError("truncated snappy literal length")
+                length = int.from_bytes(body[pos : pos + extra], "little") + 1
+                pos += extra
+            if pos + length > n or len(out) + length > expect:
+                raise RemoteWriteError("truncated snappy literal")
+            out += body[pos : pos + length]
+            pos += length
+        else:  # copy
+            if kind == 1:
+                length = ((tag >> 2) & 7) + 4
+                if pos >= n:
+                    raise RemoteWriteError("truncated snappy copy")
+                offset = ((tag >> 5) << 8) | body[pos]
+                pos += 1
+            elif kind == 2:
+                length = (tag >> 2) + 1
+                if pos + 2 > n:
+                    raise RemoteWriteError("truncated snappy copy")
+                offset = int.from_bytes(body[pos : pos + 2], "little")
+                pos += 2
+            else:
+                length = (tag >> 2) + 1
+                if pos + 4 > n:
+                    raise RemoteWriteError("truncated snappy copy")
+                offset = int.from_bytes(body[pos : pos + 4], "little")
+                pos += 4
+            if offset <= 0 or offset > len(out) or len(out) + length > expect:
+                raise RemoteWriteError("invalid snappy copy")
+            # Overlapping copies (offset < length) are the RLE idiom: the
+            # defined semantics is a byte-at-a-time forward copy.
+            for _ in range(length):
+                out.append(out[-offset])
+    if len(out) != expect:
+        raise RemoteWriteError("snappy output length mismatch")
+    return bytes(out)
+
+
+def _pb_varint(data: bytes, pos: int) -> tuple[int, int]:
+    value = 0
+    shift = 0
+    while shift < 64:
+        if pos >= len(data):
+            raise RemoteWriteError("truncated protobuf varint")
+        b = data[pos]
+        pos += 1
+        value |= (b & 0x7F) << shift
+        if not b & 0x80:
+            return value & _U64, pos
+        shift += 7
+    raise RemoteWriteError("overlong protobuf varint")
+
+
+def _pb_skip(data: bytes, pos: int, wire_type: int) -> int:
+    if wire_type == 0:
+        _, pos = _pb_varint(data, pos)
+        return pos
+    if wire_type == 1:
+        pos += 8
+    elif wire_type == 2:
+        length, pos = _pb_varint(data, pos)
+        pos += length
+    elif wire_type == 5:
+        pos += 4
+    else:
+        raise RemoteWriteError(f"unsupported protobuf wire type {wire_type}")
+    if pos > len(data):
+        raise RemoteWriteError("truncated protobuf field")
+    return pos
+
+
+def decode_remote_write_python(
+    body: bytes, max_decoded: int = 64 << 20
+) -> DecodedWrite:
+    """Pure-Python remote-write decoder: the fallback twin of
+    :func:`decode_remote_write_native`, and the oracle its parity test
+    compares against. Raises :class:`RemoteWriteError` on malformed bytes."""
+    data = _snappy_decompress_python(body, max_decoded)
+    records: list[bytes] = []
+    values: list[float] = []
+    timestamps: list[int] = []
+    lens: list[int] = []
+    unpack_double = struct.Struct("<d").unpack_from
+
+    pos = 0
+    while pos < len(data):
+        key, pos = _pb_varint(data, pos)
+        field, wire_type = (key >> 3) & _U32, key & 7
+        if field == 1 and wire_type == 2:  # repeated TimeSeries
+            ts_len, pos = _pb_varint(data, pos)
+            ts_end = pos + ts_len
+            if ts_end > len(data):
+                raise RemoteWriteError("truncated TimeSeries")
+            fields: list[bytes] = []
+            count = 0
+            while pos < ts_end:
+                sub_key, pos = _pb_varint(data, pos)
+                sub_field, sub_wt = (sub_key >> 3) & _U32, sub_key & 7
+                if sub_field in (1, 2) and sub_wt == 2:
+                    sub_len, pos = _pb_varint(data, pos)
+                    sub_end = pos + sub_len
+                    if sub_end > ts_end:
+                        raise RemoteWriteError("truncated TimeSeries submessage")
+                    if sub_field == 1:  # Label{name, value}
+                        name = value = b""
+                        while pos < sub_end:
+                            l_key, pos = _pb_varint(data, pos)
+                            l_field, l_wt = (l_key >> 3) & _U32, l_key & 7
+                            if l_field in (1, 2) and l_wt == 2:
+                                l_len, pos = _pb_varint(data, pos)
+                                if pos + l_len > sub_end:
+                                    raise RemoteWriteError("truncated Label string")
+                                chunk = data[pos : pos + l_len]
+                                pos += l_len
+                                if l_field == 1:
+                                    name = chunk
+                                else:
+                                    value = chunk
+                            else:
+                                pos = _pb_skip(data, pos, l_wt)
+                        if pos != sub_end:
+                            # A skip crossed the Label boundary: the native
+                            # scanner bounds every read by the submessage and
+                            # rejects this — the twin must too.
+                            raise RemoteWriteError("misaligned Label submessage")
+                        if b"\t" in name or b"\n" in name or b"\t" in value or b"\n" in value:
+                            raise RemoteWriteError("separator byte inside a label")
+                        fields.append(name + b"\t" + value)
+                    else:  # Sample{value, timestamp}
+                        v = 0.0
+                        ts = 0
+                        while pos < sub_end:
+                            s_key, pos = _pb_varint(data, pos)
+                            s_field, s_wt = (s_key >> 3) & _U32, s_key & 7
+                            if s_field == 1 and s_wt == 1:
+                                if pos + 8 > sub_end:
+                                    raise RemoteWriteError("truncated Sample value")
+                                (v,) = unpack_double(data, pos)
+                                pos += 8
+                            elif s_field == 2 and s_wt == 0:
+                                raw, pos = _pb_varint(data, pos)
+                                # int64 two's complement, like the native cast
+                                ts = raw - (1 << 64) if raw >= (1 << 63) else raw
+                            else:
+                                pos = _pb_skip(data, pos, s_wt)
+                        if pos != sub_end:
+                            raise RemoteWriteError("misaligned Sample submessage")
+                        values.append(v)
+                        timestamps.append(ts)
+                        count += 1
+                else:
+                    pos = _pb_skip(data, pos, sub_wt)
+            if pos != ts_end:
+                raise RemoteWriteError("misaligned TimeSeries submessage")
+            records.append(b"\t".join(fields))
+            lens.append(count)
+        else:  # metadata etc.: skipped
+            pos = _pb_skip(data, pos, wire_type)
+    return (
+        b"\n".join(records),
+        np.asarray(values, dtype=np.float64),
+        np.asarray(timestamps, dtype=np.int64),
+        np.asarray(lens, dtype=np.int64),
+    )
+
+
+def decode_remote_write_native(
+    body: bytes, max_decoded: int = 64 << 20
+) -> Optional[DecodedWrite]:
+    """Native remote-write decode, or None when the library is unavailable /
+    a capacity estimate fell short (callers fall back to the Python twin).
+    Malformed bytes raise :class:`RemoteWriteError`, same as the fallback."""
+    lib = _load_library()
+    if lib is None:
+        return None
+    decoded_len = lib.krr_rw_uncompressed_len(body, len(body))
+    if decoded_len < 0:
+        raise RemoteWriteError("truncated snappy length preamble")
+    if decoded_len > max_decoded:
+        raise RemoteWriteTooLarge(
+            f"snappy preamble promises {decoded_len} bytes (cap {max_decoded})"
+        )
+    # Worst-case shapes from the uncompressed size: a Sample can be 2 wire
+    # bytes (empty submessage -> value 0 @ ts 0), a TimeSeries 2 bytes, and
+    # the names arena adds at most one separator per >=2-byte wire string.
+    values_cap = decoded_len // 2 + 16
+    series_cap = decoded_len // 2 + 16
+    names_cap = 2 * decoded_len + 64
+    values = np.empty(values_cap, dtype=np.float64)
+    timestamps = np.empty(values_cap, dtype=np.int64)
+    lens = np.empty(series_cap, dtype=np.int64)
+    names = ctypes.create_string_buffer(names_cap)
+    out_values_n = ctypes.c_longlong(0)
+    out_names_len = ctypes.c_longlong(0)
+    n = lib.krr_rw_decode(
+        body,
+        len(body),
+        max_decoded,
+        names,
+        names_cap,
+        values.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+        timestamps.ctypes.data_as(ctypes.POINTER(ctypes.c_longlong)),
+        values_cap,
+        lens.ctypes.data_as(ctypes.POINTER(ctypes.c_longlong)),
+        series_cap,
+        ctypes.byref(out_values_n),
+        ctypes.byref(out_names_len),
+    )
+    if n == -1:
+        return None  # capacity shortfall: let the Python twin handle it
+    if n == -3:
+        raise RemoteWriteTooLarge("decoded size exceeds the cap")
+    if n < 0:
+        raise RemoteWriteError("malformed remote-write body")
+    return (
+        names.raw[: out_names_len.value],
+        values[: out_values_n.value].copy(),
+        timestamps[: out_values_n.value].copy(),
+        lens[:n].copy(),
+    )
+
+
+def decode_remote_write(body: bytes, max_decoded: int = 64 << 20) -> DecodedWrite:
+    """Decode one remote-write body: native scanner when available, pure
+    Python otherwise — identical outputs either way."""
+    decoded = decode_remote_write_native(body, max_decoded)
+    if decoded is None:
+        decoded = decode_remote_write_python(body, max_decoded)
+    return decoded
 
 
 def digest_samples(

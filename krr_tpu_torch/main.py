@@ -23,10 +23,9 @@ scan (`krr_tpu_torch.history.diff`); both ride the ``tdigest`` strategy.
 to a ``serve --federation-listen`` aggregator, ``replica`` serves an
 aggregator's epoch feed, and ``fleet-status`` prints its ``GET /fleet``
 census; ``shard`` takes ``--device`` like ``serve``, ``replica`` and
-``fleet-status`` run no strategy and take none.
-
-Not ported yet (ROADMAP M10b.2): ``serve``'s push-ingest flags
-(``--ingest-*``); ``--metrics-mode push`` raises.
+``fleet-status`` run no strategy and take none. ``serve --metrics-mode push``
+runs the remote-write listener and folds its buffered streams
+(`krr_tpu_torch.ingest`), configured by the ``--ingest-*`` flags.
 """
 
 from __future__ import annotations
@@ -487,9 +486,8 @@ def _common_options() -> list[click.Option]:
     ]
 
 def _server_options() -> list[click.Option]:
-    """The serve plane's options: the JAX command's, minus the push-ingest
-    flags (ROADMAP M10b.2). ``--metrics-mode push`` parses but refuses to
-    run."""
+    """The serve plane's options: the JAX command's, the push-ingest flags
+    among them."""
     from krr_tpu_torch.core.config import Config
 
     defaults = {name: Config.model_fields[name].default for name in (
@@ -498,6 +496,8 @@ def _server_options() -> list[click.Option]:
         "trace_ring_scans", "store_shard_rows", "store_compact_wal_ratio",
         "store_compact_min_wal_mb", "response_cache_max_entries",
         "response_cache_max_mb", "server_render_concurrency", "server_render_queue",
+        "ingest_port", "ingest_verify_interval_seconds", "ingest_max_body_bytes",
+        "ingest_lookback_seconds", "ingest_max_samples_per_series", "ingest_max_series",
     )}
     return [
         PanelOption(
@@ -582,9 +582,71 @@ def _server_options() -> list[click.Option]:
                 "listener that buffers samples as they arrive so a "
                 "steady-state tick folds the buffered window with zero "
                 "range queries, keeping the range path as the cold-start "
-                "seed and the gap-backfill ladder. Not ported yet: 'push' "
-                "exits naming ROADMAP M10b.2."
+                "seed and the gap-backfill ladder."
             ),
+        ),
+        PanelOption(
+            ["--ingest-port", "ingest_port"],
+            type=int,
+            default=defaults["ingest_port"],
+            show_default=True,
+            panel="Server Settings",
+            help=(
+                "Port the remote-write ingest listener binds in push mode "
+                "(0 = ephemeral)."
+            ),
+        ),
+        PanelOption(
+            ["--ingest-verify-interval", "ingest_verify_interval_seconds"],
+            type=float,
+            default=defaults["ingest_verify_interval_seconds"],
+            show_default=True,
+            panel="Server Settings",
+            help=(
+                "Push-mode ground-truth audit cadence: every this many "
+                "seconds the push-fed windows are compared against a "
+                "range-fetched control, counting + repairing any drift. "
+                "0 = auto (four scan intervals)."
+            ),
+        ),
+        PanelOption(
+            ["--ingest-max-body-bytes", "ingest_max_body_bytes"],
+            type=int,
+            default=defaults["ingest_max_body_bytes"],
+            show_default=True,
+            panel="Server Settings",
+            help="Largest remote-write POST body the listener accepts (413 past it).",
+        ),
+        PanelOption(
+            ["--ingest-lookback", "ingest_lookback_seconds"],
+            type=float,
+            default=defaults["ingest_lookback_seconds"],
+            show_default=True,
+            panel="Server Settings",
+            help=(
+                "Staleness window for push-fed grid evaluation — a grid "
+                "point sees the newest sample at most this old, matching "
+                "Prometheus range-query semantics."
+            ),
+        ),
+        PanelOption(
+            ["--ingest-max-samples-per-series", "ingest_max_samples_per_series"],
+            type=int,
+            default=defaults["ingest_max_samples_per_series"],
+            show_default=True,
+            panel="Server Settings",
+            help=(
+                "Per-series ingest buffer cap; overflow sheds oldest samples "
+                "and the affected windows fall back to range fetches."
+            ),
+        ),
+        PanelOption(
+            ["--ingest-max-series", "ingest_max_series"],
+            type=int,
+            default=defaults["ingest_max_series"],
+            show_default=True,
+            panel="Server Settings",
+            help="Resident-series ceiling; new series past it are rejected with a counter.",
         ),
         PanelOption(
             ["--min-fetch-success-pct", "min_fetch_success_pct"],
@@ -1033,17 +1095,15 @@ def _make_serve_command(strategy_name: str, strategy_type: Any) -> click.Command
         import pydantic
 
         from krr_tpu_torch.server.app import run_server
-        from krr_tpu_torch.server.scheduler import check_ported
 
         config = _config_from_kwargs(strategy_name, settings_fields, kwargs, format="json")
         try:
-            check_ported(config)
             config.create_strategy()  # validate settings and the device up front
         except pydantic.ValidationError as e:
             raise _settings_error(e) from e
-        except (RuntimeError, NotImplementedError) as e:
-            # A `cuda` device without a card, or a mode of a later slice:
-            # a clear error and a nonzero exit, never a quiet CPU service.
+        except RuntimeError as e:
+            # A `cuda` device without a card: a clear error and a nonzero
+            # exit, never a quiet CPU service.
             raise click.ClickException(str(e)) from e
         asyncio.run(run_server(config))
 

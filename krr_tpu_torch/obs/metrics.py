@@ -12,8 +12,8 @@ assignment (atomic under the GIL).
 
 The metric names keep the ``krr_tpu_`` prefix, so dashboards and recording
 rules read both packages alike. Only the families this package fires are
-declared: the federation, replica and fleet families with the federation
-slice; the ingest families arrive with ROADMAP M10b.2.
+declared: the federation, replica and fleet families with federation, the
+``krr_tpu_ingest_*`` families with push ingest.
 """
 
 from __future__ import annotations
@@ -47,6 +47,18 @@ SERVER_METRICS: tuple[tuple, ...] = (
     ("krr_tpu_discovery_verify_divergences_total", "counter", "Streams whose watched inventory diverged from the verify relist's ground truth (logged and repaired by adopting the relist)."),
     ("krr_tpu_discovery_inventory_age_seconds", "gauge", "Seconds since the watch-maintained inventory last reconciled into an object list."),
     ("krr_tpu_discovery_watch_lag_seconds", "gauge", "Seconds since the stalest watch stream last made progress (event, bookmark, or relist)."),
+    # Push-based metrics ingest (`krr_tpu_torch.ingest`, --metrics-mode push).
+    ("krr_tpu_ingest_requests_total", "counter", "Remote-write POSTs to the ingest listener by response code (204 accepted, 400 malformed, 413 oversized, 500 unexpected)."),
+    ("krr_tpu_ingest_bytes_total", "counter", "Compressed remote-write body bytes accepted by the ingest listener."),
+    ("krr_tpu_ingest_samples_total", "counter", "Samples accepted into the ingest plane's series buffers (the push samples/s ceiling reads off this counter's rate)."),
+    ("krr_tpu_ingest_rejected_samples_total", "counter", "Samples rejected by the ingest plane by reason (out_of_order|duplicate|unknown_metric|filtered|missing_labels|malformed_labels|series_limit|buffer_overflow) — rejected, counted, never folded."),
+    ("krr_tpu_ingest_tombstones_total", "counter", "Non-finite remote-write samples treated as tombstones: the series watermark advances, nothing folds."),
+    ("krr_tpu_ingest_series", "gauge", "Series buffers resident in the ingest plane."),
+    ("krr_tpu_ingest_buffered_samples", "gauge", "Samples buffered across the ingest plane's series, post-prune."),
+    ("krr_tpu_ingest_freshness_seconds", "gauge", "Age of the STALEST ingest series watermark at the last tick — push-plane lag; climbing means the remote-writer stalled and ticks are falling back to range backfill."),
+    ("krr_tpu_ingest_push_objects_total", "counter", "Workload windows folded from the push plane (zero range queries) across all ticks."),
+    ("krr_tpu_ingest_verify_total", "counter", "Push-mode divergence audits run: push-fed windows re-fetched as range ground truth and compared bit for bit."),
+    ("krr_tpu_ingest_verify_divergences_total", "counter", "Push-fed windows that diverged from the audit's range-fetched ground truth (logged, repaired by adopting the range rows, buffers invalidated)."),
     ("krr_tpu_scan_duration_seconds", "gauge", "Last scan's wall seconds by leg (discover|fetch|fold|compute)."),
     ("krr_tpu_scan_pipeline_seconds", "gauge", "Last scan's streamed-pipeline stage busy seconds (fetch = producer span, fold = consumer busy)."),
     ("krr_tpu_scan_overlap_pct", "gauge", "Fetch/fold overlap of the last scan's streamed pipeline as a percentage of the shorter stage (100 = fully hidden)."),

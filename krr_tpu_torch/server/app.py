@@ -2,9 +2,9 @@
 
 A port of `krr_tpu/server/app.py`: the same routes, bodies, headers and
 status codes, the federation aggregator and region uplink behind
-``--federation-listen`` / ``--federation-uplink``, and ``GET /fleet`` (the
-federation census, 404 on a serve that is not an aggregator). The push
-ingest listener is ROADMAP M10b.2.
+``--federation-listen`` / ``--federation-uplink``, ``GET /fleet`` (the
+federation census, 404 on a serve that is not an aggregator), and the push
+ingest plane with its remote-write listener behind ``--metrics-mode push``.
 
 Deliberately framework-free: the API is a handful of GET routes serving
 pre-rendered or worker-thread-rendered bodies, and the stdlib's
@@ -72,7 +72,7 @@ from krr_tpu_torch.core.streaming import DigestStore
 from krr_tpu_torch.models.result import Result
 from krr_tpu_torch.obs.metrics import record_build_info
 from krr_tpu_torch.obs.trace import NULL_TRACER, NullTracer, Tracer
-from krr_tpu_torch.server.scheduler import ScanScheduler, check_ported
+from krr_tpu_torch.server.scheduler import ScanScheduler
 from krr_tpu_torch.server.state import ServerState
 from krr_tpu_torch.utils.logging import KrrLogger
 
@@ -713,7 +713,10 @@ class HttpApp:
             # fresh the resident inventory and its watch streams are
             # (inventory_age_seconds / watch_lag_seconds).
             "discovery": dict(self.state.discovery),
-            # Metrics-acquisition posture: the active metrics mode.
+            # Push-ingest posture: the active metrics mode and, in push
+            # mode, the plane's freshness/series/rejection state — a
+            # stalled remote-writer shows up here before it shows up as
+            # range-backfill fetch spikes.
             "ingest": dict(self.state.ingest),
             "stale_workloads": len(self.state.stale_workloads),
             "consecutive_scan_failures": self.state.consecutive_scan_failures,
@@ -1206,7 +1209,6 @@ class KrrServer:
         # --history-path "" forces memory-only even with a state_path).
         from krr_tpu_torch.history.journal import RecommendationJournal
 
-        check_ported(config)
         state_path = getattr(settings, "state_path", None)
         journal_path = config.history_path
         if journal_path is None and state_path:
@@ -1469,8 +1471,31 @@ class KrrServer:
                 buffer_cap=config.federation_queue_records,
                 backoff_cap=float(config.federation_backoff_cap_seconds),
             )
-        # The metrics-acquisition posture is visible from the first /healthz
-        # on.
+        # Push ingest plane (`krr_tpu_torch.ingest`): --metrics-mode push runs a
+        # remote-write listener whose buffered streams feed delta ticks
+        # directly — steady-state ticks issue zero range queries, and the
+        # range path remains the seed / gap-backfill / audit ground truth.
+        self.ingest = None
+        self.ingest_listener = None
+        if config.metrics_mode == "push":
+            from krr_tpu_torch.ingest import IngestPlane, RemoteWriteListener
+
+            self.ingest = IngestPlane(
+                lookback_seconds=config.ingest_lookback_seconds,
+                max_samples_per_series=config.ingest_max_samples_per_series,
+                max_series=config.ingest_max_series,
+                metrics=self.session.metrics,
+            )
+            self.ingest_listener = RemoteWriteListener(
+                self.ingest,
+                host=config.server_host,
+                port=config.ingest_port,
+                max_body_bytes=config.ingest_max_body_bytes,
+                metrics=self.session.metrics,
+                logger=self.logger,
+            )
+        # The ingest posture is visible from the first /healthz on; the
+        # scheduler's per-tick stats refine it as ticks complete.
         self.state.ingest = {"mode": config.metrics_mode}
         self.scheduler = ScanScheduler(
             self.session,
@@ -1481,6 +1506,7 @@ class KrrServer:
             logger=self.logger,
             durable=self.durable,
             aggregator=self.aggregator,
+            ingest=self.ingest,
             uplink=self.uplink,
         )
         self.app = HttpApp(
@@ -1518,6 +1544,15 @@ class KrrServer:
                 f"Federation aggregator listening on {host}:{self.aggregator.port} "
                 f"(shard staleness budget {self.aggregator.staleness:.0f}s)"
             )
+        if self.ingest_listener is not None:
+            await self.ingest_listener.start()
+            self.state.ingest["port"] = self.ingest_listener.port
+            self.logger.info(
+                f"Remote-write ingest listening on "
+                f"{self.ingest_listener.host}:{self.ingest_listener.port} "
+                f"(POST /api/v1/write; audit every "
+                f"{self.scheduler.ingest_verify_interval:.0f}s)"
+            )
         if run_scheduler:
             self.scheduler.start()
         self.logger.info(
@@ -1531,6 +1566,8 @@ class KrrServer:
         consistent — see ``ScanScheduler.stop``), then the listener, then
         the outbound clients."""
         await self.scheduler.stop()
+        if self.ingest_listener is not None:
+            await self.ingest_listener.stop()
         if self._server is not None:
             self._server.close()
             # Established keep-alive connections survive close(); abort

@@ -1,11 +1,10 @@
 """The background scan scheduler: incremental delta folds + slow re-discovery.
 
 A port of `krr_tpu/server/scheduler.py`: the single-process serve plane,
-watch discovery (its reconcile runs every tick), and federation — the
+watch discovery (its reconcile runs every tick), federation — the
 AGGREGATE tick that replaces the scan tick when an aggregator is set, and
-the region uplink. The push-ingest seam belongs to a later slice of the
-port (ROADMAP M10b.2): asking for it raises ``NotImplementedError`` naming
-its item, here and in the composition root.
+the region uplink — and push ingest: the push-fed fold of seasoned
+workloads from the remote-write plane and its periodic range audit.
 
 Tick semantics (the amortization contract):
 
@@ -78,17 +77,6 @@ from krr_tpu_torch.server.state import ServerState, Snapshot
 from krr_tpu_torch.utils.logging import KrrLogger
 
 
-def check_ported(config) -> None:
-    """Refuse the serve modes whose modules belong to later slices of the
-    port, naming the ROADMAP item — never a silent fallback to the default
-    mode."""
-    if getattr(config, "metrics_mode", "pull") == "push":
-        raise NotImplementedError(
-            "--metrics-mode push is not ported yet (ROADMAP M10b.2: push "
-            "ingest); use the default --metrics-mode pull"
-        )
-
-
 class ScanScheduler:
     """Drives a :class:`ScanSession` incrementally against a :class:`ServerState`."""
 
@@ -106,13 +94,14 @@ class ScanScheduler:
         ingest=None,
         uplink=None,
     ) -> None:
-        if ingest is not None:
-            raise NotImplementedError(
-                "the push ingest plane is not ported yet (ROADMAP M10b.2)"
-            )
-        check_ported(session.config)
         self.session = session
         self.state = state
+        #: Push ingest plane (`krr_tpu_torch.ingest`, ``--metrics-mode push``):
+        #: when set, delta ticks fold seasoned workloads whose buffered
+        #: streams COVER the window straight from the plane — zero range
+        #: queries — while anything the watermarks can't vouch for rides
+        #: the classic range legs (gap backfill). None = pull mode.
+        self.ingest = ingest
         #: Federation mode (`krr_tpu_torch.federation.aggregator`): when set, the
         #: scheduler stops scanning — scanner shards own discover+fetch+fold
         #: — and each tick becomes an AGGREGATE tick instead: replay queued
@@ -210,6 +199,13 @@ class ScanScheduler:
         #: the timeline's ``discovery`` block carries per-TICK event/relist
         #: deltas, the same delta discipline as the plan counters.
         self._discovery_totals: "dict[str, float]" = {}
+        #: Push-mode divergence audit cadence (0 = auto: four scan
+        #: intervals, mirroring the discovery audit's default ladder).
+        self.ingest_verify_interval = (
+            float(getattr(config, "ingest_verify_interval_seconds", 0.0))
+            or 4.0 * self.scan_interval
+        )
+        self._last_ingest_verify_at: float = -float("inf")
         #: key → grid-aligned start of the first window its fetch missed:
         #: the catch-up fetch's left edge. Persisted in the store's
         #: extra_meta (same atomic save as the cursor) — a restart must
@@ -1006,6 +1002,24 @@ class ScanScheduler:
         else:
             seasoned = objects
 
+        # Push-fed leg (--metrics-mode push): seasoned workloads whose
+        # buffered remote-write streams COVER [start, end] — every pod
+        # series of both resources joined before the window and watermarked
+        # past its end — fold from the plane with ZERO range queries.
+        # Anything the watermarks can't vouch for (a listener outage, a
+        # late-joining series, a shed buffer) stays on the range legs: the
+        # gap-backfill arm of the ladder.
+        push_objs: list[K8sObjectData] = []
+        if self.ingest is not None and kind == "delta" and seasoned:
+            range_objs: list[K8sObjectData] = []
+            for obj in seasoned:
+                (
+                    push_objs
+                    if self.ingest.push_ready(obj, start, end)
+                    else range_objs
+                ).append(obj)
+            seasoned = range_objs
+
         use_pipeline = self.session.config.pipeline_depth > 0
         pipeline_stats = []
 
@@ -1036,7 +1050,7 @@ class ScanScheduler:
             )
 
         legs: list[tuple[list[K8sObjectData], float, str]] = []
-        has_seasoned_leg = bool(seasoned) or not (fresh or catchup)
+        has_seasoned_leg = bool(seasoned) or not (fresh or catchup or push_objs)
         if has_seasoned_leg:
             legs.append((seasoned, start, kind))
         if fresh:
@@ -1055,6 +1069,14 @@ class ScanScheduler:
             if isinstance(fleet, BaseException):
                 raise fleet
 
+        # Fold the push-fed leg from the plane's buffered streams: the same
+        # grid, digest arithmetic, and merge semantics as a range fetch of
+        # [start, end] — bit-exactness is the contract, audited below.
+        ingest_tick: "Optional[dict]" = None
+        if self.ingest is not None:
+            ingest_tick = await self._ingest_fold(
+                objects, push_objs, start, end, step, now, fleets
+            )
         t2 = time.perf_counter()
 
         # Fault isolation: failed workloads QUARANTINE (their windows stay
@@ -1216,6 +1238,7 @@ class ScanScheduler:
             "backfilled": len(fresh),
             "stale": len(self._quarantine),
             "discovery": self._discovery_tick_stats(now),
+            "ingest": ingest_tick,
             "publish_changed": self.state.last_publish_changed,
             "publish_suppressed": self.state.last_publish_suppressed,
             "persist_seconds": persist_seconds,
@@ -1234,6 +1257,113 @@ class ScanScheduler:
             f"fold {t3 - t2:.2f}s, compute {t4 - t3:.2f}s"
         )
         return True
+
+    # ------------------------------------------------- push-ingest fold
+    async def _ingest_fold(
+        self,
+        objects: "list[K8sObjectData]",
+        push_objs: "list[K8sObjectData]",
+        start: float,
+        end: float,
+        step: float,
+        now: float,
+        fleets: list,
+    ) -> dict:
+        """Fold the push-fed leg and (on the audit cadence) verify it
+        against a range-fetched ground truth.
+
+        The audit mirrors the discovery audit's ladder: every
+        ``--ingest-verify-interval`` seconds the push-folded rows are ALSO
+        range-fetched over the same window and compared exactly — counts,
+        totals, peaks, bit for bit. Divergent rows are counted, REPAIRED by
+        adopting the range rows into this tick's fold, and their buffered
+        series invalidated so the next tick range-backfills them fresh."""
+        metrics = self.state.metrics
+        settings = self.session.strategy.settings
+        spec = settings.cpu_spec()
+        verify: "Optional[dict]" = None
+        if push_objs:
+            key_to_row = {object_key(o): i for i, o in enumerate(objects)}
+            push_rows = [key_to_row[object_key(o)] for o in push_objs]
+            push_fleet = await asyncio.to_thread(
+                self.ingest.fold_fleet,
+                objects,
+                push_rows,
+                start,
+                end,
+                step,
+                spec.gamma,
+                spec.min_value,
+                spec.num_buckets,
+            )
+            if now - self._last_ingest_verify_at >= self.ingest_verify_interval:
+                self._last_ingest_verify_at = now
+                metrics.inc("krr_tpu_ingest_verify_total")
+                control = await self.session.gather_fleet_digests(
+                    push_objs,
+                    history_seconds=end - start,
+                    step_seconds=settings.timeframe_timedelta.total_seconds(),
+                    end_time=end,
+                    raise_on_failure=False,
+                )
+                audited = divergent = 0
+                for j, obj in enumerate(push_objs):
+                    if j in control.failed_rows:
+                        continue  # no ground truth for this row this round
+                    audited += 1
+                    i = push_rows[j]
+                    if (
+                        np.array_equal(push_fleet.cpu_counts[i], control.cpu_counts[j])
+                        and push_fleet.cpu_total[i] == control.cpu_total[j]
+                        and push_fleet.cpu_peak[i] == control.cpu_peak[j]
+                        and push_fleet.mem_total[i] == control.mem_total[j]
+                        and push_fleet.mem_peak[i] == control.mem_peak[j]
+                    ):
+                        continue
+                    divergent += 1
+                    metrics.inc("krr_tpu_ingest_verify_divergences_total")
+                    # Repair: this tick folds the RANGE row (ground truth),
+                    # and the diverged buffers drop so the next window
+                    # range-backfills instead of re-folding bad samples.
+                    push_fleet.cpu_counts[i] = control.cpu_counts[j]
+                    push_fleet.cpu_total[i] = control.cpu_total[j]
+                    push_fleet.cpu_peak[i] = control.cpu_peak[j]
+                    push_fleet.mem_total[i] = control.mem_total[j]
+                    push_fleet.mem_peak[i] = control.mem_peak[j]
+                    self.ingest.invalidate_object(obj)
+                    self.logger.warning(
+                        f"Ingest audit: push-fed window diverged from range "
+                        f"ground truth for {object_key(obj)} — repaired from "
+                        f"the range fetch, buffers invalidated"
+                    )
+                verify = {"audited": audited, "divergent": divergent}
+            fleets.append(push_fleet)
+            metrics.inc("krr_tpu_ingest_push_objects_total", len(push_objs))
+        # Retention: folded windows never look back past the lookback from
+        # the window's right edge — keep one full lookback of slack.
+        await asyncio.to_thread(
+            self.ingest.prune, int(round((end - self.ingest.lookback_ms / 1000.0) * 1000.0))
+        )
+        stats = self.ingest.stats()
+        freshness = self.ingest.freshness_seconds(now)
+        metrics.set("krr_tpu_ingest_series", stats["series"])
+        metrics.set("krr_tpu_ingest_buffered_samples", stats["buffered_samples"])
+        if freshness is not None:
+            metrics.set("krr_tpu_ingest_freshness_seconds", freshness)
+        tick = {
+            "mode": "push",
+            "push_objects": len(push_objs),
+            "verify": verify,
+            "freshness_seconds": freshness,
+            "series": stats["series"],
+            "buffered_samples": stats["buffered_samples"],
+            "samples_total": stats["samples_total"],
+            "rejected": stats["rejected"],
+        }
+        # Refresh the /healthz + /statusz posture in place (the listener's
+        # bound port, set at start, rides along untouched).
+        self.state.ingest.update(tick)
+        return tick
 
     # ----------------------------------------------- discovery tick stats
     def _discovery_tick_stats(self, now: float) -> dict:

@@ -315,8 +315,11 @@ class ServerState:
         #: this process is a ``replica``: /healthz and /statusz render its
         #: subscription posture (source, feed epoch, lag). None otherwise.
         self.replica = None
-        #: Metrics-acquisition posture rendered on /healthz and /statusz:
-        #: ``{"mode": "pull"}`` (push ingest is ROADMAP M10b.2).
+        #: Push-ingest posture (`krr_tpu_torch.ingest`, ``--metrics-mode push``):
+        #: the active mode, the listener's bound port, and the scheduler's
+        #: per-tick plane stats (series, buffered samples, freshness,
+        #: rejection counts) — rendered on /healthz and /statusz so "is the
+        #: push plane keeping up?" never needs a log grep.
         self.ingest: dict = {}
         #: The publish epoch — the read path's cache key and the ETag's
         #: leading component. Advances ONLY when a publish changes the

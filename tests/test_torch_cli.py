@@ -463,14 +463,6 @@ def test_without_device_cpu_the_scan_asks_for_cuda(fake_env):  # noqa: F811
     assert '"scans"' not in proc.stdout
 
 
-#: ``serve`` flags of the JAX command the port lacks beyond
-#: ``JAX_ONLY_FLAGS``: push ingest (ROADMAP M10b.2).
-SERVE_JAX_ONLY_FLAGS = {
-    "--ingest-port", "--ingest-verify-interval", "--ingest-max-body-bytes",
-    "--ingest-lookback", "--ingest-max-samples-per-series", "--ingest-max-series",
-}
-
-
 def test_the_cli_has_the_jax_commands(apps):
     jax_app, port_app = apps
     assert set(port_app.commands) == set(jax_app.commands)
@@ -489,7 +481,7 @@ def test_replica_and_fleet_status_list_exactly_the_jax_flags(apps, name):
 
 
 @pytest.mark.parametrize("name,jax_only", [
-    ("serve", JAX_ONLY_FLAGS | SERVE_JAX_ONLY_FLAGS),
+    ("serve", JAX_ONLY_FLAGS),
     ("shard", JAX_ONLY_FLAGS),
     ("diff", JAX_ONLY_FLAGS),
     # eval takes no strategy settings, so no --use_pallas to lack.
@@ -534,17 +526,71 @@ def test_serve_and_diff_boolean_defaults_match_jax(apps, name):
         assert ctx.params["federation_lineage_enabled"] is True
 
 
+def test_serve_defaults_and_ingest_flags_match_jax(apps):
+    """Every option serve shares with the JAX command has its default; the
+    six ``--ingest-*`` flags also have its names, types and help."""
+    jax_app, port_app = apps
+    jax_params = {p.name: p for p in jax_app.commands["serve"].params}
+    port_params = {p.name: p for p in port_app.commands["serve"].params}
+    for name in set(jax_params) & set(port_params):
+        assert port_params[name].default == jax_params[name].default, name
+    ingest = sorted(name for name in jax_params if name.startswith("ingest_"))
+    assert len(ingest) == 6
+    for name in ingest:
+        mine, theirs = port_params[name], jax_params[name]
+        assert (mine.opts, mine.type.name, mine.help) == (theirs.opts, theirs.type.name, theirs.help), name
+        assert PortConfig.model_fields[name].default == mine.default, name
+
+
 @pytest.mark.parametrize("args,item", [
-    # Watch discovery and federation are ported; beside them, push ingest
-    # still refuses.
+    # Push ingest (ROADMAP M10b.2) is ported: with and without watch
+    # discovery, serve composes its plane and listener as the JAX one does.
     (["--discovery-mode", "watch", "--metrics-mode", "push"], "M10b.2"),
     (["--metrics-mode", "push"], "M10b.2"),
 ], ids=["args0-M10b", "args1-M10b"])
-def test_serve_modes_of_later_slices_exit_naming_their_item(apps, args, item):
-    _, port_app = apps
-    result = CliRunner().invoke(port_app, ["serve", *args, "--device", "cpu", "-p", "http://127.0.0.1:9"])
-    assert result.exit_code == 1
-    assert "not ported yet" in result.output and item in result.output
+def test_serve_modes_of_later_slices_exit_naming_their_item(apps, monkeypatch, args, item):
+    """``serve --metrics-mode push`` with every ``--ingest-*`` flag set
+    reaches ``run_server`` in both packages with the same Config fields, and
+    each ``KrrServer`` composes an ``IngestPlane`` and a
+    ``RemoteWriteListener`` with the same settings. No refusal naming
+    ``item`` is left."""
+    import krr_tpu.server.app as jax_server_app
+    import krr_tpu_torch.server.app as port_server_app
+
+    jax_app, port_app = apps
+    flags = [*args, "--ingest-port", "0", "--ingest-verify-interval", "900",
+             "--ingest-max-body-bytes", "4096", "--ingest-lookback", "120",
+             "--ingest-max-samples-per-series", "64", "--ingest-max-series", "77",
+             "--port", "0", "-p", "http://127.0.0.1:9", "-q"]
+    configs = {}
+    for name, module, app, extra in (("jax", jax_server_app, jax_app, []),
+                                     ("port", port_server_app, port_app, ["--device", "cpu"])):
+        async def capture(config, name=name):
+            configs[name] = config
+
+        monkeypatch.setattr(module, "run_server", capture)
+        result = CliRunner().invoke(app, ["serve", *flags, *extra])
+        assert result.exit_code == 0, result.output
+        assert "not ported yet" not in result.output and item not in result.output
+    fields = ("metrics_mode", "discovery_mode", "ingest_port", "ingest_verify_interval_seconds",
+              "ingest_max_body_bytes", "ingest_lookback_seconds", "ingest_max_samples_per_series",
+              "ingest_max_series")
+    assert {f: getattr(configs["port"], f) for f in fields} == {f: getattr(configs["jax"], f) for f in fields}
+    assert configs["port"].metrics_mode == "push" and configs["port"].ingest_max_series == 77
+
+    def composition(server):
+        plane, listener = server.ingest, server.ingest_listener
+        return (type(plane).__name__, plane.lookback_ms, plane.max_samples_per_series, plane.max_series,
+                plane.max_decoded_bytes, type(listener).__name__, listener.host, listener.port,
+                listener.max_body_bytes, listener.plane is plane, server.scheduler.ingest is plane,
+                server.scheduler.ingest_verify_interval, dict(server.state.ingest))
+
+    jax_server = jax_server_app.KrrServer(configs["jax"])
+    port_server = port_server_app.KrrServer(configs["port"])
+    assert composition(port_server) == composition(jax_server)
+    assert composition(port_server)[:2] == ("IngestPlane", 120_000)
+    assert type(port_server.ingest).__module__ == "krr_tpu_torch.ingest.plane"
+    assert type(port_server.ingest_listener).__module__ == "krr_tpu_torch.ingest.listener"
 
 
 def _timeline_file(path: str, ticks: int = 24) -> None:
