@@ -134,14 +134,38 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    a shard in each of 3 passes on (2, 2); the others once a shard); each
    kernel's CUDA-event time per shard is printed beside the resident
    kernel's, and the radix route's per shard and pass. Then ``simple``,
-   ``tdigest`` and ``tdigest --exact_upgrade`` through ``Runner.run`` on
-   ``e2e``'s fleet with ``mesh_time_axis=2`` and the strategies' device seam
-   giving the card four times, a (2, 2) mesh: each renders ``e2e``'s JSON
-   byte for byte with exact launches (``radix_digit_hist`` 12 + ``row_max``
-   4; ``digest_hist`` 4 + ``row_max`` 4; ``topk_select`` 4 + ``row_max`` 4),
-   no generic fold, 10,000 rows and no ``?``. Run alone (``--phases
-   mesh``) it builds the fleet and the resident references itself.
-10. ``cli``     — the user's entry point, ``krr_tpu_torch``'s click command,
+   ``tdigest`` and ``tdigest --exact_upgrade`` through ``Runner.run`` on a
+   fleet at ``e2e``'s width and a quarter of its depth (10,080 samples a
+   pod) with ``mesh_time_axis=2`` and the strategies' device seam giving
+   the card four times, a (2, 2) mesh: each renders the resident scan's
+   JSON on that fleet byte for byte with exact launches
+   (``radix_digit_hist`` 12 + ``row_max`` 4; ``digest_hist`` 4 +
+   ``row_max`` 4; ``topk_select`` 4 + ``row_max`` 4), no generic fold,
+   10,000 rows and no ``?``. That fleet and its resident scans are made
+   once, before this phase, and serve ``distributed`` too.
+10. ``distributed`` — the mesh across processes (`krr_tpu_torch.parallel.
+   initialize_distributed`): the parent writes the references (the resident
+   kernels on the ``mesh`` phase's matrix, and the resident scans of the
+   ``mesh`` phase's quarter-depth fleet) and starts two ranks as child
+   processes on a free port, each from the launcher's ``env://`` variables;
+   a rank that fails, or a deadline, kills the other and fails the phase.
+   On one card both ranks share it and must choose ``gloo``; with two or
+   more cards each rank is shown only its own (``CUDA_VISIBLE_DEVICES``)
+   and both must choose ``nccl``. Each rank
+   runs the five sharded functions on the headline matrix over global
+   (2, 1), (1, 2) and (2, 2) meshes (its device once, twice for (2, 2)):
+   bit-exact to the resident results with exactly the launches of its own
+   shards; it prints each function's wall, its collectives' calls, bytes
+   and seconds, the host RSS, and each shard's kernel ms timed with both
+   ranks at once and one rank at a time. Then ``simple``, ``tdigest`` and
+   ``tdigest --exact_upgrade`` through ``Runner.run`` on the global (2, 1)
+   and (1, 2) meshes the strategies resolve from the process group, and
+   ``simple`` and ``tdigest`` host-streamed on (2, 1) (``host_stream_mb``
+   100: each rank streams its own rows, and the blocks' results, host
+   arrays and tensors, are gathered to both): each rank's JSON equals the
+   resident scan's byte for byte, with its exact launches, no generic
+   fold, 10,000 rows and no ``?``.
+11. ``cli``     — the user's entry point, ``krr_tpu_torch``'s click command,
    against the fake apiserver + fake Prometheus of ``tests/fakes/servers.py``
    served from a child process (started when the phase begins, so its
    fixture build overlaps no timed phase): 10,000 Deployments of one
@@ -174,7 +198,7 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    device, finalize; digest, fold, quantile, persist), the store's WAL
    bytes, the fake's CPU seconds, the wire and decoded bytes and the range
    queries' transport phases (summed over queries) are printed.
-11. ``serve``   — the serve plane (`krr_tpu_torch.server`) on the ``cli``
+12. ``serve``   — the serve plane (`krr_tpu_torch.server`) on the ``cli``
    phase's fixture (one child process serves ``cli``, ``serve`` and
    ``push``): ``KrrServer`` on the default device, driven by ``run_once``
    under an injected clock, a fresh sharded state each. With ``--no-hysteresis``: a full 10-day tick at
@@ -201,7 +225,7 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    Every kernel's launch count stays 0 across the phase: the serve path and
    watch discovery are host code, as in the JAX package. The default
    server's journal is kept for ``eval``.
-12. ``push``    — push ingest (`krr_tpu_torch.ingest`, ``serve --metrics-mode
+13. ``push``    — push ingest (`krr_tpu_torch.ingest`, ``serve --metrics-mode
    push``) on the ``cli`` fixture: a push server (``metrics_mode="push"``,
    ``ingest_port=0``) and a pull control, both ``KrrServer``s on the default
    device with ``--no-hysteresis``, under one injected clock that also pins
@@ -224,7 +248,7 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    both servers; the scheduler's ``_ingest_fold`` and the plane's
    ``fold_fleet`` seconds; the samples buffered after the prune; the
    process's RSS growth over the phase.
-13. ``federation`` — federation (`krr_tpu_torch.federation`) on its own
+14. ``federation`` — federation (`krr_tpu_torch.federation`) on its own
    fixture, built in a second child process started beside the ``cli``
    one: 10,000 one-pod Deployments at the ``cli`` shape (1,344 samples at
    15 minutes) in four namespaces of 2,500. On the default device, under one
@@ -249,7 +273,7 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    its wire bytes a tick; each aggregate tick's wall, apply and publish
    seconds, persist and applied records; the replica's install latency
    from the broadcast, its read ms (identity, gzip, 304); the phase's wall.
-14. ``eval``    — the replay scoreboard through the port's click command
+15. ``eval``    — the replay scoreboard through the port's click command
    (``eval --usage``) on the default device: the ``cli`` fixture's usage
    regenerated at its own shape (10,000 workloads × 1,344 samples, the same
    generator and seed) and written with ``ReplayInput.save_npz``, ``simple``
@@ -273,7 +297,7 @@ CUDA graph (the kernel's device time). Part of ``headline``; run alone
 beside the script, so a copy of the script placed in an unpacked older
 commit times that commit's kernel the same way.
 
-The last three lines (printed when all thirteen default phases ran) are the
+The last three lines (printed when all fourteen default phases ran) are the
 card's ``nvidia-smi`` name and power limit, one
 ``{"kernels": [...]}`` JSON object (launch counts from the ``cli`` phase's
 warm runs; ``radix_digit_hist``'s from the ``stream`` phase's q = 50 scan),
@@ -1215,21 +1239,22 @@ class _History:
     """Serves per-pod views of two flat sample arrays (CPU and raw memory);
     through the stats route, one memory max per pod instead."""
 
-    def __init__(self, np, cpu_flat, mem_flat, mem_max, resource_type):
+    def __init__(self, np, cpu_flat, mem_flat, mem_max, resource_type, samples_per_pod: int):
         self.np = np
         self.cpu_flat = cpu_flat
         self.mem_flat = mem_flat
         self.mem_max = mem_max
         self.resource_type = resource_type
+        self.samples_per_pod = samples_per_pod
 
     async def gather_fleet(self, objects, history_seconds, step_seconds, stats_resources=frozenset()):
         cpu_type, mem_type = self.resource_type.CPU, self.resource_type.Memory
         cpu, memory = [], []
         for obj in objects:
             row = int(obj.name.rsplit("-", 1)[1])
-            first = row * E2E_PODS * E2E_SAMPLES_PER_POD
-            views = [slice(first + p * E2E_SAMPLES_PER_POD, first + (p + 1) * E2E_SAMPLES_PER_POD)
-                     for p in range(E2E_PODS)]
+            depth = self.samples_per_pod
+            first = row * E2E_PODS * depth
+            views = [slice(first + p * depth, first + (p + 1) * depth) for p in range(E2E_PODS)]
             cpu.append({pod: self.cpu_flat[views[p]] for p, pod in enumerate(obj.pods)})
             if mem_type in stats_resources:
                 memory.append({pod: self.np.asarray([self.mem_max[row, p]]) for p, pod in enumerate(obj.pods)})
@@ -1255,15 +1280,17 @@ def _read_counts() -> tuple[dict, dict]:
 class E2EFleet:
     """The ``e2e`` and ``stream`` phases' fleet: 10,000 objects of 3 pods and
     the flat CPU and raw memory samples the in-memory history source
-    serves, made with numpy from a seed."""
+    serves, made with numpy from a seed; ``samples_per_pod`` samples of
+    each (the ``distributed`` phase's scans take fewer)."""
 
-    def __init__(self, np, seed: int = 0):
+    def __init__(self, np, seed: int = 0, samples_per_pod: int = E2E_SAMPLES_PER_POD):
         from krr_tpu_torch.models import K8sObjectData, ResourceAllocations, ResourceType
 
         started = time.perf_counter()
         self.np = np
+        self.samples_per_pod = samples_per_pod
         rng = np.random.default_rng(seed)
-        size = E2E_OBJECTS * E2E_PODS * E2E_SAMPLES_PER_POD
+        size = E2E_OBJECTS * E2E_PODS * samples_per_pod
         self.cpu_flat = rng.random(size, dtype=np.float32)
         np.multiply(self.cpu_flat, self.cpu_flat, out=self.cpu_flat)
         self.cpu_flat *= np.float32(0.8)
@@ -1271,7 +1298,7 @@ class E2EFleet:
         self.mem_flat = rng.random(size, dtype=np.float32)  # bytes: 50 MB to 4 GB
         self.mem_flat *= np.float32(3.95e9)
         self.mem_flat += np.float32(5e7)
-        self.mem_max = self.mem_flat.reshape(E2E_OBJECTS, E2E_PODS, E2E_SAMPLES_PER_POD).max(axis=2).astype(np.float64)
+        self.mem_max = self.mem_flat.reshape(E2E_OBJECTS, E2E_PODS, samples_per_pod).max(axis=2).astype(np.float64)
         allocations = ResourceAllocations(
             requests={ResourceType.CPU: "500m", ResourceType.Memory: "1Gi"},
             limits={ResourceType.CPU: None, ResourceType.Memory: "2Gi"},
@@ -1295,7 +1322,7 @@ class E2EFleet:
             Config(quiet=True, format="json", device=device, strategy=strategy, other_args=other_args),
             inventory=_Inventory(subset),
             history_factory=lambda cluster: _History(self.np, self.cpu_flat, self.mem_flat, self.mem_max,
-                                                     ResourceType),
+                                                     ResourceType, self.samples_per_pod),
         )
         with open(os.devnull, "w") as sink, contextlib.redirect_stdout(sink):
             started = time.perf_counter()
@@ -1641,6 +1668,13 @@ def phase_state(torch, np, fleet: E2EFleet, rendered: "dict | None") -> dict:
 #: block per shard (K1 per block), and two time shards per block (the K5
 #: radix route).
 MESH_SHAPES = ((4, 1), (2, 2))
+#: The ``mesh`` and ``distributed`` phases' scans' depth, samples per pod:
+#: a quarter of ``e2e``'s 40,320 (1.75 days at 5 s), at ``e2e``'s width
+#: (10,000 objects × 3 pods). One fleet and its resident scans
+#: (:func:`resident_scans`) serve both phases' references; each rank of
+#: ``distributed`` holds a fleet of its own (``e2e``'s would be 9.7 GB a
+#: rank), and the script stays well inside its time limit.
+MESH_SAMPLES_PER_POD = 10_080
 #: The ``mesh`` phase's scans on a (2, 2) mesh of the card: (strategy,
 #: settings, exact launch counts). Four shards: q = 99 takes the radix
 #: route (3 digits × 4 shards of ``radix_digit_hist``), each sketch one
@@ -1721,6 +1755,26 @@ def _shard_kernel_ms(torch, mesh, host_values, host_counts, q: float, resident_p
             "sum_ms": {name: sum(times) for name, times in shard_ms.items() if times}}
 
 
+def same_as_resident(np, name: str, result, resident: dict) -> bool:
+    """Whether a sharded function's ``result`` equals the resident kernels'
+    (:func:`mesh_resident`) bit for bit: the digest's counts, totals and
+    peaks, the top-K as sorted rows and its totals, a per-row array
+    otherwise."""
+    from krr_tpu_torch import parallel
+
+    if name == "fleet_digest":
+        blocks, rows = result
+        return all(np.array_equal(parallel.gather_rows(blocks, lambda d, i=i: d[i], rows).view(np.uint32),
+                                  resident[field].view(np.uint32))
+                   for i, field in enumerate(("counts", "total", "peak")))
+    if name == "fleet_topk":
+        blocks, rows = result
+        top = parallel.gather_rows(blocks, lambda s: s.values, rows)
+        return (np.array_equal(np.sort(top.view(np.int32), axis=1), resident["topk_sorted"])
+                and np.array_equal(parallel.gather_rows(blocks, lambda s: s.total, rows), resident["topk_total"]))
+    return np.array_equal(result.view(np.uint32), resident[name].view(np.uint32))
+
+
 def _mesh_functions(torch, np, mesh, host_values, host_counts, q: float, resident: dict, resident_p) -> dict:
     """Each sharded function on ``mesh`` against the resident kernels'
     results, bit for bit, with its exact launches; then the kernels' times
@@ -1744,51 +1798,22 @@ def _mesh_functions(torch, np, mesh, host_values, host_counts, q: float, residen
     }
     for name, (expected, fn) in runs.items():
         result, launches, wall = _counted(f"{data}x{time_shards} {name}", expected, fn)
-        if name == "fleet_digest":
-            blocks, rows = result
-            got = {f: parallel.gather_rows(blocks, lambda d, i=i: d[i], rows)
-                   for i, f in enumerate(("counts", "total", "peak"))}
-            same = all(np.array_equal(got[f].view(np.uint32), resident[f].view(np.uint32)) for f in got)
-        elif name == "fleet_topk":
-            blocks, rows = result
-            top = parallel.gather_rows(blocks, lambda s: s.values, rows)
-            total = parallel.gather_rows(blocks, lambda s: s.total, rows)
-            same = (np.array_equal(np.sort(top.view(np.int32), axis=1), resident["topk_sorted"])
-                    and np.array_equal(total, resident["topk_total"]))
-        else:
-            same = np.array_equal(result.view(np.uint32), resident[name].view(np.uint32))
-        check(same, f"mesh {data}x{time_shards}: sharded {name} != the resident kernel's result")
+        check(same_as_resident(np, name, result, resident),
+              f"mesh {data}x{time_shards}: sharded {name} != the resident kernel's result")
         out["functions"][name] = {"wall_seconds": wall, "launches": launches}
     out.update(_shard_kernel_ms(torch, mesh, host_values, host_counts, q, resident_p))
     return out
 
 
-def phase_mesh(torch, np, fleet: E2EFleet, rendered: "dict | None") -> dict:
-    """The device mesh (`krr_tpu_torch.parallel`) on the card. Functions: on
-    the headline matrix (10,000 × 120,960 CPU-like float32 made on the card
-    from a seed; every 7th row cut to a seeded count, the first 8 empty),
-    each sharded function on (4, 1) and (2, 2) meshes of the card four
-    times, and on the distinct cards when there are two or more, must
-    equal the resident ``bisect_select``, ``row_max``, ``digest_hist`` and
-    ``topk_select`` results bit for bit, with exact launches; each kernel's
-    time per shard (CUDA events) is printed beside the resident kernel's,
-    and the radix route's ``radix_digit_hist`` time per shard and pass.
-    Scans: ``simple``, ``tdigest`` and ``tdigest --exact_upgrade`` through
-    ``Runner.run`` on ``e2e``'s fleet with ``mesh_time_axis=2`` and the
-    strategies' device seam (``mesh_devices``) giving the card four times:
-    a (2, 2) mesh. Each must render ``e2e``'s JSON byte for byte with the
-    exact launches of :data:`MESH_SCANS`, no generic fold, 10,000 rows and
-    no ``?``. ``rendered`` holds the ``e2e`` phase's JSON; None runs the
-    resident references here."""
-    import krr_tpu_torch.strategies.simple as simple_module
-    from krr_tpu_torch import parallel
-    from krr_tpu_torch.ops import cuda_select
-    from krr_tpu_torch.ops import digest as digest_ops
-    from krr_tpu_torch.ops import topk_sketch as topk_ops
-    from krr_tpu_torch.ops.digest import DigestSpec
+#: The percentile of the ``mesh`` and ``distributed`` phases' functions.
+MESH_Q = 99.0
 
-    dev = torch.device(DEVICE)
-    n, t, q = HEADLINE_ROWS, HEADLINE_T, 99.0
+
+def mesh_matrix(torch, dev):
+    """The ``mesh`` and ``distributed`` phases' matrix on ``dev``: 10,000 ×
+    120,960 CPU-like float32 from a seeded generator, every 7th row cut to
+    a seeded count, the first 8 rows empty; (values, counts)."""
+    n, t = HEADLINE_ROWS, HEADLINE_T
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     values = torch.rand((n, t), generator=gen, device=dev, dtype=torch.float32)
@@ -1796,9 +1821,22 @@ def phase_mesh(torch, np, fleet: E2EFleet, rendered: "dict | None") -> dict:
     cut = torch.randint(0, t + 1, (n,), generator=gen, device=dev, dtype=torch.int32)
     counts = torch.where(torch.arange(n, device=dev) % 7 == 3, cut, torch.full_like(cut, t))
     counts[:8] = 0
+    return values, counts
+
+
+def mesh_resident(torch, np, values, counts) -> tuple[dict, dict, object]:
+    """The resident kernels on the whole matrix: (each one's CUDA-event
+    median ms, their host results — K1's percentile, K2's max, K3's
+    digest and its p99, K4's sorted top-K and totals — and K1's result on
+    the card)."""
+    from krr_tpu_torch.ops import cuda_select
+    from krr_tpu_torch.ops import digest as digest_ops
+    from krr_tpu_torch.ops import topk_sketch as topk_ops
+    from krr_tpu_torch.ops.digest import DigestSpec
+
     spec = DigestSpec(gamma=1.01, min_value=DIGEST_MIN_VALUE, num_buckets=DIGEST_BUCKETS)
     kernels = {
-        "bisect_select": lambda: cuda_select.masked_percentile_bisect_cuda(values, counts, q),
+        "bisect_select": lambda: cuda_select.masked_percentile_bisect_cuda(values, counts, MESH_Q),
         "row_max": lambda: cuda_select.masked_max_cuda(values, counts),
         "digest_hist": lambda: digest_ops.build_from_packed(spec, values, counts),
         "topk_select": lambda: topk_ops.build_from_packed(values, counts, TOPK_K),
@@ -1810,11 +1848,40 @@ def phase_mesh(torch, np, fleet: E2EFleet, rendered: "dict | None") -> dict:
     resident = {
         "percentile_bisect": resident_p.cpu().numpy(), "masked_max": kernels["row_max"]().cpu().numpy(),
         "counts": digest.counts.cpu().numpy(), "total": digest.total.cpu().numpy(), "peak": digest.peak.cpu().numpy(),
+        "percentile": digest_ops.percentile(spec, digest, MESH_Q).cpu().numpy(),
         "topk_sorted": np.sort(sketch.values.cpu().numpy().view(np.int32), axis=1),
         "topk_total": sketch.total.cpu().numpy(),
     }
+    return resident_ms, resident, resident_p
+
+
+def phase_mesh(torch, np, fleet: E2EFleet, references: dict) -> dict:
+    """The device mesh (`krr_tpu_torch.parallel`) on the card. Functions: on
+    the headline matrix (10,000 × 120,960 CPU-like float32 made on the card
+    from a seed; every 7th row cut to a seeded count, the first 8 empty),
+    each sharded function on (4, 1) and (2, 2) meshes of the card four
+    times, and on the distinct cards when there are two or more, must
+    equal the resident ``bisect_select``, ``row_max``, ``digest_hist`` and
+    ``topk_select`` results bit for bit, with exact launches; each kernel's
+    time per shard (CUDA events) is printed beside the resident kernel's,
+    and the radix route's ``radix_digit_hist`` time per shard and pass.
+    Scans: ``simple``, ``tdigest`` and ``tdigest --exact_upgrade`` through
+    ``Runner.run`` on ``fleet`` (``e2e``'s width at
+    :data:`MESH_SAMPLES_PER_POD`) with ``mesh_time_axis=2`` and the
+    strategies' device seam (``mesh_devices``) giving the card four times:
+    a (2, 2) mesh. Each must render the resident scan's JSON
+    (``references``, :func:`resident_scans`) byte for byte with the exact
+    launches of :data:`MESH_SCANS`, no generic fold, 10,000 rows and no
+    ``?``."""
+    import krr_tpu_torch.strategies.simple as simple_module
+    from krr_tpu_torch import parallel
+
+    dev = torch.device(DEVICE)
+    n, t, q = HEADLINE_ROWS, HEADLINE_T, MESH_Q
+    values, counts = mesh_matrix(torch, dev)
+    resident_ms, resident, resident_p = mesh_resident(torch, np, values, counts)
     host_values, host_counts = values.cpu().numpy(), counts.cpu().numpy()
-    del values, digest, sketch
+    del values
     torch.cuda.empty_cache()
     meshes = {f"card_{d}x{s}": parallel.make_mesh(d, s, devices=[dev] * (d * s)) for d, s in MESH_SHAPES}
     cards = parallel.mesh_devices(DEVICE)
@@ -1827,12 +1894,7 @@ def phase_mesh(torch, np, fleet: E2EFleet, rendered: "dict | None") -> dict:
     del host_values, host_counts, resident, resident_p, counts
     torch.cuda.empty_cache()
 
-    references = dict(rendered or {})
-    for path in MESH_SCANS:
-        if path not in references:
-            strategy, args, _ = E2E_PATHS[path]
-            result, _runner, _wall = fleet.scan(fleet.objects, DEVICE, strategy, **args)
-            references[path] = result.format("json")
+    report["samples_per_pod"] = fleet.samples_per_pod
     seam = simple_module.mesh_devices
     simple_module.mesh_devices = lambda device: [dev] * 4
     try:
@@ -1847,12 +1909,307 @@ def phase_mesh(torch, np, fleet: E2EFleet, rendered: "dict | None") -> dict:
                   f"mesh scan {path}: the scan did not take the mesh path (legs {sorted(legs)})")
             check(len(result.scans) == E2E_OBJECTS and '"?"' not in scan_json,
                   f"mesh scan {path}: {len(result.scans)} scans or an unknown value")
-            check(scan_json == references[path], f"mesh scan {path}: JSON != the e2e {path} scan's")
+            check(scan_json == references[path]["json"], f"mesh scan {path}: JSON != the resident {path} scan's")
             report["scans"][path] = {"run_wall_seconds": wall, "runner_stats": runner.stats, "legs_seconds": legs,
                                      "launches": launches, "peak_device_bytes": torch.cuda.max_memory_allocated()}
     finally:
         simple_module.mesh_devices = seam
     emit("mesh", **report)
+    return report
+
+
+#: The ``distributed`` phase: ranks (child processes) on one process group.
+DIST_RANKS = 2
+#: Its functions' meshes, as (data, time), over the ranks' devices: each
+#: rank brings its device once, or twice for (2, 2).
+DIST_MESHES = {(2, 1): 1, (1, 2): 1, (2, 2): 2}
+#: Its scans' global meshes, by ``mesh_time_axis``.
+DIST_SCAN_MESHES = {1: (2, 1), 2: (1, 2)}
+#: Its host-streamed scans on the global (2, 1) mesh, with the window past
+#: :data:`DIST_STREAM_MB` a device: (strategy, settings); each rank streams
+#: its own rows and the blocks' results are gathered to both.
+DIST_STREAMED = {"simple": ("simple", {}), "tdigest": ("tdigest", {})}
+DIST_STREAM_MB = 100
+#: Seconds the ranks may take, start to end, before the phase kills them.
+DIST_DEADLINE = 600.0
+
+
+def _dist_function_launches(data: int, time_shards: int) -> dict:
+    """Each function's exact launches on one rank of a (data, time) mesh
+    whose cells split evenly over the ranks: a launch per shard it owns (K1
+    per row block with one time shard; K5 per shard and digit with more)."""
+    from krr_tpu_torch.ops.selection import STREAM_DIGITS
+
+    shards = data * time_shards // DIST_RANKS
+    select = {"bisect_select": shards} if time_shards == 1 else {"radix_digit_hist": len(STREAM_DIGITS) * shards}
+    return {"percentile_bisect": select, "masked_max": {"row_max": shards}, "fleet_digest": {"digest_hist": shards},
+            "percentile": {}, "fleet_topk": {"topk_select": shards}}
+
+
+def _dist_scan_launches(path: str, time_axis: int) -> dict:
+    """A scan's exact launches on one rank of the two-rank (2, 1) or (1, 2)
+    mesh: one shard a rank; q = 99 on (1, 2) takes the radix route."""
+    from krr_tpu_torch.ops.selection import STREAM_DIGITS
+
+    cpu = {"simple": {"bisect_select": 1} if time_axis == 1 else {"radix_digit_hist": len(STREAM_DIGITS)},
+           "tdigest": {"digest_hist": 1}, "tdigest_exact": {"topk_select": 1}}[path]
+    return {**cpu, "row_max": 1}
+
+
+def _dist_streamed_launches(path: str) -> dict:
+    """A host-streamed scan's exact launches on one rank of the (2, 1)
+    mesh: its block of rows streams in the window's time chunks, each one
+    sketch launch (``simple``'s q = 99 the top-K) and, for ``tdigest``,
+    one ``row_max``; ``simple``'s memory window is one chunk."""
+    chunks = -(-(E2E_PODS * MESH_SAMPLES_PER_POD) // STREAM_CHUNK)
+    return {"simple": {"topk_select": chunks, "row_max": 1},
+            "tdigest": {"digest_hist": chunks, "row_max": chunks}}[path]
+
+
+def _dist_shard_ms(torch, dist, world, mesh, host_values, host_counts) -> dict:
+    """CUDA-event medians of each kernel on each of this rank's shards of
+    ``mesh`` (K1 on a row block with one time shard, K5's first pass under
+    a zero prefix with more): timed with every rank timing at once (the
+    ranks that share a card slice it), then one rank at a time."""
+    from krr_tpu_torch import parallel
+    from krr_tpu_torch.ops import cuda_select, cuda_sketch
+
+    values_d, counts_d, _rows = parallel.transfer_to_mesh(host_values, host_counts, mesh)
+    shards = [(j, v, c) for row_v, row_c in zip(values_d, counts_d) for j, (v, c) in enumerate(zip(row_v, row_c))
+              if v is not None]
+
+    def timed() -> dict:
+        out: dict = {"row_max": [], "digest_hist": [], "topk_select": [], "bisect_select": [], "radix_digit_hist": []}
+        for j, v, c in shards:
+            width = v.shape[1]
+            eff = torch.clamp(c - j * width, 0, width).to(torch.int32)
+            runs = {
+                "row_max": lambda: cuda_select.row_max_chunk(v, eff),
+                "digest_hist": lambda: cuda_sketch.digest_hist(v, eff, DIGEST_BUCKETS, DIGEST_MIN_VALUE,
+                                                               DIGEST_LOG_GAMMA),
+                "topk_select": lambda: cuda_sketch.topk_select(v, eff, TOPK_K),
+            }
+            if mesh.shape["time"] == 1:
+                runs["bisect_select"] = lambda: cuda_select.masked_percentile_bisect_cuda(v, c, MESH_Q)
+            else:
+                prefix = torch.zeros(v.shape[0], dtype=torch.int32, device=v.device)
+                bins = torch.zeros((v.shape[0], 1 << 11), dtype=torch.int32, device=v.device)
+                runs["radix_digit_hist"] = lambda: cuda_select.radix_digit_hist(v, eff, prefix, bins, 21, 11)
+            for name, fn in runs.items():
+                out[name].append(statistics.median(cuda_ms(torch, fn)))
+        return {name: times for name, times in out.items() if times}
+
+    dist.barrier()
+    together = timed()
+    lone = None
+    for rank in range(world.size):
+        dist.barrier()
+        if rank == world.rank:
+            lone = timed()
+    dist.barrier()
+    return {"together_ms": together, "lone_ms": lone}
+
+
+def _dist_functions(torch, np, dist, world, workdir: str) -> dict:
+    """Each sharded function on each mesh of :data:`DIST_MESHES` at the
+    headline shape: equal, bit for bit, to the resident kernels' results
+    the parent shipped, with this rank's exact launches; its host wall,
+    its collectives' calls, bytes and seconds, and the host RSS; then the
+    kernels' per-shard times."""
+    from krr_tpu_torch import parallel
+    from krr_tpu_torch.ops.digest import DigestSpec
+    from krr_tpu_torch.parallel import collectives
+    from krr_tpu_torch.parallel.mesh import MeshDevice
+
+    values, counts = mesh_matrix(torch, world.device)
+    host_values, host_counts = values.cpu().numpy(), counts.cpu().numpy()
+    del values, counts
+    torch.cuda.empty_cache()
+    resident = dict(np.load(os.path.join(workdir, "resident.npz")))
+    spec = DigestSpec(gamma=1.01, min_value=DIGEST_MIN_VALUE, num_buckets=DIGEST_BUCKETS)
+    out = {}
+    for (data, time_shards), per_rank in DIST_MESHES.items():
+        devices = [MeshDevice(cell.rank, cell.device) for cell in world.devices for _ in range(per_rank)]
+        mesh = parallel.make_mesh(data, time_shards, devices=devices)
+        expected = _dist_function_launches(data, time_shards)
+        built: dict = {}
+
+        def build_digest(mesh=mesh):
+            built["digest"] = parallel.sharded_fleet_digest(spec, host_values, host_counts, mesh)
+            return built["digest"]
+
+        runs = {
+            "percentile_bisect": lambda: parallel.sharded_percentile_bisect(host_values, host_counts, MESH_Q, mesh),
+            "masked_max": lambda: parallel.sharded_masked_max(host_values, host_counts, mesh),
+            "fleet_digest": build_digest,
+            "percentile": lambda: parallel.sharded_percentile(spec, built["digest"][0], MESH_Q, built["digest"][1]),
+            "fleet_topk": lambda: parallel.sharded_fleet_topk(host_values, host_counts, TOPK_K, mesh),
+        }
+        label = f"distributed rank {world.rank} {data}x{time_shards}"
+        report: dict = {"devices": [[cell.rank, str(cell.device)] for cell in mesh.cells()], "functions": {}}
+        for name, fn in runs.items():
+            collectives.reset_stats()
+            dist.barrier()
+            result, launches, wall = _counted(f"{label} {name}", expected[name], fn)
+            check(same_as_resident(np, name, result, resident),
+                  f"{label}: sharded {name} != the resident kernel's result")
+            report["functions"][name] = {
+                "wall_seconds": wall, "launches": {k: v for k, v in launches.items() if v},
+                "collectives": {op: dict(stats) for op, stats in collectives.STATS.items()},
+                "rss_bytes": _rss_bytes(),
+            }
+        del built
+        report.update(_dist_shard_ms(torch, dist, world, mesh, host_values, host_counts))
+        out[f"{data}x{time_shards}"] = report
+    return out
+
+
+def _dist_scans(torch, np, dist, world, workdir: str) -> dict:
+    """``Runner.run`` of the ``e2e`` paths on the global meshes of
+    :data:`DIST_SCAN_MESHES` (the strategies resolve them from the process
+    group), then of :data:`DIST_STREAMED` host-streamed on (2, 1), on a
+    fleet of :data:`MESH_SAMPLES_PER_POD`: each JSON equals the parent's
+    resident scan's byte for byte, with this rank's exact launches, no
+    generic fold, 10,000 rows and no ``?``."""
+    fleet = E2EFleet(np, samples_per_pod=MESH_SAMPLES_PER_POD)
+    out: dict = {"fleet_seconds": fleet.setup_seconds, "rss_bytes_after_fleet": _rss_bytes()}
+    scans = [(time_axis, path, strategy, args, {}, _dist_scan_launches(path, time_axis))
+             for time_axis in DIST_SCAN_MESHES for path, (strategy, args, _launched) in E2E_PATHS.items()]
+    scans += [(1, path, strategy, {**args, "host_stream_mb": DIST_STREAM_MB}, {"streamed": True},
+               _dist_streamed_launches(path)) for path, (strategy, args) in DIST_STREAMED.items()]
+    for time_axis, path, strategy, args, how, expected in scans:
+        shape = DIST_SCAN_MESHES[time_axis]
+        with open(os.path.join(workdir, f"scan-{path}.json")) as f:
+            reference = f.read()
+        name = f"{path}_{shape[0]}x{shape[1]}" + ("_streamed" if how else "")
+        label = f"distributed rank {world.rank} scan {name}"
+        dist.barrier()
+        (result, runner, wall), launches, _wall = _counted(
+            label, expected, lambda: fleet.scan(fleet.objects, DEVICE, strategy, mesh_time_axis=time_axis, **args))
+        scan_json = result.format("json")
+        strategy_obj = runner.session.strategy
+        legs = strategy_obj.leg_seconds
+        took = "streamed" if strategy_obj.stream_stats is not None else "resident" if "h2d" in legs else "mesh"
+        check(took == ("streamed" if how else "mesh"), f"{label}: the scan took the {took} path")
+        check(len(result.scans) == E2E_OBJECTS and '"?"' not in scan_json,
+              f"{label}: {len(result.scans)} scans or an unknown value")
+        check(scan_json == reference, f"{label}: JSON != the resident scan's")
+        out[name] = {"run_wall_seconds": wall, "legs_seconds": legs, "launches": {k: v for k, v in launches.items() if v},
+                     "stream": strategy_obj.stream_stats}
+    out["rss_bytes"] = _rss_bytes()
+    return out
+
+
+def _distributed_rank(rank: int, port: int, workdir: str, visible: "str | None") -> None:
+    """One rank of the ``distributed`` phase, in a child process: the
+    launcher's variables (and, given ``visible``, a ``CUDA_VISIBLE_DEVICES``
+    of this rank's one card), ``initialize_distributed()`` from them, the
+    functions, the scans; its report to ``rank-<rank>.json``."""
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), WORLD_SIZE=str(DIST_RANKS), RANK=str(rank),
+                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(DIST_RANKS))
+    if visible is not None:
+        os.environ["CUDA_VISIBLE_DEVICES"] = visible
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from krr_tpu_torch.parallel import initialize_distributed
+
+    started = time.perf_counter()
+    world = initialize_distributed(device=DEVICE)
+    report = {"rank": world.rank, "backend": world.backend, "device": str(world.device),
+              "devices": [[cell.rank, str(cell.device)] for cell in world.devices], "cards": list(world.cards),
+              "visible": visible, "init_seconds": time.perf_counter() - started}
+    report["functions"] = _dist_functions(torch, np, dist, world, workdir)
+    report["scans"] = _dist_scans(torch, np, dist, world, workdir)
+    report["wall_seconds"] = time.perf_counter() - started
+    with open(os.path.join(workdir, f"rank-{rank}.json"), "w") as f:
+        json.dump(report, f)
+    dist.destroy_process_group()
+
+
+def resident_scans(fleet: E2EFleet) -> dict:
+    """The resident ``e2e`` scans of ``fleet`` that the ``mesh`` and
+    ``distributed`` phases' scans are held to: each path's JSON and wall."""
+    out = {}
+    for path, (strategy, args, _launched) in E2E_PATHS.items():
+        result, _runner, wall = fleet.scan(fleet.objects, DEVICE, strategy, **args)
+        rendered = result.format("json")
+        check(len(result.scans) == E2E_OBJECTS and '"?"' not in rendered,
+              f"resident {path} scan at {fleet.samples_per_pod} samples a pod: {len(result.scans)} scans or an "
+              "unknown value")
+        out[path] = {"json": rendered, "wall_seconds": wall}
+    return out
+
+
+def phase_distributed(torch, np, references: dict) -> dict:
+    """The mesh across processes (`krr_tpu_torch.parallel.
+    initialize_distributed`, M7b): see the module docstring. The parent
+    writes the references (the resident kernels on the headline matrix;
+    ``references``, the resident scans of :func:`resident_scans` at
+    :data:`MESH_SAMPLES_PER_POD`), then starts :data:`DIST_RANKS` ranks
+    together; one that fails, or the deadline, kills the others and fails
+    the phase. With a card a rank, each rank sees only its own
+    (``CUDA_VISIBLE_DEVICES``), and the ranks must agree on ``nccl``; on
+    one card they share it and must agree on ``gloo``."""
+    import multiprocessing
+    import socket
+    import tempfile
+
+    dev = torch.device(DEVICE)
+    cards = torch.cuda.device_count()
+    shown = os.environ.get("CUDA_VISIBLE_DEVICES")
+    shown = shown.split(",") if shown else [str(i) for i in range(cards)]
+    visible = [shown[rank] for rank in range(DIST_RANKS)] if cards >= DIST_RANKS else [None] * DIST_RANKS
+    want_backend = "nccl" if cards >= DIST_RANKS else "gloo"
+    report: dict = {"ranks": DIST_RANKS, "samples_per_pod": MESH_SAMPLES_PER_POD,
+                    "e2e_samples_per_pod": E2E_SAMPLES_PER_POD, "objects": E2E_OBJECTS, "pods": E2E_PODS,
+                    "visible": visible, "stream_mb": DIST_STREAM_MB}
+    with tempfile.TemporaryDirectory(prefix="krr-distributed-") as workdir:
+        started = time.perf_counter()
+        values, counts = mesh_matrix(torch, dev)
+        report["resident_ms"], resident, _resident_p = mesh_resident(torch, np, values, counts)
+        del values, counts, _resident_p
+        torch.cuda.empty_cache()
+        np.savez(os.path.join(workdir, "resident.npz"), **resident)
+        del resident
+        for path, reference in references.items():
+            with open(os.path.join(workdir, f"scan-{path}.json"), "w") as f:
+                f.write(reference["json"])
+        report["references_seconds"] = time.perf_counter() - started
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=_distributed_rank, args=(rank, port, workdir, visible[rank]), daemon=True)
+                 for rank in range(DIST_RANKS)]
+        started = time.perf_counter()
+        try:
+            for proc in procs:
+                proc.start()
+            while any(proc.is_alive() for proc in procs):
+                failed = [proc for proc in procs if proc.exitcode not in (None, 0)]
+                check(not failed, f"distributed: a rank exited {failed[0].exitcode if failed else 0}")
+                check(time.perf_counter() - started < DIST_DEADLINE,
+                      f"distributed: the ranks ran past {DIST_DEADLINE} s")
+                time.sleep(0.2)
+            check(all(proc.exitcode == 0 for proc in procs),
+                  f"distributed: rank exit codes {[proc.exitcode for proc in procs]}")
+        finally:
+            for proc in procs:
+                if proc.is_alive():
+                    proc.kill()
+                proc.join(timeout=30)
+        report["ranks_seconds"] = time.perf_counter() - started
+        report["rank_reports"] = []
+        for rank in range(DIST_RANKS):
+            with open(os.path.join(workdir, f"rank-{rank}.json")) as f:
+                report["rank_reports"].append(json.load(f))
+    backends = {r["backend"] for r in report["rank_reports"]}
+    check(backends == {want_backend},
+          f"distributed: the ranks chose {sorted(backends)} on {cards} card(s), expected {want_backend}")
+    report["backend"] = want_backend
+    emit("distributed", **report)
     return report
 
 
@@ -3309,10 +3666,10 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
         "--phases",
-        default="build,parity,digest_proof,headline,e2e,stream,state,mesh,cli,serve,push,federation,eval",
-        help="comma-separated subset of build,parity,digest_proof,headline,e2e,stream,state,mesh,cli,serve,"
-        "push,federation,eval,row_max_main (default: the first thirteen; the kernels line and the ok line "
-        "need all thirteen)",
+        default="build,parity,digest_proof,headline,e2e,stream,state,mesh,distributed,cli,serve,push,federation,eval",
+        help="comma-separated subset of build,parity,digest_proof,headline,e2e,stream,state,mesh,distributed,cli,"
+        "serve,push,federation,eval,row_max_main (default: the first fourteen; the kernels line and the ok line "
+        "need all fourteen)",
     )
     args = parser.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -3347,12 +3704,18 @@ def main(argv=None) -> int:
     if headline is not None:
         headline.update(timed("headline_sketch", phase_sketch_headline, torch, np))
         headline.update(timed("headline_stream", phase_stream_headline, torch, np))
-    fleet = timed("fleet", E2EFleet, np) if {"e2e", "stream", "state", "mesh"} & phases else None
+    fleet = timed("fleet", E2EFleet, np) if {"e2e", "stream", "state"} & phases else None
     e2e, rendered = timed("e2e", phase_e2e, torch, fleet) if "e2e" in phases else (None, None)
     stream = timed("stream", phase_stream, torch, fleet, rendered) if "stream" in phases else None
     state = timed("state", phase_state, torch, np, fleet, rendered) if "state" in phases else None
-    mesh = timed("mesh", phase_mesh, torch, np, fleet, rendered) if "mesh" in phases else None
     del fleet, rendered  # the fleet's 9.7 GB of samples are not needed past here
+    cut, references = None, None
+    if {"mesh", "distributed"} & phases:
+        cut = timed("cut_fleet", E2EFleet, np, 0, MESH_SAMPLES_PER_POD)
+        references = timed("cut_references", resident_scans, cut)
+    mesh = timed("mesh", phase_mesh, torch, np, cut, references) if "mesh" in phases else None
+    del cut  # each rank of ``distributed`` makes its own
+    distributed = timed("distributed", phase_distributed, torch, np, references) if "distributed" in phases else None
     # Started here, after the timed phases: the fixture builds (tens of
     # seconds of one host core each, in two child processes started
     # together) must not overlap the kernel timings. One fixture serves the
@@ -3376,7 +3739,8 @@ def main(argv=None) -> int:
         journal = serve["journal_copy"] if serve is not None else None
         evaluated = timed("eval", phase_eval, torch, np, smi, journal) if "eval" in phases else None
     emit("walls", seconds=walls)
-    if None in (headline, e2e, stream, state, mesh, cli, serve, pushed, federation, evaluated, parity, proof) \
+    if None in (headline, e2e, stream, state, mesh, distributed, cli, serve, pushed, federation, evaluated, parity,
+                proof) \
             or "build" not in phases:
         print(smi)
         return 0

@@ -20,7 +20,9 @@ Two scans share that contract:
 
 :func:`split_rows` spreads a streamed build's rows over several devices,
 each block streaming on its own: the counterpart of the JAX package's chunk
-sharding, which is collective-free because every fold is row-local.
+sharding, which is collective-free because every fold is row-local. A
+mesh that spans processes hands it the mesh's own split, which gathers
+the blocks' results to every rank (`krr_tpu_torch.parallel.fleet`).
 """
 
 from __future__ import annotations
@@ -308,7 +310,7 @@ def stream_host_chunks(
     ).run(init, fold)
 
 
-def _gather(parts: list, device: torch.device):
+def concat_parts(parts: list, device: torch.device):
     """Row blocks' results, in order, as one: host arrays concatenated,
     tensors concatenated on ``device``, tuples (a digest, a sketch) field by
     field."""
@@ -317,13 +319,27 @@ def _gather(parts: list, device: torch.device):
         return np.concatenate(parts)
     if isinstance(first, torch.Tensor):
         return torch.cat([part.to(device) for part in parts])
-    return type(first)(*(_gather(list(field), device) for field in zip(*parts)))
+    return type(first)(*(concat_parts(list(field), device) for field in zip(*parts)))
+
+
+def row_blocks(n: int, parts: int) -> list[tuple[int, int]]:
+    """``[start, stop)`` of each of ``parts`` row blocks of ``n`` rows:
+    ``ceil(n / parts)`` rows each, so the last are shorter and a block
+    that would be empty is left out (no rows: no block)."""
+    block = max(-(-n // parts), 1)
+    return [(start, min(start + block, n)) for start in range(0, n, block)]
+
+
+#: A row split done elsewhere, called as ``split(values, counts, run)``:
+#: a mesh's, whose blocks may lie on other processes
+#: (`krr_tpu_torch.parallel.fleet.mesh_row_split`).
+RowSplit = Callable[[np.ndarray, np.ndarray, Callable], State]
 
 
 def split_rows(
     values: np.ndarray,
     counts: np.ndarray,
-    devices: Sequence["torch.device | str"],
+    devices: "Sequence[torch.device | str] | RowSplit",
     run: Callable[[np.ndarray, np.ndarray, torch.device], State],
 ) -> State:
     """``run(values block, counts block, device)`` over row blocks of a host
@@ -332,16 +348,15 @@ def split_rows(
     rows to a multiple of the device count and gives each device an equal
     block (`krr_tpu/ops/chunked.py` ``HostChunkStreamer`` with a
     ``sharding``); here each device takes ``ceil(N / D)`` rows without the
-    pad, so the last blocks are shorter or empty, and an empty block runs
-    nowhere. One device runs the whole matrix and its result is returned
-    as it is."""
+    pad (:func:`row_blocks`), so the last blocks are shorter or empty, and
+    an empty block runs nowhere. One device runs the whole matrix and its
+    result is returned as it is. ``devices`` are this process's; a
+    :data:`RowSplit` in their place splits the rows itself."""
+    if callable(devices):
+        return devices(values, counts, run)
     devices = [torch.device(d) for d in devices]
-    n = values.shape[0]
-    block = max(-(-n // len(devices)), 1)
-    parts = [
-        run(values[start : start + block], counts[start : start + block], device)
-        for start, device in zip(range(0, n, block), devices)
-    ]
+    parts = [run(values[start:stop], counts[start:stop], device)
+             for (start, stop), device in zip(row_blocks(values.shape[0], len(devices)), devices)]
     if len(parts) <= 1:
         return parts[0] if parts else run(values, counts, devices[0])
-    return _gather(parts, devices[0])
+    return concat_parts(parts, devices[0])

@@ -30,6 +30,7 @@ import torch
 from krr_tpu_torch.ops.chunked import StreamStats, split_rows, stream_host_chunks
 from krr_tpu_torch.ops.selection import (
     EXPONENT_BITS,
+    INT32_MAX,
     INT32_MIN,
     MAGNITUDE_MASK,
     MIN_NORMAL_BITS,
@@ -56,22 +57,36 @@ def masked_percentile(values: torch.Tensor, counts: torch.Tensor, q: "torch.Tens
     return torch.where(counts > 0, picked, torch.full_like(picked, float("nan")))
 
 
+def peak_keys(peaks: torch.Tensor) -> torch.Tensor:
+    """int32 keys that order float32 maxima as the row max does:
+    subnormals read as zero of their sign, +0.0 above −0.0, every NaN
+    above +inf. The integer max of keys, read back by :func:`key_peaks`,
+    is the max of the values whatever the order — how a collective max
+    across processes reduces peaks."""
+    bits = peaks.contiguous().view(torch.int32)
+    magnitude = bits & MAGNITUDE_MASK
+    flushed = torch.where(magnitude < MIN_NORMAL_BITS, bits & INT32_MIN, bits)
+    key = torch.where(flushed >= 0, flushed, flushed ^ MAGNITUDE_MASK)
+    return torch.where(magnitude > EXPONENT_BITS, torch.full_like(key, INT32_MAX), key)
+
+
+def key_peaks(keys: torch.Tensor) -> torch.Tensor:
+    """The float32 values of :func:`peak_keys`' keys; the NaN key gives the
+    canonical NaN."""
+    peak = torch.where(keys >= 0, keys, keys ^ MAGNITUDE_MASK).view(torch.float32)
+    return torch.where(keys == INT32_MAX, torch.full_like(peak, float("nan")), peak)
+
+
 def max_where(values: torch.Tensor, mask: torch.Tensor, empty: float) -> torch.Tensor:
     """Per-row max over the positions ``mask`` selects (any boolean mask):
     the canonical NaN for a row that selects a NaN, ``empty`` for a row
     that selects nothing."""
     if values.shape[1] == 0:
         return torch.full((values.shape[0],), empty, dtype=torch.float32, device=values.device)
-    bits = values.contiguous().view(torch.int32)
-    magnitude = bits & MAGNITUDE_MASK
-    is_nan = magnitude > EXPONENT_BITS
-    flushed = torch.where(magnitude < MIN_NORMAL_BITS, bits & INT32_MIN, bits)
-    key = torch.where(flushed >= 0, flushed, flushed ^ MAGNITUDE_MASK)
-    key = torch.where(mask & ~is_nan, key, torch.full_like(key, INT32_MIN))
-    best = key.amax(dim=1)
-    peak = torch.where(best >= 0, best, best ^ MAGNITUDE_MASK).view(torch.float32)
-    peak = torch.where(mask.any(dim=1), peak, torch.full_like(peak, empty))
-    return torch.where((mask & is_nan).any(dim=1), torch.full_like(peak, float("nan")), peak)
+    # No value's key is INT32_MIN (that key would be a NaN's), so it marks the unselected.
+    key = torch.where(mask, peak_keys(values), torch.full_like(mask, INT32_MIN, dtype=torch.int32))
+    peak = key_peaks(key.amax(dim=1))
+    return torch.where(mask.any(dim=1), peak, torch.full_like(peak, empty))
 
 
 def masked_max(values: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:

@@ -20,7 +20,9 @@ mesh (`krr_tpu_torch.parallel`): ``bisect_select`` per row block, or the
 time-sharded radix select (``radix_digit_hist`` per shard and digit), and
 ``row_max`` per shard, merged exactly. A streamed window with a mesh splits
 its rows over every mesh device, each block streaming on its own. One
-device, the CPU or ``use_mesh`` false take the single-device paths.
+device, the CPU or ``use_mesh`` false take the single-device paths. A mesh
+that spans processes (`krr_tpu_torch.parallel.initialize_distributed`)
+merges across them by collectives, and every rank renders every row.
 
 The legs are stages of the scan trace (``strategy.obs``,
 `krr_tpu_torch.obs.device`): ``pack``, ``quantile`` (``path=resident``,
@@ -42,11 +44,12 @@ from krr_tpu_torch.core.rounding import as_decimal
 from krr_tpu_torch.models.allocations import ResourceType
 from krr_tpu_torch.models.series import FleetBatch
 from krr_tpu_torch.ops import topk_sketch as topk_ops
-from krr_tpu_torch.ops.chunked import StreamStats
+from krr_tpu_torch.ops.chunked import RowSplit, StreamStats
 from krr_tpu_torch.ops.cuda_select import fleet_exact
 from krr_tpu_torch.ops.quantile import masked_max_from_host
 from krr_tpu_torch.ops.selection import masked_percentile_bisect_from_host
 from krr_tpu_torch.parallel import Mesh, make_mesh, mesh_devices, sharded_masked_max, sharded_percentile_bisect
+from krr_tpu_torch.parallel.fleet import mesh_row_split
 from krr_tpu_torch.strategies.base import BatchedStrategy, ResourceRecommendation, RunResult, StrategySettings
 from krr_tpu_torch.utils.device import resolve_device
 
@@ -139,7 +142,8 @@ def streamed_legs(pack: float, stream: float, stats: StreamStats, query: float, 
 
 def use_host_stream(batch: FleetBatch, device: torch.device, setting_mb: int, mesh: Optional[Mesh] = None) -> bool:
     """Whether the packed window is too large to live on the device (on
-    each device of ``mesh``, which shares it out)."""
+    each device of ``mesh``, which shares it out: every device of every
+    rank, as the JAX package divides by the global device count)."""
     threshold = _stream_threshold_bytes(setting_mb, device)
     if threshold is None:
         return False
@@ -149,11 +153,11 @@ def use_host_stream(batch: FleetBatch, device: torch.device, setting_mb: int, me
     return 4 * (cpu.values.size + mem.values.size) / num_devices > threshold
 
 
-def stream_devices(mesh: Optional[Mesh]) -> Optional[list]:
-    """The devices a streamed window's rows split over: every mesh device
-    (collective-free: each block folds its own rows), or None for the one
-    device."""
-    return None if mesh is None else mesh.flat()
+def stream_devices(mesh: Optional[Mesh]) -> Optional[RowSplit]:
+    """Where a streamed window's rows split: over every cell of the mesh,
+    every rank's (each block folds its own rows; the blocks' results are
+    then gathered to every rank), or None for the one device."""
+    return None if mesh is None else mesh_row_split(mesh)
 
 
 class SimpleStrategySettings(StrategySettings):
@@ -205,10 +209,11 @@ class SimpleStrategySettings(StrategySettings):
 
 def resolve_mesh(settings: SimpleStrategySettings, device: "torch.device | str") -> Optional[Mesh]:
     """The strategy's device mesh over ``device``'s devices
-    (`krr_tpu_torch.parallel.mesh_devices`), or None for the single-device
-    path: ``use_mesh`` false, the CPU or one card. A ``mesh_time_axis``
-    that does not divide the device count raises, as ``make_mesh`` does,
-    rather than degrade to a data-only mesh."""
+    (`krr_tpu_torch.parallel.mesh_devices`: with a process group up, every
+    rank's, as the JAX package meshes ``jax.devices()``), or None for the
+    single-device path: ``use_mesh`` false, the CPU or one card. A
+    ``mesh_time_axis`` that does not divide the device count raises, as
+    ``make_mesh`` does, rather than degrade to a data-only mesh."""
     devices = mesh_devices(device)
     if not settings.use_mesh or len(devices) <= 1:
         return None

@@ -21,8 +21,13 @@ With more than one device and ``use_mesh`` (`krr_tpu_torch.strategies.
 simple.resolve_mesh`) the window shards over a ``(data, time)`` mesh
 (`krr_tpu_torch.parallel`, `krr_tpu/strategies/tdigest.py:173-200`,
 `:294-321`): ``digest_hist`` or ``topk_select`` per shard and ``row_max``
-per shard, merged exactly onto each row block's first device; a streamed
-window splits its rows over every mesh device instead.
+per shard, merged exactly per row block; a streamed window splits its
+rows over every mesh device instead. On a mesh that spans processes
+(`krr_tpu_torch.parallel.initialize_distributed`) every rank gets every
+row, so every rank renders the whole result — and, with ``state_path``,
+folds the whole window into its own store and persists it, as each JAX
+process would: give each rank its own ``state_path`` (hosts have their own
+disks).
 
 With ``state_path`` (`krr_tpu/strategies/tdigest.py:267-293`) each run
 builds the fetched window's digest on the device — ``digest_hist`` plus
@@ -352,7 +357,9 @@ class TDigestStrategy(BatchedStrategy[TDigestStrategySettings]):
         self, batch: FleetBatch, spec: DigestSpec, q: float, pack_seconds: float, mesh: Optional[Mesh]
     ) -> tuple:
         """The ``state_path`` run: the window digest on the device (the
-        ``digest`` stage), then the store cycle on the host."""
+        ``digest`` stage), then the store cycle on the host. On a mesh that
+        spans processes every rank holds the whole window's digest and
+        folds it into the store at its own ``state_path``."""
         self.leg_seconds = {"pack": pack_seconds}
         with self.obs.stage("digest", rows=len(batch)):
             t0 = time.perf_counter()
@@ -395,7 +402,7 @@ class TDigestStrategy(BatchedStrategy[TDigestStrategySettings]):
             else:
                 digests, real_rows = sharded_fleet_digest(spec, cpu.values, cpu.counts, mesh)
             # The build leg (and so the stage) covers the kernels, traced or not.
-            _fence(*set(mesh.flat()))
+            _fence(*set(mesh.local_devices()))
         t1 = time.perf_counter()
         with obs.stage("quantile", rows=len(batch), path="mesh"):
             if k is not None:

@@ -176,9 +176,15 @@ class TestMesh:
         assert port_parallel.mesh_devices("cuda:1") == [torch.device("cuda", 1)]
         assert len(port_parallel.mesh_devices("cuda")) == torch.cuda.device_count()
 
-    def test_initialize_distributed_names_m7b(self):
-        with pytest.raises(NotImplementedError, match="M7b"):
-            port_parallel.initialize_distributed()
+    def test_initialize_distributed_cuda_without_a_card_raises(self):
+        """A ``cuda`` process group on a host without a card raises before
+        any rendezvous, and starts nothing (the group is process-wide: the
+        two-rank runs are `tests/test_torch_distributed.py`'s children)."""
+        if torch.cuda.is_available():
+            pytest.skip("this host has a card: the request would rendezvous")
+        with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+            port_parallel.initialize_distributed("127.0.0.1:1", num_processes=2, process_id=0)
+        assert not torch.distributed.is_initialized() and port_parallel.mesh.world() is None
 
     def test_placement_needs_divisible_extents(self):
         mesh = port_parallel.make_mesh(2, 2, devices=["cpu"] * 4)

@@ -397,7 +397,8 @@ class TestHygiene:
             "bad = sorted(m for m in set(sys.modules) - before if m.split('.')[0] in ('jax', 'jaxlib', 'krr_tpu'))\n"
             "print(len(names), bad)\n"
             "missing = {'krr_tpu_torch.federation.shard', 'krr_tpu_torch.federation.replica',"
-            " 'krr_tpu_torch.ingest.plane', 'krr_tpu_torch.ingest.listener'} - set(names)\n"
+            " 'krr_tpu_torch.ingest.plane', 'krr_tpu_torch.ingest.listener', 'krr_tpu_torch.parallel.mesh',"
+            " 'krr_tpu_torch.parallel.collectives', 'krr_tpu_torch.parallel.fleet'} - set(names)\n"
             "sys.exit(1 if bad or missing or len(names) < 30 else 0)\n"
         )
         env = {**os.environ, "PYTHONPATH": str(REPO)}
