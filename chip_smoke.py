@@ -289,6 +289,19 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    per second, the peak allocated device memory, the scoring reduce alone
    by CUDA events, and ``eval --journal`` on the ``serve`` phase's journal
    (10,000 workloads): its wall and rows.
+16. ``bench``   — the port's bench in this process, twice. First
+   ``bench_torch.main(["--device", "cuda"])`` with ``BENCH_SKIP_E2E`` at its
+   default shape (10,000 × 120,960): its parity gates hold ``fleet_exact``
+   (K1 + K2) against its plain version, the top-K sketch's p99 (K4) and the
+   digest's (K3) against the exact p99 and the digest's peak against
+   ``row_max``, on 512 rows of the real matrix on the card; ``bisect_select``,
+   ``row_max``, ``digest_hist`` and ``topk_select`` must each have launched
+   at least once in this process (counts set to 0 just before). Then
+   ``--smoke``, whose two ``bench_e2e_torch.py`` subprocesses drive the
+   ``Runner`` legs against the fakes on the card. Both runs must exit 0 with
+   ``"parity": "ok"``. Printed: the full-shape run's headline and secondary
+   fields and launches, and under ``smoke_e2e`` only the smoke run's
+   end-to-end fields (its kernel legs are toy-sized and not kept).
 
 ``row_max_main`` — ``row_max`` at the memory shape of the ``simple`` scan,
 per wrapper call (host-bound at that size) and per launch replayed from a
@@ -297,7 +310,7 @@ CUDA graph (the kernel's device time). Part of ``headline``; run alone
 beside the script, so a copy of the script placed in an unpacked older
 commit times that commit's kernel the same way.
 
-The last three lines (printed when all fourteen default phases ran) are the
+The last three lines (printed when all fifteen default phases ran) are the
 card's ``nvidia-smi`` name and power limit, one
 ``{"kernels": [...]}`` JSON object (launch counts from the ``cli`` phase's
 warm runs; ``radix_digit_hist``'s from the ``stream`` phase's q = 50 scan),
@@ -1277,6 +1290,45 @@ def _read_counts() -> tuple[dict, dict]:
     return {**cuda_select.LAUNCHES, **cuda_sketch.LAUNCHES}, dict(chunked.GENERIC_FOLDS)
 
 
+def _bench_run(bench_torch, argv: list, environ) -> dict:
+    """``bench_torch.main(argv, environ)`` in this process; its JSON line,
+    which must say exit 0 and ``"parity": "ok"``."""
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = bench_torch.main(argv, environ)
+    lines = out.getvalue().strip().splitlines()
+    check(bool(lines), f"bench: no JSON line (exit {rc})")
+    payload = json.loads(lines[-1])
+    check(rc == 0, f"bench exited {rc}: parity {payload.get('parity')}, secondary {payload.get('secondary')}")
+    check(payload["parity"] == "ok", f"bench: parity {payload['parity']}")
+    return payload
+
+
+def phase_bench() -> dict:
+    """`bench_torch.main` on ``DEVICE`` in this process, twice: its kernel
+    legs at the bench's own headline shape (``BENCH_SKIP_E2E``), launches
+    counted from 0, then ``--smoke`` for its two end-to-end subprocesses."""
+    import bench_torch
+
+    _reset_counts()
+    payload = _bench_run(bench_torch, ["--device", DEVICE], {"BENCH_SKIP_E2E": "1"})
+    launches, _generic = _read_counts()
+    check(all(launches[name] >= 1 for name in bench_torch.KERNELS), f"bench: a kernel leg did not launch: {launches}")
+    report = {key: value for key, value in payload.items() if key != "secondary"}
+    report.update(launches=launches, secondary=payload["secondary"])
+    # The smoke run's kernel legs are toy-sized: only its end-to-end
+    # numbers are kept, under their own key.
+    smoke = _bench_run(bench_torch, ["--smoke", "--device", DEVICE], os.environ)
+    e2e = {key: value for key, value in smoke["secondary"].items() if key.startswith(("e2e_", "fleet_e2e_"))}
+    check(e2e.get("e2e_objects_per_sec", 0) > 0 and e2e.get("fleet_e2e_objects_per_sec", 0) > 0,
+          f"bench: the end-to-end legs delivered no rate: {smoke['secondary']}")
+    report["smoke_e2e"] = e2e
+    emit("bench", **report)
+    return report
+
+
 class E2EFleet:
     """The ``e2e`` and ``stream`` phases' fleet: 10,000 objects of 3 pods and
     the flat CPU and raw memory samples the in-memory history source
@@ -1415,12 +1467,16 @@ def traced_device_work(events: list) -> dict:
             match = re.search(r"(\w+)\(", e["name"])
             name = match.group(1) if match else e["name"]
             kernels[name] = kernels.get(name, 0) + 1
-    window = (max(float(e["ts"]) + float(e["dur"]) for e in spans) - min(float(e["ts"]) for e in spans)
-              if spans else 0.0)
+    first = min((float(e["ts"]) for e in spans), default=0.0)
+    last = max((float(e["ts"]) + float(e["dur"]) for e in spans), default=0.0)
     by_category = {cat: sum(float(e["dur"]) for e in spans if e.get("cat") == cat) / 1e6
                    for cat in DEVICE_CATEGORIES}
-    return {"kernels": kernels, "busy_seconds": busy / 1e6, "window_seconds": window / 1e6,
-            "seconds_by_category": by_category}
+    # How far inside the traced window the card's work lies at each end: the
+    # profiler drops a device record that falls outside its window.
+    margins = ({"device_head_margin_seconds": (device[0][0] - first) / 1e6,
+                "device_tail_margin_seconds": (last - max(stop for _, stop in device)) / 1e6} if device else {})
+    return {"kernels": kernels, "busy_seconds": busy / 1e6, "window_seconds": (last - first) / 1e6,
+            "seconds_by_category": by_category, "device_records": len(device), **margins}
 
 
 def profiled_scan(fleet: E2EFleet, reference: str) -> dict:
@@ -1446,7 +1502,7 @@ def profiled_scan(fleet: E2EFleet, reference: str) -> dict:
     for wrapper, kernel in (("bisect_select", "bisect_select_kernel"), ("row_max", "row_max_kernel")):
         check(launches[wrapper] >= 1 and work["kernels"].get(kernel, 0) == launches[wrapper],
               f"profile_dir: {kernel} traced {work['kernels'].get(kernel, 0)} times, its wrapper "
-              f"counted {launches[wrapper]} launches")
+              f"counted {launches[wrapper]} launches; the trace: {work}")
     busy = {
         "busy_share_of_traced_window": work["busy_seconds"] / work["window_seconds"],
         "busy_share_of_run_wall": work["busy_seconds"] / wall,
@@ -3666,10 +3722,11 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
         "--phases",
-        default="build,parity,digest_proof,headline,e2e,stream,state,mesh,distributed,cli,serve,push,federation,eval",
-        help="comma-separated subset of build,parity,digest_proof,headline,e2e,stream,state,mesh,distributed,cli,"
-        "serve,push,federation,eval,row_max_main (default: the first fourteen; the kernels line and the ok line "
-        "need all fourteen)",
+        default="build,parity,digest_proof,headline,bench,e2e,stream,state,mesh,distributed,cli,serve,push,"
+        "federation,eval",
+        help="comma-separated subset of build,parity,digest_proof,headline,bench,e2e,stream,state,mesh,distributed,"
+        "cli,serve,push,federation,eval,row_max_main (default: the first fifteen; the kernels line and the ok line "
+        "need all fifteen)",
     )
     args = parser.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -3704,6 +3761,7 @@ def main(argv=None) -> int:
     if headline is not None:
         headline.update(timed("headline_sketch", phase_sketch_headline, torch, np))
         headline.update(timed("headline_stream", phase_stream_headline, torch, np))
+    benched = timed("bench", phase_bench) if "bench" in phases else None
     fleet = timed("fleet", E2EFleet, np) if {"e2e", "stream", "state"} & phases else None
     e2e, rendered = timed("e2e", phase_e2e, torch, fleet) if "e2e" in phases else (None, None)
     stream = timed("stream", phase_stream, torch, fleet, rendered) if "stream" in phases else None
@@ -3739,8 +3797,8 @@ def main(argv=None) -> int:
         journal = serve["journal_copy"] if serve is not None else None
         evaluated = timed("eval", phase_eval, torch, np, smi, journal) if "eval" in phases else None
     emit("walls", seconds=walls)
-    if None in (headline, e2e, stream, state, mesh, distributed, cli, serve, pushed, federation, evaluated, parity,
-                proof) \
+    if None in (headline, benched, e2e, stream, state, mesh, distributed, cli, serve, pushed, federation, evaluated,
+                parity, proof) \
             or "build" not in phases:
         print(smi)
         return 0

@@ -178,18 +178,29 @@ class BatchedStrategy(BaseStrategy[_S]):
 
 _PROFILE_SEQUENCE = itertools.count(1)
 
+#: Host seconds the profiler's window stays open before and after the body
+#: on a CUDA device. The profiler keeps a device record only when it lies
+#: inside that window on the host clock, and its mapping of the card's
+#: clock onto the host's can be off by milliseconds in a trace
+#: (``profiler_window_probe.py`` measures both): without the margin
+#: the body's last kernels, which end a fraction of a millisecond before
+#: the body does, can fall outside the window and vanish from the trace.
+PROFILE_MARGIN_SECONDS = 0.1
+
 
 @contextlib.contextmanager
 def profiled(profile_dir: str, device=None):
     """Run the body under ``torch.profiler.profile`` and write its Chrome
     trace to ``<profile_dir>/krr-tpu-torch.<stamp>-<pid>-<n>.pt.trace.json``
     (a fresh name per call). CUDA activity is recorded when ``device`` is a
-    CUDA device."""
+    CUDA device; the body's device work is then fenced and held
+    :data:`PROFILE_MARGIN_SECONDS` inside the window on each side."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
-    if device is not None and torch.device(device).type == "cuda":
+    cuda = device is not None and torch.device(device).type == "cuda"
+    if cuda:
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(profile_dir, exist_ok=True)
     stamp = time.strftime("%Y%m%dT%H%M%S", time.gmtime())
@@ -197,7 +208,13 @@ def profiled(profile_dir: str, device=None):
         profile_dir, f"krr-tpu-torch.{stamp}-{os.getpid()}-{next(_PROFILE_SEQUENCE)}.pt.trace.json"
     )
     with profile(activities=activities, record_shapes=False, with_stack=False) as prof:
+        if cuda:
+            torch.cuda.synchronize(device)
+            time.sleep(PROFILE_MARGIN_SECONDS)
         yield
+        if cuda:
+            torch.cuda.synchronize(device)
+            time.sleep(PROFILE_MARGIN_SECONDS)
     prof.export_chrome_trace(path)
 
 

@@ -341,3 +341,39 @@ def test_profile_dir_writes_a_torch_profiler_trace(apps, fake_env, tmp_path):  #
     (path,) = glob.glob(str(tmp_path / "krr-tpu-torch.*.pt.trace.json"))
     events = json.load(open(path))["traceEvents"]
     assert any(e.get("ph") == "X" for e in events)
+
+
+@pytest.mark.parametrize("device, fenced", [("cuda", True), ("cuda:0", True), ("cpu", False), (None, False)])
+def test_profiled_holds_device_work_inside_the_window(monkeypatch, tmp_path, device, fenced):
+    """On a CUDA device the profiler's window opens and closes
+    ``PROFILE_MARGIN_SECONDS`` of host time away from the body's fenced
+    device work (the profiler drops device records outside its window);
+    on the CPU nothing is fenced and nothing waits."""
+    import torch
+    import torch.profiler
+
+    from krr_tpu_torch.strategies import base
+
+    calls = []
+
+    class FakeProfile:
+        def __init__(self, activities, **kwargs):
+            calls.append(("start", tuple(sorted(a.name for a in activities))))
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            calls.append(("stop",))
+
+        def export_chrome_trace(self, path):
+            calls.append(("export",))
+
+    monkeypatch.setattr(torch.profiler, "profile", FakeProfile)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda dev=None: calls.append(("sync", dev)))
+    monkeypatch.setattr(base.time, "sleep", lambda seconds: calls.append(("sleep", seconds)))
+    with base.profiled(str(tmp_path), device):
+        calls.append(("body",))
+    margin = [("sync", device), ("sleep", base.PROFILE_MARGIN_SECONDS)] if fenced else []
+    activities = ("CPU", "CUDA") if fenced else ("CPU",)
+    assert calls == [("start", activities), *margin, ("body",), *margin, ("stop",), ("export",)]

@@ -385,14 +385,15 @@ class TestHostEdgeParity:
 
 class TestHygiene:
     def test_port_imports_neither_jax_nor_the_jax_package(self):
-        """Every module of the port, found by walking the package, imports
-        no ``jax*`` and no ``krr_tpu.*`` module."""
+        """Every module of the port, found by walking the package, and the
+        port's bench scripts import no ``jax*`` and no ``krr_tpu.*`` module
+        (`tests/test_torch_bench.py` runs the bench under an import blocker)."""
         code = (
             "import importlib, pkgutil, sys\n"
             "before = set(sys.modules)\n"
             "import krr_tpu_torch\n"
             "names = [m.name for m in pkgutil.walk_packages(krr_tpu_torch.__path__, 'krr_tpu_torch.')]\n"
-            "for name in names:\n"
+            "for name in names + ['bench_torch', 'bench_e2e_torch']:\n"
             "    importlib.import_module(name)\n"
             "bad = sorted(m for m in set(sys.modules) - before if m.split('.')[0] in ('jax', 'jaxlib', 'krr_tpu'))\n"
             "print(len(names), bad)\n"
