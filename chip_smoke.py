@@ -299,9 +299,18 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    at least once in this process (counts set to 0 just before). Then
    ``--smoke``, whose two ``bench_e2e_torch.py`` subprocesses drive the
    ``Runner`` legs against the fakes on the card. Both runs must exit 0 with
-   ``"parity": "ok"``. Printed: the full-shape run's headline and secondary
-   fields and launches, and under ``smoke_e2e`` only the smoke run's
-   end-to-end fields (its kernel legs are toy-sized and not kept).
+   ``"parity": "ok"``. The full-shape run leaves out the six service-plane
+   legs (``BENCH_SKIP_INGEST``, ``_FEDERATION``, ``_HA``, ``_READPATH``,
+   ``_STORE``); the smoke run drives them at smoke sizes on the card (push
+   ingest, federation, the HA ring and its replica, the read path, the
+   durable store and the SIGKILL soak's serve subprocesses; the HA replica's
+   read load at 4 × 200 requests, ``BENCH_HA_READS``), and every gate
+   of theirs, the wall-clock ones included, must pass; the K1–K5 counts
+   read after the run must equal its ``kernel_launches``, read before the
+   service legs. Printed: the full-shape run's headline and secondary
+   fields and launches, under ``smoke_e2e`` the smoke run's end-to-end
+   fields and under ``smoke_service`` its service legs' fields (its kernel
+   legs are toy-sized and not kept).
 
 ``row_max_main`` — ``row_max`` at the memory shape of the ``simple`` scan,
 per wrapper call (host-bound at that size) and per launch replayed from a
@@ -1306,25 +1315,65 @@ def _bench_run(bench_torch, argv: list, environ) -> dict:
     return payload
 
 
+#: The knobs that leave out `bench_torch.py`'s service-plane legs (the
+#: ``bench`` phase's full-shape run measures the kernel legs alone).
+BENCH_SERVICE_SKIPS = ("BENCH_SKIP_INGEST", "BENCH_SKIP_FEDERATION", "BENCH_SKIP_HA", "BENCH_SKIP_READPATH",
+                       "BENCH_SKIP_STORE")
+
+#: The prefixes of the service-plane legs' fields in ``secondary``, and
+#: the fields of `bench_e2e_torch.py`'s scanner leg that share one.
+BENCH_SERVICE_PREFIXES = ("ingest_", "federation_", "ha_", "readpath_", "store_")
+BENCH_E2E_SCANNER_FIELDS = ("ingest_bytes_per_sample", "ingest_samples_per_sec", "ingest_digest_bytes_per_sec",
+                            "ingest_stats_bytes_per_sec", "ingest_raw_bytes_per_sec")
+
+#: The smoke run's HA read load: 4 readers × 200 requests a run instead of
+#: the smoke size's 2 × 16 (~10 ms of reads a run, whose RPS moves by a
+#: quarter from run to run on the card). The ring, its ticks and the gate
+#: stay as they are.
+BENCH_HA_READS = {"BENCH_HA_CLIENTS": "4", "BENCH_HA_REQUESTS": "200"}
+
+#: Fields of the service legs that must be 1.0: their exact gates held.
+BENCH_SERVICE_EXACT = ("ingest_bitexact", "ingest_zero_range_queries", "federation_bitexact", "ha_bitexact",
+                       "ha_failover_zero_lost_epochs", "store_kill_recover_bitexact")
+
+
 def phase_bench() -> dict:
     """`bench_torch.main` on ``DEVICE`` in this process, twice: its kernel
-    legs at the bench's own headline shape (``BENCH_SKIP_E2E``), launches
-    counted from 0, then ``--smoke`` for its two end-to-end subprocesses."""
+    legs at the bench's own headline shape (``BENCH_SKIP_E2E`` and the
+    service legs' skips), launches counted from 0, then ``--smoke`` for its
+    two end-to-end subprocesses and its six service-plane legs, during
+    which no kernel may launch."""
     import bench_torch
 
     _reset_counts()
-    payload = _bench_run(bench_torch, ["--device", DEVICE], {"BENCH_SKIP_E2E": "1"})
+    payload = _bench_run(bench_torch, ["--device", DEVICE],
+                         {"BENCH_SKIP_E2E": "1", **{key: "1" for key in BENCH_SERVICE_SKIPS}})
     launches, _generic = _read_counts()
     check(all(launches[name] >= 1 for name in bench_torch.KERNELS), f"bench: a kernel leg did not launch: {launches}")
     report = {key: value for key, value in payload.items() if key != "secondary"}
     report.update(launches=launches, secondary=payload["secondary"])
-    # The smoke run's kernel legs are toy-sized: only its end-to-end
-    # numbers are kept, under their own key.
-    smoke = _bench_run(bench_torch, ["--smoke", "--device", DEVICE], os.environ)
-    e2e = {key: value for key, value in smoke["secondary"].items() if key.startswith(("e2e_", "fleet_e2e_"))}
+    # The smoke run's kernel legs are toy-sized: only its end-to-end and
+    # service numbers are kept, under their own keys.
+    _reset_counts()
+    smoke = _bench_run(bench_torch, ["--smoke", "--device", DEVICE], {**os.environ, **BENCH_HA_READS})
+    after, _generic = _read_counts()
+    secondary = smoke["secondary"]
+    e2e = {key: value for key, value in secondary.items() if key.startswith(("e2e_", "fleet_e2e_"))}
     check(e2e.get("e2e_objects_per_sec", 0) > 0 and e2e.get("fleet_e2e_objects_per_sec", 0) > 0,
-          f"bench: the end-to-end legs delivered no rate: {smoke['secondary']}")
+          f"bench: the end-to-end legs delivered no rate: {secondary}")
     report["smoke_e2e"] = e2e
+    # ``kernel_launches`` is read just after the kernel legs, before the
+    # service legs: the counts must not have moved since.
+    check(after == secondary["kernel_launches"],
+          f"bench: a kernel launched in the service legs: {secondary['kernel_launches']} -> {after}")
+    service = {key: value for key, value in secondary.items()
+               if key.startswith(BENCH_SERVICE_PREFIXES) and key not in BENCH_E2E_SCANNER_FIELDS}
+    check(all(service.get(key) == 1.0 for key in BENCH_SERVICE_EXACT),
+          f"bench: a service leg's exact gate did not hold: {service}")
+    check(service.get("readpath_cache_hit_pct", 0) >= 99.0 and service.get("store_kills", 0) >= 2,
+          f"bench: the readpath or kill-soak leg did not run: {service}")
+    report["smoke_service"] = {**service, "kernel_launches_during": {
+        name: after[name] - secondary["kernel_launches"][name] for name in after}}
     emit("bench", **report)
     return report
 

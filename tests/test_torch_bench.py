@@ -2,10 +2,13 @@
 
 What is held here, without reading a wall clock in any assertion:
 
-* the whole ``--smoke --device cpu`` run in a subprocess — every leg runs,
-  the JSON line carries `bench.py`'s fields, and neither script nor any
-  process it starts imports ``jax*`` or ``krr_tpu.*`` (an import blocker
-  in a ``sitecustomize`` on ``PYTHONPATH`` records and refuses them);
+* the whole ``--smoke --device cpu`` run in a subprocess — every kernel
+  and end-to-end leg runs, the JSON line carries `bench.py`'s fields, and
+  neither script nor any process it starts imports ``jax*`` or
+  ``krr_tpu.*`` (an import blocker in a ``sitecustomize`` on
+  ``PYTHONPATH`` records and refuses them); the six service-plane legs are
+  left out here (``SERVICE_SKIPS``) and held in
+  `tests/test_torch_bench_service.py`;
 * the four parity gates are real: one perturbed element makes ``main``
   print ``"parity": "fail"`` naming that gate, and exit 1;
 * an end-to-end leg that fails, times out or returns no payload makes the
@@ -48,8 +51,7 @@ from krr_tpu_torch.ops import topk_sketch as port_topk
 
 REPO = Path(__file__).resolve().parent.parent
 
-#: The headline fields of `bench.py:3389-3411` (its JSON line), the
-#: read-path trendline fields left out: `readpath_leg` is not ported yet.
+#: The headline fields of `bench.py:3389-3411` (its JSON line).
 HEADLINE_FIELDS = (
     "metric", "value", "unit", "vs_baseline", "parity", "runs",
     "raw_containers_per_sec", "raw_spread_pct", "raw_vs_baseline",
@@ -60,8 +62,17 @@ HEADLINE_FIELDS = (
     # **_fetch_trendline_fields(secondary)
     "fetch_vs_previous_round", "previous_round_fetch_seconds", "fetch_regression_vs_previous",
     "wire_vs_previous_round", "previous_round_wire_mb", "wire_regression_vs_previous",
+    # **_readpath_trendline_fields(secondary)
+    "readpath_vs_previous_round", "previous_round_readpath_p99_ms", "readpath_regression_vs_previous",
     "secondary",
 )
+
+#: The knobs that leave out the six service-plane legs (their own file,
+#: `tests/test_torch_bench_service.py`, covers them).
+SERVICE_SKIPS = {
+    key: "1" for key in ("BENCH_SKIP_INGEST", "BENCH_SKIP_FEDERATION", "BENCH_SKIP_HA",
+                         "BENCH_SKIP_READPATH", "BENCH_SKIP_STORE")
+}
 
 #: A ``sitecustomize`` that refuses and records any import of the JAX
 #: package or of JAX in every Python process started with it on the path.
@@ -92,9 +103,16 @@ def parity_failures(stderr: str) -> list:
 
 
 @pytest.fixture
-def kernel_legs_only(monkeypatch):
+def kernel_legs_only(monkeypatch, service_legs_skipped):
     """The smoke sizes with the end-to-end subprocesses left out."""
     monkeypatch.setenv("BENCH_SKIP_E2E", "1")
+
+
+@pytest.fixture
+def service_legs_skipped(monkeypatch):
+    """The service-plane legs left out."""
+    for key, value in SERVICE_SKIPS.items():
+        monkeypatch.setenv(key, value)
 
 
 def test_smoke_runs_every_leg_without_jax(tmp_path):
@@ -104,7 +122,7 @@ def test_smoke_runs_every_leg_without_jax(tmp_path):
     log = tmp_path / "imports"
     log.mkdir()
     env = {key: value for key, value in os.environ.items() if not key.startswith("BENCH_")}
-    env.update(PYTHONPATH=str(site), BENCH_TEST_IMPORT_LOG=str(log))
+    env.update(PYTHONPATH=str(site), BENCH_TEST_IMPORT_LOG=str(log), **SERVICE_SKIPS)
     proc = subprocess.run(
         [sys.executable, str(REPO / "bench_torch.py"), "--smoke", "--device", "cpu"],
         capture_output=True, text=True, timeout=300, cwd=tmp_path, env=env,
@@ -179,7 +197,7 @@ def test_parity_gates_are_real(gate, kernel_legs_only, monkeypatch, capsys):
     ],
     ids=["exit-code", "silent", "empty-payload", "not-json", "timeout"],
 )
-def test_a_failed_e2e_leg_fails_the_bench(script, note, tmp_path, monkeypatch, capsys):
+def test_a_failed_e2e_leg_fails_the_bench(script, note, tmp_path, monkeypatch, capsys, service_legs_skipped):
     leg = tmp_path / "leg.py"
     leg.write_text(script)
     monkeypatch.setattr(bench_torch, "E2E_SCRIPT", str(leg))
@@ -202,7 +220,7 @@ def test_knobs_come_from_the_environ_argument(tmp_path, monkeypatch, capsys):
     monkeypatch.setattr(bench_torch, "E2E_SCRIPT", str(leg))
     monkeypatch.delenv("BENCH_SKIP_E2E", raising=False)
     before = dict(os.environ)
-    rc = bench_torch.main(["--device", "cpu"], {**bench_torch.SMOKE_DEFAULTS, "BENCH_SKIP_E2E": "1"})
+    rc = bench_torch.main(["--device", "cpu"], {**bench_torch.SMOKE_DEFAULTS, "BENCH_SKIP_E2E": "1", **SERVICE_SKIPS})
     out, err = capsys.readouterr()
     assert rc == 0, err[-3000:]
     payload = last_json(out)
@@ -236,26 +254,29 @@ def test_python_reference_equals_bench(monkeypatch):
     assert ticking.now == reads
 
 
-def _round(directory: Path, name: str, value: float, fetch: float, wire: float, containers: int = 100_000) -> None:
+def _round(directory: Path, name: str, value: float, fetch: float, wire: float, containers: int = 100_000,
+           p99: float = 4.0, readpath_workloads: float = 400.0) -> None:
     (directory / name).write_text(json.dumps({
         "n": 1, "cmd": "python3 bench", "rc": 0, "tail": "",
         "parsed": {"metric": "containers_per_sec_exact_p99_7d_at_5s_pipelined", "value": value, "secondary": {
-            "fleet_e2e_fetch_seconds": fetch, "fleet_e2e_wire_mb": wire, "fleet_e2e_containers": containers}},
+            "fleet_e2e_fetch_seconds": fetch, "fleet_e2e_wire_mb": wire, "fleet_e2e_containers": containers,
+            "readpath_p99_ms": p99, "readpath_workloads": readpath_workloads}},
     }))
 
 
 @pytest.mark.parametrize(
     "current, previous",
     [
-        ((1_000_000.0, 30.0, 400.0, 100_000), (1_010_000.0, 29.0, 401.0)),  # level
-        ((900_000.0, 40.0, 500.0, 100_000), (1_000_000.0, 30.0, 400.0)),  # every gate trips
-        ((1_000_000.0, 30.0, 400.0, 12), (1_000_000.0, 30.0, 400.0)),  # another fleet width
+        ((1_000_000.0, 30.0, 400.0, 100_000, 4.1, 400.0), (1_010_000.0, 29.0, 401.0)),  # level
+        ((900_000.0, 40.0, 500.0, 100_000, 5.0, 400.0), (1_000_000.0, 30.0, 400.0)),  # every gate trips
+        ((1_000_000.0, 30.0, 400.0, 12, 4.0, 12.0), (1_000_000.0, 30.0, 400.0)),  # another fleet and readpath width
     ],
     ids=["level", "regressed", "other-width"],
 )
 def test_round_over_round_fields_equal_bench(current, previous, tmp_path, monkeypatch):
-    rate, fetch, wire, containers = current
-    secondary = {"fleet_e2e_fetch_seconds": fetch, "fleet_e2e_wire_mb": wire, "fleet_e2e_containers": containers}
+    rate, fetch, wire, containers, p99, readpath_workloads = current
+    secondary = {"fleet_e2e_fetch_seconds": fetch, "fleet_e2e_wire_mb": wire, "fleet_e2e_containers": containers,
+                 "readpath_p99_ms": p99, "readpath_workloads": readpath_workloads}
     jax_dir, port_dir = tmp_path / "jax", tmp_path / "port"
     jax_dir.mkdir()
     port_dir.mkdir()
@@ -270,6 +291,14 @@ def test_round_over_round_fields_equal_bench(current, previous, tmp_path, monkey
     assert bench_torch._previous_round_payload()[1] == bench._previous_round_payload()[1]
     assert bench_torch._previous_round_stable() == ("BENCH_TORCH_r01.json", bench._previous_round_stable()[1])
     assert bench_torch._fetch_trendline_fields(secondary) == bench._fetch_trendline_fields(secondary)
+    readpath = bench_torch._readpath_trendline_fields(secondary)
+    assert readpath == bench._readpath_trendline_fields(secondary)
+    if readpath_workloads != 400.0:
+        assert readpath == {"readpath_vs_previous_round": None, "previous_round_readpath_p99_ms": None,
+                            "readpath_regression_vs_previous": False}
+    else:
+        assert readpath["previous_round_readpath_p99_ms"] == 4.0
+        assert readpath["readpath_regression_vs_previous"] == (p99 / 4.0 > 1.15)
     fields = bench_torch._previous_round_fields(rate)
     assert fields["previous_round_file"] == "BENCH_TORCH_r01.json"
     assert fields["previous_round_stable_rate"] == round(bench._previous_round_stable()[1], 1)
@@ -297,6 +326,7 @@ def test_no_round_recorded(tmp_path, monkeypatch):
         "previous_round_stable_rate": None, "regression_vs_previous": False,
     }
     assert all(not value for value in bench_torch._fetch_trendline_fields({"fleet_e2e_fetch_seconds": 1.0}).values())
+    assert all(not value for value in bench_torch._readpath_trendline_fields({"readpath_p99_ms": 1.0}).values())
 
 
 @pytest.mark.parametrize("ragged", [False, True], ids=["full", "ragged"])
