@@ -41,19 +41,35 @@ is one call, best of ``BENCH_RUNS``; the pipelined headline launches
 only the last; ``dispatch_floor_ms`` is one trivial op on an ``[8, 128]``
 tensor plus its readback, best of 5.
 
-The service-plane legs then run in this process, in `bench.py`'s order,
-each with `bench.py`'s ``secondary.<prefix>_*`` fields and gates, every
-``Config`` on ``--device``: ``ingest_leg`` (a remote-write-fed serve
-against a range-fetched pull control), ``federation_leg`` (shards over TCP
-into an aggregator against a single-process control), ``ha_leg`` (a 2-node
-ring with a killed primary, a duplicate record and a read replica),
-``readpath_leg`` (keep-alive readers against a live serve and an uncached
-control), ``store_leg`` (the durable store's delta append, legacy rewrite
-and recovery) and ``store_kill_leg`` (SIGKILLed serve subprocesses,
-`tests/fakes/torch_soak_driver.py`, against a never-killed control). They
-are host code: on the card no kernel may launch in them
-(``service_legs_launched_no_kernel``). A leg that raises fails the bench;
-a failed gate, exact or wall-clock, is a parity failure.
+The service-plane and observability legs then run in this process, in
+`bench.py`'s order, each with `bench.py`'s ``secondary.<prefix>_*`` fields
+and gates, every ``Config``, strategy and server on ``--device``:
+``journal_leg`` (the history journal's append, compaction and diff
+render), ``obs_leg`` (a digest-ingest scan with and without a recording
+tracer) with ``analyze_smoke_leg`` (``python -m krr_tpu_torch analyze``
+over its trace), ``obs_device_leg`` (``SimpleStrategy.run_batch`` with and
+without `obs.device.DeviceObs`), ``sentinel_leg`` (the regression sentinel
+over synthetic timelines), ``chaos_leg`` (serve ticks under a scripted
+fault timeline, `tests/fakes/torch_chaos.py`, against a never-faulted
+control), ``eval_leg`` (``simple`` and ``tdigest`` replays and two static
+probes, rendered twice), ``discovery_leg`` (watch reconcile against
+relist), ``ingest_leg`` (a remote-write-fed serve against a range-fetched
+pull control), ``fetchplan_leg`` (the adaptive fetch plan against the
+fixed one), ``wire_leg`` (gzip and downsampling against the identity/raw
+control), ``federation_leg`` (shards over TCP into an aggregator against a
+single-process control), ``ha_leg`` (a 2-node ring with a killed primary,
+a duplicate record and a read replica), ``fleet_obs_leg`` (stitched traces
+and freshness lineage against a no-lineage control), ``readpath_leg``
+(keep-alive readers against a live serve and an uncached control),
+``store_leg`` (the durable store's delta append, legacy rewrite and
+recovery) and ``store_kill_leg`` (SIGKILLed serve subprocesses,
+`tests/fakes/torch_soak_driver.py`, against a never-killed control). Each
+leg's launches of K1–K5 are read around it (``kernel_launches_by_leg``)
+and gated (``<leg>_kernel_launches``): on the card ``obs_device_leg`` and
+``eval_leg`` launch exactly what their ``run_batch`` calls imply
+(``RUN_BATCH_LAUNCHES``), every other leg none; the plain versions count
+none. A leg that raises fails the bench; a failed gate, exact or
+wall-clock, is a parity failure.
 
 The end-to-end legs run `bench_e2e_torch.py` in two subprocesses (the main
 legs with ``BENCH_E2E_CONTAINERS`` defaulted to 10,000, then the full-fleet
@@ -79,13 +95,24 @@ Env knobs (`bench.py`'s names and defaults): BENCH_CONTAINERS (10000),
 BENCH_TIMESTEPS (120960), BENCH_CHUNK (8192), BENCH_RUNS (5),
 BENCH_PIPELINE_DEPTH (16), BENCH_PY_SAMPLE (3), BENCH_PARITY_ROWS (512),
 BENCH_SKIP_E2E, the BENCH_E2E_* sizes of `bench_e2e_torch.py`, and the
-service legs': BENCH_SKIP_INGEST, BENCH_INGEST_WORKLOADS (200),
-BENCH_INGEST_ROUNDS (5); BENCH_SKIP_FEDERATION, BENCH_FED_SHARDS (3),
+service and observability legs': BENCH_SKIP_JOURNAL, BENCH_JOURNAL_ROWS
+(2000), BENCH_JOURNAL_TICKS (32); BENCH_SKIP_OBS (the obs, analyze,
+obs-device and sentinel legs), BENCH_OBS_ROWS (256), BENCH_OBS_SAMPLES
+(4096), BENCH_OBS_RUNS (5), BENCH_SENTINEL_TICKS (60); BENCH_SKIP_CHAOS,
+BENCH_CHAOS_TICKS (8), BENCH_CHAOS_WORKLOADS (2); BENCH_SKIP_EVAL,
+BENCH_EVAL_SAMPLES (240), BENCH_EVAL_WORKLOADS (2), BENCH_EVAL_TICKS (8);
+BENCH_SKIP_DISCOVERY, BENCH_DISCOVERY_WORKLOADS (400),
+BENCH_DISCOVERY_ROUNDS (5); BENCH_SKIP_INGEST, BENCH_INGEST_WORKLOADS
+(200), BENCH_INGEST_ROUNDS (5); BENCH_SKIP_FETCHPLAN,
+BENCH_FETCHPLAN_WORKLOADS (3); BENCH_SKIP_WIRE, BENCH_WIRE_WORKLOADS (3),
+BENCH_WIRE_SAMPLES (180); BENCH_SKIP_FEDERATION, BENCH_FED_SHARDS (3),
 BENCH_FED_TICKS (4), BENCH_FED_WORKLOADS (2); BENCH_SKIP_HA, BENCH_HA_TICKS
 (4), BENCH_HA_WORKLOADS (2), BENCH_HA_CLIENTS (4), BENCH_HA_REQUESTS (40);
-BENCH_SKIP_READPATH, BENCH_READPATH_WORKLOADS (400), BENCH_READPATH_CLIENTS
-(8), BENCH_READPATH_REQUESTS (120); BENCH_SKIP_STORE, BENCH_STORE_ROWS
-(100000), BENCH_STORE_KILLS (2), BENCH_STORE_KILL_TICKS (6).
+BENCH_SKIP_FLEETOBS, BENCH_FLEETOBS_TICKS (4), BENCH_FLEETOBS_WORKLOADS
+(2); BENCH_SKIP_READPATH, BENCH_READPATH_WORKLOADS (400),
+BENCH_READPATH_CLIENTS (8), BENCH_READPATH_REQUESTS (120);
+BENCH_SKIP_STORE, BENCH_STORE_ROWS (100000), BENCH_STORE_KILLS (2),
+BENCH_STORE_KILL_TICKS (6).
 
     python3 bench_torch.py                       # on the card
     python3 bench_torch.py --smoke --device cpu  # toy sizes, plain versions
@@ -170,12 +197,40 @@ SMOKE_DEFAULTS = {
     "BENCH_E2E_INGEST_ROWS": "64",
     "BENCH_E2E_STORE_ROWS": "256",
     "BENCH_E2E_FLEET_ROWS": "12",
+    # History-journal leg (host-only): append/compaction throughput plus a
+    # diff render through the formatter registry, all executed at toy scale.
+    "BENCH_JOURNAL_ROWS": "32",
+    "BENCH_JOURNAL_TICKS": "4",
+    # Tracing-overhead legs: the traced-vs-no-op scan pair and the
+    # instrumented run_batch still execute at toy scale (the <2% gates lean
+    # on their 10 ms noise floor).
+    "BENCH_OBS_ROWS": "48",
+    "BENCH_OBS_SAMPLES": "1024",
+    "BENCH_OBS_RUNS": "3",
+    # Chaos leg: archetype fleet + scripted fault timeline through real
+    # serve ticks, at toy scale but with every gate executed.
+    "BENCH_CHAOS_TICKS": "8",
+    "BENCH_CHAOS_WORKLOADS": "2",
+    # Eval leg: strategy + probe replays over a labeled archetype fleet
+    # (determinism + ranking gates executed at toy scale).
+    "BENCH_EVAL_SAMPLES": "96",
+    "BENCH_EVAL_WORKLOADS": "1",
+    "BENCH_EVAL_TICKS": "6",
+    # Discovery leg: watch-reconcile vs per-round relist at equal fleet
+    # width with injected churn (bit-exactness + reconcile-beats-relist
+    # gates executed at toy scale).
+    "BENCH_DISCOVERY_WORKLOADS": "120",
+    "BENCH_DISCOVERY_ROUNDS": "3",
     # Durable-store legs: delta-append vs legacy full rewrite + recovery
     # replay at toy row counts, and the kill-recover-verify soak (real
     # SIGKILLed serve subprocesses) with a reduced kill budget.
     "BENCH_STORE_ROWS": "512",
     "BENCH_STORE_KILLS": "2",
     "BENCH_STORE_KILL_TICKS": "6",
+    # Wire leg: compressed + downsampled scan vs the identity/raw control
+    # (bit-exactness, engagement, and wire_compression_ratio gates).
+    "BENCH_WIRE_WORKLOADS": "2",
+    "BENCH_WIRE_SAMPLES": "120",
     # Federation leg: N in-process shards vs the single-process control
     # (merged-store bit-exactness + engagement gates; fold seconds and
     # delta wire bytes trended).
@@ -189,6 +244,11 @@ SMOKE_DEFAULTS = {
     "BENCH_HA_WORKLOADS": "2",
     "BENCH_HA_CLIENTS": "2",
     "BENCH_HA_REQUESTS": "16",
+    # Fleet-observability leg: 2 shards + aggregator + replica with every
+    # trace ring recording, stitched-trace / lineage-monotonicity /
+    # <2%-overhead gates all executed against the no-lineage control.
+    "BENCH_FLEETOBS_TICKS": "3",
+    "BENCH_FLEETOBS_WORKLOADS": "2",
     # Read-path leg: concurrent keep-alive readers against a live serve
     # (cache hit rate, 304 zero-render, pushdown bit-exactness, LRU bound,
     # cached-vs-uncached RPS), toy-sized but every gate executed.
@@ -1628,6 +1688,1460 @@ def readpath_leg(secondary: dict, check, env: dict, device: str) -> None:
     )
 
 
+#: Every counted kernel: the kernel legs' four and K5 (the streamed
+#: select's digit histogram, `cuda_select.radix_digit_hist`).
+COUNTED_KERNELS = KERNELS + ("radix_digit_hist",)
+
+#: What one resident ``run_batch`` of a registered strategy launches on the
+#: card: `strategies/simple.py` ``_run_resident`` one ``fleet_exact`` (K1 +
+#: K2); `strategies/tdigest.py` ``_run_resident`` the digest build (K3) and
+#: the memory max (K2).
+RUN_BATCH_LAUNCHES = {
+    "simple": {"bisect_select": 1, "row_max": 1},
+    "tdigest": {"digest_hist": 1, "row_max": 1},
+}
+
+#: The legs that run the main path's kernels: each returns the launches
+#: its calls imply on the card (every other leg launches none).
+KERNEL_LEGS = ("obs_device", "eval")
+
+
+def launch_counts() -> dict:
+    """Every counted kernel's launches so far, by wrapper name."""
+    return {**cuda_select.LAUNCHES, **cuda_sketch.LAUNCHES}
+
+
+def implied_launches(calls: "dict[str, int]") -> dict:
+    """The launches of ``calls`` resident ``run_batch`` calls a strategy
+    (``{strategy: calls}``), by counted kernel."""
+    counts = dict.fromkeys(COUNTED_KERNELS, 0)
+    for strategy, n in calls.items():
+        for name, per_call in RUN_BATCH_LAUNCHES[strategy].items():
+            counts[name] += per_call * n
+    return counts
+
+
+def journal_leg(secondary: dict, env: dict) -> None:
+    """Journal append/compaction throughput + an end-to-end diff render —
+    the history subsystem's secondary numbers (host numpy + disk, no
+    device). Appends are fsync'd per tick (the crash-safe contract is part
+    of what's being measured); compaction is the atomic whole-file rewrite.
+    The diff leg renders the first-vs-last tick delta through the json
+    formatter, exercising journal → diff → formatter end to end."""
+    import tempfile
+
+    import numpy as np
+
+    from krr_tpu_torch.history.diff import build_diff_result, tick_values
+    from krr_tpu_torch.history.journal import RecommendationJournal
+
+    rows = int(env.get("BENCH_JOURNAL_ROWS", 2000))
+    ticks = max(2, int(env.get("BENCH_JOURNAL_TICKS", 32)))
+    rng = np.random.default_rng(11)
+    keys = [f"bench/ns{i % 16}/w{i}/main/Deployment" for i in range(rows)]
+    cpu = rng.gamma(2.0, 0.05, rows).astype(np.float32)
+    mem = rng.uniform(50, 400, rows).astype(np.float32)
+    base_ts = 1_700_000_000.0
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "bench.journal")
+        # Retention sized so compaction drops the older half of the ticks.
+        journal = RecommendationJournal(path, retention_seconds=(ticks // 2) * 60.0)
+        start = time.perf_counter()
+        for t in range(ticks):
+            published = np.full(rows, t == 0)
+            journal.append_tick(base_ts + t * 60.0, keys, cpu * (1 + 0.01 * t), mem, published)
+        append_seconds = time.perf_counter() - start
+        total = rows * ticks
+        secondary["journal_append_records_per_sec"] = round(total / append_seconds, 1)
+
+        before = journal.record_count
+        start = time.perf_counter()
+        dropped = journal.compact(base_ts + ticks * 60.0)
+        compact_seconds = time.perf_counter() - start
+        assert dropped > 0, "bench journal compaction dropped nothing — retention sizing bug"
+        secondary["journal_compact_records_per_sec"] = round(before / max(compact_seconds, 1e-9), 1)
+
+        # Diff leg over the surviving window: oldest surviving tick vs newest.
+        remaining = journal.tick_timestamps()
+        start = time.perf_counter()
+        diff = build_diff_result(
+            tick_values(journal, float(remaining[0])), tick_values(journal, float(remaining[-1]))
+        )
+        rendered = diff.format("json")
+        diff_seconds = time.perf_counter() - start
+        assert len(diff.scans) == rows and rendered
+        secondary["journal_diff_objects_per_sec"] = round(rows / max(diff_seconds, 1e-9), 1)
+        journal.close()
+    print(
+        f"bench: journal {total} appends {append_seconds:.3f}s "
+        f"({total / append_seconds:.0f} rec/s), compaction of {before} recs "
+        f"{compact_seconds * 1e3:.1f} ms, diff render {rows} objects {diff_seconds:.3f}s",
+        file=sys.stderr,
+    )
+
+
+def _scan_objects(rows: int):
+    """The observability legs' fleet: ``rows`` one-pod Deployments over 8
+    namespaces, no allocations."""
+    from krr_tpu_torch.models.allocations import ResourceAllocations, ResourceType
+    from krr_tpu_torch.models.objects import K8sObjectData
+
+    alloc = ResourceAllocations(
+        requests={ResourceType.CPU: None, ResourceType.Memory: None},
+        limits={ResourceType.CPU: None, ResourceType.Memory: None},
+    )
+    return [
+        K8sObjectData(
+            cluster=None, namespace=f"ns{i % 8}", name=f"w{i}", kind="Deployment",
+            container="main", pods=[f"w{i}-0"], allocations=alloc,
+        )
+        for i in range(rows)
+    ]
+
+
+def obs_leg(secondary: dict, check, env: dict, device: str):
+    """Tracing-overhead leg: the SAME in-process digest scan (fake inventory
+    + deterministic history source, streamed pipeline, tdigest
+    digest-ingest, on ``device``) run with the no-op tracer and with a
+    recording tracer + metrics registry. Two gates ride on it: the traced
+    wall must stay within 2% of the plain wall (with a 10 ms absolute floor
+    — at smoke scale 2% of a ~50 ms scan is below timer noise, while 10 ms
+    of genuine span overhead would mean a real hot-path regression), and
+    the recommendations must be BIT-exact — observability must never
+    perturb results. Reported under ``secondary.obs_*``. Returns the last
+    recording tracer, whose ring the analyze leg reads."""
+    import asyncio
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from krr_tpu_torch.core.config import Config
+    from krr_tpu_torch.core.runner import Runner
+    from krr_tpu_torch.models.allocations import ResourceType
+    from krr_tpu_torch.obs.metrics import MetricsRegistry
+    from krr_tpu_torch.obs.trace import NULL_TRACER, Tracer
+
+    rows = int(env.get("BENCH_OBS_ROWS", 256))
+    samples = int(env.get("BENCH_OBS_SAMPLES", 4096))
+    runs = max(2, int(env.get("BENCH_OBS_RUNS", 5)))
+
+    rng = np.random.default_rng(23)
+    objects = _scan_objects(rows)
+    # Series precomputed ONCE and shared by every run: both tracer modes
+    # scan identical data, and the timed region holds no rng work.
+    series = {
+        ResourceType.CPU: [{f"w{i}-0": rng.gamma(2.0, 0.05, samples)} for i in range(rows)],
+        ResourceType.Memory: [{f"w{i}-0": rng.uniform(5e7, 4e8, samples)} for i in range(rows)],
+    }
+    by_key = {(obj.namespace, obj.name): i for i, obj in enumerate(objects)}
+
+    class Inventory:
+        async def list_clusters(self):
+            return None
+
+        async def list_scannable_objects(self, clusters):
+            return objects
+
+    class Source:
+        async def gather_fleet(self, objs, history_seconds, step_seconds, **kw):
+            indices = [by_key[(obj.namespace, obj.name)] for obj in objs]
+            return {r: [series[r][i] for i in indices] for r in ResourceType}
+
+    def scan(tracer):
+        config = Config(quiet=True, format="json", strategy="tdigest", device=device,
+                        other_args={"digest_ingest": True})
+        r = Runner(
+            config, inventory=Inventory(), history_factory=lambda cluster: Source(),
+            tracer=tracer, metrics=MetricsRegistry(),
+        )
+        with contextlib.redirect_stdout(io.StringIO()):
+            return asyncio.run(r.run())
+
+    scan(NULL_TRACER)  # warmup: import and first-call costs out of the timing
+    tracer = None
+    plain_times, traced_times = [], []
+    plain_result = traced_result = None
+    for _ in range(runs):  # interleaved so machine-load drift hits both modes
+        start = time.perf_counter()
+        plain_result = scan(NULL_TRACER)
+        plain_times.append(time.perf_counter() - start)
+        tracer = Tracer(ring_scans=4)
+        start = time.perf_counter()
+        traced_result = scan(tracer)
+        traced_times.append(time.perf_counter() - start)
+
+    plain_best, traced_best = min(plain_times), min(traced_times)
+    overhead = traced_best - plain_best
+    overhead_pct = 100.0 * overhead / plain_best
+    span_count = len(tracer.traces()[-1])
+    secondary["obs_plain_scan_seconds"] = round(plain_best, 4)
+    secondary["obs_traced_scan_seconds"] = round(traced_best, 4)
+    secondary["obs_trace_overhead_pct"] = round(max(0.0, overhead_pct), 2)
+    secondary["obs_spans_per_scan"] = span_count
+    print(
+        f"bench: obs overhead plain {plain_best:.4f}s vs traced {traced_best:.4f}s "
+        f"({max(0.0, overhead_pct):.2f}% over {runs} interleaved runs, "
+        f"{span_count} spans/scan)",
+        file=sys.stderr,
+    )
+    check(
+        "obs_overhead<2%",
+        overhead <= max(0.02 * plain_best, 0.010),
+        f"traced {traced_best:.4f}s vs plain {plain_best:.4f}s (+{overhead_pct:.2f}%)",
+    )
+    check(
+        "obs_bitexact",
+        same_json(plain_result, traced_result),
+        "tracing changed the recommendations",
+    )
+    return tracer
+
+
+def same_json(a, b) -> bool:
+    """The obs leg's bit-exact comparator: two scan results' JSON."""
+    return a.model_dump_json() == b.model_dump_json()
+
+
+def same_repr(a, b) -> bool:
+    """The obs-device leg's bit-exact comparator: two batches' results'
+    ``repr``."""
+    return repr(a) == repr(b)
+
+
+def analyze_smoke_leg(tracer, secondary: dict, check, env: dict) -> None:
+    """`krr_tpu_torch analyze` smoke: dump the obs leg's recorded ring as a
+    Chrome trace file, run the real CLI subprocess over it
+    (``python -m krr_tpu_torch analyze``, with ``env``), and assert the
+    attribution report comes back (rc 0, ≥1 scan, categories partition the
+    wall). A break anywhere in trace export → chrome re-import → sweep →
+    CLI wiring fails the round like a parity break. Reported under
+    ``secondary.analyze_*``."""
+    import tempfile
+
+    from krr_tpu_torch.obs.trace import write_chrome_trace
+
+    with tempfile.TemporaryDirectory() as tmp:
+        trace_path = os.path.join(tmp, "scan-trace.json")
+        write_chrome_trace(tracer, trace_path)
+        proc = subprocess.run(
+            [sys.executable, "-m", "krr_tpu_torch", "analyze", "--trace", trace_path, "--format", "json"],
+            capture_output=True,
+            text=True,
+            timeout=300,
+            cwd=ROUNDS_DIR,
+            env=env,
+        )
+    report: dict = {}
+    if proc.returncode == 0:
+        try:
+            report = json.loads(proc.stdout)
+        except ValueError:
+            pass
+    scans = report.get("scans", [])
+    partitioned = all(
+        abs(sum(s["categories"].values()) - s["wall_seconds"])
+        <= max(0.01 * s["wall_seconds"], 1e-3)
+        for s in scans
+    )
+    ok = proc.returncode == 0 and bool(scans) and partitioned
+    secondary["analyze_smoke"] = "ok" if ok else f"failed rc={proc.returncode}"
+    secondary["analyze_scans"] = len(scans)
+    print(
+        f"bench: analyze smoke -> rc {proc.returncode}, {len(scans)} scan(s) attributed",
+        file=sys.stderr,
+    )
+    check(
+        "analyze_smoke",
+        ok,
+        f"rc={proc.returncode}, scans={len(scans)}, partitioned={partitioned}: "
+        f"{proc.stderr[-300:]}",
+    )
+
+
+def sentinel_leg(secondary: dict, check, env: dict) -> None:
+    """Regression-sentinel gates (`krr_tpu_torch.obs.sentinel` over
+    `krr_tpu_torch.obs.timeline`): two synthetic 60-tick timelines sharing
+    byte-identical noise — a clean control and a twin with one injected
+    fetch-transport regression (ttfb bulge) and one injected compute
+    regression — driven through the SAME trend_report/sentinel code that
+    serves ``GET /debug/timeline`` and ``krr_tpu_torch analyze --trend``.
+    Four parity-style gates:
+
+    * detection — both injected regressions produce regressed verdicts;
+    * attribution — the verdicts name fetch_transport (ttfb-dominated) and
+      compute at the injected ticks;
+    * zero false positives — the clean control produces NO verdicts, and
+      the injected run flags only the injected ticks;
+    * recorder overhead — the full per-tick recorder cost (record build +
+      durable CRC-framed fsync'd append + sentinel classification) stays
+      under 2% of the obs leg's measured scan wall (10 ms absolute floor,
+      like the tracing-overhead gate).
+    """
+    import copy
+    import tempfile
+
+    import numpy as np
+
+    from krr_tpu_torch.obs.sentinel import RegressionSentinel, trend_report
+    from krr_tpu_torch.obs.timeline import ScanTimeline
+
+    ticks = max(20, int(env.get("BENCH_SENTINEL_TICKS", 60)))
+    rng = np.random.default_rng(47)
+    base = {
+        "fetch_transport": 0.9,
+        "fetch_decode": 0.25,
+        "fetch_backoff": 0.0,
+        "fetch_other": 0.1,
+        "fold": 0.2,
+        "compute": 0.35,
+        "discover": 0.05,
+        "publish": 0.05,
+        "other": 0.0,
+        "idle": 0.1,
+    }
+
+    def record(i: int) -> dict:
+        cats = {k: round(v * float(1.0 + rng.normal(0, 0.04)), 6) for k, v in base.items()}
+        phases = {
+            "ttfb": round(0.5 * float(1.0 + rng.normal(0, 0.05)), 6),
+            "body_read": round(0.3 * float(1.0 + rng.normal(0, 0.05)), 6),
+            "connect": round(0.05 * float(1.0 + rng.normal(0, 0.05)), 6),
+        }
+        return {
+            "v": 1,
+            "ts": 1e9 + i * 300.0,
+            "scan_id": f"bench-{i}",
+            "kind": "delta",
+            "wall": round(sum(cats.values()), 6),
+            "categories": cats,
+            "phases": phases,
+            "rows": 256,
+            "failed_rows": 0,
+            "wire_bytes": 1 << 22,
+            "queries": 16,
+            "retries": 0,
+            "publish": {"changed": 3, "suppressed": 1},
+            "persist": {"seconds": 0.02, "bytes": 4096, "epoch": i + 1, "failing": False},
+            "plan": {"coalesced": 2, "sharded": 1},
+        }
+
+    clean = [record(i) for i in range(ticks)]
+    injected = copy.deepcopy(clean)
+    fetch_at, compute_at = int(ticks * 0.6), int(ticks * 0.85)
+    for i in (fetch_at, fetch_at + 1):
+        injected[i]["categories"]["fetch_transport"] = round(
+            injected[i]["categories"]["fetch_transport"] + 3.0, 6
+        )
+        injected[i]["phases"]["ttfb"] = round(injected[i]["phases"]["ttfb"] + 2.8, 6)
+        injected[i]["wall"] = round(injected[i]["wall"] + 3.0, 6)
+    for i in (compute_at, compute_at + 1):
+        injected[i]["categories"]["compute"] = round(
+            injected[i]["categories"]["compute"] + 2.0, 6
+        )
+        injected[i]["wall"] = round(injected[i]["wall"] + 2.0, 6)
+    injected_ts = {injected[i]["ts"] for i in
+                   (fetch_at, fetch_at + 1, compute_at, compute_at + 1)}
+
+    control = trend_report(clean, warmup_scans=8)
+    report = trend_report(injected, warmup_scans=8)
+    fetch_verdicts = [v for v in report["regressions"] if v["dominant"] == "fetch_transport"]
+    compute_verdicts = [v for v in report["regressions"] if v["dominant"] == "compute"]
+    detected = bool(fetch_verdicts) and bool(compute_verdicts)
+    attributed = (
+        any(v["ts"] == injected[fetch_at]["ts"] and "ttfb-dominated" in v["suspect"]
+            for v in fetch_verdicts)
+        and any(v["ts"] == injected[compute_at]["ts"] for v in compute_verdicts)
+    )
+    spurious = [v for v in report["regressions"] if v["ts"] not in injected_ts]
+    no_false_positives = control["regressed"] == 0 and not spurious
+
+    # Recorder overhead: the whole per-tick cost — durable append (CRC frame
+    # + fsync) plus sentinel classification — against a real scan wall.
+    sentinel = RegressionSentinel(warmup_scans=8)
+    with tempfile.TemporaryDirectory() as tmp:
+        timeline = ScanTimeline.open(os.path.join(tmp, "timeline.log"))
+        start = time.perf_counter()
+        for r in injected:
+            timeline.append(r)
+            sentinel.observe(r, fire=False)
+        recorder_seconds = time.perf_counter() - start
+        timeline.close()
+    per_tick = recorder_seconds / ticks
+    scan_wall = float(secondary.get("obs_plain_scan_seconds") or 0.0)
+    overhead_pct = 100.0 * per_tick / scan_wall if scan_wall > 0 else 0.0
+
+    secondary["sentinel_ticks"] = float(ticks)
+    secondary["sentinel_clean_regressions"] = float(control["regressed"])
+    secondary["sentinel_injected_regressions"] = float(report["regressed"])
+    secondary["sentinel_recorder_seconds_per_tick"] = round(per_tick, 6)
+    secondary["timeline_overhead_pct"] = round(overhead_pct, 3)
+    print(
+        f"bench: sentinel {ticks}-tick timeline: injected run flagged "
+        f"{report['regressed']} (fetch_transport {len(fetch_verdicts)}, compute "
+        f"{len(compute_verdicts)}), clean control {control['regressed']}; recorder "
+        f"{per_tick * 1e3:.2f} ms/tick ({overhead_pct:.2f}% of a "
+        f"{scan_wall:.3f}s scan)",
+        file=sys.stderr,
+    )
+    check(
+        "sentinel_detects_injected",
+        detected,
+        f"fetch verdicts {len(fetch_verdicts)}, compute verdicts {len(compute_verdicts)}",
+    )
+    check(
+        "sentinel_attribution_correct",
+        attributed,
+        f"regressions: {[(v['ts'], v['dominant'], v['suspect']) for v in report['regressions']]}",
+    )
+    check(
+        "sentinel_zero_false_positives",
+        no_false_positives,
+        f"clean {control['regressed']}, spurious {[(v['ts'], v['dominant']) for v in spurious]}",
+    )
+    check(
+        "timeline_overhead<2%",
+        per_tick <= max(0.02 * scan_wall, 0.010),
+        f"recorder {per_tick * 1e3:.2f} ms/tick vs scan wall {scan_wall:.4f}s "
+        f"({overhead_pct:.2f}%)",
+    )
+
+
+def obs_device_leg(secondary: dict, check, env: dict, device: str) -> dict:
+    """Device-observability leg (`krr_tpu_torch.obs.device`): the SAME
+    compute — one `SimpleStrategy.run_batch` over a fixed synthetic fleet on
+    ``device``, K1 + K2 on the card — run with the inert NULL_DEVICE_OBS and
+    with a recording DeviceObs (staged pack/quantile/round sub-spans, the
+    CUDA-event fence, padding gauges). Gates mirror the scan-level obs leg:
+    instrumented compute must stay within 2% wall of plain (10 ms absolute
+    floor at smoke scale) and BIT-exact. Also asserts the device stages
+    actually recorded: stage spans present, padding waste fired. Reported
+    under ``secondary.obs_device_*``. Returns the launches its calls imply
+    on the card: a warm-up and ``2 × BENCH_OBS_RUNS`` ``run_batch`` calls."""
+    import numpy as np
+
+    from krr_tpu_torch.models.allocations import ResourceType
+    from krr_tpu_torch.models.series import FleetBatch
+    from krr_tpu_torch.obs.device import NULL_DEVICE_OBS, DeviceObs
+    from krr_tpu_torch.obs.metrics import MetricsRegistry
+    from krr_tpu_torch.obs.trace import Tracer
+    from krr_tpu_torch.strategies.simple import SimpleStrategy, SimpleStrategySettings
+
+    rows = int(env.get("BENCH_OBS_ROWS", 256))
+    samples = int(env.get("BENCH_OBS_SAMPLES", 4096))
+    runs = max(2, int(env.get("BENCH_OBS_RUNS", 5)))
+
+    rng = np.random.default_rng(29)
+    objects = _scan_objects(rows)
+    # Ragged on purpose (varying sample counts) so the padding gauges
+    # measure genuine waste, not a degenerate all-full matrix.
+    histories = {
+        ResourceType.CPU: [
+            {f"w{i}-0": rng.gamma(2.0, 0.05, samples - (i % 7) * (samples // 8))}
+            for i in range(rows)
+        ],
+        ResourceType.Memory: [
+            {f"w{i}-0": rng.uniform(5e7, 4e8, samples - (i % 5) * (samples // 8))}
+            for i in range(rows)
+        ],
+    }
+    batch = FleetBatch.build(objects, histories)
+    strategy = SimpleStrategy(SimpleStrategySettings(use_mesh=False, device=device))
+    strategy.run_batch(batch)  # warmup: the kernels' build out of the timing
+
+    tracer = registry = None
+    plain_times, traced_times = [], []
+    plain_result = traced_result = None
+    for _ in range(runs):  # interleaved so machine-load drift hits both modes
+        strategy.obs = NULL_DEVICE_OBS
+        start = time.perf_counter()
+        plain_result = strategy.run_batch(batch)
+        plain_times.append(time.perf_counter() - start)
+        tracer, registry = Tracer(ring_scans=4), MetricsRegistry()
+        strategy.obs = DeviceObs(tracer, registry)
+        start = time.perf_counter()
+        with tracer.span("compute", rows=rows):
+            traced_result = strategy.run_batch(batch)
+        traced_times.append(time.perf_counter() - start)
+    strategy.obs = NULL_DEVICE_OBS
+
+    plain_best, traced_best = min(plain_times), min(traced_times)
+    overhead = traced_best - plain_best
+    overhead_pct = 100.0 * overhead / plain_best
+    stages = [s.name for s in tracer.traces()[-1] if s.name != "compute"]
+    secondary["obs_device_plain_seconds"] = round(plain_best, 4)
+    secondary["obs_device_traced_seconds"] = round(traced_best, 4)
+    secondary["obs_device_overhead_pct"] = round(max(0.0, overhead_pct), 2)
+    secondary["obs_device_stage_spans"] = len(stages)
+    print(
+        f"bench: obs-device overhead plain {plain_best:.4f}s vs traced {traced_best:.4f}s "
+        f"({max(0.0, overhead_pct):.2f}% over {runs} interleaved runs, "
+        f"stages {sorted(set(stages))})",
+        file=sys.stderr,
+    )
+    check(
+        "obs_device_overhead<2%",
+        overhead <= max(0.02 * plain_best, 0.010),
+        f"traced {traced_best:.4f}s vs plain {plain_best:.4f}s (+{overhead_pct:.2f}%)",
+    )
+    check(
+        "obs_device_bitexact",
+        same_repr(plain_result, traced_result),
+        "device instrumentation changed the recommendations",
+    )
+    check(
+        "obs_device_stages",
+        {"pack", "quantile", "round"} <= set(stages),
+        f"missing compute sub-spans: {sorted(set(stages))}",
+    )
+    waste = registry.value("krr_tpu_pad_waste_pct", resource="cpu")
+    check(
+        "obs_device_pad_waste",
+        waste is not None and 0.0 < waste < 100.0,
+        f"pad waste gauge: {waste}",
+    )
+    return implied_launches({"simple": 1 + 2 * runs})
+
+
+def chaos_leg(secondary: dict, check, env: dict, device: str) -> None:
+    """Chaos soak gates (`tests.fakes.torch_chaos`): an archetype fleet
+    served by the REAL composition on ``device`` (real PrometheusLoader
+    over HTTP against the fakes) rides a scripted fault timeline — two
+    degraded (partial-outage) ticks, one hard-down tick, then recovery.
+    Three gates, all parity-style (a failure exits nonzero):
+
+    * no crash — every tick returns (scanned, degraded, or cleanly aborted);
+    * recovery bit-exactness — after the faults clear, the soaked resident
+      store is BIT-identical to a never-faulted control run's (the degraded
+      path's streamed==staged-grade discipline);
+    * bounded degraded wall — the hard-down tick's wall stays within an
+      absolute ceiling (breaker fail-fast + the retry deadline budget, not
+      a full backoff ladder per query).
+    """
+    import asyncio
+    import tempfile
+
+    from tests.fakes.torch_chaos import (
+        ArchetypeSpec,
+        FaultSpec,
+        FaultTimeline,
+        ServerThread,
+        build_fleet,
+        run_soak,
+        stores_bitexact,
+        write_kubeconfig,
+    )
+
+    ticks = max(8, int(env.get("BENCH_CHAOS_TICKS", 8)))
+    workloads = int(env.get("BENCH_CHAOS_WORKLOADS", 2))
+    fleet = build_fleet(
+        tuple(
+            ArchetypeSpec(kind, workloads=workloads, pods=1)
+            for kind in ("diurnal", "bursty-batch", "oom-loop", "mixed-qos")
+        ),
+        samples=240,
+        seed=29,
+    )
+    server = ServerThread(fleet.backend).start()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            kubeconfig = write_kubeconfig(os.path.join(tmp, "kubeconfig"), server.url)
+
+            def config():
+                return _service_config(
+                    device,
+                    300.0,
+                    kubeconfig=kubeconfig,
+                    prometheus_url=server.url,
+                    # Ticks run back-to-back in wall time while the scan
+                    # clock jumps a cadence: a microscopic cooldown keeps
+                    # recovery immediate, the small budget keeps faulted
+                    # ticks fast, and the threshold scales with the fleet
+                    # knob so one namespace's tail fallback wave (2 ladders
+                    # per workload after its healthy siblings finish, which
+                    # the success-epoch guard can no longer discount) can't
+                    # open the breaker during the PARTIAL phase — only the
+                    # hard-down tick (every query failing) trips it.
+                    prometheus_breaker_threshold=max(10, 4 * workloads + 2),
+                    prometheus_breaker_cooldown_seconds=0.02,
+                    prometheus_retry_deadline_seconds=1.0,
+                    prometheus_backoff_cap_seconds=0.2,
+                )
+
+            timeline = FaultTimeline(
+                [
+                    (2, 3, FaultSpec(fail_namespaces=frozenset({"diurnal"}))),
+                    (4, 4, FaultSpec(down=True)),
+                ]
+            )
+
+            async def settle_breaker(server, sample):
+                # The breaker cooldown is WALL-clock while soak ticks run
+                # back-to-back on a fake scan clock: under scheduling
+                # jitter the recovery tick's first queries can land inside
+                # the cooldown window of the hard-down tick's last
+                # fast-fail and quarantine a workload — an extra degraded
+                # tick that reads as starvation. Waiting out the cooldown
+                # after any tick that left the breaker non-closed makes
+                # recovery deterministic: the next tick's first query is
+                # the half-open probe.
+                if sample.breaker_state and sample.breaker_state > 0:
+                    await asyncio.sleep(0.05)
+
+            report = asyncio.run(
+                run_soak(
+                    config(), fleet.backend, timeline, ticks=ticks,
+                    tick_seconds=300.0, on_tick=settle_breaker,
+                )
+            )
+            control = asyncio.run(
+                run_soak(
+                    config(), fleet.backend, None, ticks=ticks,
+                    tick_seconds=300.0, on_tick=settle_breaker,
+                )
+            )
+    finally:
+        server.stop()
+
+    counts = report.counts()
+    clean_wall = max(t.wall_seconds for t in report.ticks[:2])
+    down_wall = report.ticks[4].wall_seconds
+    equal, detail = stores_bitexact(report.store, control.store)
+    breaker_opens = (
+        report.metrics.value(
+            "krr_tpu_prom_breaker_transitions_total", cluster="fake", to="open"
+        )
+        or 0.0
+    )
+    secondary["chaos_ticks"] = float(len(report.ticks))
+    secondary["chaos_degraded_ticks"] = float(counts["degraded"])
+    secondary["chaos_aborted_ticks"] = float(counts["aborted"])
+    secondary["chaos_clean_tick_seconds"] = round(clean_wall, 4)
+    secondary["chaos_down_tick_seconds"] = round(down_wall, 4)
+    secondary["chaos_breaker_opens"] = breaker_opens
+    secondary["chaos_recovered_bitexact"] = 1.0 if equal else 0.0
+    print(
+        f"bench: chaos soak {len(report.ticks)} ticks "
+        f"({counts['degraded']} degraded, {counts['aborted']} aborted, "
+        f"{breaker_opens:.0f} breaker opens): clean tick {clean_wall:.3f}s, "
+        f"hard-down tick {down_wall:.3f}s, recovery bit-exact: {equal}",
+        file=sys.stderr,
+    )
+    check(
+        "chaos_no_starvation",
+        counts["degraded"] == 2 and all(t.ok for t in report.ticks[:4]),
+        f"expected 2 degraded published ticks, got {counts}",
+    )
+    check(
+        "chaos_down_tick_aborts",
+        report.ticks[4].ok is None and counts["aborted"] == 1,
+        f"hard-down tick outcome {report.ticks[4].ok}, counts {counts}",
+    )
+    check("chaos_recovery_bitexact", equal, detail)
+    # Absolute ceiling, generous for noise: the budget allows 1 s of
+    # backoff and the breaker fail-fasts the rest — without them this tick
+    # would burn a retry ladder per query and blow far past it.
+    check(
+        "chaos_down_tick_wall_bounded",
+        down_wall < 10.0,
+        f"hard-down tick took {down_wall:.2f}s (clean tick {clean_wall:.2f}s)",
+    )
+
+
+#: The registered strategies the eval leg replays, in board order.
+EVAL_STRATEGIES = ("simple", "tdigest")
+
+
+def eval_leg(secondary: dict, check, env: dict, device: str) -> dict:
+    """Quality-evaluation gates (`krr_tpu_torch.eval`): replay registered
+    strategies (on ``device``: K1 + K2 for ``simple``, K3 + K2 for
+    ``tdigest`` a tick on the card) plus labeled static probes over a
+    chaos-archetype fleet, with the archetypes' DECLARED incident windows as
+    ground truth. Two parity-style gates:
+
+    * eval_deterministic — the same replay rendered twice is BYTE-identical
+      (the port's own two replays: the slacks are float64 sums of the
+      float32 terms, so the board is not byte-equal to the JAX package's);
+    * eval_ranks_labeled_archetypes — the undersized probe scores >0
+      would-have-been OOM incidents on the oom-loop archetype, the
+      oversized probe scores none with MORE over-provisioned GB-hours, and
+      the board ranks the incident-free probe first (safety before cost).
+
+    Replay wall + throughput are trended under ``secondary.eval_*``.
+    Returns the launches its replays imply on the card: two boards, each
+    one resident ``run_batch`` a strategy a replay tick.
+    """
+    from krr_tpu_torch.eval import (
+        StaticReplayStrategy,
+        build_scoreboard,
+        render_scoreboard,
+        replay,
+        score_replay,
+        tick_ends,
+    )
+    from krr_tpu_torch.strategies.base import BaseStrategy
+    from tests.fakes.torch_chaos import ArchetypeSpec, build_fleet, fleet_replay_input
+
+    samples = int(env.get("BENCH_EVAL_SAMPLES", 240))
+    workloads = int(env.get("BENCH_EVAL_WORKLOADS", 2))
+    ticks = int(env.get("BENCH_EVAL_TICKS", 8))
+    fleet = build_fleet(
+        tuple(
+            ArchetypeSpec(kind, workloads=workloads, pods=1)
+            for kind in ("oom-loop", "diurnal", "bursty-batch")
+        ),
+        samples=samples,
+        seed=31,
+    )
+    inputs = fleet_replay_input(fleet)
+    probes = (
+        # Under every oom-loop incident peak (~7.4e8+ bytes) but over the
+        # diurnal baseline; vs comfortably over everything.
+        ("static-under", lambda: StaticReplayStrategy(0.01, 3e8)),
+        ("static-over", lambda: StaticReplayStrategy(10.0, 5e9)),
+    )
+
+    def board_json() -> "tuple[str, float]":
+        rows = []
+        start = time.perf_counter()
+        for name in EVAL_STRATEGIES:
+            strategy_type = BaseStrategy.find(name)
+            strategy = strategy_type(strategy_type.get_settings_type()(device=device))
+            replayed = replay(inputs, strategy, name=name, ticks=ticks)
+            rows.append(score_replay(inputs, replayed, device=device))
+        wall = time.perf_counter() - start
+        for name, make in probes:
+            replayed = replay(inputs, make(), name=name, ticks=ticks)
+            rows.append(score_replay(inputs, replayed, device=device))
+        board = build_scoreboard(
+            rows,
+            samples=len(inputs.timestamps),
+            window_seconds=float(inputs.timestamps[-1] - inputs.timestamps[0]),
+        )
+        return render_scoreboard(board, "json"), wall
+
+    first, wall = board_json()
+    second, _ = board_json()
+    payload = json.loads(first)
+    order = [s["strategy"] for s in payload["scores"]]
+    by_name = {s["strategy"]: s for s in payload["scores"]}
+    under, over = by_name["static-under"], by_name["static-over"]
+    replayed_rows = 2 * len(inputs.keys) * ticks  # registry strategies only
+    rows_per_sec = replayed_rows / wall if wall > 0 else 0.0
+    secondary["eval_workloads"] = float(len(inputs.keys))
+    secondary["eval_samples"] = float(len(inputs.timestamps))
+    secondary["eval_replay_seconds"] = round(wall, 4)
+    secondary["eval_replay_rows_per_sec"] = round(rows_per_sec, 2)
+    print(
+        f"bench: eval replayed 2 strategies + {len(probes)} probes over "
+        f"{len(inputs.keys)} workloads x {len(inputs.timestamps)} samples "
+        f"in {ticks} ticks: {wall:.3f}s ({rows_per_sec:.0f} rows/s), "
+        f"board order {order}",
+        file=sys.stderr,
+    )
+    check(
+        "eval_deterministic",
+        same_text(first, second),
+        "repeated replay rendered a different scoreboard (byte-identity broken)",
+    )
+    ranks = (
+        under["oom_incidents"] > 0
+        and over["oom_incidents"] == 0
+        and over["throttle_incidents"] == 0
+        and over["overprovisioned_gb_hours"] > under["overprovisioned_gb_hours"]
+        and order.index("static-over") < order.index("static-under")
+    )
+    check(
+        "eval_ranks_labeled_archetypes",
+        ranks,
+        f"under={under['oom_incidents']} oom / {under['overprovisioned_gb_hours']} GBh, "
+        f"over={over['oom_incidents']} oom / {over['overprovisioned_gb_hours']} GBh, "
+        f"order {order}",
+    )
+    replay_ticks = len(tick_ends(len(inputs.timestamps), ticks))
+    return implied_launches(dict.fromkeys(EVAL_STRATEGIES, 2 * replay_ticks))
+
+
+def same_text(a: str, b: str) -> bool:
+    """The eval leg's determinism comparator: two renderings byte for byte."""
+    return a == b
+
+
+def discovery_leg(secondary: dict, check, env: dict, device: str) -> None:
+    """Watch-driven discovery gates (`--discovery-mode watch`): at the same
+    fleet width, with the same injected churn per round, the watch
+    reconcile must (a) stay BIT-identical — objects and staged order — to a
+    fresh relist at every round, and (b) beat the relist's wall (the whole
+    point of an O(churn) resident inventory is that the per-tick discovery
+    cost stops scaling with the fleet). Trended as ``secondary.discovery_*``.
+    """
+    import asyncio
+    import statistics
+    import tempfile
+    import time as _time
+
+    from krr_tpu_torch.core.config import Config
+    from krr_tpu_torch.integrations.kubernetes import KubernetesLoader
+    from tests.fakes.servers import FakeBackend, FakeCluster, FakeMetrics, ServerThread
+    from tests.fakes.torch_chaos import write_kubeconfig
+
+    workloads = int(env.get("BENCH_DISCOVERY_WORKLOADS", 400))
+    rounds = max(2, int(env.get("BENCH_DISCOVERY_ROUNDS", 5)))
+    namespaces = max(2, min(8, workloads // 20))
+    churn = max(1, workloads // 50)
+
+    cluster = FakeCluster()
+    created: "list[tuple[str, str]]" = []  # (name, namespace), oldest first
+    serial = [0]
+
+    def add_one() -> None:
+        namespace = f"ns-{serial[0] % namespaces}"
+        name = f"wl-{serial[0]}"
+        serial[0] += 1
+        cluster.add_workload_with_pods("Deployment", name, namespace, pod_count=2)
+        created.append((name, namespace))
+
+    def drop_one() -> None:
+        name, namespace = created.pop(0)
+        cluster.delete_workload("Deployment", name, namespace)
+        cluster.delete_pod(f"{name}-0", namespace)
+        cluster.delete_pod(f"{name}-1", namespace)
+
+    for _ in range(workloads):
+        add_one()
+
+    backend = FakeBackend(cluster, FakeMetrics())
+    server = ServerThread(backend).start()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            kubeconfig = write_kubeconfig(os.path.join(tmp, "kubeconfig"), server.url)
+
+            def config(**overrides) -> Config:
+                return Config(kubeconfig=kubeconfig, quiet=True, device=device, **overrides)
+
+            async def run() -> dict:
+                watch = KubernetesLoader(
+                    config(
+                        discovery_mode="watch",
+                        # The verify audit stays out of the measurement: the
+                        # reconcile path itself is what's on the clock.
+                        discovery_verify_interval_seconds=3600.0,
+                    )
+                )
+                relist = KubernetesLoader(config())
+                relist_walls: list[float] = []
+                reconcile_walls: list[float] = []
+                bitexact = True
+                try:
+                    await watch.list_scannable_objects(["fake"])  # cold seed
+                    for _round in range(rounds):
+                        for _ in range(churn):
+                            drop_one()
+                            add_one()
+                        t0 = _time.perf_counter()
+                        relisted = await relist.list_scannable_objects(["fake"])
+                        relist_walls.append(_time.perf_counter() - t0)
+                        expected = [obj.model_dump() for obj in relisted]
+                        # Wait for watch delivery OUTSIDE the timed window —
+                        # the reconcile being measured is the steady-state
+                        # tick cost, not event-propagation latency.
+                        deadline = _time.monotonic() + 30.0
+                        while _time.monotonic() < deadline:
+                            watched = await watch.list_scannable_objects(["fake"])
+                            if [obj.model_dump() for obj in watched] == expected:
+                                break
+                            await asyncio.sleep(0.02)
+                        t0 = _time.perf_counter()
+                        watched = await watch.list_scannable_objects(["fake"])
+                        reconcile_walls.append(_time.perf_counter() - t0)
+                        bitexact = bitexact and same_dumps(watched, relisted)
+                finally:
+                    await watch.close()
+                    await relist.close()
+                return {
+                    "relist_seconds": statistics.median(relist_walls),
+                    "reconcile_seconds": statistics.median(reconcile_walls),
+                    "bitexact": bitexact,
+                    "objects": len(created) * 1,
+                }
+
+            report = asyncio.run(run())
+    finally:
+        server.stop()
+
+    relist_seconds = report["relist_seconds"]
+    reconcile_seconds = report["reconcile_seconds"]
+    check(
+        "discovery_bitexact",
+        report["bitexact"],
+        "watch reconcile diverged from the fresh relist",
+    )
+    check(
+        "discovery_reconcile_beats_relist",
+        reconcile_seconds < relist_seconds,
+        f"reconcile {reconcile_seconds:.4f}s vs relist {relist_seconds:.4f}s",
+    )
+    secondary["discovery_workloads"] = float(workloads)
+    secondary["discovery_churn_per_round"] = float(churn)
+    secondary["discovery_relist_seconds"] = round(relist_seconds, 4)
+    # Rounded to 0.1 ms as `bench.py` rounds it: a reconcile under 0.05 ms
+    # reads 0.0 here; the speedup keeps the unrounded ratio.
+    secondary["discovery_reconcile_seconds"] = round(reconcile_seconds, 4)
+    secondary["discovery_speedup"] = round(relist_seconds / max(reconcile_seconds, 1e-9), 1)
+    secondary["discovery_bitexact"] = 1.0 if report["bitexact"] else 0.0
+    secondary["discovery_reconcile_beats_relist"] = (
+        1.0 if reconcile_seconds < relist_seconds else 0.0
+    )
+    print(
+        f"bench: discovery leg {workloads} workloads x {rounds} rounds "
+        f"(churn {churn}/round): reconcile {reconcile_seconds * 1e3:.1f}ms vs "
+        f"relist {relist_seconds * 1e3:.1f}ms "
+        f"({secondary['discovery_speedup']}x), bitexact={report['bitexact']}",
+        file=sys.stderr,
+    )
+
+
+def same_dumps(a, b) -> bool:
+    """The discovery leg's comparator: two object lists' ``model_dump``s,
+    in order."""
+    return [obj.model_dump() for obj in a] == [obj.model_dump() for obj in b]
+
+
+def _discover_once(config):
+    """The fake cluster's scannable objects, through one `KubernetesLoader`
+    list (closed after: pooled clients outlive calls)."""
+    import asyncio
+
+    from krr_tpu_torch.integrations.kubernetes import KubernetesLoader
+
+    async def discover():
+        loader = KubernetesLoader(config)
+        try:
+            return await loader.list_scannable_objects(["fake"])
+        finally:
+            await loader.close()
+
+    return asyncio.run(discover())
+
+
+def fetchplan_leg(secondary: dict, check, env: dict, device: str) -> None:
+    """Adaptive fetch-engine gates (`krr_tpu_torch.core.fetchplan` + the
+    prometheus loader's plan/pump/limiter wiring), at toy scale with every
+    gate EXECUTED: a fleet shaped so BOTH planner transforms fire (one
+    giant namespace shards, three small ones coalesce) is fetched through
+    the real PrometheusLoader over HTTP twice — adaptive plan vs the
+    ``--fetch-plan fixed`` escape-hatch control. Three parity-style gates:
+
+    * engagement — the plan counters are non-zero (coalesced >= 1 query
+      group, sharded >= 2) so a planner wiring break can't pass silently;
+    * bit-exactness — the adaptive fleet digest arrays are BIT-identical
+      to the fixed-plan control's;
+    * autotuner — the AIMD limiter saw per-query TTFB verdicts and
+      exported its live in-flight limit gauge.
+    """
+    import asyncio
+    import tempfile
+
+    import numpy as np
+
+    from krr_tpu_torch.core.config import Config
+    from krr_tpu_torch.integrations.prometheus import PrometheusLoader
+    from krr_tpu_torch.obs.metrics import MetricsRegistry
+    from tests.fakes.servers import FakeBackend, FakeCluster, FakeMetrics, ServerThread
+    from tests.fakes.torch_chaos import write_kubeconfig
+
+    workloads = int(env.get("BENCH_FETCHPLAN_WORKLOADS", 3))
+    cluster = FakeCluster()
+    metrics = FakeMetrics()
+    rng = np.random.default_rng(31)
+
+    def add(namespace: str, name: str, pod_count: int) -> None:
+        for pod in cluster.add_workload_with_pods(
+            "Deployment", name, namespace, pod_count=pod_count
+        ):
+            metrics.set_series(
+                namespace, "main", pod,
+                cpu=rng.gamma(2.0, 0.05, 48), memory=rng.uniform(5e7, 4e8, 48),
+            )
+
+    for w in range(workloads):
+        add("big", f"bigwl-{w}", pod_count=4)
+    for ns in ("s1", "s2", "s3"):
+        add(ns, f"{ns}-app", pod_count=1)
+
+    server = ServerThread(FakeBackend(cluster, metrics)).start()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            kubeconfig = write_kubeconfig(os.path.join(tmp, "kubeconfig"), server.url)
+
+            def config(**overrides) -> Config:
+                return Config(
+                    kubeconfig=kubeconfig,
+                    prometheus_url=server.url,
+                    quiet=True,
+                    device=device,
+                    # Tiny plan targets so the toy fleet exercises BOTH
+                    # transforms (sharding needs >= 2x this many series).
+                    fetch_plan_target_series=6,
+                    **overrides,
+                )
+
+            objects = _discover_once(config())
+
+            def gather(cfg, registry=None):
+                async def fetch():
+                    prom = PrometheusLoader(cfg, cluster="fake", metrics=registry)
+                    try:
+                        fleet = await prom.gather_fleet_digests(
+                            objects, 3600, 60, gamma=1.01, min_value=1e-7, num_buckets=128
+                        )
+                        return fleet, prom._limiter
+                    finally:
+                        await prom.close()
+
+                return asyncio.run(fetch())
+
+            registry = MetricsRegistry()
+            start = time.perf_counter()
+            adaptive, limiter = gather(config(), registry)
+            adaptive_seconds = time.perf_counter() - start
+            fixed, _ = gather(config(fetch_plan="fixed"))
+    finally:
+        server.stop()
+
+    coalesced = registry.total("krr_tpu_fetch_plan_coalesced_total")
+    sharded = registry.total("krr_tpu_fetch_plan_sharded_total")
+    bitexact = all(same_array(getattr(adaptive, attr), getattr(fixed, attr)) for attr in STORE_ARRAYS)
+    limit_gauge = registry.value("krr_tpu_prom_inflight_limit", cluster="fake")
+    autotuned = limiter.enabled and limiter.baseline_ttfb is not None and limit_gauge
+    secondary["fetchplan_scan_seconds"] = round(adaptive_seconds, 4)
+    secondary["fetchplan_coalesced"] = coalesced
+    secondary["fetchplan_sharded"] = sharded
+    secondary["fetchplan_bitexact"] = 1.0 if bitexact else 0.0
+    secondary["fetchplan_autotune_engaged"] = 1.0 if autotuned else 0.0
+    print(
+        f"bench: fetchplan {len(objects)} workloads in {adaptive_seconds:.3f}s "
+        f"({coalesced:.0f} coalesced + {sharded:.0f} sharded groups, "
+        f"inflight limit {limit_gauge}, bit-exact vs fixed plan: {bitexact})",
+        file=sys.stderr,
+    )
+    check(
+        "fetchplan_engaged",
+        coalesced >= 1 and sharded >= 2,
+        f"plan counters coalesced={coalesced} sharded={sharded}",
+    )
+    check("fetchplan_bitexact", bitexact, "adaptive plan diverged from the fixed plan")
+    check(
+        "fetchplan_autotuner",
+        bool(autotuned),
+        f"limiter enabled={limiter.enabled} baseline={limiter.baseline_ttfb} gauge={limit_gauge}",
+    )
+
+
+def wire_leg(secondary: dict, check, env: dict, device: str) -> None:
+    """Wire-shrink gates (compressed transport + server-side downsampling,
+    `--fetch-compression`/`--fetch-downsample`): the same grid-aligned
+    digest-fleet fetch runs through the real PrometheusLoader over HTTP
+    twice — treated (gzip negotiation + downsampled stats route) vs the
+    identity/raw escape-hatch control. Three parity-style gates:
+
+    * bit-exactness — the treated fleet arrays are BIT-identical to the
+      identity/raw control's;
+    * engagement — gzip responses negotiated AND stats queries rode the
+      downsample rewrite (a wiring break can't pass silently);
+    * compression — wire bytes shrank: ``wire_compression_ratio``
+      (identity wire ÷ treated wire) must hit the acceptance bar of 5x.
+      The ratio is deterministic for a fixed fixture (byte counts, not
+      timings), so the gate cannot flake.
+    """
+    import asyncio
+    import tempfile
+
+    import numpy as np
+
+    from krr_tpu_torch.core.config import Config
+    from krr_tpu_torch.integrations.prometheus import PrometheusLoader
+    from krr_tpu_torch.obs.metrics import MetricsRegistry
+    from tests.fakes.servers import FakeBackend, FakeCluster, FakeMetrics, ServerThread
+    from tests.fakes.torch_chaos import write_kubeconfig
+
+    workloads = int(env.get("BENCH_WIRE_WORKLOADS", 3))
+    samples = int(env.get("BENCH_WIRE_SAMPLES", 180))
+    cluster = FakeCluster()
+    metrics = FakeMetrics()
+    metrics.enforce_range = True
+    rng = np.random.default_rng(43)
+    for ns in ("w1", "w2"):
+        for w in range(workloads):
+            for pod in cluster.add_workload_with_pods(
+                "Deployment", f"{ns}-wl{w}", ns, pod_count=2
+            ):
+                # Realistic value precision (real fleets quantize: irates
+                # resolve to ~0.1 millicores, working sets to whole pages)
+                # — full-precision iid random mantissas would render the
+                # JSON artificially incompressible and benchmark the RNG's
+                # entropy instead of the transport.
+                metrics.set_series(
+                    ns, "main", pod,
+                    cpu=np.round(rng.gamma(2.0, 0.05, samples), 4),
+                    memory=np.floor(rng.uniform(5e7, 4e8, samples) / 4096) * 4096,
+                )
+
+    backend = FakeBackend(cluster, metrics)
+    # Sample anchor on the absolute minute grid: downsample eligibility
+    # (epoch-aligned subquery steps) and the fake's interval-membership
+    # sample model both demand it.
+    backend.SERIES_ORIGIN = 1_699_999_980.0
+    start = backend.SERIES_ORIGIN
+    end = start + (samples - 1) * 60.0
+    server = ServerThread(backend).start()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            kubeconfig = write_kubeconfig(os.path.join(tmp, "kubeconfig"), server.url)
+
+            def config(**overrides) -> Config:
+                return Config(
+                    kubeconfig=kubeconfig,
+                    prometheus_url=server.url,
+                    quiet=True,
+                    device=device,
+                    **overrides,
+                )
+
+            objects = _discover_once(config())
+
+            def gather(cfg, registry):
+                async def fetch():
+                    prom = PrometheusLoader(cfg, cluster="fake", metrics=registry)
+                    try:
+                        return await prom.gather_fleet_digests(
+                            objects, end - start, 60, gamma=1.01, min_value=1e-7,
+                            num_buckets=128, end_time=end,
+                        )
+                    finally:
+                        await prom.close()
+
+                return asyncio.run(fetch())
+
+            treated_registry = MetricsRegistry()
+            t0 = time.perf_counter()
+            treated = gather(config(fetch_downsample="auto"), treated_registry)
+            treated_seconds = time.perf_counter() - t0
+            control_registry = MetricsRegistry()
+            control = gather(
+                config(fetch_compression="off", fetch_downsample="off"),
+                control_registry,
+            )
+    finally:
+        server.stop()
+
+    bitexact = all(
+        same_array(getattr(treated, attr), getattr(control, attr)) for attr in STORE_ARRAYS
+    ) and not treated.failed_rows
+    treated_wire = treated_registry.total("krr_tpu_prom_wire_bytes_total")
+    control_wire = control_registry.total("krr_tpu_prom_wire_bytes_total")
+    gzip_responses = treated_registry.value(
+        "krr_tpu_prom_wire_encoding_total", encoding="gzip"
+    ) or 0.0
+    downsampled = treated_registry.value(
+        "krr_tpu_fetch_downsampled_total", cluster="fake"
+    ) or 0.0
+    ratio = control_wire / treated_wire if treated_wire else 0.0
+    secondary["wire_scan_seconds"] = round(treated_seconds, 4)
+    secondary["wire_identity_mb"] = round(control_wire / 1e6, 3)
+    secondary["wire_compressed_mb"] = round(treated_wire / 1e6, 3)
+    secondary["wire_compression_ratio"] = round(ratio, 2)
+    secondary["wire_gzip_responses"] = gzip_responses
+    secondary["wire_downsampled_queries"] = downsampled
+    secondary["wire_bitexact"] = 1.0 if bitexact else 0.0
+    print(
+        f"bench: wire {len(objects)} workloads x {samples} samples -> "
+        f"{control_wire / 1e6:.2f} MB identity vs {treated_wire / 1e6:.2f} MB "
+        f"treated (x{ratio:.1f}, {gzip_responses:.0f} gzip responses, "
+        f"{downsampled:.0f} downsampled queries, bit-exact: {bitexact})",
+        file=sys.stderr,
+    )
+    check("wire_bitexact", bitexact, "treated scan diverged from the identity/raw control")
+    check(
+        "wire_engaged",
+        gzip_responses >= 1 and downsampled >= 1,
+        f"gzip={gzip_responses} downsampled={downsampled}",
+    )
+    check(
+        "wire_ratio",
+        ratio >= 5.0,
+        f"wire_compression_ratio {ratio:.2f} < 5 "
+        f"(identity {control_wire}B vs treated {treated_wire}B)",
+    )
+
+
+def fleet_obs_leg(secondary: dict, check, env: dict, device: str) -> None:
+    """Fleet-observability gates (`krr_tpu_torch.obs.trace` stitching +
+    `krr_tpu_torch.federation` freshness lineage): two in-process scanner
+    shards stream into an aggregator serve whose epoch feed drives a read
+    replica — every process recording its own trace ring, every
+    composition on ``device`` — then the identical soak repeats with
+    ``--no-lineage`` as the overhead control. Three gates:
+
+    * ``fleet_trace_stitched`` — ``stitch_chrome`` over the four processes'
+      trace exports joins the shard ``scan``, aggregator ``apply_record``,
+      and replica ``install`` spans into one causally-connected stitched
+      component, with every remote parent reference resolving;
+    * ``fleet_freshness_monotonic`` — every published epoch's lineage chain
+      (newest sample → fold → apply → publish → install) is monotone
+      non-decreasing, install receipts included, and all four
+      ``krr_tpu_e2e_freshness_seconds{stage}`` histograms actually fired;
+    * ``fleet_lineage_overhead`` — the lineage-stamped soak's tick wall is
+      within 2% of the no-lineage control's (plus a 50 ms toy-scale noise
+      floor), and both runs' merged stores are bit-identical per key
+      (lineage is metadata-only by construction).
+
+    Trended under ``secondary.fleet_*``: soak walls, the overhead delta,
+    stitched component/lane counts, and lineage epoch depth.
+    """
+    import asyncio
+    import time as _time
+
+    from krr_tpu_torch.core.runner import ScanSession
+    from krr_tpu_torch.federation.replica import ReplicaServer
+    from krr_tpu_torch.federation.shard import FederatedShard
+    from krr_tpu_torch.obs.trace import stitch_chrome
+    from krr_tpu_torch.server.app import KrrServer
+    from tests.fakes.torch_federation import (
+        FleetInventory,
+        MultiClusterFleet,
+        ORIGIN,
+        history_factory,
+        stores_bitexact_by_key,
+    )
+
+    ticks = max(2, int(env.get("BENCH_FLEETOBS_TICKS", 4)))
+    workloads = max(1, int(env.get("BENCH_FLEETOBS_WORKLOADS", 2)))
+    tick_seconds = 300.0
+    start = ORIGIN + 3600.0
+    fleet = MultiClusterFleet(
+        clusters=2,
+        namespaces_per_cluster=2,
+        workloads_per_namespace=workloads,
+        seed=61,
+    )
+
+    def config(**overrides):
+        return _service_config(device, tick_seconds, **overrides)
+
+    async def soak(lineage: bool) -> dict:
+        now = [start]
+        server = KrrServer(
+            config(
+                federation_listen="127.0.0.1:0",
+                federation_lineage_enabled=lineage,
+            ),
+            session=ScanSession(
+                config(),
+                inventory=FleetInventory(fleet, clusters=[]),
+                history_factory=history_factory(fleet),
+            ),
+            clock=lambda: now[0],
+        )
+        await server.start(run_scheduler=False)
+        shards = [
+            FederatedShard(
+                config(
+                    clusters=[c],
+                    federation_aggregator=f"127.0.0.1:{server.aggregator.port}",
+                    federation_lineage_enabled=lineage,
+                ),
+                session=ScanSession(
+                    config(clusters=[c]),
+                    inventory=FleetInventory(fleet, clusters=[c]),
+                    history_factory=history_factory(fleet),
+                ),
+                clock=lambda: now[0],
+                shard_id=c,
+            )
+            for c in fleet.clusters
+        ]
+        replica = ReplicaServer(
+            config(
+                federation_aggregator=f"127.0.0.1:{server.aggregator.port}",
+                federation_shard_id="bench-replica",
+                federation_backoff_cap_seconds=0.2,
+            ),
+            clock=lambda: now[0],
+        )
+        await replica.start()
+
+        async def wait(predicate, message, timeout=30.0):
+            deadline = _time.monotonic() + timeout
+            while not predicate():
+                assert (
+                    _time.monotonic() < deadline
+                ), f"fleet_obs: timed out waiting for {message}"
+                await asyncio.sleep(0.01)
+
+        wall = 0.0
+        try:
+            agg = server.aggregator
+            await wait(lambda: replica.client.connected, "replica subscribe")
+            for t in range(ticks):
+                now[0] = start + t * tick_seconds
+                for shard in shards:
+                    begin = _time.perf_counter()
+                    assert await shard.tick(now[0])
+                    wall += _time.perf_counter() - begin
+                await wait(
+                    lambda: all(
+                        s.shard_id in agg._shards
+                        and agg._shards[s.shard_id].enqueued >= s.epoch
+                        for s in shards
+                    ),
+                    f"tick {t} records to enqueue",
+                )
+                begin = _time.perf_counter()
+                assert await server.scheduler.run_once()
+                wall += _time.perf_counter() - begin
+                for shard in shards:
+                    assert await shard.wait_acked(shard.epoch, timeout=10.0)
+                await wait(
+                    lambda: replica.client.feed_epoch >= agg._feed_epoch,
+                    f"tick {t} replica install",
+                )
+            if lineage:
+                # The replica's install receipt travels back over the feed
+                # socket — the lineage chain's last hop must land before the
+                # rings are read.
+                await wait(
+                    lambda: agg.newest_installed_lineage() is not None,
+                    "a replica install ack",
+                )
+            payloads = [s.tracer.export_chrome() for s in shards] + [
+                server.session.tracer.export_chrome(),
+                replica.tracer.export_chrome(),
+            ]
+            metrics = server.state.metrics
+            return {
+                "wall": wall,
+                "store": server.state.store,
+                "payloads": payloads,
+                "lineage": agg.epoch_lineage(n=64),
+                "installed": agg.newest_installed_lineage(),
+                "stage_counts": {
+                    stage: metrics.value(
+                        "krr_tpu_e2e_freshness_seconds_count", stage=stage
+                    )
+                    for stage in ("fold", "apply", "publish", "install")
+                },
+            }
+        finally:
+            for shard in shards:
+                await shard.close()
+            await replica.shutdown()
+            await server.shutdown()
+
+    control = asyncio.run(soak(lineage=False))
+    report = asyncio.run(soak(lineage=True))
+
+    # Stitched-trace gate: one component must carry all three cross-process
+    # hops, and every re-parented remote span must resolve inside the merge.
+    stitched = stitch_chrome(report["payloads"])
+    spans = [e for e in stitched["traceEvents"] if e.get("ph") == "X"]
+    ids_by_pid: dict = {}
+    names_by_pid: dict = {}
+    for event in spans:
+        ids_by_pid.setdefault(event["pid"], set()).add(event["args"].get("span_id"))
+        names_by_pid.setdefault(event["pid"], set()).add(event["name"])
+    joined = [
+        pid
+        for pid, names in names_by_pid.items()
+        if {"scan", "apply_record", "install"} <= names
+    ]
+    remote_spans = [e for e in spans if e["args"].get("remote")]
+    remote_resolved = all(
+        e["args"].get("parent_id") in ids_by_pid.get(e["pid"], ())
+        for e in remote_spans
+    )
+    remote_installs = [e for e in remote_spans if e["name"] == "install"]
+    lanes = max(
+        (len({e["tid"] for e in spans if e["pid"] == pid}) for pid in joined),
+        default=0,
+    )
+    stitched_ok = bool(joined) and bool(remote_installs) and remote_resolved
+
+    # Lineage-monotonicity gate over every retained epoch record.
+    def monotone() -> "tuple[bool, str]":
+        if not report["lineage"]:
+            return False, "no lineage records"
+        for record in report["lineage"]:
+            chain = [
+                float(record["newest_sample_ts"]),
+                float(record["fold_ts"]),
+                float(record["apply_ts"]),
+                float(record["publish_ts"]),
+            ]
+            if chain != sorted(chain):
+                return False, f"epoch {record['epoch']} chain out of order: {chain}"
+            for replica_id, install_ts in (record.get("installs") or {}).items():
+                if float(install_ts) < float(record["publish_ts"]):
+                    return False, (
+                        f"epoch {record['epoch']} installed at {replica_id} "
+                        "before its publish"
+                    )
+        if report["installed"] is None:
+            return False, "no epoch carries a replica install receipt"
+        return True, f"{len(report['lineage'])} epochs monotone"
+
+    monotonic_ok, monotonic_detail = monotone()
+    stages_ok = all(
+        (report["stage_counts"].get(stage) or 0.0) >= 1.0
+        for stage in ("fold", "apply", "publish", "install")
+    )
+
+    # Overhead gate: lineage stamping is metadata-only — same bytes in the
+    # merged store, and a tick wall within 2% (50 ms floor at toy scale).
+    equal, detail = stores_bitexact_by_key(report["store"], control["store"])
+    overhead = report["wall"] - control["wall"]
+    budget = max(0.02 * control["wall"], 0.05)
+
+    secondary["fleet_obs_ticks"] = float(ticks)
+    secondary["fleet_trace_stitched"] = 1.0 if stitched_ok else 0.0
+    secondary["fleet_stitched_components"] = float(len(joined))
+    secondary["fleet_stitched_lanes"] = float(lanes)
+    secondary["fleet_freshness_monotonic"] = (
+        1.0 if monotonic_ok and stages_ok else 0.0
+    )
+    secondary["fleet_lineage_epochs"] = float(len(report["lineage"]))
+    secondary["fleet_lineage_wall_seconds"] = round(report["wall"], 4)
+    secondary["fleet_control_wall_seconds"] = round(control["wall"], 4)
+    secondary["fleet_lineage_overhead_seconds"] = round(overhead, 4)
+    secondary["fleet_lineage_bitexact"] = 1.0 if equal else 0.0
+    print(
+        f"bench: fleet obs 2 shards + replica x {ticks} ticks -> "
+        f"{len(joined)} stitched component(s) ({lanes} lanes), "
+        f"{len(report['lineage'])} lineage epochs, lineage wall "
+        f"{report['wall']:.3f}s vs control {control['wall']:.3f}s "
+        f"({overhead:+.3f}s)",
+        file=sys.stderr,
+    )
+    check(
+        "fleet_trace_stitched",
+        stitched_ok,
+        f"joined={len(joined)}, remote_installs={len(remote_installs)}, "
+        f"remote_resolved={remote_resolved}",
+    )
+    check(
+        "fleet_freshness_monotonic",
+        monotonic_ok and stages_ok,
+        f"{monotonic_detail}; stage counts={report['stage_counts']}",
+    )
+    check(
+        "fleet_lineage_overhead",
+        equal and overhead <= budget,
+        f"bitexact={equal} ({detail}), overhead={overhead:.3f}s "
+        f"over budget={budget:.3f}s",
+    )
+
+
 def main(argv=None, environ=None) -> int:
     """Run the bench; return its exit code. The knobs are read from
     ``environ`` (default ``os.environ``), which is never written."""
@@ -1788,31 +3302,64 @@ def main(argv=None, environ=None) -> int:
     check("digest_peak==max", same_bits(peak_sub, cuda_select.masked_max_cuda(sub_v, sub_c)),
           "peak mismatch")
 
-    launches = {**cuda_select.LAUNCHES, **cuda_sketch.LAUNCHES}
+    launches = launch_counts()
     secondary["kernel_launches"] = launches
     if on_card:
         check("kernels_launched", all(launches[name] >= 1 for name in KERNELS), f"launches {launches}")
     # The end-to-end legs use the card from other processes: free it.
     values = counts = sub_v = sub_c = exact_p99_sub = None
 
-    # The service-plane legs, in `bench.py`'s order: host code on the
-    # port's serve, ingest, federation and store planes (their digests are
-    # built and queried on the host), every composition on ``device``. A
-    # leg that raises fails the bench; a failed gate goes through `check`.
+    # The service-plane and observability legs, in `bench.py`'s order. Each
+    # one's launches of the counted kernels are read around it and gated:
+    # on the card a host leg launches none, `KERNEL_LEGS` exactly what
+    # their calls imply; the plain versions count none. A leg that raises
+    # fails the bench; a failed gate goes through `check`.
+    by_leg: dict = {}
+
+    def run_leg(name: str, leg, *args):
+        before = launch_counts()
+        result = leg(*args)
+        after = launch_counts()
+        delta = {kernel: after[kernel] - before[kernel] for kernel in COUNTED_KERNELS}
+        by_leg[name] = delta
+        expected = result if on_card and name in KERNEL_LEGS else dict.fromkeys(COUNTED_KERNELS, 0)
+        check(f"{name}_kernel_launches", delta == expected, f"launched {delta}, expected {expected}")
+        return result
+
+    dev = str(device)
+    if not env.get("BENCH_SKIP_JOURNAL"):
+        run_leg("journal", journal_leg, secondary, env)
+    if not env.get("BENCH_SKIP_OBS"):
+        # The tracing-overhead legs, then the sentinel, which reads the obs
+        # leg's scan wall.
+        tracer = run_leg("obs", obs_leg, secondary, check, env, dev)
+        run_leg("analyze", analyze_smoke_leg, tracer, secondary, check, env)
+        run_leg("obs_device", obs_device_leg, secondary, check, env, dev)
+        run_leg("sentinel", sentinel_leg, secondary, check, env)
+    if not env.get("BENCH_SKIP_CHAOS"):
+        run_leg("chaos", chaos_leg, secondary, check, env, dev)
+    if not env.get("BENCH_SKIP_EVAL"):
+        run_leg("eval", eval_leg, secondary, check, env, dev)
+    if not env.get("BENCH_SKIP_DISCOVERY"):
+        run_leg("discovery", discovery_leg, secondary, check, env, dev)
     if not env.get("BENCH_SKIP_INGEST"):
-        ingest_leg(secondary, check, env, str(device))
+        run_leg("ingest", ingest_leg, secondary, check, env, dev)
+    if not env.get("BENCH_SKIP_FETCHPLAN"):
+        run_leg("fetchplan", fetchplan_leg, secondary, check, env, dev)
+    if not env.get("BENCH_SKIP_WIRE"):
+        run_leg("wire", wire_leg, secondary, check, env, dev)
     if not env.get("BENCH_SKIP_FEDERATION"):
-        federation_leg(secondary, check, env, str(device))
+        run_leg("federation", federation_leg, secondary, check, env, dev)
     if not env.get("BENCH_SKIP_HA"):
-        ha_leg(secondary, check, env, str(device))
+        run_leg("ha", ha_leg, secondary, check, env, dev)
+    if not env.get("BENCH_SKIP_FLEETOBS"):
+        run_leg("fleet_obs", fleet_obs_leg, secondary, check, env, dev)
     if not env.get("BENCH_SKIP_READPATH"):
-        readpath_leg(secondary, check, env, str(device))
+        run_leg("readpath", readpath_leg, secondary, check, env, dev)
     if not env.get("BENCH_SKIP_STORE"):
-        store_leg(secondary, check, env)
-        store_kill_leg(secondary, check, env, str(device))
-    if on_card:
-        after = {**cuda_select.LAUNCHES, **cuda_sketch.LAUNCHES}
-        check("service_legs_launched_no_kernel", after == launches, f"launches {launches} -> {after}")
+        run_leg("store", store_leg, secondary, check, env)
+        run_leg("store_kill", store_kill_leg, secondary, check, env, dev)
+    secondary["kernel_launches_by_leg"] = by_leg
 
     leg_failures: list[str] = []
     if not env.get("BENCH_SKIP_E2E"):

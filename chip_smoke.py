@@ -299,18 +299,28 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    at least once in this process (counts set to 0 just before). Then
    ``--smoke``, whose two ``bench_e2e_torch.py`` subprocesses drive the
    ``Runner`` legs against the fakes on the card. Both runs must exit 0 with
-   ``"parity": "ok"``. The full-shape run leaves out the six service-plane
-   legs (``BENCH_SKIP_INGEST``, ``_FEDERATION``, ``_HA``, ``_READPATH``,
-   ``_STORE``); the smoke run drives them at smoke sizes on the card (push
-   ingest, federation, the HA ring and its replica, the read path, the
-   durable store and the SIGKILL soak's serve subprocesses; the HA replica's
-   read load at 4 × 200 requests, ``BENCH_HA_READS``), and every gate
-   of theirs, the wall-clock ones included, must pass; the K1–K5 counts
-   read after the run must equal its ``kernel_launches``, read before the
-   service legs. Printed: the full-shape run's headline and secondary
-   fields and launches, under ``smoke_e2e`` the smoke run's end-to-end
-   fields and under ``smoke_service`` its service legs' fields (its kernel
-   legs are toy-sized and not kept).
+   ``"parity": "ok"``. The full-shape run leaves out the seventeen
+   service-plane and observability legs (``BENCH_SKIP_JOURNAL``, ``_OBS``,
+   ``_CHAOS``, ``_EVAL``, ``_DISCOVERY``, ``_INGEST``, ``_FETCHPLAN``,
+   ``_WIRE``, ``_FEDERATION``, ``_HA``, ``_FLEETOBS``, ``_READPATH``,
+   ``_STORE``); the smoke run drives them at smoke sizes on the card (the
+   journal, the traced scan and ``analyze``, ``run_batch`` under
+   ``DeviceObs``, the sentinel, the chaos soak, the eval replays, watch
+   discovery, push ingest, the fetch plan, the wire shrink, federation, the
+   HA ring and its replica, stitched traces and lineage, the read path, the
+   durable store and the SIGKILL soak's serve subprocesses; the HA
+   replica's read load at 4 × 200 requests, ``BENCH_HA_READS``), and every
+   gate of theirs, the wall-clock ones included, must pass. Launches are
+   accounted per leg (``kernel_launches_by_leg``): ``obs_device`` exactly
+   ``bisect_select`` and ``row_max`` 1 + 2 × ``BENCH_OBS_RUNS`` (7 at smoke
+   size), ``eval`` exactly ``bisect_select`` and ``digest_hist`` 2 ×
+   ``tick_ends`` and ``row_max`` 4 × (12, 12, 24 at smoke size), every
+   other leg 0 of each, and the K1–K5 counts read after the run must equal
+   its ``kernel_launches`` (read before the legs) plus the legs' sum.
+   Printed: the full-shape run's headline and secondary fields and
+   launches, under ``smoke_e2e`` the smoke run's end-to-end fields, under
+   ``smoke_service`` its service legs' fields and under ``smoke_obs`` its
+   observability legs' (its kernel legs are toy-sized and not kept).
 
 ``row_max_main`` — ``row_max`` at the memory shape of the ``simple`` scan,
 per wrapper call (host-bound at that size) and per launch replayed from a
@@ -1315,14 +1325,20 @@ def _bench_run(bench_torch, argv: list, environ) -> dict:
     return payload
 
 
-#: The knobs that leave out `bench_torch.py`'s service-plane legs (the
-#: ``bench`` phase's full-shape run measures the kernel legs alone).
-BENCH_SERVICE_SKIPS = ("BENCH_SKIP_INGEST", "BENCH_SKIP_FEDERATION", "BENCH_SKIP_HA", "BENCH_SKIP_READPATH",
+#: The knobs that leave out `bench_torch.py`'s service-plane and
+#: observability legs (the ``bench`` phase's full-shape run measures the
+#: kernel legs alone).
+BENCH_SERVICE_SKIPS = ("BENCH_SKIP_JOURNAL", "BENCH_SKIP_OBS", "BENCH_SKIP_CHAOS", "BENCH_SKIP_EVAL",
+                       "BENCH_SKIP_DISCOVERY", "BENCH_SKIP_INGEST", "BENCH_SKIP_FETCHPLAN", "BENCH_SKIP_WIRE",
+                       "BENCH_SKIP_FEDERATION", "BENCH_SKIP_HA", "BENCH_SKIP_FLEETOBS", "BENCH_SKIP_READPATH",
                        "BENCH_SKIP_STORE")
 
-#: The prefixes of the service-plane legs' fields in ``secondary``, and
-#: the fields of `bench_e2e_torch.py`'s scanner leg that share one.
-BENCH_SERVICE_PREFIXES = ("ingest_", "federation_", "ha_", "readpath_", "store_")
+#: The prefixes of the service-plane and observability legs' fields in
+#: ``secondary``, and the fields of `bench_e2e_torch.py`'s scanner leg that
+#: share one.
+BENCH_SERVICE_PREFIXES = ("journal_", "chaos_", "eval_", "discovery_", "ingest_", "fetchplan_", "wire_",
+                          "federation_", "ha_", "fleet_", "readpath_", "store_")
+BENCH_OBS_PREFIXES = ("obs_", "analyze_", "sentinel_", "timeline_")
 BENCH_E2E_SCANNER_FIELDS = ("ingest_bytes_per_sample", "ingest_samples_per_sec", "ingest_digest_bytes_per_sec",
                             "ingest_stats_bytes_per_sec", "ingest_raw_bytes_per_sec")
 
@@ -1332,17 +1348,42 @@ BENCH_E2E_SCANNER_FIELDS = ("ingest_bytes_per_sample", "ingest_samples_per_sec",
 #: stay as they are.
 BENCH_HA_READS = {"BENCH_HA_CLIENTS": "4", "BENCH_HA_REQUESTS": "200"}
 
-#: Fields of the service legs that must be 1.0: their exact gates held.
+#: Fields of the service and observability legs that must be 1.0: their
+#: exact gates held.
 BENCH_SERVICE_EXACT = ("ingest_bitexact", "ingest_zero_range_queries", "federation_bitexact", "ha_bitexact",
-                       "ha_failover_zero_lost_epochs", "store_kill_recover_bitexact")
+                       "ha_failover_zero_lost_epochs", "store_kill_recover_bitexact", "discovery_bitexact",
+                       "fetchplan_bitexact", "wire_bitexact", "chaos_recovered_bitexact", "fleet_trace_stitched",
+                       "fleet_freshness_monotonic", "fleet_lineage_bitexact")
+
+#: The seventeen legs of the smoke run, as ``kernel_launches_by_leg`` names them.
+BENCH_LEGS = ("journal", "obs", "analyze", "obs_device", "sentinel", "chaos", "eval", "discovery", "ingest",
+              "fetchplan", "wire", "federation", "ha", "fleet_obs", "readpath", "store", "store_kill")
+
+
+def bench_smoke_launches(bench_torch) -> dict:
+    """The launches each smoke-size leg must make on the card, worked out
+    here from the smoke sizes: ``obs_device`` a warm-up and two
+    ``simple`` ``run_batch`` calls a run (K1 + K2 each); ``eval`` two
+    boards, each replaying ``simple`` (K1 + K2) and ``tdigest`` (K3 + K2)
+    once a replay tick; every other leg none."""
+    from krr_tpu_torch.eval import tick_ends
+
+    smoke = bench_torch.SMOKE_DEFAULTS
+    zero = dict.fromkeys(("bisect_select", "row_max", "topk_select", "digest_hist", "radix_digit_hist"), 0)
+    calls = 1 + 2 * max(2, int(smoke["BENCH_OBS_RUNS"]))
+    ticks = 2 * len(tick_ends(int(smoke["BENCH_EVAL_SAMPLES"]), int(smoke["BENCH_EVAL_TICKS"])))
+    expected = {leg: dict(zero) for leg in BENCH_LEGS}
+    expected["obs_device"].update(bisect_select=calls, row_max=calls)
+    expected["eval"].update(bisect_select=ticks, row_max=2 * ticks, digest_hist=ticks)
+    return expected
 
 
 def phase_bench() -> dict:
     """`bench_torch.main` on ``DEVICE`` in this process, twice: its kernel
     legs at the bench's own headline shape (``BENCH_SKIP_E2E`` and the
-    service legs' skips), launches counted from 0, then ``--smoke`` for its
-    two end-to-end subprocesses and its six service-plane legs, during
-    which no kernel may launch."""
+    other legs' skips), launches counted from 0, then ``--smoke`` for its
+    two end-to-end subprocesses and its seventeen service-plane and
+    observability legs, whose launches are accounted per leg."""
     import bench_torch
 
     _reset_counts()
@@ -1352,8 +1393,8 @@ def phase_bench() -> dict:
     check(all(launches[name] >= 1 for name in bench_torch.KERNELS), f"bench: a kernel leg did not launch: {launches}")
     report = {key: value for key, value in payload.items() if key != "secondary"}
     report.update(launches=launches, secondary=payload["secondary"])
-    # The smoke run's kernel legs are toy-sized: only its end-to-end and
-    # service numbers are kept, under their own keys.
+    # The smoke run's kernel legs are toy-sized: only its end-to-end,
+    # service and observability numbers are kept, under their own keys.
     _reset_counts()
     smoke = _bench_run(bench_torch, ["--smoke", "--device", DEVICE], {**os.environ, **BENCH_HA_READS})
     after, _generic = _read_counts()
@@ -1362,18 +1403,29 @@ def phase_bench() -> dict:
     check(e2e.get("e2e_objects_per_sec", 0) > 0 and e2e.get("fleet_e2e_objects_per_sec", 0) > 0,
           f"bench: the end-to-end legs delivered no rate: {secondary}")
     report["smoke_e2e"] = e2e
-    # ``kernel_launches`` is read just after the kernel legs, before the
-    # service legs: the counts must not have moved since.
-    check(after == secondary["kernel_launches"],
-          f"bench: a kernel launched in the service legs: {secondary['kernel_launches']} -> {after}")
+    # Per leg: exactly the launches worked out here (none but in
+    # ``obs_device`` and ``eval``; the plain versions on a CPU rehearsal
+    # count none). ``kernel_launches`` is read just after the kernel legs:
+    # the counts after the run are it plus every leg's.
+    by_leg = secondary["kernel_launches_by_leg"]
+    expected = bench_smoke_launches(bench_torch)
+    if DEVICE != "cuda":
+        expected = {leg: dict.fromkeys(counts, 0) for leg, counts in expected.items()}
+    check(by_leg == expected, f"bench: launches by leg {by_leg}, expected {expected}")
+    summed = {name: secondary["kernel_launches"][name] + sum(leg[name] for leg in by_leg.values()) for name in after}
+    check(after == summed, f"bench: launches after the smoke run {after}, kernel legs and legs {summed}")
     service = {key: value for key, value in secondary.items()
-               if key.startswith(BENCH_SERVICE_PREFIXES) and key not in BENCH_E2E_SCANNER_FIELDS}
+               if key.startswith(BENCH_SERVICE_PREFIXES) and key not in BENCH_E2E_SCANNER_FIELDS
+               and not key.startswith("fleet_e2e_")}
     check(all(service.get(key) == 1.0 for key in BENCH_SERVICE_EXACT),
           f"bench: a service leg's exact gate did not hold: {service}")
     check(service.get("readpath_cache_hit_pct", 0) >= 99.0 and service.get("store_kills", 0) >= 2,
           f"bench: the readpath or kill-soak leg did not run: {service}")
-    report["smoke_service"] = {**service, "kernel_launches_during": {
-        name: after[name] - secondary["kernel_launches"][name] for name in after}}
+    observability = {key: value for key, value in secondary.items() if key.startswith(BENCH_OBS_PREFIXES)}
+    check(observability.get("analyze_smoke") == "ok" and observability.get("sentinel_clean_regressions") == 0,
+          f"bench: the analyze or sentinel leg failed: {observability}")
+    report["smoke_service"] = service
+    report["smoke_obs"] = {**observability, "kernel_launches_by_leg": by_leg}
     emit("bench", **report)
     return report
 

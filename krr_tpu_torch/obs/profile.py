@@ -271,17 +271,20 @@ def profile_trace(spans: list) -> Optional[dict]:
     decode_sum = sum(phase_seconds.get(p, 0.0) for p in _DECODE_PHASES)
     prom_attr = attributed["prom"]
     categories = {key: 0.0 for key in CATEGORIES}
-    if prom_duration > 1e-9 and (transport_sum + decode_sum + backoff) > 1e-9:
+    phased = transport_sum + decode_sum + backoff
+    if prom_duration > 1e-9 and phased > 1e-9:
         # Split the attributed in-query wall proportionally to the summed
         # per-query phases (sums, not wall: concurrent windows overlap on
-        # the timeline but their phase ratios are what we know).
-        scale = prom_attr / prom_duration
+        # the timeline but their phase ratios are what we know). Phases can
+        # overlap inside one query too (a streamed body is sunk while it is
+        # read), so their sum can pass the queries' durations: the split is
+        # then scaled to the attributed wall, keeping the categories a
+        # partition of the scan's wall (ROADMAP Queue 3 item 13).
+        scale = prom_attr / max(prom_duration, phased)
         categories["fetch_transport"] = transport_sum * scale
         categories["fetch_decode"] = decode_sum * scale
         categories["fetch_backoff"] = backoff * scale
-        categories["fetch_other"] = max(
-            0.0, prom_attr - (transport_sum + decode_sum + backoff) * scale
-        )
+        categories["fetch_other"] = max(0.0, prom_attr - phased * scale)
     else:
         # No phase telemetry (pre-instrumentation trace, or a fake source
         # with no prom_query spans): an opaque query is transport by

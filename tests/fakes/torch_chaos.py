@@ -1,11 +1,21 @@
 """Chaos fakes on `krr_tpu_torch`, for the port's bench: the archetype
-fleet and the SIGKILL soak.
+fleet, the fault injector, the disk-fault seams and the soaks.
 
-The part of `tests/fakes/chaos.py` that the port's store legs use, with
-nothing of the JAX package imported:
+The counterpart of `tests/fakes/chaos.py`, with nothing of the JAX package
+imported:
 
 * :func:`build_fleet` — the workload-archetype fleet generator, the same
   series from the same specs and seed as the original;
+  :func:`fleet_replay_input` — such a fleet as the port's eval
+  ``ReplayInput``;
+* :class:`FaultTimeline` — scripted per-tick faults over the in-process
+  fakes (`tests.fakes.servers`);
+* :class:`FaultyFs` and :class:`CrashPointFs` — disk faults and crash
+  points over the durable store's ``FsOps`` seam
+  (`krr_tpu_torch.core.streaming`);
+* :func:`run_soak` — a real ``krr_tpu_torch`` serve composition (fake
+  clock) through N scheduler ticks under a fault timeline, one
+  :class:`TickSample` a tick;
 * :func:`run_kill_soak` — drives ``tests.fakes.torch_soak_driver`` (a real
   ``krr_tpu_torch`` serve composition in a subprocess) and SIGKILLs it at
   random points;
@@ -16,7 +26,10 @@ Test infrastructure: the product ships none of it.
 
 from __future__ import annotations
 
+import errno
+import inspect
 import json
+import os
 import queue
 import signal
 import subprocess
@@ -24,11 +37,12 @@ import sys
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Callable, Optional
+from typing import Any, Callable, Optional
 
 import numpy as np
 import yaml
 
+from krr_tpu_torch.core.streaming import FsOps
 from tests.fakes.servers import FakeBackend, FakeCluster, FakeMetrics, ServerThread
 
 ORIGIN = FakeBackend.SERIES_ORIGIN
@@ -222,6 +236,40 @@ def build_fleet(
     )
 
 
+def fleet_replay_input(fleet: ChaosFleet):
+    """A chaos fleet as eval replay input (`krr_tpu_torch.eval.ReplayInput`): one
+    row per workload on the fake series grid, usage = the elementwise MAX
+    across the workload's pods (per-container sizing must cover the
+    hungriest pod). Keys use the fleet's object-key grammar so ``-n``
+    scoping and the labels' ``namespace/workload`` keys line up."""
+    from krr_tpu_torch.eval import ReplayInput
+
+    per_workload: "dict[str, tuple[np.ndarray, np.ndarray]]" = {}
+    for (namespace, container, _pod), (cpu, mem) in sorted(fleet.metrics.series.items()):
+        name = _workload_for_pod(fleet, namespace, _pod)
+        key = f"/{namespace}/{name}/{container}/Deployment"
+        held = per_workload.get(key)
+        if held is None:
+            per_workload[key] = (np.asarray(cpu, float), np.asarray(mem, float))
+        else:
+            per_workload[key] = (np.maximum(held[0], cpu), np.maximum(held[1], mem))
+    samples = len(next(iter(per_workload.values()))[0])
+    timestamps = ORIGIN + STEP * np.arange(samples)
+    return ReplayInput.from_series(per_workload, timestamps)
+
+
+def _workload_for_pod(fleet: ChaosFleet, namespace: str, pod: str) -> str:
+    for (ns, name, p) in fleet.labels:
+        if ns == namespace and p == pod:
+            return name
+    # Pods added outside build_fleet (churn scenarios): fall back to the
+    # conventional "<workload>-<pod suffix>" prefix match.
+    for name in fleet.namespaces.get(namespace, ()):
+        if pod.startswith(f"{name}-"):
+            return name
+    return pod
+
+
 def write_kubeconfig(path, url: str) -> str:
     """The single-cluster kubeconfig the serve fixtures use, pointed at a
     running fake backend."""
@@ -236,6 +284,162 @@ def write_kubeconfig(path, url: str) -> str:
             f,
         )
     return str(path)
+
+
+# ------------------------------------------------------------- fault injector
+@dataclass(frozen=True)
+class FaultSpec:
+    """One tick's fault regime (everything defaults to healthy)."""
+
+    down: bool = False
+    fail_namespaces: "frozenset[str]" = frozenset()
+    fail_rate: float = 0.0
+    fault_seed: int = 0
+    latency_seconds: float = 0.0
+    truncate_bodies: bool = False
+    freeze_discovery: bool = False
+
+    @property
+    def clean(self) -> bool:
+        return self == CLEAN
+
+
+CLEAN = FaultSpec()
+
+
+class FaultTimeline:
+    """Scripted faults: ``(first_tick, last_tick, FaultSpec)`` spans, first
+    match wins, everything else healthy. ``apply`` mutates the fake's knobs
+    for the coming tick — deterministic replay by construction."""
+
+    def __init__(self, spans: "list[tuple[int, int, FaultSpec]]" = ()):  # type: ignore[assignment]
+        self.spans = list(spans)
+
+    def at(self, tick: int) -> FaultSpec:
+        for first, last, spec in self.spans:
+            if first <= tick <= last:
+                return spec
+        return CLEAN
+
+    def apply(self, backend: FakeBackend, tick: int) -> FaultSpec:
+        spec = self.at(tick)
+        metrics = backend.metrics
+        metrics.down = spec.down
+        metrics.fail_namespaces = frozenset(spec.fail_namespaces)
+        metrics.fail_rate = spec.fail_rate
+        if spec.fail_rate > 0:
+            # A fresh seeded stream per storm span keeps storms reproducible
+            # regardless of how many requests earlier ticks made.
+            metrics.fault_seed = spec.fault_seed
+            metrics._fault_rng = None
+        metrics.latency_seconds = spec.latency_seconds
+        metrics.truncate_bodies = spec.truncate_bodies
+        backend.freeze_discovery(spec.freeze_discovery)
+        return spec
+
+
+# ---------------------------------------------------------- disk-fault fakes
+class FaultyFs(FsOps):
+    """Scripted disk faults over the durable store's fs-ops seam
+    (`krr_tpu_torch.core.streaming.FsOps`): every listed op raises ``OSError``
+    with the scripted errno (ENOSPC by default, EIO for media faults),
+    optionally only after ``after`` matching calls succeed. Install on one
+    ``DurableStore`` instance (``durable.fs = FaultyFs(...)``) to fault
+    that store without touching the process-wide default."""
+
+    def __init__(
+        self,
+        ops: "tuple[str, ...]" = ("append", "fsync", "write", "replace", "fsync_dir"),
+        *,
+        error: int = errno.ENOSPC,
+        after: int = 0,
+    ) -> None:
+        self.ops = frozenset(ops)
+        self.error = error
+        self.after = int(after)
+        self.calls = 0
+        self.faults = 0
+
+    def _maybe_fault(self, op: str) -> None:
+        if op not in self.ops:
+            return
+        self.calls += 1
+        if self.calls > self.after:
+            self.faults += 1
+            raise OSError(self.error, os.strerror(self.error))
+
+    def write(self, f, data: bytes) -> None:
+        self._maybe_fault("write")
+        super().write(f, data)
+
+    def append(self, f, data: bytes) -> None:
+        self._maybe_fault("append")
+        super().append(f, data)
+
+    def fsync(self, f) -> None:
+        self._maybe_fault("fsync")
+        super().fsync(f)
+
+    def replace(self, src: str, dst: str) -> None:
+        self._maybe_fault("replace")
+        super().replace(src, dst)
+
+    def fsync_dir(self, path: str) -> None:
+        self._maybe_fault("fsync_dir")
+        super().fsync_dir(path)
+
+    def truncate(self, f, size: int) -> None:
+        self._maybe_fault("truncate")
+        super().truncate(f, size)
+
+
+class SimulatedCrash(BaseException):
+    """Raised by :class:`CrashPointFs` at its scripted fault point.
+
+    A ``BaseException`` on purpose: persistence code must not catch it on
+    the way out, exactly like a real crash doesn't unwind through handlers."""
+
+
+class CrashPointFs(FsOps):
+    """Crash-injection at the Nth durability-critical syscall: counts every
+    fs op and raises :class:`SimulatedCrash` at op ``crash_at`` (0-based).
+    The crash-point matrix in the durability tests runs a persist once per
+    possible value of ``crash_at`` and asserts recovery lands on a durable
+    state after each — every fsync/rename/append boundary is a tested
+    crash window, not an assumed one."""
+
+    def __init__(self, crash_at: Optional[int] = None) -> None:
+        self.crash_at = crash_at
+        self.calls = 0
+
+    def _tick(self) -> None:
+        if self.crash_at is not None and self.calls == self.crash_at:
+            raise SimulatedCrash(f"injected crash at fs op {self.calls}")
+        self.calls += 1
+
+    def write(self, f, data: bytes) -> None:
+        self._tick()
+        super().write(f, data)
+
+    def append(self, f, data: bytes) -> None:
+        self._tick()
+        super().append(f, data)
+
+    def fsync(self, f) -> None:
+        self._tick()
+        super().fsync(f)
+
+    def replace(self, src: str, dst: str) -> None:
+        self._tick()
+        super().replace(src, dst)
+
+    def fsync_dir(self, path: str) -> None:
+        self._tick()
+        super().fsync_dir(path)
+
+    def truncate(self, f, size: int) -> None:
+        self._tick()
+        super().truncate(f, size)
 
 
 # ------------------------------------------------------------ SIGKILL soaks
@@ -332,6 +536,98 @@ def run_kill_soak(
     return {"runs": runs, "kills": int(kills) - remaining, "kill_points": kill_points}
 
 
+# ------------------------------------------------------------------ serve soaks
+@dataclass
+class TickSample:
+    """Everything the assertions need about one scheduler tick."""
+
+    tick: int
+    fault: FaultSpec
+    #: run_once result: True scanned, False skipped, None aborted.
+    ok: "Optional[bool]"
+    wall_seconds: float
+    stale_workloads: int
+    consecutive_failures: int
+    slo_firing: "list[str]"
+    #: krr_tpu_prom_breaker_state for the fake cluster (None before the
+    #: loader exists): 0 closed, 1 half-open, 2 open.
+    breaker_state: "Optional[float]"
+    #: This tick published with quarantined workloads (partial failure).
+    degraded: bool
+
+
+@dataclass
+class SoakReport:
+    ticks: "list[TickSample]"
+    store: Any
+    state: Any
+    metrics: Any
+
+    def counts(self) -> "dict[str, int]":
+        return {
+            "scanned": sum(1 for t in self.ticks if t.ok),
+            "aborted": sum(1 for t in self.ticks if t.ok is None),
+            "degraded": sum(1 for t in self.ticks if t.degraded),
+        }
+
+
+async def run_soak(
+    config,
+    backend: FakeBackend,
+    timeline: Optional[FaultTimeline] = None,
+    *,
+    ticks: int,
+    tick_seconds: float = 300.0,
+    start: float = ORIGIN + 3600.0,
+    on_tick: Optional[Callable] = None,
+) -> SoakReport:
+    """Drive a real serve composition (fake clock) through ``ticks``
+    scheduler rounds, applying the fault timeline before each. ``on_tick``
+    (sync or async, called AFTER each round with ``(server, sample)``) is
+    the hook for HTTP-level assertions and for deterministic mid-soak
+    cluster mutation (churn scenarios) — give the control run the same hook.
+    The fakes are returned to the healthy regime before the server shuts
+    down, so a shared fixture can't leak faults into the next scenario."""
+    from krr_tpu_torch.server.app import KrrServer
+
+    timeline = timeline or FaultTimeline()
+    now = [start]
+    server = KrrServer(config, clock=lambda: now[0])
+    await server.start(run_scheduler=False)
+    samples: "list[TickSample]" = []
+    try:
+        for tick in range(ticks):
+            now[0] = start + tick * tick_seconds
+            spec = timeline.apply(backend, tick)
+            metrics = server.state.metrics
+            degraded_before = metrics.value("krr_tpu_scans_degraded_total") or 0.0
+            t0 = time.perf_counter()
+            ok = await server.scheduler.run_once()
+            wall = time.perf_counter() - t0
+            sample = TickSample(
+                tick=tick,
+                fault=spec,
+                ok=ok,
+                wall_seconds=wall,
+                stale_workloads=len(server.state.stale_workloads),
+                consecutive_failures=server.state.consecutive_scan_failures,
+                slo_firing=list(server.state.slo.firing()) if server.state.slo else [],
+                breaker_state=metrics.value("krr_tpu_prom_breaker_state", cluster="fake"),
+                degraded=(metrics.value("krr_tpu_scans_degraded_total") or 0.0) > degraded_before,
+            )
+            samples.append(sample)
+            if on_tick is not None:
+                outcome = on_tick(server, sample)
+                if inspect.isawaitable(outcome):
+                    await outcome
+    finally:
+        FaultTimeline().apply(backend, 0)  # heal the fakes for the next user
+        await server.shutdown()
+    return SoakReport(
+        ticks=samples, store=server.state.store, state=server.state, metrics=server.state.metrics
+    )
+
+
 def stores_bitexact(a, b) -> "tuple[bool, str]":
     """(equal, detail) across keys and every digest array — the degraded
     path's recovery discipline: after faults clear and catch-up folds, the
@@ -347,13 +643,23 @@ def stores_bitexact(a, b) -> "tuple[bool, str]":
 __all__ = [
     "ARCHETYPES",
     "ArchetypeSpec",
+    "CLEAN",
     "ChaosFleet",
+    "CrashPointFs",
     "DEFAULT_FLEET",
+    "FaultSpec",
+    "FaultTimeline",
+    "FaultyFs",
     "ORIGIN",
     "STEP",
     "ServerThread",
+    "SimulatedCrash",
+    "SoakReport",
+    "TickSample",
     "build_fleet",
+    "fleet_replay_input",
     "run_kill_soak",
+    "run_soak",
     "stores_bitexact",
     "write_kubeconfig",
 ]

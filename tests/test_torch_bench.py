@@ -6,9 +6,10 @@ What is held here, without reading a wall clock in any assertion:
   and end-to-end leg runs, the JSON line carries `bench.py`'s fields, and
   neither script nor any process it starts imports ``jax*`` or
   ``krr_tpu.*`` (an import blocker in a ``sitecustomize`` on
-  ``PYTHONPATH`` records and refuses them); the six service-plane legs are
-  left out here (``SERVICE_SKIPS``) and held in
-  `tests/test_torch_bench_service.py`;
+  ``PYTHONPATH`` records and refuses them); the seventeen service-plane
+  and observability legs are left out here (``SERVICE_SKIPS``) and held in
+  `tests/test_torch_bench_service.py`, `tests/test_torch_bench_legs.py`
+  and `tests/test_torch_bench_obs.py`;
 * the four parity gates are real: one perturbed element makes ``main``
   print ``"parity": "fail"`` naming that gate, and exit 1;
 * an end-to-end leg that fails, times out or returns no payload makes the
@@ -48,6 +49,7 @@ from krr_tpu.ops.pallas_select import fleet_exact as jax_fleet_exact
 from krr_tpu_torch.ops import cuda_select
 from krr_tpu_torch.ops import digest as port_digest
 from krr_tpu_torch.ops import topk_sketch as port_topk
+from tests.torch_bench_support import NO_LAUNCHES, SKIPS
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -67,12 +69,11 @@ HEADLINE_FIELDS = (
     "secondary",
 )
 
-#: The knobs that leave out the six service-plane legs (their own file,
-#: `tests/test_torch_bench_service.py`, covers them).
-SERVICE_SKIPS = {
-    key: "1" for key in ("BENCH_SKIP_INGEST", "BENCH_SKIP_FEDERATION", "BENCH_SKIP_HA",
-                         "BENCH_SKIP_READPATH", "BENCH_SKIP_STORE")
-}
+#: The knobs that leave out the seventeen service-plane and observability
+#: legs (their own files, `tests/test_torch_bench_service.py`,
+#: `tests/test_torch_bench_legs.py` and `tests/test_torch_bench_obs.py`,
+#: cover them).
+SERVICE_SKIPS = dict.fromkeys(SKIPS, "1")
 
 #: A ``sitecustomize`` that refuses and records any import of the JAX
 #: package or of JAX in every Python process started with it on the path.
@@ -214,17 +215,24 @@ def test_a_failed_e2e_leg_fails_the_bench(script, note, tmp_path, monkeypatch, c
 def test_knobs_come_from_the_environ_argument(tmp_path, monkeypatch, capsys):
     """``main(argv, environ)`` reads its knobs from ``environ`` alone and
     leaves ``os.environ`` as it was: an end-to-end script that fails is never
-    started when ``environ`` skips the legs."""
+    started when ``environ`` skips the legs, and a leg that ``os.environ``
+    skips runs at ``environ``'s size when ``environ`` does not skip it."""
     leg = tmp_path / "leg.py"
     leg.write_text("import sys; sys.exit(3)")
     monkeypatch.setattr(bench_torch, "E2E_SCRIPT", str(leg))
     monkeypatch.delenv("BENCH_SKIP_E2E", raising=False)
+    monkeypatch.setenv("BENCH_SKIP_JOURNAL", "1")
+    monkeypatch.setenv("BENCH_JOURNAL_ROWS", "1000")
     before = dict(os.environ)
-    rc = bench_torch.main(["--device", "cpu"], {**bench_torch.SMOKE_DEFAULTS, "BENCH_SKIP_E2E": "1", **SERVICE_SKIPS})
+    environ = {**bench_torch.SMOKE_DEFAULTS, "BENCH_SKIP_E2E": "1", **SERVICE_SKIPS, "BENCH_JOURNAL_ROWS": "9"}
+    del environ["BENCH_SKIP_JOURNAL"]
+    rc = bench_torch.main(["--device", "cpu"], environ)
     out, err = capsys.readouterr()
     assert rc == 0, err[-3000:]
     payload = last_json(out)
     assert payload["parity"] == "ok" and "e2e" not in payload["secondary"]
+    assert payload["secondary"]["kernel_launches_by_leg"] == {"journal": NO_LAUNCHES}
+    assert "bench: journal 36 appends" in err and "diff render 9 objects" in err  # 9 rows x 4 ticks
     assert dict(os.environ) == before
 
 

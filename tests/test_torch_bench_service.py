@@ -4,12 +4,15 @@
 `store_kill_leg` drive the port's push ingest, federation, HA ring and
 replica, read path, durable store and SIGKILL soak. What is held here:
 
-* (a) one ``--smoke --device cpu`` run in a subprocess (``BENCH_SKIP_E2E``)
-  under an import blocker that refuses and records ``jax*`` and
+* (a) one ``--smoke --device cpu`` run of the six legs in a subprocess
+  (``BENCH_SKIP_E2E`` and the other legs' skips) under the import blocker
+  of `tests/torch_bench_support.py`, which refuses and records ``jax*`` and
   ``krr_tpu.*`` in every process, the soak's serve subprocesses included:
   none imports either; every field `tests/test_bench_smoke.py` requires of
-  these legs is there; every exact gate's line says ``ok``; each
-  wall-clock gate ran and printed its line. A wall-clock gate that FAILED
+  these legs is there; every exact gate's line says ``ok``, each leg's
+  ``<leg>_kernel_launches`` included (on the CPU every leg is listed in
+  ``kernel_launches_by_leg`` with no launch); each wall-clock gate ran and
+  printed its line. A wall-clock gate that FAILED
   (``WALL_CLOCK_GATES``: a speed ratio, which a loaded CPU cannot hold) is
   reported with ``warnings.warn``, not asserted; `chip_smoke.py` asserts
   them on the card.
@@ -30,19 +33,10 @@ replica, read path, durable store and SIGKILL soak. What is held here:
 
 from __future__ import annotations
 
-import ast
 import asyncio
-import contextlib
 import gzip
-import io
-import json
-import os
 import re
-import subprocess
-import sys
-import textwrap
 import warnings
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -50,11 +44,13 @@ import pytest
 import bench
 import bench_torch
 from tests.fakes import chaos, federation, torch_chaos, torch_federation
-
-REPO = Path(__file__).resolve().parent.parent
+from tests.torch_bench_support import NO_LAUNCHES, blocked_smoke, broken_gate_run, gate_lines, jax_legs, parity_failures
 
 #: The service legs' knobs that `main` reads to leave each out.
 SKIPS = ("BENCH_SKIP_INGEST", "BENCH_SKIP_FEDERATION", "BENCH_SKIP_HA", "BENCH_SKIP_READPATH", "BENCH_SKIP_STORE")
+
+#: The six legs as ``kernel_launches_by_leg`` names them.
+LEGS = ("ingest", "federation", "ha", "readpath", "store", "store_kill")
 
 #: The gates whose result must not depend on the host's speed.
 EXACT_GATES = (
@@ -64,6 +60,7 @@ EXACT_GATES = (
     "readpath_hit_rate>=99%", "readpath_304_zero_render", "readpath_pushdown_bitexact",
     "readpath_gzip_roundtrip", "readpath_lru_bounded", "readpath_timeline_recorded",
     "store_recovery_bitexact", "store_kill_recover_bitexact",
+    *(f"{leg}_kernel_launches" for leg in LEGS),
 )
 
 #: The gates that compare two wall clocks (``readpath_rps>=2x_uncached`` is
@@ -109,44 +106,6 @@ PINNED = (
     "store_wal_tick_bytes", "store_legacy_bytes", "store_kill_runs", "store_kills", "store_kill_recover_bitexact",
 )
 
-#: The blocker of `tests/test_torch_bench.py`, which also notes the command
-#: line of every process it starts in.
-IMPORT_BLOCKER = textwrap.dedent(
-    """
-    import os, sys
-
-    _log = os.environ["BENCH_TEST_IMPORT_LOG"]
-    with open("/proc/self/cmdline", "rb") as f:
-        _cmdline = f.read().replace(b"\\0", b" ").decode(errors="replace")
-    with open(os.path.join(_log, "started"), "a") as f:
-        f.write(_cmdline + "\\n")
-
-    class _Blocker:
-        def find_spec(self, name, path=None, target=None):
-            if name.split(".")[0] in ("jax", "jaxlib", "krr_tpu"):
-                with open(os.path.join(_log, "refused-" + str(os.getpid())), "a") as f:
-                    f.write(name + "\\n")
-                raise ImportError(f"{name} must not be imported by the port's bench")
-            return None
-
-    sys.meta_path.insert(0, _Blocker())
-    """
-)
-
-
-def gate_lines(stderr: str) -> dict:
-    """``{gate: "ok" | "FAILED <detail>"}`` from the ``bench: parity [...]`` lines."""
-    found = {}
-    for match in re.finditer(r"^bench: parity \[(.+?)\] (ok|FAILED.*)$", stderr, re.M):
-        found[match.group(1)] = match.group(2)
-    return found
-
-
-def parity_failures(stderr: str) -> list:
-    lines = [line for line in stderr.splitlines() if line.startswith("bench: PARITY FAILURES: ")]
-    return ast.literal_eval(lines[-1].split(": ", 2)[2]) if lines else []
-
-
 def legacy_bytes(stderr: str) -> int:
     """The legacy rewrite's file size from the store leg's line."""
     return int(re.search(r"vs legacy rewrite [\d.]+ ms \((\d+) B\)", stderr).group(1))
@@ -155,25 +114,9 @@ def legacy_bytes(stderr: str) -> int:
 @pytest.fixture(scope="module")
 def service_run(tmp_path_factory):
     """(rc, payload, stderr, refused imports, started command lines) of one
-    ``bench_torch.py --smoke --device cpu`` with the end-to-end legs left
-    out, under the import blocker."""
-    tmp = tmp_path_factory.mktemp("service")
-    site = tmp / "site"
-    site.mkdir()
-    (site / "sitecustomize.py").write_text(IMPORT_BLOCKER)
-    log = tmp / "imports"
-    log.mkdir()
-    env = {key: value for key, value in os.environ.items() if not key.startswith("BENCH_")}
-    env.update(PYTHONPATH=str(site), BENCH_TEST_IMPORT_LOG=str(log), BENCH_SKIP_E2E="1")
-    proc = subprocess.run(
-        [sys.executable, str(REPO / "bench_torch.py"), "--smoke", "--device", "cpu"],
-        capture_output=True, text=True, timeout=300, cwd=tmp, env=env,
-    )
-    refused = {p.name: p.read_text() for p in log.iterdir() if p.name.startswith("refused-")}
-    started = (log / "started").read_text().splitlines()
-    lines = proc.stdout.strip().splitlines()
-    payload = json.loads(lines[-1]) if lines else {}
-    return proc.returncode, payload, proc.stderr, refused, started
+    ``bench_torch.py --smoke --device cpu`` of the six legs, under the
+    import blocker."""
+    return blocked_smoke(tmp_path_factory.mktemp("service"), SKIPS)
 
 
 # ----------------------------------------------------------------------- (a)
@@ -215,6 +158,13 @@ def test_wall_clock_gate_ran(gate, service_run):
         warnings.warn(f"wall-clock gate {gate} {line} on this host (asserted on the card by chip_smoke.py)")
 
 
+def test_every_leg_launch_counted(service_run):
+    """On the CPU the plain versions count no launch: every leg is listed
+    with none."""
+    _rc, payload, stderr, _refused, _started = service_run
+    assert payload["secondary"]["kernel_launches_by_leg"] == dict.fromkeys(LEGS, NO_LAUNCHES), stderr[-4000:]
+
+
 def test_only_wall_clock_gates_may_fail(service_run):
     rc, payload, stderr, _refused, _started = service_run
     failures = parity_failures(stderr)
@@ -224,33 +174,26 @@ def test_only_wall_clock_gates_may_fail(service_run):
 
 # ----------------------------------------------------------------------- (b)
 @pytest.fixture(scope="module")
-def jax_legs():
+def jax_run():
     """`bench.py`'s six legs in this process at `bench_torch`'s smoke sizes:
     their ``secondary`` (with the legacy file size) and ``{gate: ok}``."""
-    secondary: dict = {}
-    gates: dict = {}
-    err = io.StringIO()
-    with pytest.MonkeyPatch.context() as mp:
-        for key, value in bench_torch.SMOKE_DEFAULTS.items():
-            mp.setenv(key, value)
-        with contextlib.redirect_stderr(err):
-            for leg in (bench.ingest_leg, bench.federation_leg, bench.ha_leg, bench.readpath_leg,
-                        bench.store_leg, bench.store_kill_leg):
-                leg(secondary, lambda name, ok, detail="": gates.__setitem__(name, ok))
-    secondary["store_legacy_bytes"] = legacy_bytes(err.getvalue())
+    secondary, gates, err = jax_legs((bench.ingest_leg, bench.federation_leg, bench.ha_leg, bench.readpath_leg,
+                                      bench.store_leg, bench.store_kill_leg))
+    secondary["store_legacy_bytes"] = legacy_bytes(err)
     return secondary, gates
 
 
-def test_jax_legs_held_their_exact_gates(jax_legs):
-    _secondary, gates = jax_legs
-    assert {gate: gates.get(gate) for gate in EXACT_GATES} == dict.fromkeys(EXACT_GATES, True)
+def test_jax_legs_held_their_exact_gates(jax_run):
+    _secondary, gates = jax_run
+    held = [gate for gate in EXACT_GATES if not gate.endswith("_kernel_launches")]
+    assert {gate: gates.get(gate) for gate in held} == dict.fromkeys(held, True)
 
 
 @pytest.mark.parametrize("field", PINNED)
-def test_work_counts_equal_bench(field, service_run, jax_legs):
+def test_work_counts_equal_bench(field, service_run, jax_run):
     _rc, payload, stderr, _refused, _started = service_run
     port = dict(payload["secondary"], store_legacy_bytes=legacy_bytes(stderr))
-    jax = jax_legs[0]
+    jax = jax_run[0]
     assert port[field] == jax[field], (field, port[field], jax[field])
 
 
@@ -281,13 +224,8 @@ GATE_CASES = {
 def test_exact_gates_are_real(leg, monkeypatch, capsys):
     skip, (module, name, replacement), gate, extra = GATE_CASES[leg]
     monkeypatch.setattr(module, name, replacement)
-    environ = {**os.environ, **bench_torch.SMOKE_DEFAULTS, "BENCH_SKIP_E2E": "1", **extra,
-               **{key: "1" for key in SKIPS if key != skip}}
-    rc = bench_torch.main(["--smoke", "--device", "cpu"], environ)
-    out, err = capsys.readouterr()
-    payload = json.loads(out.strip().splitlines()[-1])
+    rc, payload, failures, err = broken_gate_run(skip, extra, capsys)
     assert (rc, payload["parity"]) == (1, "fail"), err[-3000:]
-    failures = parity_failures(err)
     assert gate in failures and set(failures) <= {gate, *WALL_CLOCK_GATES}, failures
     assert f"bench: parity [{gate}] FAILED" in err
 

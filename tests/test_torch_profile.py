@@ -145,6 +145,29 @@ def test_profile_and_render_equal_jax(n):
     assert port_profile.profile_traces(traces) == jax_profile.profile_traces(jax_trace.traces_from_chrome(payload))
 
 
+def test_overlapping_phases_keep_the_partition_queue3_item13():
+    """A query whose phases overlap (a streamed body sunk while it is read)
+    sums more phase seconds than its duration. The JAX package then clamps
+    ``fetch_other`` at 0 and its categories pass the wall; the port scales
+    the split to the attributed wall: the same proportions, the other
+    categories equal, and the categories sum to the wall."""
+    payload = golden_payload()
+    (query,) = [e for e in payload["traceEvents"] if e["name"] == "prom_query" and e["pid"] == 1]
+    query["args"].update(phase_body_read=4.5, phase_sink=2.5)  # 9.5 phase s over a 7 s query
+    port = port_profile.profile_chrome_payload(payload)["scans"][0]
+    jax = jax_profile.profile_chrome_payload(payload)["scans"][0]
+    assert sum(jax["categories"].values()) > jax["wall_seconds"] + 1.0
+    assert sum(port["categories"].values()) == pytest.approx(port["wall_seconds"], abs=1e-5)
+    split = ("fetch_transport", "fetch_decode", "fetch_backoff")
+    assert {k: v for k, v in port["categories"].items() if k not in split} == {
+        k: v for k, v in jax["categories"].items() if k not in split}  # fetch_other: the fetch span's rest
+    ratio = jax["categories"]["fetch_transport"] / port["categories"]["fetch_transport"]
+    for key in ("fetch_decode", "fetch_backoff"):
+        assert jax["categories"][key] / port["categories"][key] == pytest.approx(ratio, rel=1e-5)
+    derived = ("categories", "category_pct")
+    assert {k: v for k, v in port.items() if k not in derived} == {k: v for k, v in jax.items() if k not in derived}
+
+
 # ------------------------------------------------------------------ the CLIs
 @pytest.fixture(scope="module")
 def apps():
