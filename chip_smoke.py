@@ -1466,22 +1466,46 @@ class E2EFleet:
         self.setup_seconds = time.perf_counter() - started
 
     def scan(self, subset, device: str, strategy: str, **other_args):
-        """One ``Runner.run`` over ``subset``: (result, runner, wall seconds)."""
+        """One ``Runner.run`` over ``subset`` under a recording tracer (its
+        stages are the legs, :func:`stage_legs`): (result, runner, wall
+        seconds)."""
         from krr_tpu_torch.core.config import Config
         from krr_tpu_torch.core.runner import Runner
         from krr_tpu_torch.models import ResourceType
+        from krr_tpu_torch.obs.trace import Tracer
 
         runner = Runner(
             Config(quiet=True, format="json", device=device, strategy=strategy, other_args=other_args),
             inventory=_Inventory(subset),
             history_factory=lambda cluster: _History(self.np, self.cpu_flat, self.mem_flat, self.mem_max,
                                                      ResourceType, self.samples_per_pod),
+            tracer=Tracer(),
         )
         with open(os.devnull, "w") as sink, contextlib.redirect_stdout(sink):
             started = time.perf_counter()
             result = asyncio.run(runner.run())
             wall = time.perf_counter() - started
         return result, runner, wall
+
+
+def stage_legs(runner) -> dict:
+    """The wall seconds of the last scan's compute stages by name (the
+    children of its ``compute`` span, summed where a stage opens more than
+    once: ``cast`` and ``h2d`` per resource, every stage per row chunk),
+    from the recording tracer the runner scanned under."""
+    spans = runner.tracer.traces()[-1]
+    compute = {span.span_id for span in spans if span.name == "compute"}
+    legs: dict = {}
+    for span in spans:
+        if span.parent_id in compute:
+            legs[span.name] = legs.get(span.name, 0.0) + span.duration
+    return legs
+
+
+def stage_path(runner) -> str:
+    """The path the last scan's ``quantile`` stage took: ``resident``,
+    ``host_stream``, ``mesh``, ``store`` or ``ingest``."""
+    return next(span.attributes["path"] for span in runner.tracer.traces()[-1] if span.name == "quantile")
 
 
 #: The ``e2e`` scans: (strategy, settings, kernels that launch).
@@ -1520,7 +1544,7 @@ def phase_e2e(torch, fleet: E2EFleet) -> tuple[dict, dict]:
         check(not any(generic_folds.values()), f"{path}: a fold took the generic path: {generic_folds}")
         e2e["paths"][path] = {
             "run_wall_seconds": wall, "runner_stats": runner.stats,
-            "legs_seconds": {**runner.session.strategy.leg_seconds, "render_json": render_seconds},
+            "legs_seconds": {**stage_legs(runner), "render_json": render_seconds},
             "launches": launches, "generic_folds": generic_folds, "json_bytes": len(rendered[path]),
             "peak_device_bytes": peak,
         }
@@ -1608,9 +1632,9 @@ def profiled_scan(fleet: E2EFleet, reference: str) -> dict:
         "busy_share_of_traced_window": work["busy_seconds"] / work["window_seconds"],
         "busy_share_of_run_wall": work["busy_seconds"] / wall,
     }
-    legs = runner.session.strategy.leg_seconds
-    # The compute leg beyond the strategy's own legs: the profiler's start,
-    # stop and export.
+    legs = stage_legs(runner)
+    # The compute leg beyond its stages: the profiler's start, stop and
+    # export.
     profiler_seconds = runner.stats["compute_seconds"] - sum(legs.values())
     emit("device_busy", path="simple", run_wall_seconds=wall, profiler_seconds=profiler_seconds, **work, **busy)
     return {"run_wall_seconds": wall, "runner_stats": runner.stats, "legs_seconds": legs, "launches": launches,
@@ -1644,7 +1668,7 @@ def phase_stream(torch, fleet: E2EFleet, rendered: "dict | None") -> dict:
         references[path] = result.format("json")
         check('"?"' not in references[path], f"stream: an unknown ('?') value in the resident {path} scan")
         report["resident"][path] = {"run_wall_seconds": wall, "peak_device_bytes": torch.cuda.max_memory_allocated(),
-                                    "legs_seconds": runner.session.strategy.leg_seconds}
+                                    "legs_seconds": stage_legs(runner)}
     for path, (strategy, args, reference, expected) in scans.items():
         _reset_counts()
         torch.cuda.reset_peak_memory_stats()
@@ -1662,7 +1686,7 @@ def phase_stream(torch, fleet: E2EFleet, rendered: "dict | None") -> dict:
         check(peak < STREAM_PEAK_BYTES, f"stream {path}: peak allocated device memory {peak} >= {STREAM_PEAK_BYTES}")
         check(stream_json == references[reference], f"stream {path}: JSON != the resident {reference} scan's")
         report["scans"][path] = {
-            "run_wall_seconds": wall, "legs_seconds": strategy_obj.leg_seconds,
+            "run_wall_seconds": wall, "legs_seconds": stage_legs(runner),
             "stream": strategy_obj.stream_stats, "launches": launches, "peak_device_bytes": peak,
         }
     emit("stream", **report)
@@ -1788,7 +1812,7 @@ def phase_state(torch, np, fleet: E2EFleet, rendered: "dict | None") -> dict:
             check(states[window]["keys"] == keys, f"state {window}: store keys != the fleet's object keys")
             identical = same_within_a_bucket(reference, state_json)
             report["scans"][window] = {
-                "run_wall_seconds": wall, "legs_seconds": strategy.leg_seconds,
+                "run_wall_seconds": wall, "legs_seconds": stage_legs(runner),
                 "store": {**strategy.store_stats, "live_wal_records": wal_records(path),
                           "base_shards": sum(name.startswith("base-") for name in os.listdir(path))},
                 "stream": strategy.stream_stats, "launches": launches,
@@ -2061,9 +2085,9 @@ def phase_mesh(torch, np, fleet: E2EFleet, references: dict) -> dict:
                 f"scan {path}", expected,
                 lambda: fleet.scan(fleet.objects, DEVICE, strategy, mesh_time_axis=2, **args))
             scan_json = result.format("json")
-            legs = runner.session.strategy.leg_seconds
-            check("h2d" not in legs and runner.session.strategy.stream_stats is None,
-                  f"mesh scan {path}: the scan did not take the mesh path (legs {sorted(legs)})")
+            legs = stage_legs(runner)
+            check(stage_path(runner) == "mesh",
+                  f"mesh scan {path}: the scan took the {stage_path(runner)} path (legs {sorted(legs)})")
             check(len(result.scans) == E2E_OBJECTS and '"?"' not in scan_json,
                   f"mesh scan {path}: {len(result.scans)} scans or an unknown value")
             check(scan_json == references[path]["json"], f"mesh scan {path}: JSON != the resident {path} scan's")
@@ -2245,8 +2269,8 @@ def _dist_scans(torch, np, dist, world, workdir: str) -> dict:
             label, expected, lambda: fleet.scan(fleet.objects, DEVICE, strategy, mesh_time_axis=time_axis, **args))
         scan_json = result.format("json")
         strategy_obj = runner.session.strategy
-        legs = strategy_obj.leg_seconds
-        took = "streamed" if strategy_obj.stream_stats is not None else "resident" if "h2d" in legs else "mesh"
+        legs = stage_legs(runner)
+        took = {"host_stream": "streamed", "resident": "resident", "mesh": "mesh"}[stage_path(runner)]
         check(took == ("streamed" if how else "mesh"), f"{label}: the scan took the {took} path")
         check(len(result.scans) == E2E_OBJECTS and '"?"' not in scan_json,
               f"{label}: {len(result.scans)} scans or an unknown value")
@@ -3402,6 +3426,8 @@ def phase_eval(torch, np, smi: str, journal: "str | None") -> dict:
     import krr_tpu_torch.eval as eval_module
     from krr_tpu_torch import main as cli
     from krr_tpu_torch.eval import score as score_module
+    from krr_tpu_torch.obs.device import DeviceObs
+    from krr_tpu_torch.obs.trace import Tracer
     from tests.fakes.servers import FakeBackend
 
     ends = eval_module.tick_ends(CLI_SAMPLES, EVAL_TICKS)
@@ -3418,21 +3444,27 @@ def phase_eval(torch, np, smi: str, journal: "str | None") -> dict:
     replay, score_replay, reduce = eval_module.replay, eval_module.score_replay, score_module._reduce
 
     def recording_replay(inputs_, strategy, **kwargs):
-        """``replay``, keeping its series and wall, and the sum of the
-        strategy's own legs (``leg_seconds``, set by each ``run_batch``)."""
-        legs: dict = {}
+        """``replay``, keeping its series and wall, and the strategy's
+        stages summed over its ``run_batch`` calls (each call the
+        ``compute`` span of a recording tracer)."""
+        tracer = Tracer(ring_scans=1_000_000)
+        strategy.obs = DeviceObs(tracer)
         run_batch = strategy.run_batch
 
-        def summed_run_batch(batch):
-            out = run_batch(batch)
-            for leg, seconds in getattr(strategy, "leg_seconds", {}).items():
-                legs[leg] = legs.get(leg, 0.0) + seconds
-            return out
+        def traced_run_batch(batch):
+            with tracer.span("compute"):
+                return run_batch(batch)
 
-        strategy.run_batch = summed_run_batch
+        strategy.run_batch = traced_run_batch
         started = time.perf_counter()
         out = replay(inputs_, strategy, **kwargs)
-        replays[out.strategy] = {"series": out, "wall_seconds": time.perf_counter() - started, "legs": legs}
+        wall = time.perf_counter() - started
+        legs: dict = {}
+        for spans in tracer.traces():
+            for span in spans:
+                if span.parent_id is not None:
+                    legs[span.name] = legs.get(span.name, 0.0) + span.duration
+        replays[out.strategy] = {"series": out, "wall_seconds": wall, "legs": legs}
         return out
 
     def timed_score_replay(inputs_, replayed, **kwargs):
@@ -3569,6 +3601,7 @@ def _phase_cli(fakes: FakeServers, url: str, scan_end: float, fixture_seconds: f
     from krr_tpu_torch.core import runner as runner_module
     from krr_tpu_torch.integrations import native
     from krr_tpu_torch.integrations.prometheus import TRANSPORT_PHASES
+    from krr_tpu_torch.obs.trace import Tracer
 
     _write_kubeconfig(kubeconfig, url)
     common = ["--kubeconfig", kubeconfig, "-p", url, "-q", "-f", "json", "--scan-end-timestamp", repr(scan_end)]
@@ -3576,9 +3609,11 @@ def _phase_cli(fakes: FakeServers, url: str, scan_end: float, fixture_seconds: f
     captured: list = []
 
     class CapturingRunner(runner_module.Runner):
-        """The CLI's own Runner, remembered so its stats can be read."""
+        """The CLI's own Runner under a recording tracer, remembered so its
+        stats and stages can be read."""
 
         def __init__(self, *args, **kwargs):
+            kwargs.setdefault("tracer", Tracer())
             super().__init__(*args, **kwargs)
             captured.append(self)
 
@@ -3602,8 +3637,8 @@ def _phase_cli(fakes: FakeServers, url: str, scan_end: float, fixture_seconds: f
         runner = captured[-1]
         stats = {
             **runner.stats,
-            # The compute leg split by the strategy's own clock.
-            "strategy_legs_seconds": dict(runner.session.strategy.leg_seconds),
+            # The compute leg split by its stages.
+            "strategy_legs_seconds": stage_legs(runner),
             "store_stats": getattr(runner.session.strategy, "store_stats", None),
             "server_cpu_seconds": server_cpu,
             "streamed_queries": runner.metrics.value("krr_tpu_prom_query_seconds_count", route="streamed") or 0.0,
@@ -3671,7 +3706,8 @@ def _cli_instrumented_subprocess(common: list, simple_json: str, tmp: str) -> di
     observability flag: ``--trace``, ``--profile``, ``--statusz``,
     ``--metrics-dump`` and ``--log-format json`` (logs on stderr, so not
     ``-q``). Its stdout equals the in-process JSON; the stage spans are
-    children of ``compute``; the profile's categories partition its wall;
+    children of ``compute``, and the ``h2d`` stages' bytes are what
+    ``krr_tpu_h2d_bytes_total`` counted; the profile's categories partition its wall;
     statusz counts every fetched row; the dump holds the card's peak
     allocated memory and a compile-cache hit without a miss (the kernels
     were built before); every stderr line is a JSON record, and each but
@@ -3699,7 +3735,9 @@ def _cli_instrumented_subprocess(common: list, simple_json: str, tmp: str) -> di
     (compute,) = [e for e in spans if e["name"] == "compute"]
     stages = [e["name"] for e in sorted(spans, key=lambda e: e["ts"])
               if e["args"]["parent_id"] == compute["args"]["span_id"]]
-    check(stages == ["pack", "quantile", "round"], f"cli: the stages under compute are {stages}")
+    check(stages == ["pack", "cast", "h2d", "cast", "h2d", "quantile", "round"],
+          f"cli: the stages under compute are {stages}")
+    copied = {e["args"]["resource"]: e["args"]["bytes"] for e in spans if e["name"] == "h2d"}
     scan_id = root["args"]["trace_id"]
 
     with open(paths["profile"]) as f:
@@ -3723,6 +3761,9 @@ def _cli_instrumented_subprocess(common: list, simple_json: str, tmp: str) -> di
                 samples[key] = float(value)
     peak = samples.get('krr_tpu_device_memory_bytes{device="cuda:0",kind="peak_bytes_in_use"}', 0.0)
     check(peak > 0, "cli: no peak device memory in the metrics dump")
+    counted = {r: samples.get(f'krr_tpu_h2d_bytes_total{{resource="{r}"}}') for r in copied}
+    check(counted == copied and set(copied) == {"cpu", "memory"},
+          f"cli: krr_tpu_h2d_bytes_total {counted} != the h2d spans' bytes {copied}")
     hits = samples.get("krr_tpu_compile_cache_hits_total", 0.0)
     misses = samples.get("krr_tpu_compile_cache_misses_total", 0.0)
     check(hits >= 1 and misses == 0, f"cli: compile cache hits {hits}, misses {misses} (the kernels were built)")

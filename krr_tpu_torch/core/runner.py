@@ -765,24 +765,24 @@ class Runner:
             memory_min_value=self.config.memory_min_value,
         )
 
-    async def _collect_result(self) -> Result:
+    async def _collect_result(self, scan_span) -> Result:
         # Cyclic GC off for the scan: a fleet build keeps 100k+ tracked
         # objects live at once, and each threshold-triggered full collection
         # scans that whole heap. Scans create no cyclic garbage worth
-        # collecting mid-flight; the deferred collection runs after re-enable.
+        # collecting mid-flight. The deferred collection (generation 0, which
+        # now holds every object the scan made) would run at the next
+        # allocation after re-enable; it runs here, as the ``gc`` span.
         import gc
 
         gc_was_enabled = gc.isenabled()
         gc.disable()
         try:
-            return await self._collect_result_inner()
+            return await self._collect_result_traced(scan_span)
         finally:
             if gc_was_enabled:
-                gc.enable()
-
-    async def _collect_result_inner(self) -> Result:
-        with self.tracer.span("scan", kind="cli") as scan_span:
-            return await self._collect_result_traced(scan_span)
+                with self.tracer.span("gc"):
+                    gc.enable()
+                    gc.collect(0)
 
     async def _collect_result_traced(self, scan_span) -> Result:
         self.session.begin_scan()
@@ -826,10 +826,13 @@ class Runner:
                     )
         t3, c3 = time.perf_counter(), time.process_time()
 
-        scans = [
-            ResourceScan.calculate(obj, self._round_result(raw))
-            for obj, raw in zip(objects, raw_results)
-        ]
+        with self.tracer.span("assemble", rows=len(objects)):
+            result = Result(
+                scans=[
+                    ResourceScan.calculate(obj, self._round_result(raw))
+                    for obj, raw in zip(objects, raw_results)
+                ]
+            )
         self.stats = {
             "discover_seconds": t1 - t0,
             "fetch_seconds": t2 - t1,
@@ -903,7 +906,7 @@ class Runner:
             "krr_tpu_last_scan_timestamp_seconds",
             self.config.scan_end_timestamp or time.time(),
         )
-        return Result(scans=scans)
+        return result
 
     def _process_result(self, result: Result) -> None:
         formatted = result.format(self.config.format)
@@ -911,11 +914,16 @@ class Runner:
         self.logger.print_result(formatted)
 
     async def run(self) -> Result:
+        """One scan: its trace's root ``scan`` span holds discover, fetch,
+        compute, the ``assemble`` of the results, the ``gc`` pass the scan
+        deferred, and the results' ``render``."""
         self._greet()
-        try:
-            result = await self._collect_result()
-        except Exception:
-            self.metrics.inc("krr_tpu_scan_failures_total")
-            raise
-        self._process_result(result)
+        with self.tracer.span("scan", kind="cli") as scan_span:
+            try:
+                result = await self._collect_result(scan_span)
+            except Exception:
+                self.metrics.inc("krr_tpu_scan_failures_total")
+                raise
+            with self.tracer.span("render"):
+                self._process_result(result)
         return result

@@ -2,13 +2,14 @@
 padding efficiency, and memory watermarks.
 
 Port of `krr_tpu/obs/device.py`. A scan trace shows ``compute`` as one
-span; this module splits it with four instruments, all wired through
+span; this module splits it with five instruments, all wired through
 :class:`DeviceObs` (one per scan session, injected into the strategy as
 ``strategy.obs``):
 
 * **Stage spans** — :meth:`DeviceObs.stage` opens a child span of the
-  active ``compute`` span for each compute leg (``pack`` → ``digest``/
-  ``fold`` → ``quantile`` → ``round``). Spans measure WALL time, and CUDA
+  active ``compute`` span for each compute leg (``pack`` → ``cast`` →
+  ``h2d`` → ``digest``/``fold`` → ``quantile`` → ``persist`` → ``round``;
+  ``cast`` and ``h2d`` once per resource). Spans measure WALL time, and CUDA
   launches are asynchronous — a stage that merely enqueues kernels would
   read as free while the next stage pays for them — so call sites fence
   device results through :meth:`DeviceObs.fence` before the span closes.
@@ -18,7 +19,9 @@ span; this module splits it with four instruments, all wired through
   fault that surfaces there is raised. Fencing serializes host and device,
   so it (like every instrument here that could perturb the hot path) only
   runs when the tracer is recording: with :data:`NULL_TRACER` a stage is the
-  shared no-op context and ``fence`` is the identity.
+  shared no-op context and ``fence`` is the identity. A recording stage
+  also carries ``minor_faults``, the process's minor page faults across it
+  (``getrusage``): what faulting in fresh buffers costs the pack.
 
 * **Compile vs execute split** — the port has no JIT; its compile is the
   nvcc build of `krr_tpu_torch.ops.cuda_build`. :func:`install_compile_hooks`
@@ -39,6 +42,11 @@ span; this module splits it with four instruments, all wired through
   partition: the two kinds sum to the rectangular matrix). Cheap (one
   counts-sum per batch), so it fires on every mode, tracer or not.
 
+* **H2D bytes** — :meth:`DeviceObs.record_h2d` adds the bytes each
+  resource's resident arrays copied to the device to
+  ``krr_tpu_h2d_bytes_total{resource=…}``, on every scan (the ``h2d``
+  stage carries the same count as ``bytes`` when recording).
+
 * **Memory watermarks** — :meth:`DeviceObs.record_device_memory` reads
   ``torch.cuda.memory_stats`` (allocated now and at peak) and
   ``torch.cuda.mem_get_info`` (the card's total) of each visible card into
@@ -50,6 +58,7 @@ span; this module splits it with four instruments, all wired through
 from __future__ import annotations
 
 import dataclasses
+import resource
 import threading
 import time
 from typing import Any, Optional
@@ -108,23 +117,33 @@ def install_compile_hooks(metrics: MetricsRegistry) -> None:
         _hooks_installed = True
 
 
+def _minor_faults() -> int:
+    """The process's minor page faults so far: every thread's, so the
+    threads a pack or a cast may use count too (a scan runs one stage at a
+    time)."""
+    return resource.getrusage(resource.RUSAGE_SELF).ru_minflt
+
+
 class _Stage:
     """A recording compute stage: the underlying tracer span plus the
-    compile-clock bracket that splits its wall into compile vs execute."""
+    compile-clock bracket that splits its wall into compile vs execute, and
+    the page-fault bracket that stamps ``minor_faults``."""
 
-    __slots__ = ("_ctx", "_t0", "_compile0")
+    __slots__ = ("_ctx", "_t0", "_compile0", "_faults0")
 
     def __init__(self, ctx) -> None:
         self._ctx = ctx
 
     def __enter__(self):
         self._compile0 = compile_seconds_total()
+        self._faults0 = _minor_faults()
         self._t0 = time.perf_counter()
         return self._ctx.__enter__()
 
     def __exit__(self, exc_type, exc, tb) -> bool:
         wall = time.perf_counter() - self._t0
         compiled = compile_seconds_total() - self._compile0
+        self._ctx.span.set(minor_faults=_minor_faults() - self._faults0)
         if compiled > 0.0:
             self._ctx.span.set(
                 compile_seconds=round(compiled, 6),
@@ -212,6 +231,12 @@ class DeviceObs:
         )
         waste = 100.0 * (total - real) / total if total else 0.0
         self.metrics.set("krr_tpu_pad_waste_pct", waste, resource=resource)
+
+    def record_h2d(self, resource: str, nbytes: int) -> None:
+        """``krr_tpu_h2d_bytes_total{resource}`` += the bytes one resource's
+        resident arrays copied host to device (every scan, tracer or not)."""
+        if self.metrics is not None:
+            self.metrics.inc("krr_tpu_h2d_bytes_total", nbytes, resource=resource)
 
     def record_device_memory(self, device) -> None:
         """Device memory watermarks of every visible card, when the strategy

@@ -423,9 +423,15 @@ def profile_chrome_payload(payload: dict, n: Optional[int] = None) -> dict:
 def write_profile_report(tracer, path: str) -> None:
     """Dump the tracer ring's attribution report as JSON — the shared exit
     hook behind ``--profile FILE`` and the SIGUSR2 dump's third artifact,
-    so the surfaces can't drift apart."""
+    so the surfaces can't drift apart. The spans are profiled as the
+    Chrome export holds them (``ts`` and ``dur`` rounded to the nanosecond
+    each), so ``analyze --trace`` over the same ring's export gives this
+    report exactly: profiling the live spans, an end within a nanosecond
+    of a microsecond edge could round the other way in the file."""
     import json
 
+    from krr_tpu_torch.obs.trace import traces_from_chrome
+
     with open(path, "w") as f:
-        json.dump(profile_traces(tracer.traces()), f, indent=2)
+        json.dump(profile_traces(traces_from_chrome(tracer.export_chrome())), f, indent=2)
         f.write("\n")

@@ -35,13 +35,18 @@ real tracer takes one lock acquisition per span *completion* (never
 per-sample or per-row work), and each trace caps at
 ``max_spans_per_trace`` spans (beyond it spans are counted, not stored, and
 the root gains a ``dropped_spans`` attribute) so a pathological fan-out
-can't grow host memory unbounded.
+can't grow host memory unbounded. Each span a real tracer activates
+(``span()``) also opens a ``torch.profiler.record_function`` range named
+``krr.<span name>``, so a ``torch.profiler`` trace holds the program's own
+spans on the profiler's clock; ``start_span`` leaves (queries whose open
+and close may lie in different tasks) open none.
 """
 
 from __future__ import annotations
 
 import contextvars
 import itertools
+import sys
 import threading
 import time
 from collections import deque
@@ -96,24 +101,44 @@ class Span:
         return max(0.0, self.end - self.start)
 
 
+def _profiler_range(name: str):
+    """A ``torch.profiler.record_function`` range named ``krr.<name>``, so a
+    profiler running around the span (the benchmark's ``--trace 1``, a
+    strategy's ``profile_dir``) holds the span on its own clock, with the
+    kernels and copies launched inside correlated to it. None when torch is
+    not loaded: no profiler can then be running, and this module imports
+    without torch."""
+    torch = sys.modules.get("torch")
+    if torch is None:
+        return None
+    return torch.profiler.record_function(f"krr.{name}")
+
+
 class _SpanContext:
     """Context manager activating a span: sets the contextvar on enter (so
-    children and log lines see it), records + deactivates on exit."""
+    children and log lines see it) and opens its profiler range
+    (:func:`_profiler_range`), records + deactivates on exit."""
 
-    __slots__ = ("_tracer", "span", "_token")
+    __slots__ = ("_tracer", "span", "_token", "_range")
 
     def __init__(self, tracer: "Tracer", span: Span):
         self._tracer = tracer
         self.span = span
         self._token: Optional[contextvars.Token] = None
+        self._range = None
 
     def __enter__(self) -> Span:
         self._token = _CURRENT.set(self.span)
+        self._range = _profiler_range(self.span.name)
+        if self._range is not None:
+            self._range.__enter__()
         self.span.start = time.perf_counter()
         return self.span
 
     def __exit__(self, exc_type, exc, tb) -> bool:
         self.span.end = time.perf_counter()
+        if self._range is not None:
+            self._range.__exit__(exc_type, exc, tb)
         if self._token is not None:
             _CURRENT.reset(self._token)
         if exc is not None:

@@ -25,14 +25,15 @@ that spans processes (`krr_tpu_torch.parallel.initialize_distributed`)
 merges across them by collectives, and every rank renders every row.
 
 The legs are stages of the scan trace (``strategy.obs``,
-`krr_tpu_torch.obs.device`): ``pack``, ``quantile`` (``path=resident``,
-``host_stream`` or ``mesh``) and ``round``, each fenced when the tracer records; with
-``profile_dir`` the device compute runs under ``torch.profiler``.
+`krr_tpu_torch.obs.device`): ``pack``, on the resident path ``cast`` and
+``h2d`` for each resource (:func:`fleet_device_arrays`), ``quantile``
+(``path=resident``, ``host_stream`` or ``mesh``) and ``round``, each fenced
+when the tracer records; with ``profile_dir`` the device compute runs under
+``torch.profiler``.
 """
 
 from __future__ import annotations
 
-import time
 from decimal import Decimal
 from typing import Optional
 
@@ -43,6 +44,7 @@ import torch
 from krr_tpu_torch.core.rounding import as_decimal
 from krr_tpu_torch.models.allocations import ResourceType
 from krr_tpu_torch.models.series import FleetBatch
+from krr_tpu_torch.obs.device import NULL_DEVICE_OBS, DeviceObs
 from krr_tpu_torch.ops import topk_sketch as topk_ops
 from krr_tpu_torch.ops.chunked import RowSplit, StreamStats
 from krr_tpu_torch.ops.cuda_select import fleet_exact
@@ -95,17 +97,29 @@ def finalize_fleet(
 
 
 def fleet_device_arrays(
-    batch: FleetBatch, resource: ResourceType, scale: float = 1.0, *, device: "torch.device | str"
+    batch: FleetBatch,
+    resource: ResourceType,
+    scale: float = 1.0,
+    *,
+    device: "torch.device | str",
+    obs: DeviceObs = NULL_DEVICE_OBS,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Packed host arrays → (float32 device values, int32 device counts).
 
     The scale divides the host pack (float64 for memory) BEFORE the float32
     cast, as the JAX package does; the cast is numpy's, so both packages
-    round identically."""
+    round identically. The scale and cast are ``obs``'s ``cast`` stage, the
+    copies its ``h2d`` stage, whose ``bytes`` (the two tensors' bytes) also
+    go to ``krr_tpu_h2d_bytes_total``."""
     packed = batch.packed(resource)
-    host = packed.values / scale if scale != 1.0 else packed.values
-    values = torch.from_numpy(np.ascontiguousarray(host, dtype=np.float32)).to(device)
-    counts = torch.from_numpy(np.ascontiguousarray(packed.counts, dtype=np.int32)).to(device)
+    with obs.stage("cast", resource=resource.value):
+        host = packed.values / scale if scale != 1.0 else packed.values
+        values = torch.from_numpy(np.ascontiguousarray(host, dtype=np.float32))
+        counts = torch.from_numpy(np.ascontiguousarray(packed.counts, dtype=np.int32))
+    copied = values.nbytes + counts.nbytes
+    with obs.stage("h2d", resource=resource.value, bytes=copied):
+        values, counts = obs.fence((values.to(device), counts.to(device)))
+    obs.record_h2d(resource.value, copied)
     return values, counts
 
 
@@ -128,16 +142,6 @@ def _stream_threshold_bytes(setting_mb: int, device: torch.device) -> Optional[i
     if device.type == "cuda":  # auto: leave room for temporaries
         return int(torch.cuda.mem_get_info(device)[1] * 0.4)
     return 6_000_000_000
-
-
-def streamed_legs(pack: float, stream: float, stats: StreamStats, query: float, finalize: float) -> dict:
-    """The legs of a streamed ``run_batch``: pack, the stream's wall, its
-    host fill, copy wait and fold (device time on the card) summed over
-    every pass, then query and finalize."""
-    return {
-        "pack": pack, "stream": stream, "host_fill": stats.host_fill_seconds,
-        "copy_wait": stats.copy_wait_seconds, "fold": stats.fold_seconds, "query": query, "finalize": finalize,
-    }
 
 
 def use_host_stream(batch: FleetBatch, device: torch.device, setting_mb: int, mesh: Optional[Mesh] = None) -> bool:
@@ -234,11 +238,6 @@ class SimpleStrategy(BatchedStrategy[SimpleStrategySettings]):
     def __init__(self, settings: SimpleStrategySettings):
         super().__init__(settings)
         self.device = resolve_device(settings.device)
-        #: Wall seconds of the last ``run_batch``'s legs: resident (pack,
-        #: h2d, fleet_exact incl. its one readback, finalize), streamed
-        #: (:func:`streamed_legs`) or on the mesh (pack, mesh: transfers,
-        #: kernels, merges and readbacks, finalize).
-        self.leg_seconds: dict[str, float] = {}
         #: The last streamed ``run_batch``'s :class:`StreamStats` as a
         #: dict; None after a resident one.
         self.stream_stats: Optional[dict] = None
@@ -261,44 +260,39 @@ class SimpleStrategy(BatchedStrategy[SimpleStrategySettings]):
         mem_max = masked_max_from_host(mem.values, mem.counts, HOST_STREAM_CHUNK, scale=MEMORY_SCALE, **where)
         return cpu_p, mem_max
 
-    def _run_streamed(self, batch: FleetBatch, q: float, pack_seconds: float, mesh: Optional[Mesh]) -> tuple:
+    def _run_streamed(self, batch: FleetBatch, q: float, mesh: Optional[Mesh]) -> tuple:
         """The streamed quantile stage: (CPU percentile, memory peak) as host
-        arrays; records the streamed legs but finalize."""
+        arrays; the stream's legs go to :attr:`stream_stats`."""
         stats = StreamStats()
-        t0 = time.perf_counter()
         cpu_p, mem_max = self.obs.fence(self._streamed_exact(batch, q, stats, mesh))
-        t1 = time.perf_counter()
         cpu_p = cpu_p.cpu().numpy() if isinstance(cpu_p, torch.Tensor) else cpu_p
-        self.leg_seconds = streamed_legs(pack_seconds, t1 - t0, stats, time.perf_counter() - t1, 0.0)
         self.stream_stats = stats.as_dict()
         return cpu_p, mem_max
 
-    def _run_mesh(self, batch: FleetBatch, q: float, pack_seconds: float, mesh: Mesh) -> tuple:
+    def _run_mesh(self, batch: FleetBatch, q: float, mesh: Mesh) -> tuple:
         """The mesh quantile stage (`krr_tpu/strategies/simple.py:255-262`):
         the sharded percentile and the sharded memory max, each returned to
-        the host; records the mesh legs but finalize."""
+        the host."""
         self.stream_stats = None
         cpu = batch.packed(ResourceType.CPU)
         mem = batch.packed(ResourceType.Memory)
-        t0 = time.perf_counter()
         cpu_p = sharded_percentile_bisect(cpu.values, cpu.counts, q, mesh)
         mem_max = sharded_masked_max(mem.values / MEMORY_SCALE, mem.counts, mesh)
-        self.leg_seconds = {"pack": pack_seconds, "mesh": time.perf_counter() - t0}
         return cpu_p, mem_max
 
-    def _run_resident(self, batch: FleetBatch, q: float, pack_seconds: float) -> tuple:
-        """The resident quantile stage: H2D, one ``fleet_exact`` program and
-        its one readback; records the resident legs but finalize."""
+    def _run_resident(self, batch: FleetBatch, q: float) -> tuple:
+        """The resident path: each resource's ``cast`` and ``h2d`` stages,
+        then the ``quantile`` stage: one ``fleet_exact`` program and its one
+        readback."""
         self.stream_stats = None
-        t1 = time.perf_counter()
-        cpu_values, cpu_counts = fleet_device_arrays(batch, ResourceType.CPU, device=self.device)
+        obs = self.obs
+        cpu_values, cpu_counts = fleet_device_arrays(batch, ResourceType.CPU, device=self.device, obs=obs)
         mem_values, mem_counts = fleet_device_arrays(
-            batch, ResourceType.Memory, scale=MEMORY_SCALE, device=self.device
+            batch, ResourceType.Memory, scale=MEMORY_SCALE, device=self.device, obs=obs
         )
-        t2 = time.perf_counter()
-        # One program, one readback (the JAX package's fleet_exact contract).
-        stacked = fleet_exact(cpu_values, cpu_counts, mem_values, mem_counts, q).cpu().numpy()
-        self.leg_seconds = {"pack": pack_seconds, "h2d": t2 - t1, "fleet_exact": time.perf_counter() - t2}
+        with obs.stage("quantile", rows=len(batch), path="resident"):
+            # One program, one readback (the JAX package's fleet_exact contract).
+            stacked = fleet_exact(cpu_values, cpu_counts, mem_values, mem_counts, q).cpu().numpy()
         return stacked[0], stacked[1]
 
     def run_batch(self, batch: FleetBatch) -> list[RunResult]:
@@ -311,25 +305,20 @@ class SimpleStrategy(BatchedStrategy[SimpleStrategySettings]):
             # packed views are cached on the batch, so re-reads below are
             # free) and fires the padding-efficiency gauges.
             with obs.stage("pack", rows=len(batch)):
-                t0 = time.perf_counter()
                 cpu = batch.packed(ResourceType.CPU)
                 mem = batch.packed(ResourceType.Memory)
-                pack_seconds = time.perf_counter() - t0
                 obs.record_padding(ResourceType.CPU.value, cpu)
                 obs.record_padding(ResourceType.Memory.value, mem)
             mesh = resolve_mesh(self.settings, self.device)
             if use_host_stream(batch, self.device, self.settings.host_stream_mb, mesh):
                 with obs.stage("quantile", rows=len(batch), path="host_stream"):
-                    cpu_p, mem_max = self._run_streamed(batch, q, pack_seconds, mesh)
+                    cpu_p, mem_max = self._run_streamed(batch, q, mesh)
             elif mesh is not None:
                 with obs.stage("quantile", rows=len(batch), path="mesh"):
-                    cpu_p, mem_max = self._run_mesh(batch, q, pack_seconds, mesh)
+                    cpu_p, mem_max = self._run_mesh(batch, q, mesh)
             else:
-                with obs.stage("quantile", rows=len(batch), path="resident"):
-                    cpu_p, mem_max = self._run_resident(batch, q, pack_seconds)
+                cpu_p, mem_max = self._run_resident(batch, q)
             obs.record_device_memory(self.device)
         with obs.stage("round", rows=len(batch)):
-            t4 = time.perf_counter()
             results = finalize_fleet(cpu_p, mem_max, self.settings.memory_buffer_percentage)
-            self.leg_seconds["finalize"] = time.perf_counter() - t4
         return results

@@ -42,16 +42,17 @@ kernel runs.
 
 The legs are stages of the scan trace (``strategy.obs``,
 `krr_tpu_torch.obs.device`), as in `krr_tpu/strategies/tdigest.py:222-347`:
-``pack``, then ``digest`` (the window's or the sketch's build), ``fold``
-and ``quantile`` (``path=resident``, ``host_stream``, ``mesh``, ``store``
-or ``ingest``), then ``round``; device results are fenced inside their stage
-when the tracer records. With ``profile_dir`` the compute runs under
-``torch.profiler``.
+``pack``, on the resident path ``cast`` and ``h2d`` for each resource
+(`krr_tpu_torch.strategies.simple.fleet_device_arrays`; inside ``digest``
+with ``state_path``), then ``digest`` (the window's or the sketch's build),
+``fold`` and ``quantile`` (``path=resident``, ``host_stream``, ``mesh``,
+``store`` or ``ingest``), ``persist`` (the store's delta), then ``round``;
+device results are fenced inside their stage when the tracer records. With
+``profile_dir`` the compute runs under ``torch.profiler``.
 """
 
 from __future__ import annotations
 
-import time
 from typing import TYPE_CHECKING, Literal, Optional
 
 import numpy as np
@@ -85,7 +86,6 @@ from krr_tpu_torch.strategies.simple import (
     fleet_device_arrays,
     resolve_mesh,
     stream_devices,
-    streamed_legs,
     use_host_stream,
 )
 from krr_tpu_torch.utils.device import resolve_device
@@ -159,30 +159,12 @@ class _AppendCountingFs(FsOps):
         self.appended_bytes += len(data)
 
 
-def _fence(*devices: torch.device) -> None:
-    """Wait for the devices, so a leg's wall clock covers their kernels."""
-    for device in devices:
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-
-
 class TDigestStrategy(BatchedStrategy[TDigestStrategySettings]):
     __display_name__ = "tdigest"
 
     def __init__(self, settings: TDigestStrategySettings):
         super().__init__(settings)
         self.device = resolve_device(settings.device)
-        #: Wall seconds of the last call's legs: a resident ``run_batch``
-        #: (pack, h2d, build — the sketch kernel, query — percentile +
-        #: memory max + the one readback, finalize), a streamed one
-        #: (`krr_tpu_torch.strategies.simple.streamed_legs`), a
-        #: ``state_path`` one (pack, digest — the window digest built on the
-        #: device and read back, fold, quantile, persist, finalize), a mesh
-        #: one (pack, build — the transfers and the merged sketch, query —
-        #: percentile, memory max and the readbacks, finalize) or
-        #: ``run_digested`` (fold, quantile and persist with a store;
-        #: quantile alone without; finalize).
-        self.leg_seconds: dict[str, float] = {}
         #: The last streamed window's :class:`StreamStats` as a dict; None
         #: after a resident one.
         self.stream_stats: Optional[dict] = None
@@ -266,9 +248,9 @@ class TDigestStrategy(BatchedStrategy[TDigestStrategySettings]):
             mem_peak = sharded_masked_max(mem.values / MEMORY_SCALE, mem.counts, mesh)
         else:
             self.stream_stats = None
-            cpu_values, cpu_counts = fleet_device_arrays(batch, ResourceType.CPU, device=self.device)
+            cpu_values, cpu_counts = fleet_device_arrays(batch, ResourceType.CPU, device=self.device, obs=self.obs)
             mem_values, mem_counts = fleet_device_arrays(
-                batch, ResourceType.Memory, scale=MEMORY_SCALE, device=self.device
+                batch, ResourceType.Memory, scale=MEMORY_SCALE, device=self.device, obs=self.obs
             )
             cpu_digest = digest_ops.build_from_packed(spec, cpu_values, cpu_counts)
             mem_max = masked_max_cuda(mem_values, mem_counts)
@@ -290,22 +272,18 @@ class TDigestStrategy(BatchedStrategy[TDigestStrategySettings]):
         open the durable state with ``DurableStore.open``'s defaults, ``fold``
         the window into its store (→ the store rows), query the merged
         history, persist one delta, close. Returns (CPU percentile, memory
-        peak in MB) for the folded rows and records the fold / quantile /
-        persist legs and :attr:`store_stats`."""
+        peak in MB) for the folded rows, each leg a stage (``fold``,
+        ``quantile``, ``persist``), and records :attr:`store_stats`."""
         fs = _AppendCountingFs()
         with DigestStore.locked(self.settings.state_path):
             durable = DurableStore.open(self.settings.state_path, spec, store_format=self.settings.store_format, fs=fs)
             try:
-                t0 = time.perf_counter()
                 with self.obs.stage("fold", rows=rows):
                     store_rows = fold(durable.store)
-                t1 = time.perf_counter()
                 with self.obs.stage("quantile", rows=rows, path="store"):
                     cpu_p, mem_max = durable.store.query_recommendation(store_rows, q)
-                t2 = time.perf_counter()
-                durable.save_delta()
-                t3 = time.perf_counter()
-                self.leg_seconds.update({"fold": t1 - t0, "quantile": t2 - t1, "persist": t3 - t2})
+                with self.obs.stage("persist", rows=rows):
+                    durable.save_delta()
                 self.store_stats = {
                     "rows": len(durable.store.keys),
                     "folded_rows": rows,
@@ -327,7 +305,6 @@ class TDigestStrategy(BatchedStrategy[TDigestStrategySettings]):
         memory, so no kernel runs."""
         q = float(self.settings.cpu_percentile)
         spec = DigestSpec(gamma=fleet.gamma, min_value=fleet.min_value, num_buckets=fleet.cpu_counts.shape[1])
-        self.leg_seconds = {}
         self.stream_stats = None
         self.store_stats = None
         rows = len(fleet.objects)
@@ -338,54 +315,38 @@ class TDigestStrategy(BatchedStrategy[TDigestStrategySettings]):
                 )
             else:
                 with self.obs.stage("quantile", rows=rows, path="ingest"):
-                    t0 = time.perf_counter()
                     cpu_p = digest_ops.percentile_host(spec, fleet.cpu_counts, fleet.cpu_total, fleet.cpu_peak, q)
                     mem_peak_mb = np.where(np.isfinite(fleet.mem_peak), fleet.mem_peak / MEMORY_SCALE, -np.inf)
                     mem_max = np.where(fleet.mem_total > 0, mem_peak_mb, np.nan)
-                    self.leg_seconds["quantile"] = time.perf_counter() - t0
         return self._round(cpu_p, mem_max, rows)
 
     def _round(self, cpu_p, mem_max, rows: int) -> list[RunResult]:
         """The ``round`` stage: the host Decimal finalize."""
         with self.obs.stage("round", rows=rows):
-            t0 = time.perf_counter()
-            results = finalize_fleet(np.asarray(cpu_p), np.asarray(mem_max), self.settings.memory_buffer_percentage)
-            self.leg_seconds["finalize"] = time.perf_counter() - t0
-        return results
+            return finalize_fleet(np.asarray(cpu_p), np.asarray(mem_max), self.settings.memory_buffer_percentage)
 
-    def _run_state(
-        self, batch: FleetBatch, spec: DigestSpec, q: float, pack_seconds: float, mesh: Optional[Mesh]
-    ) -> tuple:
+    def _run_state(self, batch: FleetBatch, spec: DigestSpec, q: float, mesh: Optional[Mesh]) -> tuple:
         """The ``state_path`` run: the window digest on the device (the
         ``digest`` stage), then the store cycle on the host. On a mesh that
         spans processes every rank holds the whole window's digest and
         folds it into the store at its own ``state_path``."""
-        self.leg_seconds = {"pack": pack_seconds}
         with self.obs.stage("digest", rows=len(batch)):
-            t0 = time.perf_counter()
             counts, total, peak, mem_total, mem_peak = self._window_digest(batch, spec, mesh)
-            self.leg_seconds["digest"] = time.perf_counter() - t0
         keys = [object_key(obj) for obj in batch.objects]
         return self._store_round(
             spec, q, len(keys),
             lambda store: store.merge_window(keys, counts, total, peak, mem_total, mem_peak),
         )
 
-    def _run_streamed(
-        self, batch: FleetBatch, spec: DigestSpec, q: float, pack_seconds: float, mesh: Optional[Mesh]
-    ) -> tuple:
+    def _run_streamed(self, batch: FleetBatch, spec: DigestSpec, q: float, mesh: Optional[Mesh]) -> tuple:
         """The streamed quantile stage: (CPU percentile, memory peak) as host
-        arrays."""
+        arrays; the stream's legs go to :attr:`stream_stats`."""
         stats = StreamStats()
-        t0 = time.perf_counter()
         cpu_p, mem_max = self.obs.fence(self._streamed_sketch(batch, spec, q, stats, mesh))
-        t1 = time.perf_counter()
-        cpu_p = cpu_p.cpu().numpy()
-        self.leg_seconds = streamed_legs(pack_seconds, t1 - t0, stats, time.perf_counter() - t1, 0.0)
         self.stream_stats = stats.as_dict()
-        return cpu_p, mem_max
+        return cpu_p.cpu().numpy(), mem_max
 
-    def _run_mesh(self, batch: FleetBatch, spec: DigestSpec, q: float, pack_seconds: float, mesh: Mesh) -> tuple:
+    def _run_mesh(self, batch: FleetBatch, spec: DigestSpec, q: float, mesh: Mesh) -> tuple:
         """The mesh build (the ``digest`` stage: the sharded top-K sketch or
         digest) and query (the ``quantile`` stage: the percentile per row
         block, the sharded memory max), `krr_tpu/strategies/tdigest.py:
@@ -394,45 +355,36 @@ class TDigestStrategy(BatchedStrategy[TDigestStrategySettings]):
         self.stream_stats = None
         cpu = batch.packed(ResourceType.CPU)
         mem = batch.packed(ResourceType.Memory)
-        t0 = time.perf_counter()
         k = self._exact_topk_k(cpu.capacity, q)
         with obs.stage("digest", rows=len(batch), sketch="topk" if k is not None else "digest"):
             if k is not None:
-                sketches, real_rows = sharded_fleet_topk(cpu.values, cpu.counts, k, mesh)
+                sketches, real_rows = obs.fence(sharded_fleet_topk(cpu.values, cpu.counts, k, mesh))
             else:
-                digests, real_rows = sharded_fleet_digest(spec, cpu.values, cpu.counts, mesh)
-            # The build leg (and so the stage) covers the kernels, traced or not.
-            _fence(*set(mesh.local_devices()))
-        t1 = time.perf_counter()
+                digests, real_rows = obs.fence(sharded_fleet_digest(spec, cpu.values, cpu.counts, mesh))
         with obs.stage("quantile", rows=len(batch), path="mesh"):
             if k is not None:
                 cpu_p = gather_rows(sketches, lambda sketch: topk_ops.percentile(sketch, q), real_rows)
             else:
                 cpu_p = sharded_percentile(spec, digests, q, real_rows)
             mem_max = sharded_masked_max(mem.values / MEMORY_SCALE, mem.counts, mesh)
-        self.leg_seconds = {"pack": pack_seconds, "build": t1 - t0, "query": time.perf_counter() - t1}
         return cpu_p, mem_max
 
-    def _run_resident(self, batch: FleetBatch, spec: DigestSpec, q: float, pack_seconds: float) -> tuple:
-        """The resident build (the ``digest`` stage) and query (the
-        ``quantile`` stage: percentile, memory max, one readback)."""
+    def _run_resident(self, batch: FleetBatch, spec: DigestSpec, q: float) -> tuple:
+        """Each resource's ``cast`` and ``h2d`` stages, the resident build
+        (the ``digest`` stage) and query (the ``quantile`` stage:
+        percentile, memory max, one readback)."""
         obs = self.obs
         self.stream_stats = None
-        t1 = time.perf_counter()
-        cpu_values, cpu_counts = fleet_device_arrays(batch, ResourceType.CPU, device=self.device)
+        cpu_values, cpu_counts = fleet_device_arrays(batch, ResourceType.CPU, device=self.device, obs=obs)
         mem_values, mem_counts = fleet_device_arrays(
-            batch, ResourceType.Memory, scale=MEMORY_SCALE, device=self.device
+            batch, ResourceType.Memory, scale=MEMORY_SCALE, device=self.device, obs=obs
         )
-        t2 = time.perf_counter()
         k = self._exact_topk_k(batch.packed(ResourceType.CPU).capacity, q)
         with obs.stage("digest", rows=len(batch), sketch="topk" if k is not None else "digest"):
             if k is not None:
-                sketch = topk_ops.build_from_packed(cpu_values, cpu_counts, k)
+                sketch = obs.fence(topk_ops.build_from_packed(cpu_values, cpu_counts, k))
             else:
-                cpu_digest = digest_ops.build_from_packed(spec, cpu_values, cpu_counts)
-            # The build leg (and so the stage) covers the kernel, traced or not.
-            _fence(self.device)
-        t3 = time.perf_counter()
+                cpu_digest = obs.fence(digest_ops.build_from_packed(spec, cpu_values, cpu_counts))
         with obs.stage("quantile", rows=len(batch), path="resident"):
             if k is not None:
                 cpu_p = topk_ops.percentile(sketch, q)
@@ -440,9 +392,6 @@ class TDigestStrategy(BatchedStrategy[TDigestStrategySettings]):
                 cpu_p = digest_ops.percentile(spec, cpu_digest, q)
             # One readback for both resources.
             stacked = torch.stack([cpu_p, masked_max_cuda(mem_values, mem_counts)]).cpu().numpy()
-        self.leg_seconds = {
-            "pack": pack_seconds, "h2d": t2 - t1, "build": t3 - t2, "query": time.perf_counter() - t3,
-        }
         return stacked[0], stacked[1]
 
     def run_batch(self, batch: FleetBatch) -> list[RunResult]:
@@ -454,21 +403,19 @@ class TDigestStrategy(BatchedStrategy[TDigestStrategySettings]):
         self.store_stats = None
         with self.profile_span():
             with obs.stage("pack", rows=len(batch)):
-                t0 = time.perf_counter()
                 cpu = batch.packed(ResourceType.CPU)
                 mem = batch.packed(ResourceType.Memory)
-                pack_seconds = time.perf_counter() - t0
                 obs.record_padding(ResourceType.CPU.value, cpu)
                 obs.record_padding(ResourceType.Memory.value, mem)
             mesh = resolve_mesh(self.settings, self.device)
             if self.settings.state_path:
-                cpu_p, mem_max = self._run_state(batch, spec, q, pack_seconds, mesh)
+                cpu_p, mem_max = self._run_state(batch, spec, q, mesh)
             elif self._use_host_stream(batch, mesh):
                 with obs.stage("quantile", rows=len(batch), path="host_stream"):
-                    cpu_p, mem_max = self._run_streamed(batch, spec, q, pack_seconds, mesh)
+                    cpu_p, mem_max = self._run_streamed(batch, spec, q, mesh)
             elif mesh is not None:
-                cpu_p, mem_max = self._run_mesh(batch, spec, q, pack_seconds, mesh)
+                cpu_p, mem_max = self._run_mesh(batch, spec, q, mesh)
             else:
-                cpu_p, mem_max = self._run_resident(batch, spec, q, pack_seconds)
+                cpu_p, mem_max = self._run_resident(batch, spec, q)
             obs.record_device_memory(self.device)
         return self._round(cpu_p, mem_max, len(batch))

@@ -81,6 +81,11 @@ REQUIRED = {
 PINNED = ("obs_spans_per_scan", "obs_device_stage_spans", "analyze_smoke", "analyze_scans", "sentinel_ticks",
           "sentinel_clean_regressions", "sentinel_injected_regressions")
 
+#: The spans the port's scan has beyond the JAX package's: ``assemble``,
+#: ``gc`` and ``render`` under the root; ``cast`` and ``h2d`` per resource
+#: on the resident path.
+PORT_SPANS = {"obs_spans_per_scan": 3, "obs_device_stage_spans": 4}
+
 
 @pytest.fixture(scope="module")
 def obs_run(tmp_path_factory):
@@ -153,7 +158,8 @@ def test_jax_legs_held_their_exact_gates(jax_run):
 @pytest.mark.parametrize("field", PINNED)
 def test_work_counts_equal_bench(field, obs_run, jax_run):
     _rc, payload, _stderr, _refused, _started = obs_run
-    assert payload["secondary"][field] == jax_run[0][field], (field, payload["secondary"][field], jax_run[0][field])
+    want = jax_run[0][field] + PORT_SPANS[field] if field in PORT_SPANS else jax_run[0][field]
+    assert payload["secondary"][field] == want, (field, payload["secondary"][field], jax_run[0][field])
 
 
 # ----------------------------------------------------------------------- (c)

@@ -182,7 +182,7 @@ def _port_scans(out: Path, rank: int) -> dict:
     :data:`SCAN_MESHES`, resident and host-streamed, and ``tdigest
     --state_path`` twice into this rank's own directory; each JSON to a
     file. Returns each scan's path through the strategy."""
-    from .test_torch_simple import jax_objects, long_histories, make_fleet
+    from .test_torch_simple import jax_objects, long_histories, make_fleet, scan_stages
     from .test_torch_store import PINNED_CLOCK
     from .test_torch_tdigest import run_port
 
@@ -199,11 +199,9 @@ def _port_scans(out: Path, rank: int) -> dict:
                     settings["host_stream_mb"] = 1
                 result, runner = run_port(fleet, settings, strategy=strategy, format="json")
                 (out / f"scan-{time_axis}-{name}-{path}-{rank}.json").write_text(result.format("json"))
-                strategy_obj = runner.session.strategy
-                paths[f"{time_axis}-{name}-{path}"] = (
-                    "streamed" if strategy_obj.stream_stats is not None
-                    else "resident" if "h2d" in strategy_obj.leg_seconds else "mesh"
-                )
+                paths[f"{time_axis}-{name}-{path}"] = {
+                    "host_stream": "streamed", "resident": "resident", "mesh": "mesh"
+                }[dict(scan_stages(runner))["quantile"]]
     state = out / f"state-{rank}"
     for run in range(2):
         result, _runner = run_port(fleets["resident"], {"state_path": str(state)}, format="json")
@@ -524,7 +522,7 @@ def test_state_path_on_every_rank(ranks, jax_scans, tmp_path, monkeypatch):
 def jax_scans(tmp_path_factory):
     """The JAX package's renders of the scans (the fleet of
     `tests/test_torch_tdigest.py`) and of two ``--state_path`` runs."""
-    from .test_torch_simple import jax_objects, long_histories, make_fleet
+    from .test_torch_simple import jax_objects, long_histories, make_fleet, scan_stages
     from .test_torch_simple import run_jax as run_jax_simple
     from .test_torch_tdigest import run_jax
 

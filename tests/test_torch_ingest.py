@@ -57,7 +57,7 @@ import krr_tpu_torch.ops.digest as port_digest
 from .fakes.servers import FakeBackend, FakeCluster, FakeMetrics, ServerThread
 from .test_integrations import fake_env  # noqa: F401  (module-scoped fixture)
 from .test_native import make_response
-from .test_torch_simple import jax_objects, long_histories, make_fleet
+from .test_torch_simple import jax_objects, long_histories, make_fleet, scan_stages
 from .test_torch_tdigest import run_jax, run_port
 
 
@@ -606,8 +606,7 @@ class TestRunnerParity:
         port, runner = run_port(fleet, {"digest_ingest": True}, format="json", pipeline_depth=depth)
         assert port.format("json") == jax.format("json")
         assert port.format("yaml") == jax.format("yaml")
-        legs = runner.session.strategy.leg_seconds
-        assert set(legs) == {"quantile", "finalize"}
+        assert scan_stages(runner) == [("quantile", "ingest"), ("round", None)]
         assert ("pipeline_batches" in runner.stats) == (depth > 0)
         # Staged, the broken cluster's 9 rows fail. Streamed, an inventory
         # without a streaming API arrives as ONE batch, which both packages
@@ -635,7 +634,8 @@ class TestRunnerParity:
                                     format="json")
             assert port.format("json") == jax.format("json"), f"run {run}"
             strategy = runner.session.strategy
-            assert set(strategy.leg_seconds) == {"pack", "digest", "fold", "quantile", "persist", "finalize"}
+            assert scan_stages(runner) == [("pack", None), ("digest", None), ("fold", None), ("quantile", "store"),
+                                           ("persist", None), ("round", None)]
             assert (strategy.stream_stats is not None) == (window == "streamed")
             stats = strategy.store_stats
             assert stats["folded_rows"] == len(dumps) and stats["rows"] == len(dumps)

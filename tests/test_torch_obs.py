@@ -279,9 +279,12 @@ def test_stage_spans_are_children_of_compute(fleet, strategy, args):  # noqa: F8
     ).run())
     compute, stages = _compute_children(port_tracer)
     _, jax_stages = _compute_children(jax_tracer)
-    assert stages == jax_stages
+    # ``cast`` and ``h2d``, once per resource, are the port's own: the JAX
+    # package's transfer lies in no stage.
+    assert [stage for stage in stages if stage[0] not in ("cast", "h2d")] == jax_stages
     names = [name for name, _ in stages]
-    assert names[0] == "pack" and names[-1] == "round" and "quantile" in names
+    digest = ["digest"] if strategy == "tdigest" else []
+    assert names == ["pack", "cast", "h2d", "cast", "h2d", *digest, "quantile", "round"]
     assert dict(stages)["quantile"]["path"] == "resident"
 
 
@@ -293,7 +296,8 @@ def test_stage_spans_on_the_host_stream_and_store_paths(fleet, tmp_path):  # noq
     for args, want in (
         ({"host_stream_mb": 1}, [("pack", None), ("quantile", "host_stream"), ("round", None)]),
         ({"state_path": str(tmp_path / "state")},
-         [("pack", None), ("digest", None), ("fold", None), ("quantile", "store"), ("round", None)]),
+         [("pack", None), ("digest", None), ("fold", None), ("quantile", "store"), ("persist", None),
+          ("round", None)]),
     ):
         tracer = PortTracer()
         runner = port_runner.Runner(

@@ -49,6 +49,7 @@ from .test_torch_select import SPECIAL, assert_same, port_tensors
 from .test_torch_simple import long_histories
 from .test_torch_simple import run_jax as run_jax_simple
 from .test_torch_simple import run_port as run_port_simple
+from .test_torch_simple import scan_stages
 from .test_torch_sketch import FINITE_SPECIAL, assert_digests_bit_equal, quotient
 from .test_torch_store import PINNED_CLOCK, assert_same_files
 from .test_torch_tdigest import fleet  # noqa: F401  (module-scoped fixture)
@@ -465,7 +466,7 @@ class TestRunnerRenders:
         assert port.format("json") == jax.format("json")
         assert port.format("yaml") == jax.format("yaml")
         assert port_mesh_of_eight == expected
-        assert "h2d" not in runner.session.strategy.leg_seconds
+        assert "h2d" not in dict(scan_stages(runner)) and ("quantile", "mesh") in scan_stages(runner)
 
     def test_state_path_renders_and_files(self, fleet, port_mesh_of_eight, tmp_path, monkeypatch):  # noqa: F811
         """``tdigest --state_path`` on the mesh, two runs: each render is

@@ -36,6 +36,8 @@ import krr_tpu_torch.models as port_models
 import krr_tpu_torch.strategies.simple as port_simple
 from krr_tpu_torch.core import rounding as port_rounding
 from krr_tpu_torch.models.interop import fleet_batch_from_dicts, objects_from_dicts
+from krr_tpu_torch.obs.device import DeviceObs
+from krr_tpu_torch.obs.trace import Tracer as PortTracer
 from krr_tpu_torch.utils import resource_units as port_units
 
 REPO = Path(__file__).resolve().parent.parent
@@ -185,8 +187,22 @@ def run_port(fleet, other_args=None, **config):
         cfg,
         inventory=MemoryInventory(port_objs),
         history_factory=history_factory(port_models.ResourceType, port_objs, histories),
+        tracer=PortTracer(),
     )
     return asyncio.run(runner.run()), runner
+
+
+def stages(spans) -> list:
+    """The stages of one scan's trace as (name, path) in order: the
+    children of its ``compute`` span."""
+    (compute,) = [span for span in spans if span.name == "compute"]
+    children = sorted((span for span in spans if span.parent_id == compute.span_id), key=lambda span: span.start)
+    return [(span.name, span.attributes.get("path")) for span in children]
+
+
+def scan_stages(runner) -> list:
+    """:func:`stages` of the runner's last scan (its tracer records)."""
+    return stages(runner.tracer.traces()[-1])
 
 
 def render_table(result) -> str:
@@ -335,12 +351,16 @@ class TestRunBatchParity:
             jax_batch
         )
         streamed = port_simple.SimpleStrategy(port_simple.SimpleStrategySettings(device="cpu", **settings))
-        port = streamed.run_batch(fleet_batch_from_dicts(dumps, long))
+        tracer = PortTracer()
+        streamed.obs = DeviceObs(tracer)
+        with tracer.span("compute"):
+            port = streamed.run_batch(fleet_batch_from_dicts(dumps, long))
         resident = port_simple.SimpleStrategy(
             port_simple.SimpleStrategySettings(device="cpu", cpu_percentile=q, host_stream_mb=-1)
         ).run_batch(fleet_batch_from_dicts(dumps, long))
         assert streamed.stream_stats["chunks"] >= 8 and streamed.stream_stats["passes"] == (2 if q == 99 else 4)
-        assert set(streamed.leg_seconds) == {"pack", "stream", "host_fill", "copy_wait", "fold", "query", "finalize"}
+        assert stages(tracer.traces()[-1]) == [("pack", None), ("quantile", "host_stream"), ("round", None)]
+        assert {"host_fill_seconds", "copy_wait_seconds", "fold_seconds"} <= set(streamed.stream_stats)
         assert len(port) == len(ref) == len(resident) == len(jax_objs)
         for p, r, s in zip(port, ref, resident):
             for resource in port_models.ResourceType:

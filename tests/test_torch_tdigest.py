@@ -30,6 +30,7 @@ import krr_tpu_torch.models as port_models
 import krr_tpu_torch.models.series as port_series
 import krr_tpu_torch.strategies.tdigest as port_tdigest
 from krr_tpu_torch.models.interop import fleet_batch_from_dicts, objects_from_dicts
+from krr_tpu_torch.obs.trace import Tracer as PortTracer
 from krr_tpu_torch.ops import digest as port_digest
 from krr_tpu_torch.ops import topk_sketch as port_topk
 from tests.test_torch_simple import (
@@ -40,6 +41,7 @@ from tests.test_torch_simple import (
     long_histories,
     make_fleet,
     render_table,
+    scan_stages,
 )
 
 #: The two one-shot sketch paths: the default log-bucket digest and the
@@ -75,6 +77,7 @@ def run_port(fleet, other_args, strategy="tdigest", **config):
         cfg,
         inventory=MemoryInventory(port_objs),
         history_factory=history_factory(port_models.ResourceType, port_objs, histories),
+        tracer=PortTracer(),
     )
     return asyncio.run(runner.run()), runner
 
@@ -114,7 +117,8 @@ class TestRunnerParity:
         values = [s.recommended.requests[port_models.ResourceType.CPU].value for s in port.scans]
         assert any(v == "?" for v in values) and any(v != "?" for v in values)
         assert runner.stats["failed_rows"] >= 10
-        assert set(runner.session.strategy.leg_seconds) == {"pack", "h2d", "build", "query", "finalize"}
+        assert scan_stages(runner) == [("pack", None), ("cast", None), ("h2d", None), ("cast", None), ("h2d", None),
+                                       ("digest", None), ("quantile", "resident"), ("round", None)]
 
     @pytest.mark.parametrize("sketch", list(SKETCHES))
     def test_row_chunked_scan_identical(self, fleet, scans, sketch):
