@@ -18,7 +18,7 @@ import numpy as np
 
 from krr_tpu_torch.models.allocations import ResourceType
 from krr_tpu_torch.models.objects import K8sObjectData
-from krr_tpu_torch.ops.packing import pack_ragged
+from krr_tpu_torch.ops.packing import pack_ragged_with_workers
 
 #: Reference-shaped history for one object: pod name → samples.
 RaggedHistory = dict[str, np.ndarray]
@@ -38,6 +38,8 @@ class PackedSeries:
 
     values: np.ndarray  # [N, T] — PACK_DTYPES[resource] on the host
     counts: np.ndarray  # [N] int32
+    #: Threads that filled ``values`` (1: the serial path).
+    workers: int = 1
 
     @property
     def capacity(self) -> int:
@@ -166,12 +168,12 @@ class FleetBatch:
     def packed(self, resource: ResourceType) -> PackedSeries:
         """Packed [N, T] view for one resource (cached)."""
         if resource not in self._packed:
-            values, counts = pack_ragged(
+            values, counts, workers = pack_ragged_with_workers(
                 self.ragged[resource],
                 dtype=PACK_DTYPES.get(resource, np.float64),
                 capacity=self._capacity.get(resource),
             )
-            self._packed[resource] = PackedSeries(values=values, counts=counts)
+            self._packed[resource] = PackedSeries(values=values, counts=counts, workers=workers)
         return self._packed[resource]
 
     def _row_length(self, resource: ResourceType, i: int) -> int:

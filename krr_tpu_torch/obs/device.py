@@ -39,8 +39,9 @@ span; this module splits it with five instruments, all wired through
 * **Padding efficiency** — :meth:`DeviceObs.record_padding` turns a packed
   batch into ``krr_tpu_pad_waste_pct{resource=…}`` and
   ``krr_tpu_packed_elements{resource=…,kind=real|padding}`` gauges (a
-  partition: the two kinds sum to the rectangular matrix). Cheap (one
-  counts-sum per batch), so it fires on every mode, tracer or not.
+  partition: the two kinds sum to the rectangular matrix), and sets
+  ``krr_tpu_pack_workers{resource=…}``, the threads that filled the batch.
+  Cheap (one counts-sum per batch), so it fires on every mode, tracer or not.
 
 * **H2D bytes** — :meth:`DeviceObs.record_h2d` adds the bytes each
   resource's resident arrays copied to the device to
@@ -219,9 +220,11 @@ class DeviceObs:
 
     def record_padding(self, resource: str, packed) -> None:
         """Padding-efficiency gauges from one packed batch
-        (`krr_tpu_torch.ops.packing.padding_stats`)."""
+        (`krr_tpu_torch.ops.packing.padding_stats`), and the threads that
+        filled it (``krr_tpu_pack_workers``)."""
         if self.metrics is None:
             return
+        self.metrics.set("krr_tpu_pack_workers", packed.workers, resource=resource)
         real, total = padding_stats(packed.counts, packed.capacity)
         # A true partition: real + padding = the rectangular matrix the
         # device reads, so the two kinds sum meaningfully on a dashboard.

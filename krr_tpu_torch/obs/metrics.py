@@ -136,6 +136,7 @@ SERVER_METRICS: tuple[tuple, ...] = (
     ("krr_tpu_compile_seconds", "summary", "nvcc build wall time by phase (backend_compile only: the JAX trace and lower phases have no counterpart in the port) — fires when a kernel library is built; loading an existing build skips it."),
     ("krr_tpu_pad_waste_pct", "gauge", "Padding waste of the last packed batch by resource: percent of the rectangular [rows x capacity] matrix that is padding, not real samples."),
     ("krr_tpu_packed_elements", "gauge", "Elements of the last packed batch by resource and kind — a partition: real samples plus padding sum to the rectangular [rows x capacity] matrix."),
+    ("krr_tpu_pack_workers", "gauge", "Threads that filled the last packed batch by resource: 1 on the serial path, more when its pod series are long enough for row blocks on the host's cores."),
     ("krr_tpu_h2d_bytes_total", "counter", "Bytes the resident paths copied host to device by resource: the float32 values and int32 counts of each packed batch (the h2d stage's bytes)."),
     ("krr_tpu_device_memory_bytes", "gauge", "CUDA device memory by device and kind (bytes_in_use = allocated now, peak_bytes_in_use = allocated peak, both from torch.cuda.memory_stats; bytes_limit = the card's total memory); not set when the strategy computes on the CPU."),
     # Scan flight recorder + regression sentinel (`krr_tpu_torch.obs.timeline`,

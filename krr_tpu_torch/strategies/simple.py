@@ -303,10 +303,13 @@ class SimpleStrategy(BatchedStrategy[SimpleStrategySettings]):
         with self.profile_span():
             # The pack stage brackets the ragged→rectangular host pack (the
             # packed views are cached on the batch, so re-reads below are
-            # free) and fires the padding-efficiency gauges.
-            with obs.stage("pack", rows=len(batch)):
+            # free), records the fill's threads and destination bytes, and
+            # fires the padding-efficiency gauges.
+            with obs.stage("pack", rows=len(batch)) as span:
                 cpu = batch.packed(ResourceType.CPU)
                 mem = batch.packed(ResourceType.Memory)
+                span.set(workers_cpu=cpu.workers, workers_memory=mem.workers,
+                         bytes=cpu.values.nbytes + mem.values.nbytes)
                 obs.record_padding(ResourceType.CPU.value, cpu)
                 obs.record_padding(ResourceType.Memory.value, mem)
             mesh = resolve_mesh(self.settings, self.device)

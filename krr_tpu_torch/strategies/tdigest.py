@@ -402,9 +402,11 @@ class TDigestStrategy(BatchedStrategy[TDigestStrategySettings]):
         obs = self.obs
         self.store_stats = None
         with self.profile_span():
-            with obs.stage("pack", rows=len(batch)):
+            with obs.stage("pack", rows=len(batch)) as span:
                 cpu = batch.packed(ResourceType.CPU)
                 mem = batch.packed(ResourceType.Memory)
+                span.set(workers_cpu=cpu.workers, workers_memory=mem.workers,
+                         bytes=cpu.values.nbytes + mem.values.nbytes)
                 obs.record_padding(ResourceType.CPU.value, cpu)
                 obs.record_padding(ResourceType.Memory.value, mem)
             mesh = resolve_mesh(self.settings, self.device)

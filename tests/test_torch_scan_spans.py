@@ -1,6 +1,7 @@
 """The one-shot scan's trace on the CPU: the runner's ``assemble``, ``gc``
 and ``render`` spans under the scan's root, the resident paths' ``cast`` and
-``h2d`` stages with their byte counts, the stages' page-fault counts, the
+``h2d`` stages with their byte counts, the ``pack`` stage's threads and
+bytes, the stages' page-fault counts, the
 spans' ``torch.profiler`` ranges, and what a scan without a recording
 tracer leaves alone; and the ``--profile`` report held to ``analyze``'s
 reading of the exported trace at the export's rounding edges."""
@@ -9,6 +10,7 @@ from __future__ import annotations
 
 import asyncio
 import json
+import os
 import resource
 
 import numpy as np
@@ -23,6 +25,7 @@ import krr_tpu_torch.strategies.tdigest as port_tdigest
 from krr_tpu_torch.models.interop import objects_from_dicts
 from krr_tpu_torch.obs import profile as port_profile
 from krr_tpu_torch.obs.trace import NULL_TRACER, Span, Tracer
+from krr_tpu_torch.ops import packing
 
 from .test_torch_simple import MemoryInventory, fleet, history_factory  # noqa: F401  (fixture)
 
@@ -146,6 +149,30 @@ def test_h2d_bytes_add_up_over_scans_and_row_chunks(fleet):  # noqa: F811
     assert chunked.metrics.value("krr_tpu_h2d_bytes_total", resource="cpu") == sum(sizes)
     # Chunks pin the fleet's capacity: the chunked copies are the whole one's.
     assert sum(sizes) == once
+
+
+@pytest.mark.parametrize("threaded", [False, True], ids=["serial", "threaded"])
+@pytest.mark.parametrize("path", sorted(RESIDENT))
+def test_the_pack_stage_carries_its_workers_and_bytes(fleet, monkeypatch, path, threaded):  # noqa: F811
+    want, _runner = scan(fleet, *RESIDENT[path], NULL_TRACER)
+    if threaded:
+        # A cut every chunk passes: the tiny fleet fills by row blocks.
+        monkeypatch.setattr(packing, "THREAD_MIN_CHUNK", 1)
+        monkeypatch.setattr(packing, "THREAD_MIN_BYTES", 0)
+    workers = min(packing.MAX_WORKERS, len(os.sched_getaffinity(0))) if threaded else 1
+    tracer = Tracer()
+    got, runner = scan(fleet, *RESIDENT[path], tracer)
+    assert got.format("json") == want.format("json")
+    (spans,) = tracer.traces()
+    (pack,) = [s for s in spans if s.name == "pack"]
+    assert pack.attributes["workers_cpu"] == pack.attributes["workers_memory"] == workers
+    for name in ("cpu", "memory"):
+        assert runner.metrics.value("krr_tpu_pack_workers", resource=name) == workers
+    # The destinations' bytes: float32 CPU and float64 memory rows, each
+    # copied to the device as float32 values beside int32 counts.
+    rows = pack.attributes["rows"]
+    h2d = {s.attributes["resource"]: s.attributes["bytes"] - 4 * rows for s in spans if s.name == "h2d"}
+    assert pack.attributes["bytes"] == h2d["cpu"] + 2 * h2d["memory"] > 0
 
 
 @pytest.mark.parametrize("path", sorted(RESIDENT))
