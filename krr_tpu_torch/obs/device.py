@@ -46,7 +46,9 @@ span; this module splits it with five instruments, all wired through
 * **H2D bytes** — :meth:`DeviceObs.record_h2d` adds the bytes each
   resource's resident arrays copied to the device to
   ``krr_tpu_h2d_bytes_total{resource=…}``, on every scan (the ``h2d``
-  stage carries the same count as ``bytes`` when recording).
+  stage carries the same count as ``bytes`` when recording). The streamed
+  paths count theirs with :meth:`DeviceObs.record_stream`:
+  ``krr_tpu_stream_bytes_total`` and ``krr_tpu_stream_chunks_total``.
 
 * **Memory watermarks** — :meth:`DeviceObs.record_device_memory` reads
   ``torch.cuda.memory_stats`` (allocated now and at peak) and
@@ -240,6 +242,15 @@ class DeviceObs:
         resident arrays copied host to device (every scan, tracer or not)."""
         if self.metrics is not None:
             self.metrics.inc("krr_tpu_h2d_bytes_total", nbytes, resource=resource)
+
+    def record_stream(self, resource: str, stats) -> None:
+        """``krr_tpu_stream_bytes_total{resource}`` += the host bytes one
+        resource's stream read and ``krr_tpu_stream_chunks_total{resource}``
+        += its chunks, every pass (a `krr_tpu_torch.ops.chunked.StreamStats`;
+        every scan, tracer or not)."""
+        if self.metrics is not None:
+            self.metrics.inc("krr_tpu_stream_bytes_total", stats.host_bytes, resource=resource)
+            self.metrics.inc("krr_tpu_stream_chunks_total", stats.chunks, resource=resource)
 
     def record_device_memory(self, device) -> None:
         """Device memory watermarks of every visible card, when the strategy

@@ -27,12 +27,16 @@ the blocks' results to every rank (`krr_tpu_torch.parallel.fleet`).
 
 from __future__ import annotations
 
+import contextlib
 import time
 from dataclasses import dataclass
-from typing import Callable, Optional, Sequence, TypeVar
+from typing import TYPE_CHECKING, Callable, Optional, Sequence, TypeVar
 
 import numpy as np
 import torch
+
+if TYPE_CHECKING:  # obs.device imports ops (packing), so no import at run time
+    from krr_tpu_torch.obs.device import DeviceObs
 
 State = TypeVar("State")
 
@@ -127,6 +131,28 @@ class StreamStats:
     def as_dict(self) -> dict:
         return dict(self.__dict__)
 
+    @classmethod
+    def total(cls, parts) -> "StreamStats":
+        """The field-wise sum of ``parts`` (one streamer's stats each)."""
+        out = cls()
+        for part in parts:
+            for name, value in part.__dict__.items():
+                setattr(out, name, getattr(out, name) + value)
+        return out
+
+    def span_attributes(self) -> dict:
+        """The totals a streamed ``quantile`` stage carries: the passes and
+        chunks, the host bytes read and the pinned bytes staged, the host
+        fill and copy-wait seconds, and the copy and fold device seconds."""
+        return {"passes": self.passes, "chunks": self.chunks, "host_bytes": self.host_bytes,
+                "pinned_bytes": self.pinned_bytes, "fill_seconds": self.host_fill_seconds,
+                "copy_wait_seconds": self.copy_wait_seconds, "copy_seconds": self.copy_seconds,
+                "fold_seconds": self.fold_seconds}
+
+
+#: The span of a streamer handed no ``obs``.
+_NO_SPAN = contextlib.nullcontext()
+
 
 class HostChunkStreamer:
     """Folds over a host ``[N, T]`` numpy matrix, streaming time chunks of
@@ -159,7 +185,14 @@ class HostChunkStreamer:
     event. So chunk i + 1 is filled on the host and copied while chunk i
     folds on the card. On the CPU the same folds run in the same order, with
     no pinning and no streams. ``stats`` (a :class:`StreamStats`) collects
-    the legs."""
+    the legs.
+
+    With ``obs`` (the strategy's `krr_tpu_torch.obs.device.DeviceObs`) each
+    chunk's host fill is a ``stream_fill`` stage carrying its ``bytes`` (the
+    host bytes read), and each wait for a pinned buffer's previous copy a
+    ``stream_wait`` stage: spans of a recording tracer, nothing otherwise.
+    Neither fences the device, so the copies and folds overlap as they do
+    untraced."""
 
     def __init__(
         self,
@@ -171,6 +204,7 @@ class HostChunkStreamer:
         *,
         device: "torch.device | str" = "cuda",
         stats: Optional[StreamStats] = None,
+        obs: Optional["DeviceObs"] = None,
     ):
         if chunk_size < 1:
             raise ValueError(f"chunk_size must be positive, got {chunk_size}")
@@ -190,6 +224,7 @@ class HostChunkStreamer:
         self.counts = torch.from_numpy(counts32).to(self.device)
         self.num_chunks = -(-self.t // chunk_size) if self.n else 0
         self.stats = StreamStats() if stats is None else stats
+        self.obs = obs
         self._pinned: list[torch.Tensor] = []
         self._chunks: list[torch.Tensor] = []
         self._copy_stream: Optional[torch.cuda.Stream] = None
@@ -197,6 +232,9 @@ class HostChunkStreamer:
     def _bounds(self, i: int) -> tuple[int, int]:
         start = i * self.chunk_size
         return start, min(start + self.chunk_size, self.t)
+
+    def _stage(self, name: str, **attributes):
+        return _NO_SPAN if self.obs is None else self.obs.stage(name, **attributes)
 
     def _eff(self, start: int, width: int) -> torch.Tensor:
         """Per-row valid prefix length of the chunk starting at ``start``."""
@@ -206,15 +244,17 @@ class HostChunkStreamer:
         """Write chunk i, scaled and cast to float32, into ``out`` ([N, w])."""
         start, end = self._bounds(i)
         block = self.values[:, start:end]
-        started = time.perf_counter()
-        if self.scale == 1.0:
-            np.copyto(out, block, casting="unsafe")  # numpy's float32 cast, or a plain copy
-        else:  # divide before the float32 cast, in row blocks that bound the temporary
-            rows = max(1, _FILL_ELEMENTS // max(end - start, 1))
-            for r in range(0, self.n, rows):
-                out[r : r + rows] = block[r : r + rows] / self.scale
-        self.stats.host_fill_seconds += time.perf_counter() - started
-        self.stats.host_bytes += block.size * block.itemsize
+        nbytes = block.size * block.itemsize
+        with self._stage("stream_fill", bytes=nbytes):
+            started = time.perf_counter()
+            if self.scale == 1.0:
+                np.copyto(out, block, casting="unsafe")  # numpy's float32 cast, or a plain copy
+            else:  # divide before the float32 cast, in row blocks that bound the temporary
+                rows = max(1, _FILL_ELEMENTS // max(end - start, 1))
+                for r in range(0, self.n, rows):
+                    out[r : r + rows] = block[r : r + rows] / self.scale
+            self.stats.host_fill_seconds += time.perf_counter() - started
+        self.stats.host_bytes += nbytes
 
     def run(self, init: State, fold: Callable[[State, torch.Tensor, torch.Tensor], State]) -> State:
         """One full pass: fold every chunk into ``init``; returns the state
@@ -264,9 +304,10 @@ class HostChunkStreamer:
             start, end = self._bounds(i)
             size = self.n * (end - start)
             if copied[slot] is not None:  # the pinned buffer is still being read
-                waited = time.perf_counter()
-                copied[slot].synchronize()
-                self.stats.copy_wait_seconds += time.perf_counter() - waited
+                with self._stage("stream_wait"):
+                    waited = time.perf_counter()
+                    copied[slot].synchronize()
+                    self.stats.copy_wait_seconds += time.perf_counter() - waited
             pinned = self._pinned[slot][:size]
             self._fill(i, pinned.numpy().reshape(self.n, end - start))
             chunk = self._chunks[slot][:size]
@@ -303,10 +344,11 @@ def stream_host_chunks(
     *,
     device: "torch.device | str" = "cuda",
     stats: Optional[StreamStats] = None,
+    obs: Optional["DeviceObs"] = None,
 ) -> State:
     """One-shot convenience wrapper over :class:`HostChunkStreamer`."""
     return HostChunkStreamer(
-        values, counts, chunk_size, time_offset=time_offset, scale=scale, device=device, stats=stats
+        values, counts, chunk_size, time_offset=time_offset, scale=scale, device=device, stats=stats, obs=obs
     ).run(init, fold)
 
 

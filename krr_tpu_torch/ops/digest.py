@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import NamedTuple, Optional, Sequence
+from typing import TYPE_CHECKING, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -40,6 +40,9 @@ from krr_tpu_torch.ops.chunked import (
 )
 from krr_tpu_torch.ops.cuda_sketch import bucket_indices, digest_hist, row_histogram
 from krr_tpu_torch.ops.quantile import max_where, peak_max
+
+if TYPE_CHECKING:
+    from krr_tpu_torch.obs.device import DeviceObs
 
 
 @dataclass(frozen=True)
@@ -225,6 +228,7 @@ def build_from_host(
     *,
     device: "torch.device | str" = "cuda",
     stats: Optional[StreamStats] = None,
+    obs: Optional["DeviceObs"] = None,
     devices: Optional[Sequence["torch.device | str"]] = None,
 ) -> Digest:
     """Build a digest from a **host** ``[N, T]`` matrix, streaming time
@@ -247,6 +251,7 @@ def build_from_host(
             time_offset,
             device=device,
             stats=stats,
+            obs=obs,
         )
 
     return split_rows(values, counts, [device] if devices is None else devices, stream)

@@ -22,7 +22,7 @@ memory (`krr_tpu_torch.ops.chunked`), one ``row_max`` launch per time chunk.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import TYPE_CHECKING, Optional, Sequence
 
 import numpy as np
 import torch
@@ -37,6 +37,9 @@ from krr_tpu_torch.ops.selection import (
     selection_rank,
     valid_mask,
 )
+
+if TYPE_CHECKING:
+    from krr_tpu_torch.obs.device import DeviceObs
 
 
 def masked_percentile(values: torch.Tensor, counts: torch.Tensor, q: "torch.Tensor | float") -> torch.Tensor:
@@ -111,6 +114,7 @@ def masked_max_from_host(
     *,
     device: "torch.device | str" = "cuda",
     stats: Optional[StreamStats] = None,
+    obs: Optional["DeviceObs"] = None,
     devices: Optional[Sequence["torch.device | str"]] = None,
 ) -> np.ndarray:
     """Per-row max of the valid prefix of a **host** ``[N, T]`` matrix
@@ -142,6 +146,7 @@ def masked_max_from_host(
             scale=scale,
             device=device,
             stats=stats,
+            obs=obs,
         )
         return np.where(counts > 0, peak.cpu().numpy(), np.float32(np.nan)).astype(np.float32)
 

@@ -33,12 +33,15 @@ select's pass loop, which the mesh's time-sharded select shares.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import TYPE_CHECKING, Optional, Sequence
 
 import numpy as np
 import torch
 
 from krr_tpu_torch.ops.chunked import HostChunkStreamer, StreamStats, split_rows
+
+if TYPE_CHECKING:
+    from krr_tpu_torch.obs.device import DeviceObs
 
 INT32_MAX = 2**31 - 1
 #: Smallest positive normal float32, as bits: patterns below it (as signed
@@ -214,6 +217,7 @@ def masked_percentile_bisect_from_host(
     *,
     device: "torch.device | str" = "cuda",
     stats: Optional[StreamStats] = None,
+    obs: Optional["DeviceObs"] = None,
     digits: Sequence[tuple[int, int]] = STREAM_DIGITS,
     devices: Optional[Sequence["torch.device | str"]] = None,
 ) -> np.ndarray:
@@ -242,7 +246,8 @@ def masked_percentile_bisect_from_host(
         if values.shape[0] == 0:
             return np.zeros((0,), dtype=np.float32)
         plan = RadixSelect(torch.from_numpy(counts32).to(device), q, values.shape[1])
-        streamer = HostChunkStreamer(values, plan.live.cpu().numpy(), chunk_size, device=device, stats=stats)
+        streamer = HostChunkStreamer(values, plan.live.cpu().numpy(), chunk_size, device=device, stats=stats,
+                                     obs=obs)
 
         def count_pass(prefix32: torch.Tensor, shift: int, bits: int) -> torch.Tensor:
             bins = torch.zeros((values.shape[0], 1 << bits), dtype=torch.int32, device=device)

@@ -18,7 +18,7 @@ bisection, so slot order never matters.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional, Sequence
+from typing import TYPE_CHECKING, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -33,6 +33,9 @@ from krr_tpu_torch.ops.chunked import (
 from krr_tpu_torch.ops.cuda_sketch import topk_select
 from krr_tpu_torch.ops.quantile import max_where
 from krr_tpu_torch.ops.selection import as_ordered_bits, bisect_loop
+
+if TYPE_CHECKING:
+    from krr_tpu_torch.obs.device import DeviceObs
 
 
 class TopKSketch(NamedTuple):
@@ -183,6 +186,7 @@ def build_from_host(
     *,
     device: "torch.device | str" = "cuda",
     stats: Optional[StreamStats] = None,
+    obs: Optional["DeviceObs"] = None,
     devices: Optional[Sequence["torch.device | str"]] = None,
 ) -> TopKSketch:
     """Build the sketch from a **host** ``[N, T]`` matrix, streaming time
@@ -204,6 +208,7 @@ def build_from_host(
             time_offset,
             device=device,
             stats=stats,
+            obs=obs,
         )
 
     return split_rows(values, counts, [device] if devices is None else devices, stream)

@@ -28,8 +28,10 @@ The legs are stages of the scan trace (``strategy.obs``,
 `krr_tpu_torch.obs.device`): ``pack``, on the resident path ``cast`` and
 ``h2d`` for each resource (:func:`fleet_device_arrays`), ``quantile``
 (``path=resident``, ``host_stream`` or ``mesh``) and ``round``, each fenced
-when the tracer records; with ``profile_dir`` the device compute runs under
-``torch.profiler``.
+when the tracer records; a streamed ``quantile`` carries the stream's totals
+and holds a ``stream_fill`` stage a chunk and a ``stream_wait`` stage a wait
+for a pinned buffer (:func:`record_streams`); with ``profile_dir`` the device
+compute runs under ``torch.profiler``.
 """
 
 from __future__ import annotations
@@ -157,6 +159,15 @@ def use_host_stream(batch: FleetBatch, device: torch.device, setting_mb: int, me
     return 4 * (cpu.values.size + mem.values.size) / num_devices > threshold
 
 
+def record_streams(obs: DeviceObs, stats: dict) -> StreamStats:
+    """Each resource's :class:`StreamStats` (``stats``, by resource) into
+    the stream counters (:meth:`DeviceObs.record_stream`, every scan), and
+    the streams' total."""
+    for resource, part in stats.items():
+        obs.record_stream(resource.value, part)
+    return StreamStats.total(stats.values())
+
+
 def stream_devices(mesh: Optional[Mesh]) -> Optional[RowSplit]:
     """Where a streamed window's rows split: over every cell of the mesh,
     every rank's (each block folds its own rows; the blocks' results are
@@ -242,31 +253,39 @@ class SimpleStrategy(BatchedStrategy[SimpleStrategySettings]):
         #: dict; None after a resident one.
         self.stream_stats: Optional[dict] = None
 
-    def _streamed_exact(self, batch: FleetBatch, q: float, stats: StreamStats, mesh: Optional[Mesh]) -> tuple:
+    def _streamed_exact(self, batch: FleetBatch, q: float, stats: dict, mesh: Optional[Mesh]) -> tuple:
         """(CPU percentile, memory peak in MB) with the window streamed from
         host: the one-pass exact top-K sketch when the rank-from-the-top
         fits, the three-pass streamed radix select otherwise — both select
         the sample the resident path selects. The percentile may still be
-        on the device (a tensor); the peak is a host array."""
+        on the device (a tensor); the peak is a host array. Each resource's
+        legs go to its :class:`StreamStats` in ``stats``."""
         cpu = batch.packed(ResourceType.CPU)
         mem = batch.packed(ResourceType.Memory)
-        where = {"device": self.device, "stats": stats, "devices": stream_devices(mesh)}
+        where = {"device": self.device, "devices": stream_devices(mesh), "obs": self.obs}
         k = exact_topk_k(cpu.capacity, q, self.settings.exact_sketch_budget)
         if k is not None:
-            sketch = topk_ops.build_from_host(cpu.values, cpu.counts, k, HOST_STREAM_CHUNK, **where)
+            sketch = topk_ops.build_from_host(cpu.values, cpu.counts, k, HOST_STREAM_CHUNK,
+                                              stats=stats[ResourceType.CPU], **where)
             cpu_p = topk_ops.percentile(sketch, q)
         else:  # mid-range percentile: no bounded exact sketch
-            cpu_p = masked_percentile_bisect_from_host(cpu.values, cpu.counts, q, HOST_STREAM_CHUNK, **where)
-        mem_max = masked_max_from_host(mem.values, mem.counts, HOST_STREAM_CHUNK, scale=MEMORY_SCALE, **where)
+            cpu_p = masked_percentile_bisect_from_host(cpu.values, cpu.counts, q, HOST_STREAM_CHUNK,
+                                                       stats=stats[ResourceType.CPU], **where)
+        mem_max = masked_max_from_host(mem.values, mem.counts, HOST_STREAM_CHUNK, scale=MEMORY_SCALE,
+                                       stats=stats[ResourceType.Memory], **where)
         return cpu_p, mem_max
 
     def _run_streamed(self, batch: FleetBatch, q: float, mesh: Optional[Mesh]) -> tuple:
-        """The streamed quantile stage: (CPU percentile, memory peak) as host
-        arrays; the stream's legs go to :attr:`stream_stats`."""
-        stats = StreamStats()
-        cpu_p, mem_max = self.obs.fence(self._streamed_exact(batch, q, stats, mesh))
-        cpu_p = cpu_p.cpu().numpy() if isinstance(cpu_p, torch.Tensor) else cpu_p
-        self.stream_stats = stats.as_dict()
+        """The streamed ``quantile`` stage: (CPU percentile, memory peak) as
+        host arrays; the stream's totals go to :attr:`stream_stats` and the
+        stage's attributes (:meth:`StreamStats.span_attributes`)."""
+        stats = {resource: StreamStats() for resource in ResourceType}
+        with self.obs.stage("quantile", rows=len(batch), path="host_stream") as span:
+            cpu_p, mem_max = self.obs.fence(self._streamed_exact(batch, q, stats, mesh))
+            cpu_p = cpu_p.cpu().numpy() if isinstance(cpu_p, torch.Tensor) else cpu_p
+            total = record_streams(self.obs, stats)
+            span.set(**total.span_attributes())
+        self.stream_stats = total.as_dict()
         return cpu_p, mem_max
 
     def _run_mesh(self, batch: FleetBatch, q: float, mesh: Mesh) -> tuple:
@@ -314,8 +333,7 @@ class SimpleStrategy(BatchedStrategy[SimpleStrategySettings]):
                 obs.record_padding(ResourceType.Memory.value, mem)
             mesh = resolve_mesh(self.settings, self.device)
             if use_host_stream(batch, self.device, self.settings.host_stream_mb, mesh):
-                with obs.stage("quantile", rows=len(batch), path="host_stream"):
-                    cpu_p, mem_max = self._run_streamed(batch, q, mesh)
+                cpu_p, mem_max = self._run_streamed(batch, q, mesh)
             elif mesh is not None:
                 with obs.stage("quantile", rows=len(batch), path="mesh"):
                     cpu_p, mem_max = self._run_mesh(batch, q, mesh)

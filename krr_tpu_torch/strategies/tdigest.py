@@ -84,6 +84,7 @@ from krr_tpu_torch.strategies.simple import (
     exact_topk_k,
     finalize_fleet,
     fleet_device_arrays,
+    record_streams,
     resolve_mesh,
     stream_devices,
     use_host_stream,
@@ -188,39 +189,45 @@ class TDigestStrategy(BatchedStrategy[TDigestStrategySettings]):
         return use_host_stream(batch, self.device, self.settings.host_stream_mb, mesh)
 
     def _streamed_sketch(
-        self, batch: FleetBatch, spec: DigestSpec, q: float, stats: StreamStats, mesh: Optional[Mesh]
+        self, batch: FleetBatch, spec: DigestSpec, q: float, stats: dict, mesh: Optional[Mesh]
     ) -> tuple:
         """(CPU percentile, memory peak in MB) with the window streamed from
         host in ``chunk_size`` time chunks: the percentile still on the
-        device (a tensor), the peak a host array."""
+        device (a tensor), the peak a host array. Each resource's legs go
+        to its :class:`StreamStats` in ``stats``."""
         chunk = self.settings.chunk_size
         cpu = batch.packed(ResourceType.CPU)
         mem = batch.packed(ResourceType.Memory)
-        where = {"device": self.device, "stats": stats, "devices": stream_devices(mesh)}
+        where = {"device": self.device, "devices": stream_devices(mesh), "obs": self.obs}
+        cpu_where = {**where, "stats": stats[ResourceType.CPU]}
         k = self._exact_topk_k(cpu.capacity, q)
         if k is not None:
-            sketch = topk_ops.build_from_host(cpu.values, cpu.counts, k, chunk, **where)
+            sketch = topk_ops.build_from_host(cpu.values, cpu.counts, k, chunk, **cpu_where)
             cpu_p = topk_ops.percentile(sketch, q)
         else:
-            cpu_digest = digest_ops.build_from_host(spec, cpu.values, cpu.counts, chunk, **where)
+            cpu_digest = digest_ops.build_from_host(spec, cpu.values, cpu.counts, chunk, **cpu_where)
             cpu_p = digest_ops.percentile(spec, cpu_digest, q)
-        mem_max = masked_max_from_host(mem.values, mem.counts, chunk, scale=MEMORY_SCALE, **where)
+        mem_max = masked_max_from_host(mem.values, mem.counts, chunk, scale=MEMORY_SCALE,
+                                       stats=stats[ResourceType.Memory], **where)
         return cpu_p, mem_max
 
     def _streamed_window_digest(
-        self, batch: FleetBatch, spec: DigestSpec, stats: StreamStats, mesh: Optional[Mesh]
+        self, batch: FleetBatch, spec: DigestSpec, stats: dict, mesh: Optional[Mesh]
     ) -> tuple:
         """`_window_digest` without device residency: the CPU digest and the
         memory peak streamed from host, one ``digest_hist`` and one
-        ``row_max`` launch a chunk (`krr_tpu/strategies/tdigest.py:128-147`)."""
+        ``row_max`` launch a chunk (`krr_tpu/strategies/tdigest.py:128-147`);
+        each resource's legs go to its :class:`StreamStats` in ``stats``."""
         chunk = self.settings.chunk_size
         cpu = batch.packed(ResourceType.CPU)
         mem = batch.packed(ResourceType.Memory)
-        where = {"device": self.device, "stats": stats, "devices": stream_devices(mesh)}
-        cpu_digest = digest_ops.build_from_host(spec, cpu.values, cpu.counts, chunk, **where)
+        where = {"device": self.device, "devices": stream_devices(mesh), "obs": self.obs}
+        cpu_digest = digest_ops.build_from_host(spec, cpu.values, cpu.counts, chunk,
+                                                stats=stats[ResourceType.CPU], **where)
         n, b = cpu_digest.counts.shape
         host = torch.cat([cpu_digest.counts.reshape(-1), cpu_digest.total, cpu_digest.peak]).cpu().numpy()
-        mem_peak = masked_max_from_host(mem.values, mem.counts, chunk, scale=MEMORY_SCALE, **where)
+        mem_peak = masked_max_from_host(mem.values, mem.counts, chunk, scale=MEMORY_SCALE,
+                                        stats=stats[ResourceType.Memory], **where)
         return host[: n * b].reshape(n, b), host[n * b : n * b + n], host[n * b + n :], mem_peak
 
     def _window_digest(self, batch: FleetBatch, spec: DigestSpec, mesh: Optional[Mesh]) -> tuple:
@@ -235,9 +242,9 @@ class TDigestStrategy(BatchedStrategy[TDigestStrategySettings]):
         mem = batch.packed(ResourceType.Memory)
         mem_total = np.asarray(mem.counts, dtype=np.float32)
         if self._use_host_stream(batch, mesh):
-            stats = StreamStats()
+            stats = {resource: StreamStats() for resource in ResourceType}
             counts, total, peak, mem_peak = self._streamed_window_digest(batch, spec, stats, mesh)
-            self.stream_stats = stats.as_dict()
+            self.stream_stats = record_streams(self.obs, stats).as_dict()
         elif mesh is not None:
             self.stream_stats = None
             cpu = batch.packed(ResourceType.CPU)
@@ -339,12 +346,17 @@ class TDigestStrategy(BatchedStrategy[TDigestStrategySettings]):
         )
 
     def _run_streamed(self, batch: FleetBatch, spec: DigestSpec, q: float, mesh: Optional[Mesh]) -> tuple:
-        """The streamed quantile stage: (CPU percentile, memory peak) as host
-        arrays; the stream's legs go to :attr:`stream_stats`."""
-        stats = StreamStats()
-        cpu_p, mem_max = self.obs.fence(self._streamed_sketch(batch, spec, q, stats, mesh))
-        self.stream_stats = stats.as_dict()
-        return cpu_p.cpu().numpy(), mem_max
+        """The streamed ``quantile`` stage: (CPU percentile, memory peak) as
+        host arrays; the stream's totals go to :attr:`stream_stats` and the
+        stage's attributes, as in `krr_tpu_torch.strategies.simple`."""
+        stats = {resource: StreamStats() for resource in ResourceType}
+        with self.obs.stage("quantile", rows=len(batch), path="host_stream") as span:
+            cpu_p, mem_max = self.obs.fence(self._streamed_sketch(batch, spec, q, stats, mesh))
+            cpu_p = cpu_p.cpu().numpy()
+            total = record_streams(self.obs, stats)
+            span.set(**total.span_attributes())
+        self.stream_stats = total.as_dict()
+        return cpu_p, mem_max
 
     def _run_mesh(self, batch: FleetBatch, spec: DigestSpec, q: float, mesh: Mesh) -> tuple:
         """The mesh build (the ``digest`` stage: the sharded top-K sketch or
@@ -413,8 +425,7 @@ class TDigestStrategy(BatchedStrategy[TDigestStrategySettings]):
             if self.settings.state_path:
                 cpu_p, mem_max = self._run_state(batch, spec, q, mesh)
             elif self._use_host_stream(batch, mesh):
-                with obs.stage("quantile", rows=len(batch), path="host_stream"):
-                    cpu_p, mem_max = self._run_streamed(batch, spec, q, mesh)
+                cpu_p, mem_max = self._run_streamed(batch, spec, q, mesh)
             elif mesh is not None:
                 cpu_p, mem_max = self._run_mesh(batch, spec, q, mesh)
             else:
