@@ -23,12 +23,15 @@ from krr_tpu_torch.ops.packing import pack_ragged_with_workers
 #: Reference-shaped history for one object: pod name → samples.
 RaggedHistory = dict[str, np.ndarray]
 
-#: Host dtype per resource for the packed view. CPU seconds fit float32
-#: exactly as far as the device math is concerned — the device casts to
-#: float32 anyway, and casting f64→f32 at pack time is the identical single
+#: Host dtype per resource for the unscaled packed view. CPU seconds fit
+#: float32 exactly as far as the device math is concerned — the device casts
+#: to float32 anyway, and casting f64→f32 at pack time is the identical single
 #: rounding — so packing CPU at 4 bytes/sample halves the packed footprint.
-#: Memory stays float64 on host: byte counts overflow float32's 24-bit
-#: mantissa, and the MB scaling must divide *before* any float32 cast.
+#: Memory's raw view stays float64 (the interop view): byte counts overflow
+#: float32's 24-bit mantissa, so the MB scaling must divide *before* any
+#: float32 cast. The strategies never build it: they ask for memory with a
+#: scale (``FleetBatch.packed_scaled``), and the pack's own fill
+#: divides each sample in float64 and rounds it once into a float32 matrix.
 PACK_DTYPES = {ResourceType.CPU: np.float32, ResourceType.Memory: np.float64}
 
 
@@ -36,7 +39,7 @@ PACK_DTYPES = {ResourceType.CPU: np.float32, ResourceType.Memory: np.float64}
 class PackedSeries:
     """Left-justified packed samples: ``values[i, :counts[i]]`` are real."""
 
-    values: np.ndarray  # [N, T] — PACK_DTYPES[resource] on the host
+    values: np.ndarray  # [N, T] — PACK_DTYPES[resource] on the host; float32 when scaled
     counts: np.ndarray  # [N] int32
     #: Threads that filled ``values`` (1: the serial path).
     workers: int = 1
@@ -156,7 +159,8 @@ class FleetBatch:
     #: histories mean UNKNOWN, not idle) — same contract as
     #: ``DigestedFleet.failed_rows``.
     failed_rows: "set[int]" = field(default_factory=set)
-    _packed: dict[ResourceType, PackedSeries] = field(default_factory=dict)
+    #: Packed views by (resource, scale).
+    _packed: dict[tuple[ResourceType, float], PackedSeries] = field(default_factory=dict)
     #: Minimum packed time capacity per resource. Row-sliced sub-batches pin
     #: this to the parent's full-fleet capacity so every chunk packs to the
     #: SAME width, and capacity-dependent decisions agree across chunks.
@@ -166,15 +170,28 @@ class FleetBatch:
         return len(self.objects)
 
     def packed(self, resource: ResourceType) -> PackedSeries:
-        """Packed [N, T] view for one resource (cached)."""
-        if resource not in self._packed:
+        """Packed [N, T] view for one resource, in ``PACK_DTYPES[resource]``
+        (cached)."""
+        return self._pack(resource, 1.0)
+
+    def packed_scaled(self, resource: ResourceType, scale: float) -> PackedSeries:
+        """Packed [N, T] float32 view of ``samples / scale`` for one resource
+        (cached apart from :meth:`packed`): the fill itself divides in
+        float64 and rounds once (`krr_tpu_torch.ops.packing.pack_ragged`),
+        so no unscaled matrix is built."""
+        return self._pack(resource, scale)
+
+    def _pack(self, resource: ResourceType, scale: float) -> PackedSeries:
+        key = (resource, scale)
+        if key not in self._packed:
             values, counts, workers = pack_ragged_with_workers(
                 self.ragged[resource],
-                dtype=PACK_DTYPES.get(resource, np.float64),
+                dtype=PACK_DTYPES.get(resource, np.float64) if scale == 1.0 else np.float32,
                 capacity=self._capacity.get(resource),
+                scale=scale,
             )
-            self._packed[resource] = PackedSeries(values=values, counts=counts, workers=workers)
-        return self._packed[resource]
+            self._packed[key] = PackedSeries(values=values, counts=counts, workers=workers)
+        return self._packed[key]
 
     def _row_length(self, resource: ResourceType, i: int) -> int:
         return sum(np.asarray(s).size for s in self.ragged[resource][i].values())

@@ -168,10 +168,12 @@ class HostChunkStreamer:
     any chunk size.
 
     Each chunk is divided by ``scale`` (when not 1) with the host matrix's
-    own dtype — float64 for the memory window — and then cast to float32 by
-    numpy, as the resident pack (`krr_tpu_torch.strategies.simple.
-    fleet_device_arrays`) and the JAX package's ``_host_chunk`` do: the
-    bytes on the device are the same.
+    own dtype — float64 for a raw memory window — and then cast to float32
+    by numpy, as the JAX package's ``_host_chunk`` does, and as the pack's
+    own scaled fill (`krr_tpu_torch.models.series.FleetBatch.packed_scaled`)
+    does: the bytes on the device are the same. ``scale`` is kept for parity
+    with the JAX package's API alone: the strategies hand it memory packed
+    in MB as float32 already, so their streams copy at scale 1.
 
     On a CUDA device: two pinned host staging buffers and two device chunk
     buffers, allocated at the first :meth:`run` and reused by every later

@@ -18,6 +18,7 @@ from __future__ import annotations
 import os
 from collections.abc import Iterable, Mapping, Sequence
 from concurrent.futures import ThreadPoolExecutor
+from functools import partial
 
 import numpy as np
 
@@ -33,6 +34,10 @@ THREAD_MIN_BYTES = 64 << 20
 MAX_WORKERS = 4
 #: Row blocks a worker takes, in turn, from the pool's queue.
 BLOCKS_PER_WORKER = 4
+#: A scaled fill packs rows into a float64 block of at most this many bytes,
+#: which stays in cache, and divides a block at a time (one row a block when
+#: a row is wider).
+SCALE_BLOCK_BYTES = 1 << 20
 
 
 def pad_to_lane(n: int) -> int:
@@ -83,17 +88,35 @@ def _fill(values: np.ndarray, rows: list[list[np.ndarray]], start: int, stop: in
         row[offset:] = 0
 
 
+def _fill_blocks_divided(values: np.ndarray, rows: list[list[np.ndarray]], start: int, stop: int,
+                         scale: float) -> None:
+    """:func:`_fill` of ``samples / scale``: each block of rows filled by
+    :func:`_fill` into a float64 block of at most ``SCALE_BLOCK_BYTES``, then
+    divided into its rows of ``values`` in one call, in float64 and rounded
+    once to ``values``' dtype (as ``astype`` rounds; the zeros divide to
+    zeros)."""
+    step = max(1, SCALE_BLOCK_BYTES // (8 * values.shape[1]))
+    block = np.empty((min(step, stop - start), values.shape[1]), dtype=np.float64)
+    for a in range(start, stop, step):
+        b = min(a + step, stop)
+        _fill(block, rows[a:b], 0, b - a)
+        np.divide(block[: b - a], scale, out=values[a:b])
+
+
 def pack_ragged_with_workers(
     per_object_series: Sequence[Mapping[str, np.ndarray]] | Sequence[Iterable[np.ndarray]],
     dtype: np.dtype = np.float64,
     capacity: int | None = None,
+    scale: float = 1.0,
 ) -> tuple[np.ndarray, np.ndarray, int]:
     """:func:`pack_ragged`'s ``(values, counts)`` and the threads that filled
     ``values`` (:func:`pack_workers`; 1 on the serial path)."""
+    # A scaled fill casts into its float64 block, so lists and Decimals do too.
+    source = dtype if scale == 1.0 else np.float64
     rows: list[list[np.ndarray]] = []
     for entry in per_object_series:
         chunks = entry.values() if isinstance(entry, Mapping) else entry
-        rows.append([c if isinstance(c, np.ndarray) and c.ndim == 1 else _flat(c, dtype) for c in chunks])
+        rows.append([c if isinstance(c, np.ndarray) and c.ndim == 1 else _flat(c, source) for c in chunks])
 
     n = len(rows)
     counts = np.zeros(max(n, 1), dtype=np.int32)
@@ -103,14 +126,15 @@ def pack_ragged_with_workers(
 
     values = np.empty((max(n, 1), t), dtype=dtype)
     workers = pack_workers(int(np.sum(counts, dtype=np.int64)), sum(map(len, rows)), values.nbytes)
+    fill = _fill if scale == 1.0 else partial(_fill_blocks_divided, scale=scale)
     if workers == 1:
-        _fill(values, rows, 0, n)
+        fill(values, rows, 0, n)
     else:
         # Disjoint row blocks, several a worker so ragged rows even out: the
         # result does not depend on the worker count or the order.
         bounds = np.linspace(0, n, workers * BLOCKS_PER_WORKER + 1).astype(int).tolist()
         with ThreadPoolExecutor(max_workers=workers) as pool:
-            done = [pool.submit(_fill, values, rows, a, b) for a, b in zip(bounds, bounds[1:]) if a < b]
+            done = [pool.submit(fill, values, rows, a, b) for a, b in zip(bounds, bounds[1:]) if a < b]
             for future in done:
                 future.result()
     return values[:n], counts[:n], workers
@@ -120,6 +144,7 @@ def pack_ragged(
     per_object_series: Sequence[Mapping[str, np.ndarray]] | Sequence[Iterable[np.ndarray]],
     dtype: np.dtype = np.float64,
     capacity: int | None = None,
+    scale: float = 1.0,
 ) -> tuple[np.ndarray, np.ndarray]:
     """Pack per-object, per-pod sample arrays into ``(values [N, T], counts [N])``.
 
@@ -128,11 +153,16 @@ def pack_ragged(
     iteration order (same flatten order as the reference strategy).
 
     Values are stored in float64 on the host by default — byte counts stay
-    exact; device kernels downcast (after scaling) as they see fit.
+    exact. A ``scale`` other than 1 stores ``samples / scale`` instead: the
+    fill divides in float64 and rounds once to ``dtype``, so the bytes are
+    ``(pack_ragged(...) / scale).astype(dtype)``'s with no float64 matrix in
+    between (the strategies pack memory so, in MB and float32, for the
+    device).
 
     One pass: the row lengths first, then one destination in which every
     element is written once, long rows by row blocks on the host's cores
-    (:func:`pack_workers`).
+    (:func:`pack_workers`). A scaled fill divides a cache-sized float64
+    block of rows at a time.
     """
-    values, counts, _workers = pack_ragged_with_workers(per_object_series, dtype, capacity)
+    values, counts, _workers = pack_ragged_with_workers(per_object_series, dtype, capacity, scale)
     return values, counts

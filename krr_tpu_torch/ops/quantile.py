@@ -121,7 +121,9 @@ def masked_max_from_host(
     (divided by ``scale`` first when it is not 1), streamed to the device in
     time chunks so the whole matrix never lives there; NaN for empty rows.
     Bit-identical to :func:`masked_max` — and to one ``row_max`` launch — on
-    the same scaled float32 data.
+    the same scaled float32 data. ``scale`` is kept for parity with the JAX
+    package's API: the strategies pass memory already in MB
+    (`krr_tpu_torch.strategies.simple.device_packed`).
 
     Each chunk's max comes from the ``row_max`` kernel on the card (its
     plain version on the CPU) with −inf for a row whose samples all lie in

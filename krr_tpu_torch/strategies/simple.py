@@ -45,7 +45,7 @@ import torch
 
 from krr_tpu_torch.core.rounding import as_decimal
 from krr_tpu_torch.models.allocations import ResourceType
-from krr_tpu_torch.models.series import FleetBatch
+from krr_tpu_torch.models.series import FleetBatch, PackedSeries
 from krr_tpu_torch.obs.device import NULL_DEVICE_OBS, DeviceObs
 from krr_tpu_torch.ops import topk_sketch as topk_ops
 from krr_tpu_torch.ops.chunked import RowSplit, StreamStats
@@ -98,26 +98,36 @@ def finalize_fleet(
     return results
 
 
+def device_packed(batch: FleetBatch, resource: ResourceType) -> PackedSeries:
+    """The packed view of ``resource`` the device reads, on every path, as
+    a C-contiguous float32 matrix and int32 counts: memory in MB
+    (``batch.packed_scaled(Memory, MEMORY_SCALE)``: the pack's own fill
+    divides each byte count in float64 and rounds it once to float32, as
+    the JAX package's ``(values / scale).astype(float32)`` does), CPU as
+    packed (float32)."""
+    if resource is ResourceType.Memory:
+        return batch.packed_scaled(resource, MEMORY_SCALE)
+    return batch.packed(resource)
+
+
 def fleet_device_arrays(
     batch: FleetBatch,
     resource: ResourceType,
-    scale: float = 1.0,
     *,
     device: "torch.device | str",
     obs: DeviceObs = NULL_DEVICE_OBS,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Packed host arrays → (float32 device values, int32 device counts).
+    """The device view's host arrays (:func:`device_packed`) → (float32
+    device values, int32 device counts).
 
-    The scale divides the host pack (float64 for memory) BEFORE the float32
-    cast, as the JAX package does; the cast is numpy's, so both packages
-    round identically. The scale and cast are ``obs``'s ``cast`` stage, the
-    copies its ``h2d`` stage, whose ``bytes`` (the two tensors' bytes) also
-    go to ``krr_tpu_h2d_bytes_total``."""
-    packed = batch.packed(resource)
-    with obs.stage("cast", resource=resource.value):
-        host = packed.values / scale if scale != 1.0 else packed.values
-        values = torch.from_numpy(np.ascontiguousarray(host, dtype=np.float32))
-        counts = torch.from_numpy(np.ascontiguousarray(packed.counts, dtype=np.int32))
+    The pack already holds float32 values (memory divided in its fill), so
+    the ``cast`` stage takes the host matrix and counts as they are, with no
+    copy: its ``copied_bytes``, the bytes it allocated, are 0. The copies
+    are the ``h2d`` stage, whose ``bytes`` (the two tensors' bytes) also go
+    to ``krr_tpu_h2d_bytes_total``."""
+    packed = device_packed(batch, resource)
+    with obs.stage("cast", resource=resource.value, copied_bytes=0):
+        values, counts = torch.from_numpy(packed.values), torch.from_numpy(packed.counts)
     copied = values.nbytes + counts.nbytes
     with obs.stage("h2d", resource=resource.value, bytes=copied):
         values, counts = obs.fence((values.to(device), counts.to(device)))
@@ -153,8 +163,8 @@ def use_host_stream(batch: FleetBatch, device: torch.device, setting_mb: int, me
     threshold = _stream_threshold_bytes(setting_mb, device)
     if threshold is None:
         return False
-    cpu = batch.packed(ResourceType.CPU)
-    mem = batch.packed(ResourceType.Memory)
+    cpu = device_packed(batch, ResourceType.CPU)
+    mem = device_packed(batch, ResourceType.Memory)
     num_devices = 1 if mesh is None else mesh.size
     return 4 * (cpu.values.size + mem.values.size) / num_devices > threshold
 
@@ -260,8 +270,8 @@ class SimpleStrategy(BatchedStrategy[SimpleStrategySettings]):
         the sample the resident path selects. The percentile may still be
         on the device (a tensor); the peak is a host array. Each resource's
         legs go to its :class:`StreamStats` in ``stats``."""
-        cpu = batch.packed(ResourceType.CPU)
-        mem = batch.packed(ResourceType.Memory)
+        cpu = device_packed(batch, ResourceType.CPU)
+        mem = device_packed(batch, ResourceType.Memory)
         where = {"device": self.device, "devices": stream_devices(mesh), "obs": self.obs}
         k = exact_topk_k(cpu.capacity, q, self.settings.exact_sketch_budget)
         if k is not None:
@@ -271,7 +281,7 @@ class SimpleStrategy(BatchedStrategy[SimpleStrategySettings]):
         else:  # mid-range percentile: no bounded exact sketch
             cpu_p = masked_percentile_bisect_from_host(cpu.values, cpu.counts, q, HOST_STREAM_CHUNK,
                                                        stats=stats[ResourceType.CPU], **where)
-        mem_max = masked_max_from_host(mem.values, mem.counts, HOST_STREAM_CHUNK, scale=MEMORY_SCALE,
+        mem_max = masked_max_from_host(mem.values, mem.counts, HOST_STREAM_CHUNK,
                                        stats=stats[ResourceType.Memory], **where)
         return cpu_p, mem_max
 
@@ -293,10 +303,10 @@ class SimpleStrategy(BatchedStrategy[SimpleStrategySettings]):
         the sharded percentile and the sharded memory max, each returned to
         the host."""
         self.stream_stats = None
-        cpu = batch.packed(ResourceType.CPU)
-        mem = batch.packed(ResourceType.Memory)
+        cpu = device_packed(batch, ResourceType.CPU)
+        mem = device_packed(batch, ResourceType.Memory)
         cpu_p = sharded_percentile_bisect(cpu.values, cpu.counts, q, mesh)
-        mem_max = sharded_masked_max(mem.values / MEMORY_SCALE, mem.counts, mesh)
+        mem_max = sharded_masked_max(mem.values, mem.counts, mesh)
         return cpu_p, mem_max
 
     def _run_resident(self, batch: FleetBatch, q: float) -> tuple:
@@ -306,9 +316,7 @@ class SimpleStrategy(BatchedStrategy[SimpleStrategySettings]):
         self.stream_stats = None
         obs = self.obs
         cpu_values, cpu_counts = fleet_device_arrays(batch, ResourceType.CPU, device=self.device, obs=obs)
-        mem_values, mem_counts = fleet_device_arrays(
-            batch, ResourceType.Memory, scale=MEMORY_SCALE, device=self.device, obs=obs
-        )
+        mem_values, mem_counts = fleet_device_arrays(batch, ResourceType.Memory, device=self.device, obs=obs)
         with obs.stage("quantile", rows=len(batch), path="resident"):
             # One program, one readback (the JAX package's fleet_exact contract).
             stacked = fleet_exact(cpu_values, cpu_counts, mem_values, mem_counts, q).cpu().numpy()
@@ -320,13 +328,13 @@ class SimpleStrategy(BatchedStrategy[SimpleStrategySettings]):
         q = float(self.settings.cpu_percentile)
         obs = self.obs
         with self.profile_span():
-            # The pack stage brackets the ragged→rectangular host pack (the
-            # packed views are cached on the batch, so re-reads below are
-            # free), records the fill's threads and destination bytes, and
-            # fires the padding-efficiency gauges.
+            # The pack stage brackets the ragged→rectangular host pack, memory
+            # divided to MB in its fill (the packed views are cached on the
+            # batch, so re-reads below are free), records the fill's threads
+            # and destination bytes, and fires the padding-efficiency gauges.
             with obs.stage("pack", rows=len(batch)) as span:
-                cpu = batch.packed(ResourceType.CPU)
-                mem = batch.packed(ResourceType.Memory)
+                cpu = device_packed(batch, ResourceType.CPU)
+                mem = device_packed(batch, ResourceType.Memory)
                 span.set(workers_cpu=cpu.workers, workers_memory=mem.workers,
                          bytes=cpu.values.nbytes + mem.values.nbytes)
                 obs.record_padding(ResourceType.CPU.value, cpu)

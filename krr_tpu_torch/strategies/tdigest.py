@@ -81,6 +81,7 @@ from krr_tpu_torch.strategies.base import BatchedStrategy, RunResult
 from krr_tpu_torch.strategies.simple import (
     MEMORY_SCALE,
     SimpleStrategySettings,
+    device_packed,
     exact_topk_k,
     finalize_fleet,
     fleet_device_arrays,
@@ -196,8 +197,8 @@ class TDigestStrategy(BatchedStrategy[TDigestStrategySettings]):
         device (a tensor), the peak a host array. Each resource's legs go
         to its :class:`StreamStats` in ``stats``."""
         chunk = self.settings.chunk_size
-        cpu = batch.packed(ResourceType.CPU)
-        mem = batch.packed(ResourceType.Memory)
+        cpu = device_packed(batch, ResourceType.CPU)
+        mem = device_packed(batch, ResourceType.Memory)
         where = {"device": self.device, "devices": stream_devices(mesh), "obs": self.obs}
         cpu_where = {**where, "stats": stats[ResourceType.CPU]}
         k = self._exact_topk_k(cpu.capacity, q)
@@ -207,8 +208,7 @@ class TDigestStrategy(BatchedStrategy[TDigestStrategySettings]):
         else:
             cpu_digest = digest_ops.build_from_host(spec, cpu.values, cpu.counts, chunk, **cpu_where)
             cpu_p = digest_ops.percentile(spec, cpu_digest, q)
-        mem_max = masked_max_from_host(mem.values, mem.counts, chunk, scale=MEMORY_SCALE,
-                                       stats=stats[ResourceType.Memory], **where)
+        mem_max = masked_max_from_host(mem.values, mem.counts, chunk, stats=stats[ResourceType.Memory], **where)
         return cpu_p, mem_max
 
     def _streamed_window_digest(
@@ -219,15 +219,14 @@ class TDigestStrategy(BatchedStrategy[TDigestStrategySettings]):
         ``row_max`` launch a chunk (`krr_tpu/strategies/tdigest.py:128-147`);
         each resource's legs go to its :class:`StreamStats` in ``stats``."""
         chunk = self.settings.chunk_size
-        cpu = batch.packed(ResourceType.CPU)
-        mem = batch.packed(ResourceType.Memory)
+        cpu = device_packed(batch, ResourceType.CPU)
+        mem = device_packed(batch, ResourceType.Memory)
         where = {"device": self.device, "devices": stream_devices(mesh), "obs": self.obs}
         cpu_digest = digest_ops.build_from_host(spec, cpu.values, cpu.counts, chunk,
                                                 stats=stats[ResourceType.CPU], **where)
         n, b = cpu_digest.counts.shape
         host = torch.cat([cpu_digest.counts.reshape(-1), cpu_digest.total, cpu_digest.peak]).cpu().numpy()
-        mem_peak = masked_max_from_host(mem.values, mem.counts, chunk, scale=MEMORY_SCALE,
-                                        stats=stats[ResourceType.Memory], **where)
+        mem_peak = masked_max_from_host(mem.values, mem.counts, chunk, stats=stats[ResourceType.Memory], **where)
         return host[: n * b].reshape(n, b), host[n * b : n * b + n], host[n * b + n :], mem_peak
 
     def _window_digest(self, batch: FleetBatch, spec: DigestSpec, mesh: Optional[Mesh]) -> tuple:
@@ -239,7 +238,7 @@ class TDigestStrategy(BatchedStrategy[TDigestStrategySettings]):
         the scaled memory window, read back in one copy. On a mesh: one of
         each per shard, the digest merged per row block and read back per
         field."""
-        mem = batch.packed(ResourceType.Memory)
+        mem = device_packed(batch, ResourceType.Memory)
         mem_total = np.asarray(mem.counts, dtype=np.float32)
         if self._use_host_stream(batch, mesh):
             stats = {resource: StreamStats() for resource in ResourceType}
@@ -247,18 +246,16 @@ class TDigestStrategy(BatchedStrategy[TDigestStrategySettings]):
             self.stream_stats = record_streams(self.obs, stats).as_dict()
         elif mesh is not None:
             self.stream_stats = None
-            cpu = batch.packed(ResourceType.CPU)
+            cpu = device_packed(batch, ResourceType.CPU)
             digests, real_rows = sharded_fleet_digest(spec, cpu.values, cpu.counts, mesh)
             counts, total, peak = (
                 gather_rows(digests, lambda digest, i=i: digest[i], real_rows) for i in range(3)
             )
-            mem_peak = sharded_masked_max(mem.values / MEMORY_SCALE, mem.counts, mesh)
+            mem_peak = sharded_masked_max(mem.values, mem.counts, mesh)
         else:
             self.stream_stats = None
             cpu_values, cpu_counts = fleet_device_arrays(batch, ResourceType.CPU, device=self.device, obs=self.obs)
-            mem_values, mem_counts = fleet_device_arrays(
-                batch, ResourceType.Memory, scale=MEMORY_SCALE, device=self.device, obs=self.obs
-            )
+            mem_values, mem_counts = fleet_device_arrays(batch, ResourceType.Memory, device=self.device, obs=self.obs)
             cpu_digest = digest_ops.build_from_packed(spec, cpu_values, cpu_counts)
             mem_max = masked_max_cuda(mem_values, mem_counts)
             # One readback: the flat concatenation keeps the counts block a
@@ -365,8 +362,8 @@ class TDigestStrategy(BatchedStrategy[TDigestStrategySettings]):
         294-321`."""
         obs = self.obs
         self.stream_stats = None
-        cpu = batch.packed(ResourceType.CPU)
-        mem = batch.packed(ResourceType.Memory)
+        cpu = device_packed(batch, ResourceType.CPU)
+        mem = device_packed(batch, ResourceType.Memory)
         k = self._exact_topk_k(cpu.capacity, q)
         with obs.stage("digest", rows=len(batch), sketch="topk" if k is not None else "digest"):
             if k is not None:
@@ -378,7 +375,7 @@ class TDigestStrategy(BatchedStrategy[TDigestStrategySettings]):
                 cpu_p = gather_rows(sketches, lambda sketch: topk_ops.percentile(sketch, q), real_rows)
             else:
                 cpu_p = sharded_percentile(spec, digests, q, real_rows)
-            mem_max = sharded_masked_max(mem.values / MEMORY_SCALE, mem.counts, mesh)
+            mem_max = sharded_masked_max(mem.values, mem.counts, mesh)
         return cpu_p, mem_max
 
     def _run_resident(self, batch: FleetBatch, spec: DigestSpec, q: float) -> tuple:
@@ -388,10 +385,8 @@ class TDigestStrategy(BatchedStrategy[TDigestStrategySettings]):
         obs = self.obs
         self.stream_stats = None
         cpu_values, cpu_counts = fleet_device_arrays(batch, ResourceType.CPU, device=self.device, obs=obs)
-        mem_values, mem_counts = fleet_device_arrays(
-            batch, ResourceType.Memory, scale=MEMORY_SCALE, device=self.device, obs=obs
-        )
-        k = self._exact_topk_k(batch.packed(ResourceType.CPU).capacity, q)
+        mem_values, mem_counts = fleet_device_arrays(batch, ResourceType.Memory, device=self.device, obs=obs)
+        k = self._exact_topk_k(device_packed(batch, ResourceType.CPU).capacity, q)
         with obs.stage("digest", rows=len(batch), sketch="topk" if k is not None else "digest"):
             if k is not None:
                 sketch = obs.fence(topk_ops.build_from_packed(cpu_values, cpu_counts, k))
@@ -415,8 +410,8 @@ class TDigestStrategy(BatchedStrategy[TDigestStrategySettings]):
         self.store_stats = None
         with self.profile_span():
             with obs.stage("pack", rows=len(batch)) as span:
-                cpu = batch.packed(ResourceType.CPU)
-                mem = batch.packed(ResourceType.Memory)
+                cpu = device_packed(batch, ResourceType.CPU)
+                mem = device_packed(batch, ResourceType.Memory)
                 span.set(workers_cpu=cpu.workers, workers_memory=mem.workers,
                          bytes=cpu.values.nbytes + mem.values.nbytes)
                 obs.record_padding(ResourceType.CPU.value, cpu)

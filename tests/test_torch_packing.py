@@ -2,7 +2,10 @@
 the same ``values`` dtype, shape and bytes (zero padding included) and the
 same ``counts``, for every kind of input, on the serial fill and on the fill
 by row blocks over threads, with shapes on either side of the cut that
-chooses between them."""
+chooses between them. A scaled pack (memory in MB) is held to the JAX
+package's float64 pack divided and then cast, ``(pack / scale).astype``,
+whatever the size of the float64 block of rows its fill divides at a
+time."""
 
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ import pytest
 from krr_tpu.ops.packing import pack_ragged as jax_pack_ragged
 from krr_tpu_torch.ops import packing
 from krr_tpu_torch.ops.packing import pack_ragged, pack_ragged_with_workers, pack_workers
+from krr_tpu_torch.strategies.simple import MEMORY_SCALE
 
 #: The cut the ``threaded`` path lowers the fill to, so small shapes cross it:
 #: its shapes' chunks average at least this many samples, ``serial``'s fewer.
@@ -96,6 +100,15 @@ CASES = {
 }
 
 
+def jax_reference(series, dtype, capacity, scale: float = 1.0) -> tuple:
+    """The JAX package's pack of ``series``; scaled, its float64 pack
+    divided by ``scale`` and cast to ``dtype``."""
+    if scale == 1.0:
+        return jax_pack_ragged(series, dtype, capacity)
+    values, counts = jax_pack_ragged(series, np.float64, capacity)
+    return (values / scale).astype(dtype), counts
+
+
 def cores() -> int:
     return min(packing.MAX_WORKERS, len(os.sched_getaffinity(0)))
 
@@ -110,21 +123,24 @@ def assert_bitwise_equal(got: tuple, want: tuple) -> None:
 
 
 @pytest.mark.filterwarnings("ignore:overflow encountered in cast:RuntimeWarning")
+@pytest.mark.parametrize("scale", [1.0, MEMORY_SCALE], ids=["unscaled", "mb"])
 @pytest.mark.parametrize("capacity", [None, 1000], ids=["fit", "capacity"])
 @pytest.mark.parametrize("dtype", [np.float32, np.float64], ids=["float32", "float64"])
 @pytest.mark.parametrize("path", ["serial", "threaded"])
 @pytest.mark.parametrize("case", sorted(CASES))
-def test_pack_ragged_equals_jax_bit_for_bit(monkeypatch, case, path, dtype, capacity):
+def test_pack_ragged_equals_jax_bit_for_bit(monkeypatch, case, path, dtype, capacity, scale):
     long = path == "threaded"
     make = lambda: CASES[case](np.random.default_rng(22), long)  # noqa: E731 - fresh generators each call
-    serial = pack_ragged_with_workers(make(), dtype, capacity)
+    # Blocks of a few rows, so a block fill ends on a partial block.
+    monkeypatch.setattr(packing, "SCALE_BLOCK_BYTES", 24 << 10)
+    serial = pack_ragged_with_workers(make(), dtype, capacity, scale)
     if long:
         monkeypatch.setattr(packing, "THREAD_MIN_CHUNK", SMALL_CUT)
         monkeypatch.setattr(packing, "THREAD_MIN_BYTES", 0)
-    values, counts, workers = pack_ragged_with_workers(make(), dtype, capacity)
+    values, counts, workers = pack_ragged_with_workers(make(), dtype, capacity, scale)
 
-    assert_bitwise_equal((values, counts), jax_pack_ragged(make(), dtype, capacity))
-    assert_bitwise_equal((values, counts), pack_ragged(make(), dtype, capacity))
+    assert_bitwise_equal((values, counts), jax_reference(make(), dtype, capacity, scale))
+    assert_bitwise_equal((values, counts), pack_ragged(make(), dtype, capacity, scale))
     assert serial[2] == 1
     assert workers == (cores() if long and case != "empty_fleet" else 1)
     # The threaded fill writes the serial fill's bytes.
@@ -173,3 +189,23 @@ def test_a_threaded_pack_at_the_real_cut_equals_the_serial_one(monkeypatch):
     assert serial[2] == 1
     assert_bitwise_equal((values, counts), serial[:2])
     assert_bitwise_equal((values, counts), jax_pack_ragged(fleet, np.float64))
+
+
+
+def _byte_rows(length: int, rows: int = 50) -> list:
+    """Rows of 1–6 pods of ``length`` samples each (1: the stats route's
+    one max a pod), byte counts past float32's 24-bit mantissa."""
+    rng = np.random.default_rng(length)
+    return [{f"pod-{p}": np.round(rng.uniform(20e6, 3e9, size=length)) for p in range(1 + i % 6)}
+            for i in range(rows)]
+
+
+@pytest.mark.parametrize("length", [1, 300, 5_000], ids=["one_a_pod", "short", "wider_than_a_block"])
+def test_the_scaled_fill_writes_the_same_bytes_at_any_block_size(monkeypatch, length):
+    """Blocks of the shipped size, of one row and of a few rows (a partial
+    last block) give the float64 pack divided and cast; rows of 5,000 × up
+    to 6 pods are wider than a 24 KiB block, so each takes a block alone."""
+    want = jax_reference(_byte_rows(length), np.float32, None, MEMORY_SCALE)
+    for block_bytes in (packing.SCALE_BLOCK_BYTES, 1, 24 << 10):
+        monkeypatch.setattr(packing, "SCALE_BLOCK_BYTES", block_bytes)
+        assert_bitwise_equal(pack_ragged(_byte_rows(length), np.float32, None, MEMORY_SCALE), want)

@@ -1,7 +1,9 @@
 """The one-shot scan's trace on the CPU: the runner's ``assemble``, ``gc``
 and ``render`` spans under the scan's root, the resident paths' ``cast`` and
-``h2d`` stages with their byte counts, the ``pack`` stage's threads and
-bytes, the stages' page-fault counts, the
+``h2d`` stages with their byte counts, memory packed once in MB as float32
+(the ``cast`` stage copies nothing) and rendered as the old divide-then-cast
+rendered it, the ``pack`` stage's threads and bytes, the stages' page-fault
+counts, the
 spans' ``torch.profiler`` ranges, and what a scan without a recording
 tracer leaves alone; and the ``--profile`` report held to ``analyze``'s
 reading of the exported trace at the export's rounding edges."""
@@ -22,7 +24,8 @@ import krr_tpu_torch.core.runner as port_runner
 import krr_tpu_torch.models as port_models
 import krr_tpu_torch.strategies.simple as port_simple
 import krr_tpu_torch.strategies.tdigest as port_tdigest
-from krr_tpu_torch.models.interop import objects_from_dicts
+from krr_tpu_torch.models.interop import fleet_batch_from_dicts, objects_from_dicts
+from krr_tpu_torch.models.series import PackedSeries
 from krr_tpu_torch.obs import profile as port_profile
 from krr_tpu_torch.obs.trace import NULL_TRACER, Span, Tracer
 from krr_tpu_torch.ops import packing
@@ -130,6 +133,69 @@ def test_h2d_bytes_are_the_copied_tensors_bytes(fleet, monkeypatch, path, record
         assert h2d == copied
 
 
+def _batches(monkeypatch) -> list:
+    """The batches every strategy's ``run_batch`` is handed, as they come."""
+    seen: list = []
+    for cls in (port_simple.SimpleStrategy, port_tdigest.TDigestStrategy):
+        def run_batch(self, batch, _original=cls.run_batch):
+            seen.append(batch)
+            return _original(self, batch)
+
+        monkeypatch.setattr(cls, "run_batch", run_batch)
+    return seen
+
+
+def _divided_after_the_pack(batch, resource):
+    """The device view as it was built before the pack divided: memory
+    packed raw in float64, then divided and cast to float32."""
+    packed = batch.packed(resource)
+    if resource is not port_models.ResourceType.Memory:
+        return packed
+    values = np.ascontiguousarray(packed.values / port_simple.MEMORY_SCALE, dtype=np.float32)
+    return PackedSeries(values=values, counts=packed.counts, workers=packed.workers)
+
+
+@pytest.mark.parametrize("block", ["shipped", "one_row"])
+@pytest.mark.parametrize("path", sorted(RESIDENT))
+def test_a_resident_scan_packs_memory_once_in_mb_and_casts_nothing(fleet, monkeypatch, path, block):  # noqa: F811
+    if block == "one_row":  # the fill divides a row at a time
+        monkeypatch.setattr(packing, "SCALE_BLOCK_BYTES", 1)
+    batches = _batches(monkeypatch)
+    tracer = Tracer()
+    got, _runner = scan(fleet, *RESIDENT[path], tracer)
+    (batch,) = batches
+    memory, cpu = port_models.ResourceType.Memory, port_models.ResourceType.CPU
+    # No float64 memory pack: the cache holds the scaled float32 view alone.
+    assert set(batch._packed) == {(cpu, 1.0), (memory, port_simple.MEMORY_SCALE)}
+    assert batch._packed[(memory, port_simple.MEMORY_SCALE)].values.dtype == np.float32
+    (spans,) = tracer.traces()
+    casts = {s.attributes["resource"]: s.attributes["copied_bytes"] for s in spans if s.name == "cast"}
+    assert casts == {"cpu": 0, "memory": 0}
+    # The same bytes as the raw pack divided and cast, and the same render.
+    assert (batch.packed_scaled(memory, port_simple.MEMORY_SCALE).values.tobytes()
+            == _divided_after_the_pack(batch, memory).values.tobytes())
+    monkeypatch.setattr(port_simple, "device_packed", _divided_after_the_pack)
+    monkeypatch.setattr(port_tdigest, "device_packed", _divided_after_the_pack)
+    want, _runner = scan(fleet, *RESIDENT[path], NULL_TRACER)
+    assert got.format("json") == want.format("json")
+
+
+@pytest.mark.parametrize("rows", ["whole", "slice"])
+def test_the_device_view_is_float32_c_contiguous_with_int32_counts(fleet, rows):  # noqa: F811
+    """What the ``cast`` stage takes without a copy: both resources' device
+    views, of the whole batch and of a row slice packed to the fleet's
+    width, are C-contiguous float32 matrices beside int32 counts."""
+    _jax_objs, dumps, histories = fleet
+    batch = fleet_batch_from_dicts(dumps, histories)
+    if rows == "slice":
+        batch = batch.row_slice(3, 9)
+    for resource in port_models.ResourceType:
+        view = port_simple.device_packed(batch, resource)
+        assert view.values.dtype == np.float32 and view.values.flags.c_contiguous
+        assert view.counts.dtype == np.int32 and view.counts.flags.c_contiguous
+        assert view.values.shape[0] == len(view.counts) == len(batch)
+
+
 def test_h2d_bytes_add_up_over_scans_and_row_chunks(fleet):  # noqa: F811
     _result, runner = scan(fleet, "simple", {}, NULL_TRACER)
     once = runner.metrics.value("krr_tpu_h2d_bytes_total", resource="cpu")
@@ -168,11 +234,12 @@ def test_the_pack_stage_carries_its_workers_and_bytes(fleet, monkeypatch, path, 
     assert pack.attributes["workers_cpu"] == pack.attributes["workers_memory"] == workers
     for name in ("cpu", "memory"):
         assert runner.metrics.value("krr_tpu_pack_workers", resource=name) == workers
-    # The destinations' bytes: float32 CPU and float64 memory rows, each
-    # copied to the device as float32 values beside int32 counts.
+    # The destinations' bytes: float32 CPU rows and float32 memory rows (in
+    # MB, divided by the fill), each copied to the device as it is beside
+    # int32 counts.
     rows = pack.attributes["rows"]
     h2d = {s.attributes["resource"]: s.attributes["bytes"] - 4 * rows for s in spans if s.name == "h2d"}
-    assert pack.attributes["bytes"] == h2d["cpu"] + 2 * h2d["memory"] > 0
+    assert pack.attributes["bytes"] == h2d["cpu"] + h2d["memory"] > 0
 
 
 @pytest.mark.parametrize("path", sorted(RESIDENT))

@@ -174,9 +174,10 @@ def test_the_stream_counters_grow_by_each_scans_bytes_and_chunks(streamed_fleet,
     assert first[("bytes", "cpu")] + first[("bytes", "memory")] == stats["host_bytes"]
     assert first[("chunks", "cpu")] + first[("chunks", "memory")] == stats["chunks"]
     assert {r: first[("chunks", r)] for r in ("cpu", "memory")} == chunks(path)
-    # Each pass reads the packed window once: float32 CPU, float64 memory.
+    # Each pass reads the packed window once: float32 CPU, float32 memory
+    # (in MB, divided by the pack's fill).
     assert first[("bytes", "cpu")] == CPU_PASSES[path] * CONTAINERS * CPU_COLUMNS * 4
-    assert first[("bytes", "memory")] == CONTAINERS * MEMORY_COLUMNS[STREAMED[path][0]] * 8
+    assert first[("bytes", "memory")] == CONTAINERS * MEMORY_COLUMNS[STREAMED[path][0]] * 4
     assert counted[1] == {key: 2 * value for key, value in first.items()}
     assert counted[2] == {key: 3 * value for key, value in first.items()}
 
