@@ -787,10 +787,12 @@ def stream_parity(torch, np, errs: dict) -> int:
     from krr_tpu_torch.ops import cuda_select, cuda_sketch
     from krr_tpu_torch.ops import digest as digest_ops
     from krr_tpu_torch.ops import topk_sketch as topk_ops
+    from krr_tpu_torch.ops.packing import pack_ragged
     from krr_tpu_torch.ops.quantile import masked_max_from_host
     from krr_tpu_torch.ops.selection import (
         INT32_MIN, RADIX_SHIFTS, STREAM_DIGITS, as_ordered_bits, masked_percentile_bisect_from_host,
     )
+    from krr_tpu_torch.strategies.window import MEMORY_SCALE
 
     dev = torch.device(DEVICE)
     errs["radix_digit_hist"] = 0.0
@@ -834,11 +836,13 @@ def stream_parity(torch, np, errs: dict) -> int:
     memory = np.round(np.random.default_rng(1301).uniform(2e7, 4e9, size=(257, 4097)))
     v, c = torch.from_numpy(values).to(dev), torch.from_numpy(counts).to(dev)
     mem32 = torch.from_numpy(np.ascontiguousarray(memory / 1e6, dtype=np.float32)).to(dev)
+    # Memory streams as the strategies pack it: in MB, float32, divided in the pack's own fill.
+    memory_mb, _ = pack_ragged([[row] for row in memory], dtype=np.float32, capacity=4097, scale=MEMORY_SCALE)
     for chunk in (1000, 4096):
         streamed = masked_max_from_host(values, counts, chunk, device=DEVICE)
         check(np.array_equal(streamed.view(np.int32), cuda_select.masked_max_cuda(v, c).cpu().numpy().view(np.int32)),
               f"streamed max != row_max at chunk={chunk}")
-        streamed = masked_max_from_host(memory, counts, chunk, scale=1e6, device=DEVICE)
+        streamed = masked_max_from_host(memory_mb, counts, chunk, device=DEVICE)
         resident = cuda_select.masked_max_cuda(mem32, c).cpu().numpy()
         check(np.array_equal(streamed.view(np.int32), resident.view(np.int32)),
               f"streamed memory max != row_max at chunk={chunk}")
@@ -2054,7 +2058,7 @@ def phase_mesh(torch, np, fleet: E2EFleet, references: dict) -> dict:
     (``references``, :func:`resident_scans`) byte for byte with the exact
     launches of :data:`MESH_SCANS`, no generic fold, 10,000 rows and no
     ``?``."""
-    import krr_tpu_torch.strategies.simple as simple_module
+    import krr_tpu_torch.strategies.window as window_module
     from krr_tpu_torch import parallel
 
     dev = torch.device(DEVICE)
@@ -2076,8 +2080,8 @@ def phase_mesh(torch, np, fleet: E2EFleet, references: dict) -> dict:
     torch.cuda.empty_cache()
 
     report["samples_per_pod"] = fleet.samples_per_pod
-    seam = simple_module.mesh_devices
-    simple_module.mesh_devices = lambda device: [dev] * 4
+    seam = window_module.mesh_devices
+    window_module.mesh_devices = lambda device: [dev] * 4
     try:
         for path, (strategy, args, expected) in MESH_SCANS.items():
             torch.cuda.reset_peak_memory_stats()
@@ -2094,7 +2098,7 @@ def phase_mesh(torch, np, fleet: E2EFleet, references: dict) -> dict:
             report["scans"][path] = {"run_wall_seconds": wall, "runner_stats": runner.stats, "legs_seconds": legs,
                                      "launches": launches, "peak_device_bytes": torch.cuda.max_memory_allocated()}
     finally:
-        simple_module.mesh_devices = seam
+        window_module.mesh_devices = seam
     emit("mesh", **report)
     return report
 

@@ -768,7 +768,7 @@ class FederatedShard:
             if isinstance(fleet, BaseException):
                 raise fleet
 
-        from krr_tpu_torch.strategies.simple import MEMORY_SCALE
+        from krr_tpu_torch.strategies.window import MEMORY_SCALE
 
         for fleet in fleets:
             self.store.fold_fleet(fleet, MEMORY_SCALE)

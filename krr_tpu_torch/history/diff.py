@@ -176,7 +176,7 @@ async def live_values(config) -> dict[str, tuple[float, float]]:
     SAME digest fold + store query the serve scheduler publishes from."""
     from krr_tpu_torch.core.runner import ScanSession
     from krr_tpu_torch.core.streaming import DigestStore, object_key
-    from krr_tpu_torch.strategies.simple import MEMORY_SCALE
+    from krr_tpu_torch.strategies.window import MEMORY_SCALE
 
     session = ScanSession(config)
     try:

@@ -102,11 +102,6 @@ def scan_time_chunks(
     return state
 
 
-#: Rows per block of the host fill's scale-and-cast: bounds the float64
-#: temporary of ``block / scale`` to a few MB however wide the chunk is.
-_FILL_ELEMENTS = 1 << 21
-
-
 @dataclass
 class StreamStats:
     """What host streams did, summed over every pass of every streamer that
@@ -167,13 +162,10 @@ class HostChunkStreamer:
     and row-local, so the result is bit-identical to a resident fold for
     any chunk size.
 
-    Each chunk is divided by ``scale`` (when not 1) with the host matrix's
-    own dtype — float64 for a raw memory window — and then cast to float32
-    by numpy, as the JAX package's ``_host_chunk`` does, and as the pack's
-    own scaled fill (`krr_tpu_torch.models.series.FleetBatch.packed_scaled`)
-    does: the bytes on the device are the same. ``scale`` is kept for parity
-    with the JAX package's API alone: the strategies hand it memory packed
-    in MB as float32 already, so their streams copy at scale 1.
+    Each chunk is copied as numpy casts it to float32: the strategies hand
+    it windows packed in float32 already (memory in MB, divided in the
+    pack's own fill, `krr_tpu_torch.strategies.window`), so the copy keeps
+    their bytes.
 
     On a CUDA device: two pinned host staging buffers and two device chunk
     buffers, allocated at the first :meth:`run` and reused by every later
@@ -202,7 +194,6 @@ class HostChunkStreamer:
         counts: np.ndarray,
         chunk_size: int,
         time_offset: int = 0,
-        scale: float = 1.0,
         *,
         device: "torch.device | str" = "cuda",
         stats: Optional[StreamStats] = None,
@@ -219,7 +210,6 @@ class HostChunkStreamer:
             raise ValueError(f"{counts32.shape[0] if counts32.ndim else 0} counts for {self.n} rows")
         self.chunk_size = chunk_size
         self.time_offset = time_offset
-        self.scale = scale
         self.device = torch.device(device)
         if self.device.type not in ("cpu", "cuda"):
             raise ValueError(f"unsupported device {self.device}")
@@ -243,18 +233,13 @@ class HostChunkStreamer:
         return torch.clamp(self.counts - (self.time_offset + start), 0, width).to(torch.int32)
 
     def _fill(self, i: int, out: np.ndarray) -> None:
-        """Write chunk i, scaled and cast to float32, into ``out`` ([N, w])."""
+        """Write chunk i, cast to float32, into ``out`` ([N, w])."""
         start, end = self._bounds(i)
         block = self.values[:, start:end]
         nbytes = block.size * block.itemsize
         with self._stage("stream_fill", bytes=nbytes):
             started = time.perf_counter()
-            if self.scale == 1.0:
-                np.copyto(out, block, casting="unsafe")  # numpy's float32 cast, or a plain copy
-            else:  # divide before the float32 cast, in row blocks that bound the temporary
-                rows = max(1, _FILL_ELEMENTS // max(end - start, 1))
-                for r in range(0, self.n, rows):
-                    out[r : r + rows] = block[r : r + rows] / self.scale
+            np.copyto(out, block, casting="unsafe")  # numpy's float32 cast, or a plain copy
             self.stats.host_fill_seconds += time.perf_counter() - started
         self.stats.host_bytes += nbytes
 
@@ -342,7 +327,6 @@ def stream_host_chunks(
     fold: Callable[[State, torch.Tensor, torch.Tensor], State],
     chunk_size: int,
     time_offset: int = 0,
-    scale: float = 1.0,
     *,
     device: "torch.device | str" = "cuda",
     stats: Optional[StreamStats] = None,
@@ -350,7 +334,7 @@ def stream_host_chunks(
 ) -> State:
     """One-shot convenience wrapper over :class:`HostChunkStreamer`."""
     return HostChunkStreamer(
-        values, counts, chunk_size, time_offset=time_offset, scale=scale, device=device, stats=stats, obs=obs
+        values, counts, chunk_size, time_offset=time_offset, device=device, stats=stats, obs=obs
     ).run(init, fold)
 
 

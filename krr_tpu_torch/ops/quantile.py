@@ -110,20 +110,17 @@ def masked_max_from_host(
     values: np.ndarray,
     counts: np.ndarray,
     chunk_size: int = 8192,
-    scale: float = 1.0,
     *,
     device: "torch.device | str" = "cuda",
     stats: Optional[StreamStats] = None,
     obs: Optional["DeviceObs"] = None,
     devices: Optional[Sequence["torch.device | str"]] = None,
 ) -> np.ndarray:
-    """Per-row max of the valid prefix of a **host** ``[N, T]`` matrix
-    (divided by ``scale`` first when it is not 1), streamed to the device in
-    time chunks so the whole matrix never lives there; NaN for empty rows.
-    Bit-identical to :func:`masked_max` — and to one ``row_max`` launch — on
-    the same scaled float32 data. ``scale`` is kept for parity with the JAX
-    package's API: the strategies pass memory already in MB
-    (`krr_tpu_torch.strategies.simple.device_packed`).
+    """Per-row max of the valid prefix of a **host** ``[N, T]`` matrix,
+    streamed to the device in time chunks so the whole matrix never lives
+    there; NaN for empty rows. Bit-identical to :func:`masked_max` — and to
+    one ``row_max`` launch — on the same float32 data. The strategies pass
+    memory already in MB (`krr_tpu_torch.strategies.window.device_packed`).
 
     Each chunk's max comes from the ``row_max`` kernel on the card (its
     plain version on the CPU) with −inf for a row whose samples all lie in
@@ -145,7 +142,6 @@ def masked_max_from_host(
             init,
             lambda state, chunk, eff: peak_max(state, row_max_chunk(chunk, eff)),
             chunk_size,
-            scale=scale,
             device=device,
             stats=stats,
             obs=obs,

@@ -888,7 +888,7 @@ class ScanScheduler:
         return True
 
     async def _tick_traced(self, scan_span) -> bool:
-        from krr_tpu_torch.strategies.simple import MEMORY_SCALE
+        from krr_tpu_torch.strategies.window import MEMORY_SCALE
 
         if self.aggregator is not None:
             return await self._federation_tick(scan_span)

@@ -18,7 +18,7 @@ device in ``chunk_size`` time chunks (`krr_tpu_torch.ops.chunked`): the same
 sketch built chunk by chunk, bit-identical, and the streamed memory max.
 
 With more than one device and ``use_mesh`` (`krr_tpu_torch.strategies.
-simple.resolve_mesh`) the window shards over a ``(data, time)`` mesh
+window.resolve_mesh`) the window shards over a ``(data, time)`` mesh
 (`krr_tpu_torch.parallel`, `krr_tpu/strategies/tdigest.py:173-200`,
 `:294-321`): ``digest_hist`` or ``topk_select`` per shard and ``row_max``
 per shard, merged exactly per row block; a streamed window splits its
@@ -43,9 +43,9 @@ kernel runs.
 The legs are stages of the scan trace (``strategy.obs``,
 `krr_tpu_torch.obs.device`), as in `krr_tpu/strategies/tdigest.py:222-347`:
 ``pack``, on the resident path ``cast`` and ``h2d`` for each resource
-(`krr_tpu_torch.strategies.simple.fleet_device_arrays`; inside ``digest``
-with ``state_path``), then ``digest`` (the window's or the sketch's build),
-``fold`` and ``quantile`` (``path=resident``, ``host_stream``, ``mesh``,
+(`krr_tpu_torch.strategies.window`, which owns the window's format and
+placement; inside ``digest`` with ``state_path``), then ``digest`` (the
+window's or the sketch's build), ``fold`` and ``quantile`` (``path=resident``, ``host_stream``, ``mesh``,
 ``store`` or ``ingest``), ``persist`` (the store's delta), then ``round``;
 device results are fenced inside their stage when the tracer records. With
 ``profile_dir`` the compute runs under ``torch.profiler``.
@@ -53,6 +53,7 @@ device results are fenced inside their stage when the tracer records. With
 
 from __future__ import annotations
 
+from functools import partial
 from typing import TYPE_CHECKING, Literal, Optional
 
 import numpy as np
@@ -61,35 +62,15 @@ import torch
 
 from krr_tpu_torch.core.durastore import DurableStore
 from krr_tpu_torch.core.streaming import DigestStore, FsOps, object_key
-from krr_tpu_torch.models.allocations import ResourceType
-from krr_tpu_torch.models.series import FleetBatch
+from krr_tpu_torch.models.series import FleetBatch, PackedSeries
 from krr_tpu_torch.ops import digest as digest_ops
 from krr_tpu_torch.ops import topk_sketch as topk_ops
-from krr_tpu_torch.ops.chunked import StreamStats
 from krr_tpu_torch.ops.cuda_select import masked_max_cuda
 from krr_tpu_torch.ops.digest import DigestSpec
-from krr_tpu_torch.ops.quantile import masked_max_from_host
-from krr_tpu_torch.parallel import (
-    Mesh,
-    gather_rows,
-    sharded_fleet_digest,
-    sharded_fleet_topk,
-    sharded_masked_max,
-    sharded_percentile,
-)
+from krr_tpu_torch.parallel import gather_rows, sharded_fleet_digest, sharded_fleet_topk, sharded_percentile
 from krr_tpu_torch.strategies.base import BatchedStrategy, RunResult
-from krr_tpu_torch.strategies.simple import (
-    MEMORY_SCALE,
-    SimpleStrategySettings,
-    device_packed,
-    exact_topk_k,
-    finalize_fleet,
-    fleet_device_arrays,
-    record_streams,
-    resolve_mesh,
-    stream_devices,
-    use_host_stream,
-)
+from krr_tpu_torch.strategies.simple import SimpleStrategySettings, exact_topk_k, finalize_fleet
+from krr_tpu_torch.strategies.window import MEMORY_SCALE, FleetWindow
 from krr_tpu_torch.utils.device import resolve_device
 
 if TYPE_CHECKING:
@@ -148,6 +129,16 @@ class TDigestStrategySettings(SimpleStrategySettings):
         return DigestSpec(gamma=self.digest_gamma, min_value=1e-7, num_buckets=self.digest_buckets)
 
 
+def _read_back(cpu_digest, *rows: torch.Tensor) -> tuple:
+    """A digest's counts ``[N, B]``, totals and peaks, then each of
+    ``rows`` (``[N]`` each), as host arrays read back in one copy: the flat
+    concatenation keeps the counts block a contiguous ``[N, B]`` view of
+    the host copy."""
+    n, b = cpu_digest.counts.shape
+    host = torch.cat([cpu_digest.counts.reshape(-1), cpu_digest.total, cpu_digest.peak, *rows]).cpu().numpy()
+    return (host[: n * b].reshape(n, b), *np.split(host[n * b :], 2 + len(rows)))
+
+
 class _AppendCountingFs(FsOps):
     """The default filesystem ops, counting the WAL appends of one persist."""
 
@@ -186,87 +177,49 @@ class TDigestStrategy(BatchedStrategy[TDigestStrategySettings]):
             return None
         return exact_topk_k(capacity, q, self.settings.exact_sketch_budget)
 
-    def _use_host_stream(self, batch: FleetBatch, mesh: Optional[Mesh]) -> bool:
-        return use_host_stream(batch, self.device, self.settings.host_stream_mb, mesh)
-
-    def _streamed_sketch(
-        self, batch: FleetBatch, spec: DigestSpec, q: float, stats: dict, mesh: Optional[Mesh]
-    ) -> tuple:
-        """(CPU percentile, memory peak in MB) with the window streamed from
-        host in ``chunk_size`` time chunks: the percentile still on the
-        device (a tensor), the peak a host array. Each resource's legs go
-        to its :class:`StreamStats` in ``stats``."""
+    def _streamed_sketch(self, cpu: PackedSeries, spec: DigestSpec, q: float, **where) -> torch.Tensor:
+        """CPU's percentile with the window streamed from host in
+        ``chunk_size`` time chunks, still on the device: the exact top-K
+        sketch's when it serves, else the histogram digest's."""
         chunk = self.settings.chunk_size
-        cpu = device_packed(batch, ResourceType.CPU)
-        mem = device_packed(batch, ResourceType.Memory)
-        where = {"device": self.device, "devices": stream_devices(mesh), "obs": self.obs}
-        cpu_where = {**where, "stats": stats[ResourceType.CPU]}
         k = self._exact_topk_k(cpu.capacity, q)
         if k is not None:
-            sketch = topk_ops.build_from_host(cpu.values, cpu.counts, k, chunk, **cpu_where)
-            cpu_p = topk_ops.percentile(sketch, q)
-        else:
-            cpu_digest = digest_ops.build_from_host(spec, cpu.values, cpu.counts, chunk, **cpu_where)
-            cpu_p = digest_ops.percentile(spec, cpu_digest, q)
-        mem_max = masked_max_from_host(mem.values, mem.counts, chunk, stats=stats[ResourceType.Memory], **where)
-        return cpu_p, mem_max
+            sketch = topk_ops.build_from_host(cpu.values, cpu.counts, k, chunk, **where)
+            return topk_ops.percentile(sketch, q)
+        cpu_digest = digest_ops.build_from_host(spec, cpu.values, cpu.counts, chunk, **where)
+        return digest_ops.percentile(spec, cpu_digest, q)
 
-    def _streamed_window_digest(
-        self, batch: FleetBatch, spec: DigestSpec, stats: dict, mesh: Optional[Mesh]
-    ) -> tuple:
-        """`_window_digest` without device residency: the CPU digest and the
-        memory peak streamed from host, one ``digest_hist`` and one
-        ``row_max`` launch a chunk (`krr_tpu/strategies/tdigest.py:128-147`);
-        each resource's legs go to its :class:`StreamStats` in ``stats``."""
-        chunk = self.settings.chunk_size
-        cpu = device_packed(batch, ResourceType.CPU)
-        mem = device_packed(batch, ResourceType.Memory)
-        where = {"device": self.device, "devices": stream_devices(mesh), "obs": self.obs}
-        cpu_digest = digest_ops.build_from_host(spec, cpu.values, cpu.counts, chunk,
-                                                stats=stats[ResourceType.CPU], **where)
-        n, b = cpu_digest.counts.shape
-        host = torch.cat([cpu_digest.counts.reshape(-1), cpu_digest.total, cpu_digest.peak]).cpu().numpy()
-        mem_peak = masked_max_from_host(mem.values, mem.counts, chunk, stats=stats[ResourceType.Memory], **where)
-        return host[: n * b].reshape(n, b), host[n * b : n * b + n], host[n * b + n :], mem_peak
-
-    def _window_digest(self, batch: FleetBatch, spec: DigestSpec, mesh: Optional[Mesh]) -> tuple:
+    def _window_digest(self, window: FleetWindow, spec: DigestSpec) -> tuple:
         """Digest + memory peak of the fetched window as host arrays:
         float32 CPU counts ``[N, B]``, totals and peaks, the memory sample
         counts, and the memory peak in MB (−inf for an empty row, as the
         store wants) — `krr_tpu/strategies/tdigest.py:173-203`. Resident:
         one ``digest_hist`` launch on the CPU window and one ``row_max`` on
-        the scaled memory window, read back in one copy. On a mesh: one of
-        each per shard, the digest merged per row block and read back per
+        the scaled memory window, read back in one copy. Streamed: one
+        ``digest_hist`` launch a chunk (`krr_tpu/strategies/tdigest.py:
+        128-147`), then the streamed memory max. On a mesh: one of each
+        per shard, the digest merged per row block and read back per
         field."""
-        mem = device_packed(batch, ResourceType.Memory)
-        mem_total = np.asarray(mem.counts, dtype=np.float32)
-        if self._use_host_stream(batch, mesh):
-            stats = {resource: StreamStats() for resource in ResourceType}
-            counts, total, peak, mem_peak = self._streamed_window_digest(batch, spec, stats, mesh)
-            self.stream_stats = record_streams(self.obs, stats).as_dict()
-        elif mesh is not None:
-            self.stream_stats = None
-            cpu = device_packed(batch, ResourceType.CPU)
-            digests, real_rows = sharded_fleet_digest(spec, cpu.values, cpu.counts, mesh)
+        mem_total = np.asarray(window.memory.counts, dtype=np.float32)
+        chunk = self.settings.chunk_size
+        if window.placement == "host_stream":
+            (counts, total, peak), mem_peak, _total = window.stream(
+                lambda cpu, **where: _read_back(
+                    digest_ops.build_from_host(spec, cpu.values, cpu.counts, chunk, **where)
+                ),
+                chunk,
+            )
+        elif window.placement == "mesh":
+            digests, real_rows = sharded_fleet_digest(spec, window.cpu.values, window.cpu.counts, window.mesh)
             counts, total, peak = (
                 gather_rows(digests, lambda digest, i=i: digest[i], real_rows) for i in range(3)
             )
-            mem_peak = sharded_masked_max(mem.values, mem.counts, mesh)
+            mem_peak = window.mesh_memory_max()
         else:
-            self.stream_stats = None
-            cpu_values, cpu_counts = fleet_device_arrays(batch, ResourceType.CPU, device=self.device, obs=self.obs)
-            mem_values, mem_counts = fleet_device_arrays(batch, ResourceType.Memory, device=self.device, obs=self.obs)
+            cpu_values, cpu_counts, mem_values, mem_counts = window.to_device()
             cpu_digest = digest_ops.build_from_packed(spec, cpu_values, cpu_counts)
-            mem_max = masked_max_cuda(mem_values, mem_counts)
-            # One readback: the flat concatenation keeps the counts block a
-            # contiguous [N, B] view of the host copy.
-            n, b = cpu_digest.counts.shape
-            host = torch.cat(
-                [cpu_digest.counts.reshape(-1), cpu_digest.total, cpu_digest.peak, mem_max]
-            ).cpu().numpy()
-            counts, total = host[: n * b].reshape(n, b), host[n * b : n * b + n]
-            peak, mem_peak = host[n * b + n : n * b + 2 * n], host[n * b + 2 * n :]
-        assert counts.shape[0] == len(batch)
+            counts, total, peak, mem_peak = _read_back(cpu_digest, masked_max_cuda(mem_values, mem_counts))
+        assert counts.shape[0] == len(window.batch)
         # An empty memory row reads NaN from the row max; the store wants -inf.
         mem_peak = np.where(np.isnan(mem_peak), -np.inf, mem_peak)
         return counts, total, peak, mem_total, mem_peak
@@ -329,70 +282,52 @@ class TDigestStrategy(BatchedStrategy[TDigestStrategySettings]):
         with self.obs.stage("round", rows=rows):
             return finalize_fleet(np.asarray(cpu_p), np.asarray(mem_max), self.settings.memory_buffer_percentage)
 
-    def _run_state(self, batch: FleetBatch, spec: DigestSpec, q: float, mesh: Optional[Mesh]) -> tuple:
+    def _run_state(self, window: FleetWindow, spec: DigestSpec, q: float) -> tuple:
         """The ``state_path`` run: the window digest on the device (the
         ``digest`` stage), then the store cycle on the host. On a mesh that
         spans processes every rank holds the whole window's digest and
         folds it into the store at its own ``state_path``."""
-        with self.obs.stage("digest", rows=len(batch)):
-            counts, total, peak, mem_total, mem_peak = self._window_digest(batch, spec, mesh)
-        keys = [object_key(obj) for obj in batch.objects]
+        with self.obs.stage("digest", rows=len(window.batch)):
+            counts, total, peak, mem_total, mem_peak = self._window_digest(window, spec)
+        keys = [object_key(obj) for obj in window.batch.objects]
         return self._store_round(
             spec, q, len(keys),
             lambda store: store.merge_window(keys, counts, total, peak, mem_total, mem_peak),
         )
 
-    def _run_streamed(self, batch: FleetBatch, spec: DigestSpec, q: float, mesh: Optional[Mesh]) -> tuple:
-        """The streamed ``quantile`` stage: (CPU percentile, memory peak) as
-        host arrays; the stream's totals go to :attr:`stream_stats` and the
-        stage's attributes, as in `krr_tpu_torch.strategies.simple`."""
-        stats = {resource: StreamStats() for resource in ResourceType}
-        with self.obs.stage("quantile", rows=len(batch), path="host_stream") as span:
-            cpu_p, mem_max = self.obs.fence(self._streamed_sketch(batch, spec, q, stats, mesh))
-            cpu_p = cpu_p.cpu().numpy()
-            total = record_streams(self.obs, stats)
-            span.set(**total.span_attributes())
-        self.stream_stats = total.as_dict()
-        return cpu_p, mem_max
-
-    def _run_mesh(self, batch: FleetBatch, spec: DigestSpec, q: float, mesh: Mesh) -> tuple:
+    def _run_mesh(self, window: FleetWindow, spec: DigestSpec, q: float) -> tuple:
         """The mesh build (the ``digest`` stage: the sharded top-K sketch or
         digest) and query (the ``quantile`` stage: the percentile per row
         block, the sharded memory max), `krr_tpu/strategies/tdigest.py:
         294-321`."""
-        obs = self.obs
-        self.stream_stats = None
-        cpu = device_packed(batch, ResourceType.CPU)
-        mem = device_packed(batch, ResourceType.Memory)
+        obs, cpu, mesh, rows = self.obs, window.cpu, window.mesh, len(window.batch)
         k = self._exact_topk_k(cpu.capacity, q)
-        with obs.stage("digest", rows=len(batch), sketch="topk" if k is not None else "digest"):
+        with obs.stage("digest", rows=rows, sketch="topk" if k is not None else "digest"):
             if k is not None:
                 sketches, real_rows = obs.fence(sharded_fleet_topk(cpu.values, cpu.counts, k, mesh))
             else:
                 digests, real_rows = obs.fence(sharded_fleet_digest(spec, cpu.values, cpu.counts, mesh))
-        with obs.stage("quantile", rows=len(batch), path="mesh"):
+        with obs.stage("quantile", rows=rows, path="mesh"):
             if k is not None:
                 cpu_p = gather_rows(sketches, lambda sketch: topk_ops.percentile(sketch, q), real_rows)
             else:
                 cpu_p = sharded_percentile(spec, digests, q, real_rows)
-            mem_max = sharded_masked_max(mem.values, mem.counts, mesh)
+            mem_max = window.mesh_memory_max()
         return cpu_p, mem_max
 
-    def _run_resident(self, batch: FleetBatch, spec: DigestSpec, q: float) -> tuple:
+    def _run_resident(self, window: FleetWindow, spec: DigestSpec, q: float) -> tuple:
         """Each resource's ``cast`` and ``h2d`` stages, the resident build
         (the ``digest`` stage) and query (the ``quantile`` stage:
         percentile, memory max, one readback)."""
-        obs = self.obs
-        self.stream_stats = None
-        cpu_values, cpu_counts = fleet_device_arrays(batch, ResourceType.CPU, device=self.device, obs=obs)
-        mem_values, mem_counts = fleet_device_arrays(batch, ResourceType.Memory, device=self.device, obs=obs)
-        k = self._exact_topk_k(device_packed(batch, ResourceType.CPU).capacity, q)
-        with obs.stage("digest", rows=len(batch), sketch="topk" if k is not None else "digest"):
+        obs, rows = self.obs, len(window.batch)
+        cpu_values, cpu_counts, mem_values, mem_counts = window.to_device()
+        k = self._exact_topk_k(window.cpu.capacity, q)
+        with obs.stage("digest", rows=rows, sketch="topk" if k is not None else "digest"):
             if k is not None:
                 sketch = obs.fence(topk_ops.build_from_packed(cpu_values, cpu_counts, k))
             else:
                 cpu_digest = obs.fence(digest_ops.build_from_packed(spec, cpu_values, cpu_counts))
-        with obs.stage("quantile", rows=len(batch), path="resident"):
+        with obs.stage("quantile", rows=rows, path="resident"):
             if k is not None:
                 cpu_p = topk_ops.percentile(sketch, q)
             else:
@@ -406,24 +341,19 @@ class TDigestStrategy(BatchedStrategy[TDigestStrategySettings]):
             return []
         spec = self.settings.cpu_spec()
         q = float(self.settings.cpu_percentile)
-        obs = self.obs
         self.store_stats = None
         with self.profile_span():
-            with obs.stage("pack", rows=len(batch)) as span:
-                cpu = device_packed(batch, ResourceType.CPU)
-                mem = device_packed(batch, ResourceType.Memory)
-                span.set(workers_cpu=cpu.workers, workers_memory=mem.workers,
-                         bytes=cpu.values.nbytes + mem.values.nbytes)
-                obs.record_padding(ResourceType.CPU.value, cpu)
-                obs.record_padding(ResourceType.Memory.value, mem)
-            mesh = resolve_mesh(self.settings, self.device)
+            window = FleetWindow(batch, self.settings, self.device, self.obs)
             if self.settings.state_path:
-                cpu_p, mem_max = self._run_state(batch, spec, q, mesh)
-            elif self._use_host_stream(batch, mesh):
-                cpu_p, mem_max = self._run_streamed(batch, spec, q, mesh)
-            elif mesh is not None:
-                cpu_p, mem_max = self._run_mesh(batch, spec, q, mesh)
+                cpu_p, mem_max = self._run_state(window, spec, q)
+            elif window.placement == "host_stream":
+                cpu_p, mem_max = window.streamed_quantile(
+                    partial(self._streamed_sketch, spec=spec, q=q), self.settings.chunk_size
+                )
+            elif window.placement == "mesh":
+                cpu_p, mem_max = self._run_mesh(window, spec, q)
             else:
-                cpu_p, mem_max = self._run_resident(batch, spec, q)
-            obs.record_device_memory(self.device)
+                cpu_p, mem_max = self._run_resident(window, spec, q)
+            self.stream_stats = window.stream_stats
+            self.obs.record_device_memory(self.device)
         return self._round(cpu_p, mem_max, len(batch))

@@ -35,6 +35,7 @@ from krr_tpu_torch.core.config import Config as PortConfig
 from krr_tpu_torch.obs.trace import Tracer as PortTracer
 from krr_tpu_torch.obs.trace import current_ids
 from krr_tpu_torch.strategies.base import BaseStrategy as PortBaseStrategy
+from krr_tpu_torch.strategies.window import FleetWindow as PortFleetWindow
 
 from .fakes.servers import FakeBackend, FakeCluster, FakeMetrics, ServerThread
 from .test_integrations import fake_env  # noqa: F401  (module-scoped fixture)
@@ -224,7 +225,7 @@ def test_host_stream_equal_jax(apps, long_env, path, monkeypatch):
     ]
     common = [path, "-f", "json", *window, "--kubeconfig", long_env["kubeconfig"], "-p", long_env["server"].url, "-q"]
     calls = []
-    for strategy, method in ((PortBaseStrategy.find(path), "_run_streamed"),
+    for strategy, method in ((PortFleetWindow, "streamed_quantile"),
                              (JaxBaseStrategy.find(path), JAX_STREAMED[path])):
         def spy(self, *args, _strategy=strategy, _streamed=getattr(strategy, method)):
             calls.append(_strategy.__module__.split(".")[0])
@@ -248,14 +249,14 @@ def test_mesh_flags_equal_jax(apps, fake_env, path, monkeypatch):  # noqa: F811
     meshes its eight virtual CPU devices as (4, 2), the port the CPU eight
     times (its device seam patched); the port's scan took its mesh path and
     printed the JAX CLI's bytes."""
-    import krr_tpu_torch.strategies.simple as port_simple
+    import krr_tpu_torch.strategies.window as port_window
 
-    monkeypatch.setattr(port_simple, "mesh_devices", lambda device: [torch.device("cpu")] * 8)
+    monkeypatch.setattr(port_window, "mesh_devices", lambda device: [torch.device("cpu")] * 8)
     meshed = []
     strategy = PortBaseStrategy.find(STRATEGY_PATHS[path][0])
 
     def spy(self, *args, _run_mesh=strategy._run_mesh):
-        meshed.append(args[-1].shape)
+        meshed.append(args[0].mesh.shape)
         return _run_mesh(self, *args)
 
     monkeypatch.setattr(strategy, "_run_mesh", spy)

@@ -18,7 +18,7 @@ import pytest
 from krr_tpu.ops.packing import pack_ragged as jax_pack_ragged
 from krr_tpu_torch.ops import packing
 from krr_tpu_torch.ops.packing import pack_ragged, pack_ragged_with_workers, pack_workers
-from krr_tpu_torch.strategies.simple import MEMORY_SCALE
+from krr_tpu_torch.strategies.window import MEMORY_SCALE
 
 #: The cut the ``threaded`` path lowers the fill to, so small shapes cross it:
 #: its shapes' chunks average at least this many samples, ``serial``'s fewer.

@@ -38,6 +38,7 @@ import krr_tpu_torch.parallel as port_parallel
 import krr_tpu_torch.parallel.fleet as port_fleet
 import krr_tpu_torch.strategies.simple as port_simple
 import krr_tpu_torch.strategies.tdigest as port_tdigest
+import krr_tpu_torch.strategies.window as port_window
 from krr_tpu.ops import digest as jax_digest
 from krr_tpu.ops import topk_sketch as jax_topk
 from krr_tpu_torch.ops import digest as port_digest
@@ -156,23 +157,23 @@ class TestMesh:
 
     def test_resolve_mesh_matches_jax(self, monkeypatch):
         eight = [torch.device("cpu")] * 8
-        monkeypatch.setattr(port_simple, "mesh_devices", lambda device: eight)
+        monkeypatch.setattr(port_window, "mesh_devices", lambda device: eight)
         for args in ({}, {"mesh_time_axis": 2}, {"mesh_time_axis": 8}, {"use_mesh": False}):
             ref = jax_simple.resolve_mesh(jax_simple.SimpleStrategySettings(**args))
-            mesh = port_simple.resolve_mesh(port_simple.SimpleStrategySettings(device="cpu", **args), "cpu")
+            mesh = port_window.resolve_mesh(port_simple.SimpleStrategySettings(device="cpu", **args), "cpu")
             assert (mesh is None) == (ref is None)
             if ref is not None:
                 assert dict(mesh.shape) == dict(ref.shape)
         with pytest.raises(ValueError) as ref_error:
             jax_simple.resolve_mesh(jax_simple.SimpleStrategySettings(mesh_time_axis=3))
         with pytest.raises(ValueError) as port_error:
-            port_simple.resolve_mesh(port_simple.SimpleStrategySettings(device="cpu", mesh_time_axis=3), "cpu")
+            port_window.resolve_mesh(port_simple.SimpleStrategySettings(device="cpu", mesh_time_axis=3), "cpu")
         assert str(port_error.value) == str(ref_error.value)
 
     def test_one_device_takes_the_single_device_path(self):
         """The CPU, or one card, is no mesh: whatever ``mesh_time_axis`` says."""
         settings = port_simple.SimpleStrategySettings(device="cpu", mesh_time_axis=3)
-        assert port_simple.resolve_mesh(settings, "cpu") is None
+        assert port_window.resolve_mesh(settings, "cpu") is None
         assert port_parallel.mesh_devices("cpu") == [torch.device("cpu")]
         assert port_parallel.mesh_devices("cuda:1") == [torch.device("cuda", 1)]
         assert len(port_parallel.mesh_devices("cuda")) == torch.cuda.device_count()
@@ -430,9 +431,9 @@ def port_mesh_of_eight(monkeypatch):
     """The port's strategies see eight devices (the CPU eight times), as the
     JAX package sees its eight virtual CPU devices; the mesh entry points
     they call are counted."""
-    monkeypatch.setattr(port_simple, "mesh_devices", lambda device: [torch.device("cpu")] * 8)
+    monkeypatch.setattr(port_window, "mesh_devices", lambda device: [torch.device("cpu")] * 8)
     calls: dict = {}
-    for module in (port_simple, port_tdigest):
+    for module in (port_simple, port_tdigest, port_window):
         for name in ("sharded_percentile_bisect", "sharded_masked_max", "sharded_fleet_digest", "sharded_fleet_topk"):
             if hasattr(module, name):
                 def wrapper(*args, _fn=getattr(module, name), _name=name, **kwargs):

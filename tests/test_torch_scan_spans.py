@@ -24,6 +24,7 @@ import krr_tpu_torch.core.runner as port_runner
 import krr_tpu_torch.models as port_models
 import krr_tpu_torch.strategies.simple as port_simple
 import krr_tpu_torch.strategies.tdigest as port_tdigest
+import krr_tpu_torch.strategies.window as port_window
 from krr_tpu_torch.models.interop import fleet_batch_from_dicts, objects_from_dicts
 from krr_tpu_torch.models.series import PackedSeries
 from krr_tpu_torch.obs import profile as port_profile
@@ -112,7 +113,7 @@ def test_the_resident_stages_run_in_order_with_cast_and_h2d_per_resource(fleet, 
 @pytest.mark.parametrize("recording", [True, False], ids=["recording", "null"])
 def test_h2d_bytes_are_the_copied_tensors_bytes(fleet, monkeypatch, path, recording):  # noqa: F811
     copied: dict = {}
-    original = port_simple.fleet_device_arrays
+    original = port_window.fleet_device_arrays
 
     def spy(batch, resource_type, *args, **kwargs):
         values, counts = original(batch, resource_type, *args, **kwargs)
@@ -120,8 +121,7 @@ def test_h2d_bytes_are_the_copied_tensors_bytes(fleet, monkeypatch, path, record
         assert values.dtype == torch.float32 and counts.dtype == torch.int32
         return values, counts
 
-    monkeypatch.setattr(port_simple, "fleet_device_arrays", spy)
-    monkeypatch.setattr(port_tdigest, "fleet_device_arrays", spy)
+    monkeypatch.setattr(port_window, "fleet_device_arrays", spy)
     tracer = Tracer() if recording else NULL_TRACER
     _result, runner = scan(fleet, *RESIDENT[path], tracer)
     assert set(copied) == {"cpu", "memory"} and all(size > 0 for size in copied.values())
@@ -151,7 +151,7 @@ def _divided_after_the_pack(batch, resource):
     packed = batch.packed(resource)
     if resource is not port_models.ResourceType.Memory:
         return packed
-    values = np.ascontiguousarray(packed.values / port_simple.MEMORY_SCALE, dtype=np.float32)
+    values = np.ascontiguousarray(packed.values / port_window.MEMORY_SCALE, dtype=np.float32)
     return PackedSeries(values=values, counts=packed.counts, workers=packed.workers)
 
 
@@ -166,16 +166,15 @@ def test_a_resident_scan_packs_memory_once_in_mb_and_casts_nothing(fleet, monkey
     (batch,) = batches
     memory, cpu = port_models.ResourceType.Memory, port_models.ResourceType.CPU
     # No float64 memory pack: the cache holds the scaled float32 view alone.
-    assert set(batch._packed) == {(cpu, 1.0), (memory, port_simple.MEMORY_SCALE)}
-    assert batch._packed[(memory, port_simple.MEMORY_SCALE)].values.dtype == np.float32
+    assert set(batch._packed) == {(cpu, 1.0), (memory, port_window.MEMORY_SCALE)}
+    assert batch._packed[(memory, port_window.MEMORY_SCALE)].values.dtype == np.float32
     (spans,) = tracer.traces()
     casts = {s.attributes["resource"]: s.attributes["copied_bytes"] for s in spans if s.name == "cast"}
     assert casts == {"cpu": 0, "memory": 0}
     # The same bytes as the raw pack divided and cast, and the same render.
-    assert (batch.packed_scaled(memory, port_simple.MEMORY_SCALE).values.tobytes()
+    assert (batch.packed_scaled(memory, port_window.MEMORY_SCALE).values.tobytes()
             == _divided_after_the_pack(batch, memory).values.tobytes())
-    monkeypatch.setattr(port_simple, "device_packed", _divided_after_the_pack)
-    monkeypatch.setattr(port_tdigest, "device_packed", _divided_after_the_pack)
+    monkeypatch.setattr(port_window, "device_packed", _divided_after_the_pack)
     want, _runner = scan(fleet, *RESIDENT[path], NULL_TRACER)
     assert got.format("json") == want.format("json")
 
@@ -190,7 +189,7 @@ def test_the_device_view_is_float32_c_contiguous_with_int32_counts(fleet, rows):
     if rows == "slice":
         batch = batch.row_slice(3, 9)
     for resource in port_models.ResourceType:
-        view = port_simple.device_packed(batch, resource)
+        view = port_window.device_packed(batch, resource)
         assert view.values.dtype == np.float32 and view.values.flags.c_contiguous
         assert view.counts.dtype == np.int32 and view.counts.flags.c_contiguous
         assert view.values.shape[0] == len(view.counts) == len(batch)

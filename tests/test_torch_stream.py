@@ -7,7 +7,10 @@ the same folds in the same order with its plain PyTorch versions. The same
 seeded numpy inputs go through the JAX package's host-streamed builds on
 its CPU backend. Chunk sizes 1, 7, one that does not divide the width, and
 one past the width; ``time_offset`` 0 and past some counts; ``scale`` 1 on
-float32 and ``MEMORY_SCALE`` on float64 input.
+float32 and ``MEMORY_SCALE`` on float64 input. The port's stream takes no
+``scale``: it streams a memory window as the pack's scaled fill makes it
+(MB, float32), the route the strategies take, against the JAX package's
+streamer dividing the raw float64 window.
 
 Tolerances: against the port's resident builds everything is bit-exact.
 Against the JAX package: counts, totals, selected samples and sorted top-K
@@ -33,7 +36,8 @@ from krr_tpu_torch.ops import digest as port_digest
 from krr_tpu_torch.ops import quantile as port_quantile
 from krr_tpu_torch.ops import selection as port_selection
 from krr_tpu_torch.ops import topk_sketch as port_topk
-from krr_tpu_torch.strategies.simple import MEMORY_SCALE
+from krr_tpu_torch.ops.packing import pack_ragged
+from krr_tpu_torch.strategies.window import MEMORY_SCALE
 from tests.test_torch_select import QS, SPECIAL, assert_same, port_tensors, radix_route, radix_route_rows
 from tests.test_torch_sketch import FINITE_SPECIAL, fuzz, off_edges, sorted_bits, specs
 
@@ -68,6 +72,18 @@ def resident(values: np.ndarray, scale: float) -> np.ndarray:
     """What the resident pack puts on the device: divide, then numpy's
     float32 cast."""
     return np.ascontiguousarray(values / scale if scale != 1.0 else values, dtype=np.float32)
+
+
+def streamed(values: np.ndarray, scale: float) -> np.ndarray:
+    """What the port streams for ``values``: a float32 window as it is; a
+    memory window as the pack's scaled fill makes it from the same rows
+    (each byte count divided in float64 and rounded once to float32), cut
+    to the window's width."""
+    if scale == 1.0:
+        return values
+    t = values.shape[1]
+    packed, _counts = pack_ragged([[row] for row in values], dtype=np.float32, capacity=t, scale=scale)
+    return packed[:, :t]
 
 
 #: Bit patterns on the digit edges of the streamed 11/11/10 schedule (the
@@ -111,8 +127,9 @@ class TestHostChunkStreamer:
         values, counts = window(201, scale)
         seen = []
         state = chunked.stream_host_chunks(
-            values, counts, 0, lambda s, chunk, eff: (seen.append((chunk.clone(), eff.clone())), s + 1)[1],
-            chunk_size, time_offset, scale, device="cpu",
+            streamed(values, scale), counts, 0,
+            lambda s, chunk, eff: (seen.append((chunk.clone(), eff.clone())), s + 1)[1],
+            chunk_size, time_offset, device="cpu",
         )
         ref = jax_chunked.HostChunkStreamer(values, counts, chunk_size, time_offset=time_offset, scale=scale)
         assert state == len(seen) == -(-T // chunk_size)
@@ -171,7 +188,7 @@ class TestStreamedMax:
     @pytest.mark.parametrize("scale", [1.0, MEMORY_SCALE])
     def test_equals_resident_and_jax(self, chunk_size, scale):
         values, counts = window(211, scale)
-        port = port_quantile.masked_max_from_host(values, counts, chunk_size, scale=scale, device="cpu")
+        port = port_quantile.masked_max_from_host(streamed(values, scale), counts, chunk_size, device="cpu")
         assert port.dtype == np.float32 and port.shape == (N,)
         want = port_quantile.masked_max(*port_tensors(resident(values, scale), counts)).numpy()
         np.testing.assert_array_equal(port.view(np.int32), want.view(np.int32))
