@@ -1693,9 +1693,11 @@ def readpath_leg(secondary: dict, check, env: dict, device: str) -> None:
 COUNTED_KERNELS = KERNELS + ("radix_digit_hist",)
 
 #: What one resident ``run_batch`` of a registered strategy launches on the
-#: card: `strategies/simple.py` ``_run_resident`` one ``fleet_exact`` (K1 +
-#: K2); `strategies/tdigest.py` ``_run_resident`` the digest build (K3) and
-#: the memory max (K2).
+#: card for a window of one row block (`strategies/window.py`
+#: ``rows_per_block``: every window of the bench's legs): `strategies/
+#: simple.py` ``_run_resident`` the CPU percentile (K1) and the memory max
+#: (K2); `strategies/tdigest.py` ``_run_resident`` the digest build (K3)
+#: and the memory max (K2).
 RUN_BATCH_LAUNCHES = {
     "simple": {"bisect_select": 1, "row_max": 1},
     "tdigest": {"digest_hist": 1, "row_max": 1},

@@ -74,13 +74,20 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    history sources: 10,000 objects × 3 pods, 40,320 CPU samples and 40,320
    raw memory samples per pod (7 days at 5 s) made with numpy from a seed,
    json output. Three paths, each with every launch count set to 0 just
-   before it and read just after: ``simple`` (memory through the stats
-   route, one max per pod; ``bisect_select`` and ``row_max`` launched),
-   ``tdigest`` (the full raw memory window; ``digest_hist`` and ``row_max``
-   launched, ``topk_select`` not, no generic fold) and ``tdigest`` with
-   ``exact_upgrade`` (``topk_select`` and ``row_max``; its JSON equals the
-   ``simple`` scan's byte for byte). Every scan has 10,000 rows and no
-   ``?``. A 256-object re-run on the CPU renders the same JSON for
+   before it and read just after, the window going to the card by row
+   blocks (`krr_tpu_torch/strategies/window.py` ``rows_per_block``: 1,056
+   rows of 120,960 samples a block on an H100, so 10 blocks a resource):
+   ``simple`` (memory through the stats route, one max per pod, one block;
+   ``bisect_select`` once a CPU block and ``row_max`` once), ``tdigest``
+   (the full raw memory window; ``digest_hist`` and ``row_max`` once a
+   block, ``topk_select`` not, no generic fold) and ``tdigest`` with
+   ``exact_upgrade`` (``topk_select`` and ``row_max`` once a block; its JSON
+   equals the ``simple`` scan's byte for byte). Every scan has 10,000 rows
+   and no ``?``. The ``tdigest`` scan's peak of allocated device memory is
+   under 750 MiB, and its JSON equals, byte for byte, that of a scan whose
+   window is one block (``RESIDENT_BLOCK_BYTES`` raised past the window:
+   ``digest_hist`` 1 and ``row_max`` 1, the whole window on the card, as
+   before the blocks). A 256-object re-run on the CPU renders the same JSON for
    ``simple`` and ``exact_upgrade``, and for ``tdigest`` the same memory and
    every CPU value within one bucket of the card's. One more ``simple``
    scan runs with ``profile_dir`` (``torch.profiler``, CPU and CUDA
@@ -110,7 +117,7 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    itself.
 8. ``state``   — ``tdigest --state_path`` (the durable digest store) through
    ``Runner.run`` on ``e2e``'s fleet: one resident scan (``digest_hist`` and
-   ``row_max`` launched exactly once each, nothing else) and one streamed at
+   ``row_max`` launched exactly once a row block each, nothing else) and one streamed at
    ``host_stream_mb=1000`` (each once a chunk, 15 chunks), each into a fresh
    state directory with one WAL record appended (at this size the persist
    passes the compaction threshold and folds it into base shards). The
@@ -1495,7 +1502,8 @@ class E2EFleet:
 def stage_legs(runner) -> dict:
     """The wall seconds of the last scan's compute stages by name (the
     children of its ``compute`` span, summed where a stage opens more than
-    once: ``cast`` and ``h2d`` per resource, every stage per row chunk),
+    once: ``cast`` per resource, every stage per row chunk; the row
+    blocks' ``h2d`` stages sit inside ``digest`` or ``quantile``),
     from the recording tracer the runner scanned under."""
     spans = runner.tracer.traces()[-1]
     compute = {span.span_id for span in spans if span.name == "compute"}
@@ -1512,12 +1520,37 @@ def stage_path(runner) -> str:
     return next(span.attributes["path"] for span in runner.tracer.traces()[-1] if span.name == "quantile")
 
 
-#: The ``e2e`` scans: (strategy, settings, kernels that launch).
+def resident_blocks(torch, rows: int, width: int) -> int:
+    """The row blocks a resident window of ``rows`` × ``width`` float32
+    values takes on :data:`DEVICE` (`krr_tpu_torch.strategies.window`
+    ``rows_per_block``): what its kernel launches once each."""
+    from krr_tpu_torch.strategies.window import device_wave, rows_per_block
+
+    return -(-rows // rows_per_block(4 * width, rows, device_wave(torch.device(DEVICE))))
+
+
+#: The ``e2e`` scans: (strategy, settings, kernels that launch, each with
+#: the resource whose blocks it reduces).
 E2E_PATHS = {
-    "simple": ("simple", {}, {"bisect_select", "row_max"}),
-    "tdigest": ("tdigest", {}, {"digest_hist", "row_max"}),
-    "tdigest_exact": ("tdigest", {"exact_upgrade": True}, {"topk_select", "row_max"}),
+    "simple": ("simple", {}, {"bisect_select": "cpu", "row_max": "stats"}),
+    "tdigest": ("tdigest", {}, {"digest_hist": "cpu", "row_max": "memory"}),
+    "tdigest_exact": ("tdigest", {"exact_upgrade": True}, {"topk_select": "cpu", "row_max": "memory"}),
 }
+#: The most allocated device memory a resident ``tdigest`` scan of the
+#: ``e2e`` fleet may hold: one block's buffer (487 MiB on an H100) and the
+#: block's digest and query.
+E2E_TDIGEST_PEAK_BYTES = 750 * 2**20
+
+
+def e2e_launches(torch, launched: dict) -> dict:
+    """The exact launches of an ``e2e`` scan whose kernels reduce the
+    blocks of ``launched``'s resources: CPU's and the raw memory window
+    at 3 pods × 40,320 samples a row, the stats route's at one max a pod."""
+    from krr_tpu_torch.ops.packing import pad_to_lane
+
+    widths = {"cpu": pad_to_lane(E2E_PODS * E2E_SAMPLES_PER_POD), "stats": pad_to_lane(E2E_PODS)}
+    widths["memory"] = widths["cpu"]
+    return {name: resident_blocks(torch, E2E_OBJECTS, widths[resource]) for name, resource in launched.items()}
 
 
 def phase_e2e(torch, fleet: E2EFleet) -> tuple[dict, dict]:
@@ -1542,9 +1575,9 @@ def phase_e2e(torch, fleet: E2EFleet) -> tuple[dict, dict]:
         results[path] = result
         check(len(result.scans) == E2E_OBJECTS, f"{path}: {len(result.scans)} scans, expected {E2E_OBJECTS}")
         check('"?"' not in rendered[path], f"{path}: an unknown ('?') value in the scan")
-        check(all(launches[name] >= 1 for name in launched), f"{path}: a kernel of the path did not launch: {launches}")
-        check(all(launches[name] == 0 for name in launches if name not in launched),
-              f"{path}: a kernel of another path launched: {launches}")
+        expected = e2e_launches(torch, launched)
+        check(launches == {**{name: 0 for name in launches}, **expected},
+              f"{path}: launches {launches}, expected {expected} (once a row block) and no other kernel")
         check(not any(generic_folds.values()), f"{path}: a fold took the generic path: {generic_folds}")
         e2e["paths"][path] = {
             "run_wall_seconds": wall, "runner_stats": runner.stats,
@@ -1553,6 +1586,7 @@ def phase_e2e(torch, fleet: E2EFleet) -> tuple[dict, dict]:
             "peak_device_bytes": peak,
         }
     check(rendered["tdigest_exact"] == rendered["simple"], "tdigest exact_upgrade JSON != simple JSON")
+    e2e["one_block_tdigest"] = one_block_scan(torch, fleet, rendered["tdigest"], e2e["paths"]["tdigest"])
 
     subset = fleet.objects[:E2E_CPU_CHECK_ROWS]
     head = slice(0, E2E_CPU_CHECK_ROWS)
@@ -1570,6 +1604,36 @@ def phase_e2e(torch, fleet: E2EFleet) -> tuple[dict, dict]:
     e2e["profiled_simple"] = profiled_scan(fleet, rendered["simple"])
     emit("e2e", **e2e)
     return e2e, rendered
+
+
+def one_block_scan(torch, fleet: E2EFleet, blocked_json: str, blocked: dict) -> dict:
+    """The resident ``tdigest`` scan of ``fleet`` with its window in one
+    block (``RESIDENT_BLOCK_BYTES`` past the window: the whole window on the
+    card, ``digest_hist`` 1 and ``row_max`` 1): its JSON must equal the
+    blocked scan's (``blocked_json``) byte for byte, and the blocked scan's
+    peak (``blocked``, its ``e2e`` report) must stay under
+    :data:`E2E_TDIGEST_PEAK_BYTES`. Returns both peaks and the one-block
+    launches."""
+    from krr_tpu_torch.strategies import window
+
+    check(blocked["peak_device_bytes"] < E2E_TDIGEST_PEAK_BYTES,
+          f"tdigest: peak allocated {blocked['peak_device_bytes']} bytes, expected under {E2E_TDIGEST_PEAK_BYTES}")
+    budget = window.RESIDENT_BLOCK_BYTES
+    window.RESIDENT_BLOCK_BYTES = 2**62
+    try:
+        _reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        result, _runner, wall = fleet.scan(fleet.objects, DEVICE, "tdigest")
+        launches, _generic = _read_counts()
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        window.RESIDENT_BLOCK_BYTES = budget
+    one = {"digest_hist": 1, "row_max": 1}
+    check(launches == {**{name: 0 for name in launches}, **one},
+          f"tdigest in one block: launches {launches}, expected {one} and no other kernel")
+    check(result.format("json") == blocked_json, "tdigest: the blocked window's JSON != the one-block window's")
+    return {"run_wall_seconds": wall, "launches": launches, "peak_device_bytes": peak,
+            "blocked_peak_device_bytes": blocked["peak_device_bytes"], "blocked_launches": blocked["launches"]}
 
 
 #: Chrome trace categories of the card's own work in a torch.profiler trace.
@@ -1775,18 +1839,22 @@ def phase_state(torch, np, fleet: E2EFleet, rendered: "dict | None") -> dict:
         reference = result.format("json")
         report["reference_wall_seconds"] = wall
     chunks = -(-(E2E_PODS * E2E_SAMPLES_PER_POD) // STREAM_CHUNK)
-    expected = {"resident": {"digest_hist": 1, "row_max": 1},
-                "streamed": {"digest_hist": chunks, "row_max": chunks}}
-    captured: dict = {}
+    blocks = e2e_launches(torch, {"digest_hist": "cpu", "row_max": "memory"})
+    expected = {"resident": blocks, "streamed": {"digest_hist": chunks, "row_max": chunks}}
+    # Each resident block's kernel outputs, in row order, as host arrays.
+    captured: dict = {"digest": [], "mem_max": [], "mem_counts": []}
     build, row_max = digest_ops.build_from_packed, tdigest_module.masked_max_cuda
 
     def spy_build(spec, values, counts, *args, **kwargs):
-        captured["digest"] = build(spec, values, counts, *args, **kwargs)
-        return captured["digest"]
+        digest = build(spec, values, counts, *args, **kwargs)
+        captured["digest"].append([part.cpu().numpy() for part in digest])
+        return digest
 
-    def spy_row_max(values, counts):
-        captured["mem_max"], captured["mem_counts"] = row_max(values, counts), counts
-        return captured["mem_max"]
+    def spy_row_max(values, counts, **kwargs):
+        out = row_max(values, counts, **kwargs)
+        captured["mem_max"].append(out.cpu().numpy())
+        captured["mem_counts"].append(counts.cpu().numpy())
+        return out
 
     keys = [object_key(obj) for obj in fleet.objects]
     states = {}
@@ -1823,15 +1891,16 @@ def phase_state(torch, np, fleet: E2EFleet, rendered: "dict | None") -> dict:
                 "peak_device_bytes": torch.cuda.max_memory_allocated(), "identical_cpu_values": identical,
             }
             if window == "resident":
-                digest, mem_max = captured.pop("digest"), captured.pop("mem_max")
-                mem_counts = captured.pop("mem_counts")
+                digest = [np.concatenate(parts) for parts in zip(*captured["digest"])]
+                mem_max = np.concatenate(captured["mem_max"])
                 kernel = {
-                    "cpu_counts": digest.counts.cpu().numpy(), "cpu_total": digest.total.cpu().numpy(),
-                    "cpu_peak": digest.peak.cpu().numpy(),
-                    "mem_total": mem_counts.cpu().numpy().astype(np.float32),
-                    "mem_peak": np.where(np.isnan(m := mem_max.cpu().numpy()), np.float32(-np.inf), m),
+                    "cpu_counts": digest[0], "cpu_total": digest[1], "cpu_peak": digest[2],
+                    "mem_total": np.concatenate(captured["mem_counts"]).astype(np.float32),
+                    "mem_peak": np.where(np.isnan(mem_max), np.float32(-np.inf), mem_max),
                 }
-                del digest, mem_max, mem_counts
+                del digest, mem_max
+                for parts in captured.values():
+                    parts.clear()
                 check(same_store_bits(np, states[window], {"keys": keys, **kernel}),
                       "state: the store's arrays != digest_hist's and row_max's outputs on the window")
                 started = time.perf_counter()
@@ -3657,6 +3726,14 @@ def _phase_cli(fakes: FakeServers, url: str, scan_end: float, fixture_seconds: f
         }
         return result.stdout, stats, wall
 
+    import torch
+
+    from krr_tpu_torch.ops.packing import pad_to_lane
+
+    # The phase's widest resident window, one sample past the samples a pod
+    # at the range's closed end: one row block on an H100, so each kernel
+    # launches once a scan, as every narrower window of the phase does.
+    blocks = resident_blocks(torch, CLI_OBJECTS, pad_to_lane(CLI_SAMPLES + 1))
     paths = {
         "simple": (["simple"], {"bisect_select", "row_max"}),
         "tdigest": (["tdigest"], {"digest_hist", "row_max"}),
@@ -3676,10 +3753,8 @@ def _phase_cli(fakes: FakeServers, url: str, scan_end: float, fixture_seconds: f
             scans = json.loads(stdout)["scans"]
             check(len(scans) == CLI_OBJECTS, f"cli {path} {run}: {len(scans)} scans, expected {CLI_OBJECTS}")
             check('"?"' not in stdout, f"cli {path} {run}: an unknown ('?') value in the scan")
-            check(all(launches[name] >= 1 for name in launched),
-                  f"cli {path} {run}: a kernel of the path did not launch: {launches}")
-            check(all(launches[name] == 0 for name in launches if name not in launched),
-                  f"cli {path} {run}: a kernel of another path launched: {launches}")
+            expected = {**{name: 0 for name in launches}, **dict.fromkeys(launched, blocks)}
+            check(launches == expected, f"cli {path} {run}: launches {launches}, expected {expected}")
             check(stats["failed_rows"] == 0, f"cli {path} {run}: failed rows {stats['failed_rows']}")
             entry[run] = {"wall_seconds": wall, "runner_stats": stats, "launches": launches}
             rendered[path] = stdout
@@ -3700,7 +3775,7 @@ def _phase_cli(fakes: FakeServers, url: str, scan_end: float, fixture_seconds: f
     report["cpu_run_tdigest"] = {"wall_seconds": wall, "runner_stats": stats,
                                  "identical_cpu_values": same_within_a_bucket(rendered["tdigest"], stdout)}
     report.update(_cli_ingest(invoke, common))
-    report.update(_cli_state(invoke, common, rendered["tdigest"], os.path.dirname(kubeconfig)))
+    report.update(_cli_state(invoke, common, rendered["tdigest"], os.path.dirname(kubeconfig), blocks))
     emit("cli", **report)
     return report
 
@@ -3710,8 +3785,9 @@ def _cli_instrumented_subprocess(common: list, simple_json: str, tmp: str) -> di
     observability flag: ``--trace``, ``--profile``, ``--statusz``,
     ``--metrics-dump`` and ``--log-format json`` (logs on stderr, so not
     ``-q``). Its stdout equals the in-process JSON; the stage spans are
-    children of ``compute``, and the ``h2d`` stages' bytes are what
-    ``krr_tpu_h2d_bytes_total`` counted; the profile's categories partition its wall;
+    children of ``compute``, the row blocks' ``h2d`` stages children of
+    ``quantile``, and their bytes are what ``krr_tpu_h2d_bytes_total``
+    counted; the profile's categories partition its wall;
     statusz counts every fetched row; the dump holds the card's peak
     allocated memory and a compile-cache hit without a miss (the kernels
     were built before); every stderr line is a JSON record, and each but
@@ -3739,9 +3815,14 @@ def _cli_instrumented_subprocess(common: list, simple_json: str, tmp: str) -> di
     (compute,) = [e for e in spans if e["name"] == "compute"]
     stages = [e["name"] for e in sorted(spans, key=lambda e: e["ts"])
               if e["args"]["parent_id"] == compute["args"]["span_id"]]
-    check(stages == ["pack", "cast", "h2d", "cast", "h2d", "quantile", "round"],
-          f"cli: the stages under compute are {stages}")
-    copied = {e["args"]["resource"]: e["args"]["bytes"] for e in spans if e["name"] == "h2d"}
+    check(stages == ["pack", "cast", "cast", "quantile", "round"], f"cli: the stages under compute are {stages}")
+    (quantile,) = [e for e in spans if e["name"] == "quantile"]
+    copies = [e for e in spans if e["name"] == "h2d"]
+    check(copies and all(e["args"]["parent_id"] == quantile["args"]["span_id"] for e in copies),
+          "cli: an h2d stage (a row block's copy) outside the quantile stage")
+    copied: dict = {}
+    for e in copies:
+        copied[e["args"]["resource"]] = copied.get(e["args"]["resource"], 0) + e["args"]["bytes"]
     scan_id = root["args"]["trace_id"]
 
     with open(paths["profile"]) as f:
@@ -3816,13 +3897,13 @@ def _cli_ingest(invoke, common: list) -> dict:
     return {"digest_ingest": runs}
 
 
-def _cli_state(invoke, common: list, tdigest_json: str, tmp: str) -> dict:
+def _cli_state(invoke, common: list, tdigest_json: str, tmp: str, blocks: int) -> dict:
     """``tdigest --state_path`` on the card: twice into one sharded state
     (the second run doubles every count and appends one WAL record), once
     into a legacy file (the first run's arrays), and once with ``--device
     cpu`` (the first run's arrays but for one-bucket moves of edge
     samples). Each on-card run launches ``digest_hist`` and ``row_max``
-    once and renders ``tdigest``'s memory, each CPU value within a bucket
+    once a row block (``blocks``: one) and renders ``tdigest``'s memory, each CPU value within a bucket
     (but the second run's, which ranks twice the samples)."""
     import numpy as np
 
@@ -3837,8 +3918,8 @@ def _cli_state(invoke, common: list, tdigest_json: str, tmp: str) -> dict:
         stdout, stats, wall = invoke(["tdigest", "--state_path", path, *extra, *common, "--device", device])
         launches, _generic = _read_counts()
         if device != "cpu":
-            check(launches == {**{k: 0 for k in launches}, "digest_hist": 1, "row_max": 1},
-                  f"cli state {name}: launches {launches}, expected digest_hist 1 and row_max 1")
+            check(launches == {**{k: 0 for k in launches}, "digest_hist": blocks, "row_max": blocks},
+                  f"cli state {name}: launches {launches}, expected digest_hist and row_max {blocks} each")
         check(stats["failed_rows"] == 0, f"cli state {name}: failed rows {stats['failed_rows']}")
         arrays[name] = store_arrays(path)
         # The second run answers from twice the samples: its CPU ranks (and

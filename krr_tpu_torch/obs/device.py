@@ -8,8 +8,9 @@ span; this module splits it with five instruments, all wired through
 
 * **Stage spans** — :meth:`DeviceObs.stage` opens a child span of the
   active ``compute`` span for each compute leg (``pack`` → ``cast`` →
-  ``h2d`` → ``digest``/``fold`` → ``quantile`` → ``persist`` → ``round``;
-  ``cast`` and ``h2d`` once per resource). Spans measure WALL time, and CUDA
+  ``digest``/``fold`` → ``quantile`` → ``persist`` → ``round``; ``cast``
+  once per resource and, on the resident placement, ``h2d`` once per row
+  block inside ``digest`` or ``quantile``). Spans measure WALL time, and CUDA
   launches are asynchronous — a stage that merely enqueues kernels would
   read as free while the next stage pays for them — so call sites fence
   device results through :meth:`DeviceObs.fence` before the span closes.
@@ -43,10 +44,11 @@ span; this module splits it with five instruments, all wired through
   ``krr_tpu_pack_workers{resource=…}``, the threads that filled the batch.
   Cheap (one counts-sum per batch), so it fires on every mode, tracer or not.
 
-* **H2D bytes** — :meth:`DeviceObs.record_h2d` adds the bytes each
-  resource's resident arrays copied to the device to
-  ``krr_tpu_h2d_bytes_total{resource=…}``, on every scan (the ``h2d``
-  stage carries the same count as ``bytes`` when recording). The streamed
+* **H2D bytes** — :meth:`DeviceObs.record_h2d` adds the bytes of each
+  resident row block a resource copied to the device to
+  ``krr_tpu_h2d_bytes_total{resource=…}`` and the block to
+  ``krr_tpu_h2d_blocks_total{resource=…}``, on every scan (the block's
+  ``h2d`` stage carries the same count as ``bytes`` when recording). The streamed
   paths count theirs with :meth:`DeviceObs.record_stream`:
   ``krr_tpu_stream_bytes_total`` and ``krr_tpu_stream_chunks_total``.
 
@@ -238,10 +240,13 @@ class DeviceObs:
         self.metrics.set("krr_tpu_pad_waste_pct", waste, resource=resource)
 
     def record_h2d(self, resource: str, nbytes: int) -> None:
-        """``krr_tpu_h2d_bytes_total{resource}`` += the bytes one resource's
-        resident arrays copied host to device (every scan, tracer or not)."""
+        """``krr_tpu_h2d_bytes_total{resource}`` += the bytes one resident
+        row block of a resource copied host to device, and
+        ``krr_tpu_h2d_blocks_total{resource}`` += 1 (every scan, tracer or
+        not)."""
         if self.metrics is not None:
             self.metrics.inc("krr_tpu_h2d_bytes_total", nbytes, resource=resource)
+            self.metrics.inc("krr_tpu_h2d_blocks_total", resource=resource)
 
     def record_stream(self, resource: str, stats) -> None:
         """``krr_tpu_stream_bytes_total{resource}`` += the host bytes one

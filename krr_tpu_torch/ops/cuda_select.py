@@ -131,35 +131,49 @@ def _nan(n: int, device: torch.device) -> torch.Tensor:
     return torch.full((n,), float("nan"), dtype=torch.float32, device=device)
 
 
+def _row_out(values: torch.Tensor, out: "torch.Tensor | None", what: str) -> torch.Tensor:
+    """Where a per-row result of ``values`` goes: ``out`` (checked to be a
+    contiguous float32 ``[N]`` tensor on ``values``' device, such as a row
+    slice of a larger result) or a fresh tensor."""
+    n = values.shape[0]
+    if out is None:
+        return torch.empty((n,), dtype=torch.float32, device=values.device)
+    if out.shape != (n,) or out.dtype != torch.float32 or out.device != values.device or not out.is_contiguous():
+        raise ValueError(f"{what}: out must be a contiguous float32 [{n}] tensor on {values.device}")
+    return out
+
+
 def masked_percentile_bisect_cuda(
-    values: torch.Tensor, counts: torch.Tensor, q: float, num_iters: int = 31
+    values: torch.Tensor, counts: torch.Tensor, q: float, num_iters: int = 31, *, out=None
 ) -> torch.Tensor:
     """Per-row exact q-th percentile of the valid prefix (NaN for empty
     rows): the ``bisect_select`` kernel on a CUDA tensor, the plain
-    ``masked_percentile_bisect`` on a CPU tensor — bit-identical."""
+    ``masked_percentile_bisect`` on a CPU tensor — bit-identical. With
+    ``out`` the rows are written there and ``out`` is returned."""
     check_rows(values, counts, "masked_percentile_bisect_cuda")
     _check_iters(num_iters)
+    out = _row_out(values, out, "masked_percentile_bisect_cuda")
     n, t = values.shape
     if n == 0 or t == 0:
-        return _nan(n, values.device)
+        return out.fill_(float("nan"))
     if values.device.type == "cpu":
-        return masked_percentile_bisect(values, counts, q, num_iters=num_iters)
-    out = torch.empty((n,), dtype=torch.float32, device=values.device)
+        return out.copy_(masked_percentile_bisect(values, counts, q, num_iters=num_iters))
     _launch_bisect_select(values, counts, q, num_iters, out)
     return out
 
 
-def masked_max_cuda(values: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
+def masked_max_cuda(values: torch.Tensor, counts: torch.Tensor, *, out=None) -> torch.Tensor:
     """Per-row max of the valid prefix (NaN for empty rows and rows holding
     NaN): the ``row_max`` kernel on a CUDA tensor, the plain ``masked_max``
-    on a CPU tensor — bit-identical."""
+    on a CPU tensor — bit-identical. With ``out`` the rows are written there
+    and ``out`` is returned."""
     check_rows(values, counts, "masked_max_cuda")
+    out = _row_out(values, out, "masked_max_cuda")
     n, t = values.shape
     if n == 0 or t == 0:
-        return _nan(n, values.device)
+        return out.fill_(float("nan"))
     if values.device.type == "cpu":
-        return masked_max(values, counts)
-    out = torch.empty((n,), dtype=torch.float32, device=values.device)
+        return out.copy_(masked_max(values, counts))
     _launch_row_max(values, counts, out)
     return out
 

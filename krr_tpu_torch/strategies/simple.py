@@ -7,9 +7,11 @@ on the host in exact Decimal arithmetic. The window reaches the device as
 `krr_tpu_torch.strategies.window` places it; this module reduces its CPU
 rows on each placement, each selecting the same sample:
 
-* resident: :func:`krr_tpu_torch.ops.cuda_select.fleet_exact` reduces both
-  resources in one program — bit-space bisection for the CPU percentile,
-  masked max for memory — with one readback;
+* resident: the window's row blocks (`krr_tpu_torch.strategies.window.
+  ResidentWindow`), each reduced into its rows of one ``[2, N]`` result —
+  bit-space bisection for the CPU percentile, masked max for memory, as
+  :func:`krr_tpu_torch.ops.cuda_select.fleet_exact` does for a whole
+  window — with one readback;
 * host stream: the exact top-K sketch when the percentile's rank-from-the-top
   fits ``exact_sketch_budget``, else the streamed radix select;
 * mesh: ``bisect_select`` per row block, or the time-sharded radix select
@@ -19,7 +21,8 @@ rows on each placement, each selecting the same sample:
 
 The legs are stages of the scan trace (``strategy.obs``,
 `krr_tpu_torch.obs.device`): the window's, then ``quantile``
-(``path=resident``, ``host_stream`` or ``mesh``) and ``round``, each fenced
+(``path=resident``, holding the blocks' ``h2d`` stages; ``host_stream`` or
+``mesh``) and ``round``, each fenced
 when the tracer records; a streamed ``quantile`` carries the stream's
 totals. With ``profile_dir`` the device compute runs under ``torch.profiler``.
 """
@@ -32,12 +35,13 @@ from typing import Optional
 
 import numpy as np
 import pydantic as pd
+import torch
 
 from krr_tpu_torch.core.rounding import as_decimal
 from krr_tpu_torch.models.allocations import ResourceType
 from krr_tpu_torch.models.series import FleetBatch, PackedSeries
 from krr_tpu_torch.ops import topk_sketch as topk_ops
-from krr_tpu_torch.ops.cuda_select import fleet_exact
+from krr_tpu_torch.ops.cuda_select import masked_max_cuda, masked_percentile_bisect_cuda
 from krr_tpu_torch.ops.selection import masked_percentile_bisect_from_host
 from krr_tpu_torch.parallel import sharded_percentile_bisect
 from krr_tpu_torch.strategies.base import BatchedStrategy, ResourceRecommendation, RunResult, StrategySettings
@@ -177,13 +181,17 @@ class SimpleStrategy(BatchedStrategy[SimpleStrategySettings]):
             return cpu_p, window.mesh_memory_max()
 
     def _run_resident(self, window: FleetWindow, q: float) -> tuple:
-        """The resident path: each resource's ``cast`` and ``h2d`` stages,
-        then the ``quantile`` stage: one ``fleet_exact`` program and its one
-        readback."""
-        cpu_values, cpu_counts, mem_values, mem_counts = window.to_device()
-        with self.obs.stage("quantile", rows=len(window.batch), path="resident"):
-            # One program, one readback (the JAX package's fleet_exact contract).
-            stacked = fleet_exact(cpu_values, cpu_counts, mem_values, mem_counts, q).cpu().numpy()
+        """The resident path: each resource's ``cast`` stage, then the
+        ``quantile`` stage (carrying the window's ``blocks``): the CPU
+        percentile of each CPU block into its rows of a ``[2, N]`` result,
+        memory's max of each memory block into theirs, and one readback
+        (the JAX package's ``fleet_exact`` contract)."""
+        rows, resident = len(window.batch), window.resident()
+        out = torch.empty((2, rows), dtype=torch.float32, device=self.device)
+        with self.obs.stage("quantile", rows=rows, path="resident", blocks=resident.block_count):
+            resident.reduce(ResourceType.CPU, partial(masked_percentile_bisect_cuda, q=q), out[0])
+            resident.reduce(ResourceType.Memory, masked_max_cuda, out[1])
+            stacked = out.cpu().numpy()
         return stacked[0], stacked[1]
 
     def run_batch(self, batch: FleetBatch) -> list[RunResult]:

@@ -42,12 +42,17 @@ kernel runs.
 
 The legs are stages of the scan trace (``strategy.obs``,
 `krr_tpu_torch.obs.device`), as in `krr_tpu/strategies/tdigest.py:222-347`:
-``pack``, on the resident path ``cast`` and ``h2d`` for each resource
+``pack``, on the resident path ``cast`` for each resource
 (`krr_tpu_torch.strategies.window`, which owns the window's format and
 placement; inside ``digest`` with ``state_path``), then ``digest`` (the
 window's or the sketch's build), ``fold`` and ``quantile`` (``path=resident``, ``host_stream``, ``mesh``,
 ``store`` or ``ingest``), ``persist`` (the store's delta), then ``round``;
-device results are fenced inside their stage when the tracer records. With
+device results are fenced inside their stage when the tracer records. The
+resident window goes to the device by row blocks
+(`krr_tpu_torch.strategies.window.ResidentWindow`), each copy an ``h2d``
+stage: CPU's inside ``digest``, each block's sketch built into its rows
+of the window's, and memory's inside ``quantile`` (with ``state_path``,
+both inside ``digest``). With
 ``profile_dir`` the compute runs under ``torch.profiler``.
 """
 
@@ -62,6 +67,7 @@ import torch
 
 from krr_tpu_torch.core.durastore import DurableStore
 from krr_tpu_torch.core.streaming import DigestStore, FsOps, object_key
+from krr_tpu_torch.models.allocations import ResourceType
 from krr_tpu_torch.models.series import FleetBatch, PackedSeries
 from krr_tpu_torch.ops import digest as digest_ops
 from krr_tpu_torch.ops import topk_sketch as topk_ops
@@ -194,8 +200,9 @@ class TDigestStrategy(BatchedStrategy[TDigestStrategySettings]):
         float32 CPU counts ``[N, B]``, totals and peaks, the memory sample
         counts, and the memory peak in MB (−inf for an empty row, as the
         store wants) — `krr_tpu/strategies/tdigest.py:173-203`. Resident:
-        one ``digest_hist`` launch on the CPU window and one ``row_max`` on
-        the scaled memory window, read back in one copy. Streamed: one
+        one ``digest_hist`` launch a CPU block into the window's digest and
+        one ``row_max`` a block of the scaled memory window, read back in
+        one copy. Streamed: one
         ``digest_hist`` launch a chunk (`krr_tpu/strategies/tdigest.py:
         128-147`), then the streamed memory max. On a mesh: one of each
         per shard, the digest merged per row block and read back per
@@ -216,9 +223,12 @@ class TDigestStrategy(BatchedStrategy[TDigestStrategySettings]):
             )
             mem_peak = window.mesh_memory_max()
         else:
-            cpu_values, cpu_counts, mem_values, mem_counts = window.to_device()
-            cpu_digest = digest_ops.build_from_packed(spec, cpu_values, cpu_counts)
-            counts, total, peak, mem_peak = _read_back(cpu_digest, masked_max_cuda(mem_values, mem_counts))
+            resident = window.resident()
+            cpu_digest = resident.gather(ResourceType.CPU, partial(digest_ops.build_from_packed, spec))
+            mem_max = torch.empty((len(window.batch),), dtype=torch.float32, device=self.device)
+            resident.reduce(ResourceType.Memory, masked_max_cuda, mem_max)
+            resident.close()
+            counts, total, peak, mem_peak = _read_back(cpu_digest, mem_max)
         assert counts.shape[0] == len(window.batch)
         # An empty memory row reads NaN from the row max; the store wants -inf.
         mem_peak = np.where(np.isnan(mem_peak), -np.inf, mem_peak)
@@ -316,24 +326,29 @@ class TDigestStrategy(BatchedStrategy[TDigestStrategySettings]):
         return cpu_p, mem_max
 
     def _run_resident(self, window: FleetWindow, spec: DigestSpec, q: float) -> tuple:
-        """Each resource's ``cast`` and ``h2d`` stages, the resident build
-        (the ``digest`` stage) and query (the ``quantile`` stage:
-        percentile, memory max, one readback)."""
+        """Each resource's ``cast`` stage, the resident build (the
+        ``digest`` stage: the window's sketch a CPU block at a time) and
+        query (the ``quantile`` stage, carrying the window's ``blocks``:
+        memory's max a block at a time, then, with the buffer dropped, the
+        percentile of the whole sketch and one readback)."""
         obs, rows = self.obs, len(window.batch)
-        cpu_values, cpu_counts, mem_values, mem_counts = window.to_device()
+        resident = window.resident()
         k = self._exact_topk_k(window.cpu.capacity, q)
         with obs.stage("digest", rows=rows, sketch="topk" if k is not None else "digest"):
             if k is not None:
-                sketch = obs.fence(topk_ops.build_from_packed(cpu_values, cpu_counts, k))
+                sketch = resident.gather(ResourceType.CPU, partial(topk_ops.build_from_packed, k=k))
             else:
-                cpu_digest = obs.fence(digest_ops.build_from_packed(spec, cpu_values, cpu_counts))
-        with obs.stage("quantile", rows=rows, path="resident"):
+                cpu_digest = resident.gather(ResourceType.CPU, partial(digest_ops.build_from_packed, spec))
+        with obs.stage("quantile", rows=rows, path="resident", blocks=resident.block_count):
+            mem_max = torch.empty((rows,), dtype=torch.float32, device=self.device)
+            resident.reduce(ResourceType.Memory, masked_max_cuda, mem_max)
+            resident.close()
             if k is not None:
                 cpu_p = topk_ops.percentile(sketch, q)
             else:
                 cpu_p = digest_ops.percentile(spec, cpu_digest, q)
             # One readback for both resources.
-            stacked = torch.stack([cpu_p, masked_max_cuda(mem_values, mem_counts)]).cpu().numpy()
+            stacked = torch.stack([cpu_p, mem_max]).cpu().numpy()
         return stacked[0], stacked[1]
 
     def run_batch(self, batch: FleetBatch) -> list[RunResult]:

@@ -12,21 +12,26 @@ here once per batch (:class:`FleetWindow`):
 * ``mesh``: more than one device and ``use_mesh`` (:func:`resolve_mesh`,
   `krr_tpu/strategies/simple.py:179-192`): the window shards over a
   ``(data, time)`` mesh (`krr_tpu_torch.parallel`).
-* ``resident``: both resources copied to the device whole
-  (:func:`fleet_device_arrays`).
+* ``resident``: the window goes to the device by row blocks through one
+  reused device buffer (:class:`ResidentWindow`): every kernel of the
+  resident paths writes each row's result from that row alone, so a block's
+  kernel writes the block's rows of the whole-fleet result, and the device
+  holds one block of one resource at a time (at most
+  :data:`RESIDENT_BLOCK_BYTES` past one wave of rows, :func:`rows_per_block`)
+  rather than the whole packed window.
 
 Memory's max on the stream and mesh placements is computed here too; the
-strategies keep only their CPU reductions (and, resident, the one program
-that reduces both resources). The legs are stages of the scan trace
-(``obs``, `krr_tpu_torch.obs.device`): ``pack``, on the resident placement
-``cast`` and ``h2d`` for each resource, and on the stream placement a
-``stream_fill`` stage a chunk and a ``stream_wait`` stage a wait for a
-pinned buffer.
+strategies keep only their CPU reductions. The legs are stages of the scan
+trace (``obs``, `krr_tpu_torch.obs.device`): ``pack``; on the resident
+placement ``cast`` for each resource and an ``h2d`` stage for each block's
+copy (inside the caller's ``digest`` or ``quantile`` stage); on the stream
+placement a ``stream_fill`` stage a chunk and a ``stream_wait`` stage a
+wait for a pinned buffer.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Literal, Optional
+from typing import Callable, Iterator, Literal, Optional
 
 import numpy as np
 import torch
@@ -44,6 +49,11 @@ from krr_tpu_torch.parallel.fleet import mesh_row_split
 #: rounding layer can distinguish exactly representable (SURVEY.md §7 "Hard parts").
 MEMORY_SCALE = 1_000_000.0
 
+#: The most float32 bytes of one resident row block, unless a single wave
+#: of rows (:func:`device_wave`) takes more: the size of the device buffer
+#: every block of a batch passes through.
+RESIDENT_BLOCK_BYTES = 512 * 2**20
+
 
 def device_packed(batch: FleetBatch, resource: ResourceType) -> PackedSeries:
     """The packed view of ``resource`` the device reads, on every path, as
@@ -57,29 +67,106 @@ def device_packed(batch: FleetBatch, resource: ResourceType) -> PackedSeries:
     return batch.packed(resource)
 
 
-def fleet_device_arrays(
-    batch: FleetBatch,
-    resource: ResourceType,
-    *,
-    device: "torch.device | str",
-    obs: DeviceObs,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """The device view's host arrays (:func:`device_packed`) → (float32
-    device values, int32 device counts).
+def device_wave(device: torch.device) -> int:
+    """The rows that fill the device once: 8 one-row CTAs for each of a
+    card's multiprocessors (every resident kernel launches one CTA a row);
+    1 on the CPU."""
+    if device.type != "cuda":
+        return 1
+    return 8 * torch.cuda.get_device_properties(device).multi_processor_count
 
-    The pack already holds float32 values (memory divided in its fill), so
-    the ``cast`` stage takes the host matrix and counts as they are, with no
-    copy: its ``copied_bytes``, the bytes it allocated, are 0. The copies
-    are the ``h2d`` stage, whose ``bytes`` (the two tensors' bytes) also go
-    to ``krr_tpu_h2d_bytes_total``."""
-    packed = device_packed(batch, resource)
-    with obs.stage("cast", resource=resource.value, copied_bytes=0):
-        values, counts = torch.from_numpy(packed.values), torch.from_numpy(packed.counts)
-    copied = values.nbytes + counts.nbytes
-    with obs.stage("h2d", resource=resource.value, bytes=copied):
-        values, counts = obs.fence((values.to(device), counts.to(device)))
-    obs.record_h2d(resource.value, copied)
-    return values, counts
+
+def rows_per_block(row_bytes: int, rows: int, wave: int) -> int:
+    """Rows of one resident block of ``rows`` rows of ``row_bytes`` bytes:
+    all of them when they fit :data:`RESIDENT_BLOCK_BYTES`, else the
+    largest whole number of ``wave``-row waves that fits it, and at least
+    one wave (never more than ``rows``). The last block holds the rest."""
+    if rows * row_bytes <= RESIDENT_BLOCK_BYTES:
+        return max(rows, 1)
+    waves = max(1, RESIDENT_BLOCK_BYTES // (wave * row_bytes))
+    return min(rows, waves * wave)
+
+
+class ResidentWindow:
+    """The resident placement of one batch: its ``cast`` stages (one a
+    resource, ``torch.from_numpy`` of the pack: ``copied_bytes`` 0), and
+    one float32 device buffer, allocated here, that every row block of both
+    resources is copied into in turn (:meth:`blocks`). Nothing of a block
+    outlives the next block's copy, which the device's stream orders after
+    the kernels that read the buffer. :meth:`close` drops the buffer."""
+
+    def __init__(self, window: "FleetWindow"):
+        self.obs, self.device = window.obs, window.device
+        wave = device_wave(window.device)
+        #: Each resource's host tensors (values, counts) and rows a block.
+        self.host: dict = {}
+        self.step: dict = {}
+        for resource, packed in ((ResourceType.CPU, window.cpu), (ResourceType.Memory, window.memory)):
+            with self.obs.stage("cast", resource=resource.value, copied_bytes=0):
+                self.host[resource] = (torch.from_numpy(packed.values), torch.from_numpy(packed.counts))
+            self.step[resource] = rows_per_block(4 * packed.capacity, len(packed.counts), wave)
+        #: Each resource's number of blocks.
+        self.blocks_of = {r: -(-len(self.host[r][1]) // step) for r, step in self.step.items()}
+        elements = max(step * self.host[r][0].shape[1] for r, step in self.step.items())
+        self.buffer: Optional[torch.Tensor] = torch.empty((elements,), dtype=torch.float32, device=self.device)
+
+    @property
+    def block_count(self) -> int:
+        """The blocks of both resources."""
+        return sum(self.blocks_of.values())
+
+    def close(self) -> None:
+        """Drop the device buffer: what follows (a sketch's query, the
+        readback) takes its place on the device."""
+        self.buffer = None
+
+    def blocks(self, resource: ResourceType) -> Iterator[tuple[int, int, torch.Tensor, torch.Tensor]]:
+        """``resource``'s row blocks on the device, in order: (first row,
+        end row, the block's values in the buffer, its counts). Each copy is
+        an ``h2d`` stage (``resource``, ``rows``, ``bytes``, ``block``),
+        fenced when recording; the first also copies the resource's counts
+        whole. The bytes of each go to ``krr_tpu_h2d_bytes_total`` and each
+        block to ``krr_tpu_h2d_blocks_total``."""
+        values, counts = self.host[resource]
+        rows, width = values.shape
+        step = self.step[resource]
+        device_counts = None
+        for block, r0 in enumerate(range(0, rows, step)):
+            r1 = min(r0 + step, rows)
+            view = self.buffer[: (r1 - r0) * width].view(r1 - r0, width)
+            copied = view.nbytes + (counts.nbytes if device_counts is None else 0)
+            with self.obs.stage("h2d", resource=resource.value, rows=r1 - r0, bytes=copied, block=block):
+                if device_counts is None:
+                    device_counts = counts.to(self.device)
+                view.copy_(values[r0:r1])
+                self.obs.fence((view, device_counts))
+            self.obs.record_h2d(resource.value, copied)
+            yield r0, r1, view, device_counts[r0:r1]
+
+    def reduce(self, resource: ResourceType, reduce_rows: Callable, out: torch.Tensor) -> torch.Tensor:
+        """``reduce_rows(values, counts, out=...)`` on each of
+        ``resource``'s blocks, into the block's rows of ``out`` (a row of a
+        whole-window result), each fenced when recording. Returns ``out``."""
+        for r0, r1, values, counts in self.blocks(resource):
+            self.obs.fence(reduce_rows(values, counts, out=out[r0:r1]))
+        return out
+
+    def gather(self, resource: ResourceType, build: Callable):
+        """The whole window's ``build(values, counts)`` (a named tuple of
+        row-major tensors, such as a digest or a top-K sketch), built a
+        block at a time, each fenced when recording, into whole-window
+        tensors; a window of one block returns its build as it is."""
+        rows = len(self.host[resource][1])
+        whole = None
+        for r0, r1, values, counts in self.blocks(resource):
+            part = self.obs.fence(build(values, counts))
+            if r1 - r0 == rows:
+                return part
+            if whole is None:
+                whole = type(part)(*(torch.empty((rows, *p.shape[1:]), dtype=p.dtype, device=p.device) for p in part))
+            for into, p in zip(whole, part):
+                into[r0:r1].copy_(p)
+        return whole
 
 
 def resolve_mesh(settings, device: "torch.device | str") -> Optional[Mesh]:
@@ -125,9 +212,9 @@ class FleetWindow:
     """One batch's window on its way to the device: packed once (the
     ``pack`` stage), its placement decided once (:attr:`placement`), and
     the legs every strategy shares on that placement. It holds host arrays
-    only: the resident device tensors go to the caller, which drops them
-    after its readback, so nothing of one scan stays on the device into
-    the next."""
+    only: the resident placement's device buffer goes to the caller
+    (:meth:`resident`), which drops it after its readback, so nothing of
+    one scan stays on the device into the next."""
 
     def __init__(self, batch: FleetBatch, settings, device: torch.device, obs: DeviceObs):
         self.batch, self.device, self.obs = batch, device, obs
@@ -156,13 +243,10 @@ class FleetWindow:
         #: :meth:`stream` ran; None on the other placements.
         self.stream_stats: Optional[dict] = None
 
-    def to_device(self) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-        """The resident placement: each resource's ``cast`` and ``h2d``
-        stages, CPU first → (CPU values, CPU counts, memory values, memory
-        counts) on the device."""
-        cpu = fleet_device_arrays(self.batch, ResourceType.CPU, device=self.device, obs=self.obs)
-        memory = fleet_device_arrays(self.batch, ResourceType.Memory, device=self.device, obs=self.obs)
-        return (*cpu, *memory)
+    def resident(self) -> ResidentWindow:
+        """The resident placement: each resource's ``cast`` stage, and the
+        device buffer its row blocks pass through."""
+        return ResidentWindow(self)
 
     def stream(self, build_cpu: Callable, chunk_size: int) -> tuple:
         """The host-stream placement: ``build_cpu(cpu, **where)`` streams

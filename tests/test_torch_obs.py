@@ -279,12 +279,13 @@ def test_stage_spans_are_children_of_compute(fleet, strategy, args):  # noqa: F8
     ).run())
     compute, stages = _compute_children(port_tracer)
     _, jax_stages = _compute_children(jax_tracer)
-    # ``cast`` and ``h2d``, once per resource, are the port's own: the JAX
-    # package's transfer lies in no stage.
+    # ``cast``, once per resource, and ``h2d``, once per row block inside
+    # ``digest`` or ``quantile``, are the port's own: the JAX package's
+    # transfer lies in no stage.
     assert [stage for stage in stages if stage[0] not in ("cast", "h2d")] == jax_stages
     names = [name for name, _ in stages]
     digest = ["digest"] if strategy == "tdigest" else []
-    assert names == ["pack", "cast", "h2d", "cast", "h2d", *digest, "quantile", "round"]
+    assert names == ["pack", "cast", "cast", *digest, "quantile", "round"]
     assert dict(stages)["quantile"]["path"] == "resident"
 
 

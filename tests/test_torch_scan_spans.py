@@ -1,6 +1,7 @@
 """The one-shot scan's trace on the CPU: the runner's ``assemble``, ``gc``
-and ``render`` spans under the scan's root, the resident paths' ``cast`` and
-``h2d`` stages with their byte counts, memory packed once in MB as float32
+and ``render`` spans under the scan's root, the resident paths' ``cast``
+stages and their row blocks' ``h2d`` stages (inside ``digest`` or
+``quantile``) with their byte counts, memory packed once in MB as float32
 (the ``cast`` stage copies nothing) and rendered as the old divide-then-cast
 rendered it, the ``pack`` stage's threads and bytes, the stages' page-fault
 counts, the
@@ -95,33 +96,69 @@ def test_the_collection_the_scan_deferred_runs_in_the_gc_span(fleet, monkeypatch
     assert collections == [(0, True)] and not [s for s in tracer.traces()[-1] if s.name == "gc"]
 
 
+def descendants(spans, parent) -> list:
+    """Every span under ``parent``, in the order they start."""
+    below = {parent.span_id}
+    for span in sorted(spans, key=lambda s: s.start):
+        if span.parent_id in below:
+            below.add(span.span_id)
+    return sorted((s for s in spans if s.span_id in below - {parent.span_id}), key=lambda s: s.start)
+
+
+@pytest.mark.parametrize("blocks", ["one", "several"])
 @pytest.mark.parametrize("path", sorted(RESIDENT))
-def test_the_resident_stages_run_in_order_with_cast_and_h2d_per_resource(fleet, path):  # noqa: F811
+def test_the_resident_stages_run_in_order_with_cast_and_h2d_per_resource(
+    fleet, monkeypatch, path, blocks  # noqa: F811
+):
+    if blocks == "several":  # three CPU rows a block
+        monkeypatch.setattr(port_window, "RESIDENT_BLOCK_BYTES", 3 * 4 * _cpu_width(fleet))
     tracer = Tracer()
     scan(fleet, *RESIDENT[path], tracer)
     (spans,) = tracer.traces()
     (compute,) = [s for s in spans if s.name == "compute"]
     stages = [(s.name, s.attributes.get("resource")) for s in children(spans, compute)]
     digest = [("digest", None)] if path == "tdigest" else []
-    assert stages == [("pack", None), ("cast", "cpu"), ("h2d", "cpu"), ("cast", "memory"), ("h2d", "memory"),
-                      *digest, ("quantile", None), ("round", None)]
+    assert stages == [("pack", None), ("cast", "cpu"), ("cast", "memory"), *digest,
+                      ("quantile", None), ("round", None)]
     (quantile,) = [s for s in spans if s.name == "quantile"]
     assert quantile.attributes["path"] == "resident"
+    # Each block's copy inside the stage that reduces it: CPU's blocks, then
+    # memory's; tdigest builds CPU's in ``digest``.
+    cpu_stage = [s for s in spans if s.name == "digest"][0] if path == "tdigest" else quantile
+    copies = {stage.name: [(s.attributes["resource"], s.attributes["block"]) for s in children(spans, stage)]
+              for stage in (cpu_stage, quantile)}
+    cpu = [block for resource, block in copies[cpu_stage.name] if resource == "cpu"]
+    memory = [block for resource, block in copies["quantile"] if resource == "memory"]
+    assert cpu == list(range(len(cpu))) and memory == list(range(len(memory)))
+    order = [copy for stage in copies.values() for copy in stage]
+    assert order == [*(("cpu", b) for b in cpu), *(("memory", b) for b in memory)]
+    assert quantile.attributes["blocks"] == len(cpu) + len(memory)
+    assert len(cpu) == (1 if blocks == "one" else -(-len(fleet[1]) // 3))
 
 
+def _cpu_width(fleet) -> int:  # noqa: F811
+    """The packed width of the fleet's CPU window."""
+    _jax_objs, dumps, histories = fleet
+    return port_window.device_packed(fleet_batch_from_dicts(dumps, histories), port_models.ResourceType.CPU).capacity
+
+
+@pytest.mark.parametrize("blocks", ["one", "several"])
 @pytest.mark.parametrize("path", sorted(RESIDENT))
 @pytest.mark.parametrize("recording", [True, False], ids=["recording", "null"])
-def test_h2d_bytes_are_the_copied_tensors_bytes(fleet, monkeypatch, path, recording):  # noqa: F811
+def test_h2d_bytes_are_the_copied_tensors_bytes(fleet, monkeypatch, path, recording, blocks):  # noqa: F811
+    if blocks == "several":  # three CPU rows a block
+        monkeypatch.setattr(port_window, "RESIDENT_BLOCK_BYTES", 3 * 4 * _cpu_width(fleet))
     copied: dict = {}
-    original = port_window.fleet_device_arrays
+    original = port_window.ResidentWindow.blocks
 
-    def spy(batch, resource_type, *args, **kwargs):
-        values, counts = original(batch, resource_type, *args, **kwargs)
-        copied[resource_type.value] = copied.get(resource_type.value, 0) + values.nbytes + counts.nbytes
-        assert values.dtype == torch.float32 and counts.dtype == torch.int32
-        return values, counts
+    def spy(self, resource_type):
+        for r0, r1, values, counts in original(self, resource_type):
+            # The block's values, and its rows of the counts copied whole.
+            copied[resource_type.value] = copied.get(resource_type.value, 0) + values.nbytes + counts.nbytes
+            assert values.dtype == torch.float32 and counts.dtype == torch.int32
+            yield r0, r1, values, counts
 
-    monkeypatch.setattr(port_window, "fleet_device_arrays", spy)
+    monkeypatch.setattr(port_window.ResidentWindow, "blocks", spy)
     tracer = Tracer() if recording else NULL_TRACER
     _result, runner = scan(fleet, *RESIDENT[path], tracer)
     assert set(copied) == {"cpu", "memory"} and all(size > 0 for size in copied.values())
@@ -129,7 +166,10 @@ def test_h2d_bytes_are_the_copied_tensors_bytes(fleet, monkeypatch, path, record
         assert runner.metrics.value("krr_tpu_h2d_bytes_total", resource=name) == size
     if recording:
         (spans,) = tracer.traces()
-        h2d = {s.attributes["resource"]: s.attributes["bytes"] for s in spans if s.name == "h2d"}
+        h2d: dict = {}
+        for s in spans:
+            if s.name == "h2d":
+                h2d[s.attributes["resource"]] = h2d.get(s.attributes["resource"], 0) + s.attributes["bytes"]
         assert h2d == copied
 
 
@@ -247,7 +287,7 @@ def test_every_recording_stage_counts_its_minor_faults(fleet, path):  # noqa: F8
     scan(fleet, *RESIDENT[path], tracer)
     (spans,) = tracer.traces()
     (compute,) = [s for s in spans if s.name == "compute"]
-    stages = children(spans, compute)
+    stages = descendants(spans, compute)
     assert len(stages) >= 7
     for stage in stages:
         faults = stage.attributes["minor_faults"]

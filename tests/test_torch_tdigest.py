@@ -117,7 +117,7 @@ class TestRunnerParity:
         values = [s.recommended.requests[port_models.ResourceType.CPU].value for s in port.scans]
         assert any(v == "?" for v in values) and any(v != "?" for v in values)
         assert runner.stats["failed_rows"] >= 10
-        assert scan_stages(runner) == [("pack", None), ("cast", None), ("h2d", None), ("cast", None), ("h2d", None),
+        assert scan_stages(runner) == [("pack", None), ("cast", None), ("cast", None),
                                        ("digest", None), ("quantile", "resident"), ("round", None)]
 
     @pytest.mark.parametrize("sketch", list(SKETCHES))

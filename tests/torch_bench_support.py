@@ -145,7 +145,8 @@ def broken_gate_run(run: str, extra: dict, capsys) -> tuple:
 #: The wrappers the strategies call, where they call them (``module``,
 #: ``name``), and the kernels each call launches on the card.
 WRAPPER_CALL_SITES = (
-    ("krr_tpu_torch.strategies.simple", "fleet_exact", ("bisect_select", "row_max")),
+    ("krr_tpu_torch.strategies.simple", "masked_percentile_bisect_cuda", ("bisect_select",)),
+    ("krr_tpu_torch.strategies.simple", "masked_max_cuda", ("row_max",)),
     ("krr_tpu_torch.strategies.tdigest", "masked_max_cuda", ("row_max",)),
     ("krr_tpu_torch.ops.digest", "digest_hist", ("digest_hist",)),
     ("krr_tpu_torch.ops.topk_sketch", "topk_select", ("topk_select",)),
