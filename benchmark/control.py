@@ -79,7 +79,9 @@ def main(argv=None) -> int:
             fleet = scan.Fleet(cell, seed, "cuda")
             exact = harness.reference_answers(cell, fleet, sets=[0])
             if side == "program":
-                readings = harness.judge(cell, fleet, [scan.scan(cell, fleet, 0, "cuda")], exact)
+                with scan.histories(cell, fleet):  # the fake Prometheus, on that route
+                    record = scan.scan(cell, fleet, 0, "cuda")
+                readings = harness.judge(cell, fleet, [record], exact)
             elif side == "control":
                 low = harness.reference_answers(cell, fleet, precision="bfloat16", sets=[0])
                 readings = check.compare(check.as_rendered(low[0]), exact[0], guarantee, floor)

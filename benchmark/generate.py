@@ -107,6 +107,11 @@ def shape(config: dict, mix_name: str, mix: dict, seed: int, *, root: Path = spe
     return Shape(replicas=permuted, pod_samples=lengths[pod_index], window=window)
 
 
+def set_shift(fleet: Shape) -> int:
+    """Samples by which each sample set is turned from the one before."""
+    return min(fleet.window, int(fleet.pod_samples.sum()))
+
+
 def samples(config: dict, fleet: Shape, seed: int, device: str, sets: int) -> list[Samples]:
     """``sets`` sample sets of every pod (see the module docstring), drawn
     from one generator seeded by ``seed`` on ``device``, in a few large
@@ -114,7 +119,7 @@ def samples(config: dict, fleet: Shape, seed: int, device: str, sets: int) -> li
     import torch
 
     total = int(fleet.pod_samples.sum())
-    shift = min(fleet.window, total)
+    shift = set_shift(fleet)
     rows = torch.as_tensor(fleet.row_samples, device=device)
     generator = torch.Generator(device=device)
     generator.manual_seed(seed)

@@ -1,10 +1,12 @@
 """One run of a cell: set-up, the measured window, the comparison with
 the reference, and the result line's contents.
 
-Set-up makes the fleet and its two sample sets from the seed and runs one
-warm-up scan at the cell's shapes, of the sample set the window does not
-start with (it builds and loads the kernels: the build's own seconds are
-recorded apart). The window then runs whole scans back to back
+Set-up makes the fleet and its two sample sets from the seed, starts the
+fake Prometheus where the configuration fetches its histories from one
+(:func:`benchmark.scan.histories`; it ends with the window, before the
+reference runs), and runs one warm-up scan at the cell's shapes, of the
+sample set the window does not start with (it builds and loads the
+kernels: the build's own seconds are recorded apart). The window then runs whole scans back to back
 (:func:`benchmark.scan.window`); ``--trace 1`` runs it under the port's
 recording tracer and ``torch.profiler``. After the window every scan's JSON
 is held to the plain reference of its sample set (:mod:`benchmark.check`).
@@ -110,6 +112,11 @@ def judge(cell: spec.Cell, fleet: scan.Fleet, records: list, answers: dict) -> l
     return check.worst(groups)
 
 
+def _spent(before: Optional[float], after: Optional[float]) -> str:
+    """CPU seconds between two readings of a process's clock."""
+    return "not read" if before is None or after is None else f"{after - before:.3f} CPU s"
+
+
 def _device_report(device: str, chips: int) -> dict:
     import torch
 
@@ -156,28 +163,42 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool, device: st
     if device == "cuda":
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()  # the generator's buffers are not the program's
-    warm = time.perf_counter()
-    builds: list = []
-    hook = lambda event, seconds: builds.append(seconds) if event == "compile" else None
-    cuda_build.BUILD_HOOKS.append(hook)
-    try:  # the warm-up: a scan of the set the window does not start with, at the cell's shapes
-        record = scan.scan(cell, fleet, scan.SAMPLE_SETS - 1, device)
-    finally:
-        cuda_build.BUILD_HOOKS.remove(hook)
-    if device == "cuda":
-        torch.cuda.synchronize()
-        setup_peak = torch.cuda.max_memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-    setup_seconds = time.perf_counter() - started
-    parts = {"import_s": made - started, "fleet_s": warm - made, "warmup_scan_s": record.end - record.start,
-             "build_s": sum(builds)}
-    print("setup: " + ", ".join(f"{key} {value:.3f}" for key, value in parts.items())
-          + f"; setup_s {setup_seconds:.3f}", file=sys.stderr)
+    fleet_made = time.perf_counter()
+    with scan.histories(cell, fleet) as served:  # the fake Prometheus, on that route, ends with the block
+        warm = time.perf_counter()
+        builds: list = []
+        hook = lambda event, seconds: builds.append(seconds) if event == "compile" else None
+        cuda_build.BUILD_HOOKS.append(hook)
+        fake_cpu = served.cpu_seconds() if served is not None else None
+        try:  # the warm-up: a scan of the set the window does not start with, at the cell's shapes
+            record = scan.scan(cell, fleet, scan.SAMPLE_SETS - 1, device)
+        finally:
+            cuda_build.BUILD_HOOKS.remove(hook)
+        if device == "cuda":
+            torch.cuda.synchronize()
+            setup_peak = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        setup_seconds = time.perf_counter() - started
+        parts = {"import_s": made - started, "fleet_s": fleet_made - made}
+        if served is not None:
+            parts["fake_s"] = warm - fleet_made
+        parts.update({"warmup_scan_s": record.end - record.start, "build_s": sum(builds)})
+        print("setup: " + ", ".join(f"{key} {value:.3f}" for key, value in parts.items())
+              + f"; setup_s {setup_seconds:.3f}", file=sys.stderr)
+        if served is not None:
+            legs = ("discover_seconds", "fetch_seconds", "fetch_cpu_seconds", "compute_seconds")
+            print("warm-up scan: " + ", ".join(f"{key} {record.stats[key]:.3f}" for key in legs)
+                  + f"; the fake {_spent(fake_cpu, served.cpu_seconds())}", file=sys.stderr)
 
-    if trace:
-        records, start, end, marks, traces, events = _traced_window(cell, fleet, device, seconds)
-    else:
-        records, start, end, marks = scan.window(cell, fleet, device, seconds)
+        fake_cpu = served.cpu_seconds() if served is not None else None
+        if trace:
+            records, start, end, marks, traces, events = _traced_window(cell, fleet, device, seconds)
+        else:
+            records, start, end, marks = scan.window(cell, fleet, device, seconds)
+        if served is not None:
+            phases = ", ".join(f"{name} {seconds:.3f} s" for name, seconds in served.phases.items())
+            print(f"fake Prometheus: set-up {phases}; {_spent(fake_cpu, served.cpu_seconds())} over the window",
+                  file=sys.stderr)
 
     report = _device_report(device, cell.chips)
     metrics: dict = {}
@@ -192,7 +213,7 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool, device: st
     if trace:
         from krr_tpu_torch.models import ResourceType
 
-        asked = fleet.sources[0].stats_asked  # resources served one max a pod
+        asked = records[0].stats_resources  # resources served one max a pod
         held = {r: len(fleet.shape.pod_samples) if r in asked else int(fleet.shape.pod_samples.sum())
                 for r in ResourceType}
         try:
@@ -205,6 +226,8 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool, device: st
             window=(start, end), containers=fleet.shape.containers,
             work_bytes=roofline.work_bytes(held[ResourceType.CPU], held[ResourceType.Memory],
                                            fleet.shape.containers),
+            # Every resource's samples cross the wire: the stats route folds them as they arrive.
+            fetched_samples=len(ResourceType) * int(fleet.shape.pod_samples.sum()) if served is not None else None,
         )
         for entry in cell.per_layer:
             try:

@@ -36,7 +36,8 @@ def test_a_traced_tiny_cell_reads_the_host_layers_and_names_the_rest():
     outcome = tiny_run("simple-14d-15m.ragged", trace=True)
     assert outcome.correct
     host = {"scan_containers_per_s.host", "discover_ms", "post_compute_ms", "pack_ms", "pad_waste_pct",
-            "device_stage_ms", "finalize_ms"}
+            "device_stage_ms", "finalize_ms", "assemble_ms", "render_ms", "cast_ms", "h2d_ms", "h2d_mib",
+            "pack_minor_faults"}
     assert set(outcome.metrics) == host
     assert set(outcome.missing) == {"h2d_gbps", "kernels_roofline", "device_idle_pct"}
     assert outcome.metrics["pad_waste_pct"]["value"] > 50

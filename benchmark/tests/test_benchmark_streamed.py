@@ -13,6 +13,9 @@ CELL = "simple-30d-1m.streamed"
 SEED = 2**31 + 23
 CONTAINERS = 24
 STREAM_METRICS = {"stream_ms", "stream_fill_ms", "stream_copy_wait_ms", "stream_h2d_gbps", "stream_kernels_roofline"}
+#: The runner-wide metrics the cell reports besides its stream's.
+RUNNER_METRICS = {"scan_containers_per_s.host", "discover_ms", "post_compute_ms", "pack_ms", "finalize_ms",
+                  "assemble_ms", "render_ms", "device_idle_pct", "pad_waste_pct", "pack_minor_faults"}
 
 
 def small_cell():
@@ -35,7 +38,7 @@ def test_the_cell_loads_and_its_settings_reach_the_strategy():
     assert settings.memory_buffer_percentage == 5
     assert (settings.history_duration, settings.timeframe_duration) == (720, 1)
     assert cell.config["guarantee"] == spec.load_cell("simple-14d-15m.uniform").config["guarantee"]
-    assert {entry["name"] for entry in cell.per_layer} == STREAM_METRICS
+    assert {entry["name"] for entry in cell.per_layer} == STREAM_METRICS | RUNNER_METRICS
     assert {entry["name"] for entry in cell.end_to_end} == {"setup_s", "peak_device_mib"}
 
 
@@ -76,9 +79,10 @@ def test_a_small_fleet_streams_and_agrees_with_the_reference():
 def test_a_traced_small_run_reads_the_stream_spans_and_names_the_device_metrics():
     outcome = harness.run_cell(small_cell(), SEED, 0.0, True, "cpu", 0.0, containers=CONTAINERS)
     assert outcome.correct, outcome.line()
-    assert set(outcome.metrics) == {"stream_ms", "stream_fill_ms"}
+    assert set(outcome.metrics) == {"stream_ms", "stream_fill_ms"} | RUNNER_METRICS - {"device_idle_pct"}
     # No pinned copy waits on the CPU, and no profiler trace of the card.
-    assert set(outcome.missing) == {"stream_copy_wait_ms", "stream_h2d_gbps", "stream_kernels_roofline"}
+    assert set(outcome.missing) == {"stream_copy_wait_ms", "stream_h2d_gbps", "stream_kernels_roofline",
+                                    "device_idle_pct"}
     assert 0 < outcome.metrics["stream_fill_ms"]["value"] < outcome.metrics["stream_ms"]["value"]
 
 
@@ -120,6 +124,6 @@ def test_a_tiny_streamed_cell_on_the_card():
         pytest.skip("needs a CUDA card")
     outcome = harness.run_cell(small_cell(), 17, 0.5, True, "cuda", 0.0, containers=64)
     assert outcome.correct, outcome.line()
-    assert set(outcome.metrics) == STREAM_METRICS, outcome.missing
+    assert set(outcome.metrics) == STREAM_METRICS | RUNNER_METRICS, outcome.missing
     assert 0 < outcome.metrics["stream_kernels_roofline"]["value"] < 105
     assert {name for name, _ in outcome.breakdown["device_ops"]} >= {"topk_select_kernel"}

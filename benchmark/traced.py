@@ -134,6 +134,7 @@ class TracedRun:
     window: tuple  # (start, end) of the window on the host clock
     containers: int  # containers a scan right-sizes
     work_bytes: int  # bytes one scan's reductions need (benchmark.roofline)
+    fetched_samples: Optional[int] = None  # samples a scan fetches over Prometheus (None: injected)
     busy: list = field(default_factory=list)
 
     def __post_init__(self) -> None:
